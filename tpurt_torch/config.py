@@ -1,0 +1,28 @@
+"""The knobs the ported slice reads (counterpart of tpurt/config.py).
+
+tpurt's other knobs select TPU-only paths (Pallas, the XLA compile cache,
+the deterministic film, fused shadow rays, the lax.scan driver) or
+features outside this slice, so they have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Lanes per wavefront chunk: a frame of up to 2^20 camera paths runs whole,
+# larger frames in 2^20-lane chunks.  (tpurt's 2^18 was set by a TPU
+# watchdog on long device calls; nothing here needs it.)
+WAVEFRONT_SIZE = 1 << 20
+
+
+def resolve_device(device) -> torch.device:
+    """The explicit render device.  Raises when CUDA is asked for and is
+    absent: there is no silent fallback to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' (CLI: --device cpu) to render on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise NotImplementedError(f"device type {dev.type!r}")
+    return dev

@@ -1,0 +1,242 @@
+"""Wide-BVH traversal: the CUDA kernel (csrc/traverse.cu), its wrapper and
+its plain PyTorch twin.
+
+Replaces tpurt's Pallas kernel ``tpurt/kernels/traverse.py:_kernel``
+(reached by ``traverse_closest_pallas``) with the semantics tpurt renders
+with, ``_traverse_wide`` (``tpurt/render/intersect.py``): the watertight
+leaf test, the ``_BOX_T_SCALE`` far-scale, and an any-hit mode for shadow
+rays.  The source note in traverse.cu says what bounds the kernel on
+Hopper and what its design does about it.
+
+``traverse_wide`` is the entry point.  On a CPU tensor it runs
+``traverse_wide_reference``, the lockstep twin of ``_wide_step_fns``; on a
+CUDA tensor it launches the kernel or raises.  The kernel library is built
+with nvcc from the sources in this checkout at first use, into
+``build/tpurt_torch/`` at the repository root, and bound with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+import torch
+
+from tpurt.geom.wbvh import REC, SLOT_KIND, WIDTH
+from tpurt_torch.render.intersect import (
+    _BOX_T_SCALE, CHILD_LO, INF, PRIM_LO, SORT8, _box8_test,
+    _tri_bundle_test, safe_inv_dir)
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc" / "traverse.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpurt_torch"
+# must equal TPURT_STACK_MAX in traverse.cu: the largest stack depth
+# DeviceGeometry.host_tables produces (the 192 cap rounded up to a power
+# of two)
+STACK_MAX = 256
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas", "-v")
+
+
+class KernelLibrary(NamedTuple):
+    cdll: ctypes.CDLL
+    path: str
+    build_s: float  # 0.0 when an identical build was already on disk
+    log: str  # nvcc/ptxas output of the build (registers, spills)
+
+
+def _nvcc() -> str:
+    cands = [os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc")
+             if os.environ.get("CUDA_HOME") else None,
+             shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> KernelLibrary:
+    """Build (once per source version) and load the kernel library."""
+    src = CSRC.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    out = BUILD_DIR / f"libtpurt_traverse-{tag}.so"
+    build_s, log = 0.0, ""
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.time()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(CSRC)], capture_output=True, text=True)
+        build_s = time.time() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    fn = lib.tpurt_traverse_wide
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, ci, vp, vp, vp, ci, ci, ci, ctypes.c_float,
+                   vp, vp, vp, vp, vp]
+    fn.restype = ci
+    return KernelLibrary(lib, str(out), build_s, log)
+
+
+def _check(name, x, dtype, shape, device):
+    if x.device != device:
+        raise ValueError(f"{name} on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} shape {tuple(x.shape)}, expected {shape}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def traverse_wide(geo, o, d, t_max, any_hit: bool):
+    """Wide-BVH traversal of (N,) rays: returns (t, prim, b0, b1) like
+    tpurt's ``_traverse_wide(..., tree="tri")`` for static geometry.
+    o, d: (N, 3) f32; t_max: (N,) f32; lanes with t_max <= 0 start dead.
+    any_hit stops a lane at its first hit (shadow rays)."""
+    if o.device.type == "cpu":
+        return traverse_wide_reference(geo, o, d, t_max, any_hit)
+    if o.device.type != "cuda":
+        raise NotImplementedError(f"traversal on {o.device}")
+    n = o.shape[0]
+    dev = o.device
+    m = geo.wnodes.shape[0]
+    _check("wnodes", geo.wnodes, torch.float32, (m, REC), dev)
+    _check("o", o, torch.float32, (n, 3), dev)
+    _check("d", d, torch.float32, (n, 3), dev)
+    _check("t_max", t_max, torch.float32, (n,), dev)
+    if geo.wstack_depth > STACK_MAX:
+        raise ValueError(f"wstack_depth {geo.wstack_depth} exceeds the "
+                         f"kernel's compiled maximum {STACK_MAX}")
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    prim = torch.empty(n, dtype=torch.int32, device=dev)
+    b0 = torch.empty(n, dtype=torch.float32, device=dev)
+    b1 = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return t, prim, b0, b1
+    lib = load_library().cdll
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.tpurt_traverse_wide(
+            geo.wnodes.data_ptr(), m, o.data_ptr(), d.data_ptr(),
+            t_max.data_ptr(), n, geo.wstack_depth, int(bool(any_hit)),
+            _BOX_T_SCALE, t.data_ptr(), prim.data_ptr(), b0.data_ptr(),
+            b1.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"traverse_wide_kernel launch failed: cudaError {err}")
+    traverse_wide.launches += 1
+    return t, prim, b0, b1
+
+
+traverse_wide.launches = 0
+
+
+def traverse_wide_reference(geo, o, d, t_max, any_hit: bool):
+    """Plain PyTorch twin of tpurt's ``_wide_step_fns`` traversal.
+
+    Lockstep over the live lanes: each step gathers one record per lane,
+    runs the leaf test on leaf lanes and the 8-box test + ``SORT8``
+    near-first ordering on interior lanes, pushes the other hit children
+    far-to-near and descends into the nearest.  Dead lanes drop out of
+    the working set between steps (a boolean index), which changes no
+    lane's result.  Stack slots at or past ``geo.wstack_depth`` are
+    dropped on push and read as 0 on pop, exactly as tpurt's one-hot
+    stack behaves."""
+    traverse_wide_reference.calls += 1
+    dev = o.device
+    n = o.shape[0]
+    S = geo.wstack_depth
+    nodes = geo.wnodes
+    inv_d = safe_inv_dir(d)
+    t_best = t_max.to(torch.float32).clone()
+    prim_best = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    b0_best = torch.zeros(n, dtype=torch.float32, device=dev)
+    b1_best = torch.zeros(n, dtype=torch.float32, device=dev)
+    cur = torch.where(t_best > 0, 0, -1).to(torch.int64)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    stack = torch.zeros((n, S), dtype=torch.int32, device=dev)
+    live = torch.nonzero(cur >= 0).squeeze(1)
+    while live.numel():
+        rec = nodes[cur[live]]  # (m, 128): one record per live lane
+        is_leaf = rec[:, SLOT_KIND] > 0
+        m = live.numel()
+        descend = torch.zeros(m, dtype=torch.bool, device=dev)
+        first = torch.zeros(m, dtype=torch.int64, device=dev)
+
+        # --- leaf lanes: 12 fused triangles, keep the closest ---
+        lpos = torch.nonzero(is_leaf).squeeze(1)
+        if lpos.numel():
+            lanes = live[lpos]
+            lrec = rec[lpos]
+            h, t, b0, b1 = _tri_bundle_test(o[lanes], d[lanes],
+                                            t_best[lanes], lrec)
+            tk = torch.where(h, t, INF)
+            kbest = torch.argmin(tk, dim=1, keepdim=True)  # first minimum
+            t_min = tk.gather(1, kbest)[:, 0]
+            better = t_min < t_best[lanes]
+            bl = lanes[better]
+            kb = kbest[better]
+            t_best[bl] = t_min[better]
+            prim_rows = lrec[better][:, PRIM_LO:PRIM_LO + 12].contiguous()
+            prim_best[bl] = prim_rows.view(torch.int32).gather(1, kb)[:, 0]
+            b0_best[bl] = b0[better].gather(1, kb)[:, 0]
+            b1_best[bl] = b1[better].gather(1, kb)[:, 0]
+
+        # --- interior lanes: box tests + near-first ordering ---
+        ipos = torch.nonzero(~is_leaf).squeeze(1)
+        if ipos.numel():
+            lanes = live[ipos]
+            irec = rec[ipos]
+            hit8, t_near = _box8_test(irec, o[lanes], inv_d[lanes],
+                                      t_best[lanes])
+            meta = irec[:, CHILD_LO:CHILD_LO + WIDTH].contiguous().view(
+                torch.int32).to(torch.int64)
+            keys = [torch.where(hit8[:, k], t_near[:, k], INF)
+                    for k in range(WIDTH)]
+            vals = [meta[:, k] for k in range(WIDTH)]
+            for i, j in SORT8:
+                swap = keys[i] > keys[j]
+                keys[i], keys[j] = (torch.where(swap, keys[j], keys[i]),
+                                    torch.where(swap, keys[i], keys[j]))
+                vals[i], vals[j] = (torch.where(swap, vals[j], vals[i]),
+                                    torch.where(swap, vals[i], vals[j]))
+            n_hit = hit8.sum(dim=1)
+            dsc = n_hit > 0
+            sp_i = sp[lanes]
+            # push hit children 1..n_hit-1 far-to-near above the old top
+            for k in range(1, WIDTH):
+                pos = sp_i + n_hit - 1 - k
+                w = dsc & (k < n_hit) & (pos < S)
+                stack[lanes[w], pos[w]] = vals[k][w].to(torch.int32)
+            sp[lanes] = torch.where(dsc, sp_i + (n_hit - 1).clamp(min=0),
+                                    sp_i)
+            descend[ipos] = dsc
+            first[ipos] = vals[0]
+
+        # --- next node: nearest hit child, else pop, else done ---
+        sp_l = sp[live]
+        pop = ~descend & (sp_l > 0)
+        top_slot = (sp_l - 1).clamp(min=0)
+        top = stack[live, top_slot.clamp(max=S - 1)].to(torch.int64)
+        top = torch.where(top_slot < S, top, 0)
+        nxt = torch.where(descend, first, torch.where(pop, top, -1))
+        if any_hit:
+            nxt = torch.where(prim_best[live] >= 0, -1, nxt)
+        sp[live] = torch.where(pop, sp_l - 1, sp_l)
+        cur[live] = nxt
+        live = live[nxt >= 0]
+    return t_best, prim_best, b0_best, b1_best
+
+
+traverse_wide_reference.calls = 0

@@ -1,0 +1,134 @@
+"""Perspective camera with thin lens (port of tpurt/render/camera.py:
+make_camera, as camera_tables + camera_from_tables, and
+Camera.generate_rays for "perspective").
+
+Screen-window convention as in tpurt (camera.h:84): [-1,1] in the
+narrower image axis, scaled by the aspect in the wider one.  Ray
+differentials, the other projections, animated cameras and the realistic
+camera are outside this slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from tpurt.geom import transform as xf
+from tpurt.scene.paramset import ParamSet
+from tpurt_torch.render.sampling_warps import concentric_sample_disk, norm
+
+
+def _xform_point_batch(m, p):
+    x, y, z = p[:, 0], p[:, 1], p[:, 2]
+    w = m[3, 0] * x + m[3, 1] * y + m[3, 2] * z + m[3, 3]
+    out = torch.stack([
+        m[0, 0] * x + m[0, 1] * y + m[0, 2] * z + m[0, 3],
+        m[1, 0] * x + m[1, 1] * y + m[1, 2] * z + m[1, 3],
+        m[2, 0] * x + m[2, 1] * y + m[2, 2] * z + m[2, 3],
+    ], dim=-1)
+    return out / w[:, None]
+
+
+def _xform_vector_batch(m, v):
+    x, y, z = v[:, 0], v[:, 1], v[:, 2]
+    return torch.stack([
+        m[0, 0] * x + m[0, 1] * y + m[0, 2] * z,
+        m[1, 0] * x + m[1, 1] * y + m[1, 2] * z,
+        m[2, 0] * x + m[2, 1] * y + m[2, 2] * z,
+    ], dim=-1)
+
+
+@dataclasses.dataclass
+class Camera:
+    camera_to_world: torch.Tensor  # (4,4)
+    raster_to_camera: torch.Tensor  # (4,4)
+    lens_radius: float
+    focal_distance: float
+    shutter_open: float
+    shutter_close: float
+    res_x: int
+    res_y: int
+
+    def generate_rays(self, p_film, p_lens):
+        """p_film: (N,2) raster points; p_lens: (N,2) in [0,1)^2.
+        Returns (o, d, weight); d normalized (perspective.cpp:79-93)."""
+        n = p_film.shape[0]
+        p_raster = torch.cat(
+            [p_film, torch.zeros((n, 1), dtype=p_film.dtype,
+                                 device=p_film.device)], dim=-1)
+        p_cam = _xform_point_batch(self.raster_to_camera, p_raster)
+        d = p_cam / norm(p_cam, keepdim=True)
+        o = torch.zeros_like(d)
+        if self.lens_radius > 0:
+            p_disk = self.lens_radius * torch.stack(
+                concentric_sample_disk(p_lens[:, 0], p_lens[:, 1]), dim=-1)
+            dz = torch.where(d[:, 2] == 0, 1e-9, d[:, 2])
+            ft = torch.full_like(dz, self.focal_distance) / dz
+            p_focus = o + ft[:, None] * d
+            o = torch.cat([p_disk, torch.zeros((n, 1), dtype=p_disk.dtype,
+                                               device=p_disk.device)], -1)
+            d = p_focus - o
+            d = d / norm(d, keepdim=True)
+        o_w = _xform_point_batch(self.camera_to_world, o)
+        d_w = _xform_vector_batch(self.camera_to_world, d)
+        d_w = d_w / norm(d_w, keepdim=True)
+        return o_w, d_w, torch.ones(n, dtype=p_film.dtype,
+                                    device=p_film.device)
+
+
+def _screen_window(res_x: int, res_y: int, ps: ParamSet):
+    aspect = res_x / res_y
+    if aspect > 1:
+        default = [-aspect, aspect, -1.0, 1.0]
+    else:
+        default = [-1.0, 1.0, -1.0 / aspect, 1.0 / aspect]
+    sw = ps.find_float_array("screenwindow")
+    if sw is not None and len(sw) == 4:
+        return [float(v) for v in sw]
+    return default
+
+
+def _raster_to_screen_to_camera(camera_to_screen: xf.Transform, sw,
+                                res_x: int, res_y: int) -> np.ndarray:
+    x0, x1, y0, y1 = sw
+    screen_to_raster = (
+        xf.scale(res_x, res_y, 1.0)
+        * xf.scale(1.0 / (x1 - x0), 1.0 / (y0 - y1), 1.0)
+        * xf.translate([-x0, -y1, 0.0])
+    )
+    raster_to_screen = screen_to_raster.inverse()
+    raster_to_camera = camera_to_screen.inverse() * raster_to_screen
+    return raster_to_camera.m.astype(np.float32)
+
+
+def camera_tables(name: str, ps: ParamSet, camera_to_world: xf.Transform,
+                  res_x: int, res_y: int,
+                  camera_to_world_end: xf.Transform = None) -> dict:
+    """Host-side camera constants (MakeCamera, api.cpp:786-815)."""
+    if name != "perspective":
+        raise NotImplementedError(f'Camera "{name}"')
+    if camera_to_world_end is not None:
+        raise NotImplementedError("animated camera (motion blur)")
+    fov = ps.find_one_float("fov", 90.0)
+    half_fov = ps.find_one_float("halffov", -1.0)
+    if half_fov > 0:
+        fov = 2 * half_fov
+    cam_to_screen = xf.perspective(fov, 1e-2, 1000.0)
+    sw = _screen_window(res_x, res_y, ps)
+    return dict(
+        camera_to_world=camera_to_world.m.astype(np.float32),
+        raster_to_camera=_raster_to_screen_to_camera(cam_to_screen, sw,
+                                                     res_x, res_y),
+        lens_radius=ps.find_one_float("lensradius", 0.0),
+        focal_distance=ps.find_one_float("focaldistance", 1e6),
+        shutter_open=ps.find_one_float("shutteropen", 0.0),
+        shutter_close=ps.find_one_float("shutterclose", 1.0),
+        res_x=res_x, res_y=res_y)
+
+
+def camera_from_tables(tab: dict, device) -> Camera:
+    return Camera(**{k: (torch.tensor(v, device=device)
+                         if isinstance(v, np.ndarray) else v)
+                     for k, v in tab.items()})

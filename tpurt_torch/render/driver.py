@@ -1,0 +1,215 @@
+"""Render driver: SceneDescription -> device tables -> bounce-compacted
+wavefront render (port of tpurt/render/driver.py: build_job restricted to
+the path slice, and the loop of _render_compact).
+
+Scene features outside the slice raise NotImplementedError naming the
+feature.  Between bounces the driver keeps the alive lanes with a boolean
+index and banks the terminated ones into the film, so terminated paths
+cost nothing in later bounces (tpurt's power-of-two buckets, lax.scan
+twin and trace caches are XLA machinery with no counterpart here).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from tpurt.render.geometry_build import flatten_geometry
+from tpurt.scene import load_scene  # noqa: F401  (the port's scene loader)
+from tpurt.scene.records import MaterialRecord, SceneDescription
+from tpurt_torch.config import WAVEFRONT_SIZE, resolve_device
+from tpurt_torch.kernels.traverse import traverse_wide
+from tpurt_torch.render.camera import (Camera, camera_from_tables,
+                                       camera_tables)
+from tpurt_torch.render.film import Film, make_film
+from tpurt_torch.render.filters import make_filter
+from tpurt_torch.render.integrator import (IntegratorConfig, SceneData,
+                                           path_bounce_init,
+                                           path_bounce_step)
+from tpurt_torch.render.intersect import DeviceGeometry
+from tpurt_torch.render.lights import light_table_from_tables, light_tables
+from tpurt_torch.render.materials_build import (build_material_table,
+                                                fuse_material_rows)
+from tpurt_torch.sampling.samplers import (HaltonSampler, halton_from_tables,
+                                          halton_tables)
+
+log = logging.getLogger("tpurt_torch.render")
+
+
+@dataclasses.dataclass
+class RenderJob:
+    scene: SceneData
+    camera: Camera
+    sampler: HaltonSampler
+    film: Film
+    cfg: IntegratorConfig
+
+
+class MaterialIndexer:
+    """Deduplicates MaterialRecords during scene flattening."""
+
+    def __init__(self):
+        self.materials: List[Optional[MaterialRecord]] = []
+        self._ids: Dict[int, int] = {}
+
+    def __call__(self, rec: Optional[MaterialRecord]) -> int:
+        key = -1 if rec is None else id(rec)
+        if key not in self._ids:
+            self._ids[key] = len(self.materials)
+            self.materials.append(rec)
+        return self._ids[key]
+
+
+def _check_slice(sd: SceneDescription) -> None:
+    """Raise NotImplementedError for scene features outside the slice."""
+    if sd.integrator_name != "path":
+        raise NotImplementedError(f'Integrator "{sd.integrator_name}"')
+    if sd.sampler_name != "halton":
+        raise NotImplementedError(f'Sampler "{sd.sampler_name}"')
+    if sd.film_name != "image":
+        raise NotImplementedError(f'Film "{sd.film_name}"')
+    if sd.accelerator_name != "bvh":
+        raise NotImplementedError(f'Accelerator "{sd.accelerator_name}"')
+    if sd.media or sd.camera_medium:
+        raise NotImplementedError("participating media")
+    for pr in sd.primitives:
+        sh = pr.shape
+        kind = getattr(sh, "kind", type(sh).__name__)
+        if kind not in ("trianglemesh", "sphere"):
+            raise NotImplementedError(f'Shape "{kind}"')
+        if pr.shape_end is not None:
+            raise NotImplementedError("motion blur (animated shapes)")
+        if kind == "trianglemesh" and sh.alpha_texture is not None:
+            raise NotImplementedError("alpha textures")
+        if kind == "trianglemesh" and sh.tangents is not None:
+            raise NotImplementedError("mesh shading tangents")
+        if pr.medium_inside or pr.medium_outside:
+            raise NotImplementedError("MediumInterface (participating media)")
+
+
+def host_tables(sd: SceneDescription, quick: bool = False,
+                crop_override=None) -> dict:
+    """All host-side tables of a render job (numpy arrays and Python
+    values), before upload.  tpurt_torch.convert builds the same dict from
+    a tpurt RenderJob."""
+    _check_slice(sd)
+    mat_index = MaterialIndexer()
+    area_records = []
+
+    def arealight_index(prim, _):
+        if prim.area_light is None:
+            return -1
+        key = id(prim.area_light)
+        for i, (k, _r) in enumerate(area_records):
+            if k == key:
+                return i
+        area_records.append((key, prim.area_light))
+        return len(area_records) - 1
+
+    t0 = time.time()
+    geo_h = flatten_geometry(
+        sd.primitives, mat_index, arealight_index,
+        max_prims_per_leaf=(sd.accelerator_params.find_one_int(
+            "maxnodeprims", 4) if sd.accelerator_params else 4))
+    geo = DeviceGeometry.host_tables(geo_h)
+    log.info("scene flatten + BVH build: %.2fs (%d prims, %d wide rows)",
+             time.time() - t0, geo_h.n_prims, geo["wnodes"].shape[0])
+    table, kinds = build_material_table(mat_index.materials)
+    lights = light_tables(sd.lights, geo_h,
+                          [(r.L, r.scale, r.two_sided)
+                           for _k, r in area_records])
+
+    filt = make_filter(sd.filter_name, sd.filter_params)
+    film = make_film(sd.film_params, filt, quick=quick,
+                     crop_override=crop_override)
+    sp = sd.sampler_params
+    spp = 1 if quick else sp.find_one_int("pixelsamples", 16)
+    ip = sd.integrator_params
+    cfg = IntegratorConfig(
+        max_depth=ip.find_one_int("maxdepth", 5),
+        rr_threshold=ip.find_one_float("rrthreshold", 1.0),
+        light_strategy=ip.find_one_string("lightsamplestrategy", "spatial"))
+    if cfg.light_strategy not in ("spatial", "power", "uniform"):
+        raise NotImplementedError(
+            f'lightsamplestrategy "{cfg.light_strategy}"')
+    return dict(
+        geo=geo, lights=lights,
+        mt_table=fuse_material_rows(table, kinds),
+        camera=camera_tables(sd.camera_name, sd.camera_params,
+                             sd.camera_to_world, film.full_x, film.full_y,
+                             camera_to_world_end=sd.camera_to_world_end),
+        sampler=halton_tables(spp, film.full_x, film.full_y,
+                              sp.find_one_bool("samplepixelcenter", False),
+                              sample_bounds=film.sample_bounds()),
+        film=film, cfg=cfg)
+
+
+def job_from_tables(tab: dict, device) -> RenderJob:
+    """Upload host tables to ``device``."""
+    scene = SceneData(
+        geo=DeviceGeometry.from_tables(tab["geo"], device),
+        lights=light_table_from_tables(tab["lights"], device),
+        mt_table=torch.tensor(tab["mt_table"], device=device))
+    return RenderJob(scene=scene, camera=camera_from_tables(tab["camera"],
+                                                            device),
+                     sampler=halton_from_tables(tab["sampler"], device),
+                     film=tab["film"], cfg=tab["cfg"])
+
+
+def build_job(sd: SceneDescription, device, quick: bool = False,
+              crop_override=None) -> RenderJob:
+    return job_from_tables(host_tables(sd, quick, crop_override),
+                           resolve_device(device))
+
+
+def render_job(job: RenderJob, traverse=None) -> np.ndarray:
+    """Render a built job; returns the (H, W, 3) float32 image.  traverse
+    defaults to the kernel wrapper (kernels.traverse.traverse_wide)."""
+    traverse = traverse or traverse_wide
+    film, cfg = job.film, job.cfg
+    dev = job.scene.geo.device
+    spp = job.sampler.spp
+    x0, _, y0, _ = film.crop
+    w = film.width
+    total = film.width * film.height * spp
+    chunk = min(total, WAVEFRONT_SIZE)
+    state = film.initial_state(dev)
+    for start in range(0, total, chunk):
+        ids = torch.arange(start, min(start + chunk, total), device=dev)
+        pid = ids // spp
+        sidx = ids % spp
+        px = x0 + pid % w
+        py = y0 + pid // w
+        st = path_bounce_init(job.scene, job.sampler, job.camera, px, py,
+                              sidx, cfg, traverse, crop_xy=(x0, y0))
+        for bounce in range(cfg.max_depth + 1):
+            alive = st["alive"]
+            n_alive = int(alive.sum())
+            if n_alive == 0:
+                break
+            if n_alive < alive.shape[0]:
+                # bank the terminated lanes, keep the alive ones
+                dead = ~alive
+                film.add_samples(state, st["p_film_crop"][dead],
+                                 st["L"][dead], st["ray_w"][dead])
+                st = {k: v[alive] for k, v in st.items()}
+            st = path_bounce_step(job.scene, job.sampler, cfg, st, bounce,
+                                  traverse)
+        film.add_samples(state, st["p_film_crop"], st["L"], st["ray_w"])
+    return film.to_image(state)
+
+
+def render(sd: SceneDescription, device="cuda", quick: bool = False,
+           crop_override=None, traverse=None):
+    """Render a scene description on ``device``; returns (image, job).
+    Writes no files (the CLI writes the image)."""
+    job = build_job(sd, device, quick=quick, crop_override=crop_override)
+    t0 = time.time()
+    img = render_job(job, traverse)
+    log.info("render complete: %.2fs", time.time() - t0)
+    return img, job

@@ -1,0 +1,229 @@
+"""Wavefront path integrator, RGB (port of tpurt/render/integrator.py:
+path_bounce_init / path_bounce_step with their helpers _camera_setup,
+_emitted, _nee_prepare, _nee_resolve, Russian roulette and the RPF
+feature capture; the non-fused trace branch).
+
+Per bounce: shade the hit carried from the previous bounce (emitted light
+with the folded MIS weight, next-event estimation, BSDF sampling, Russian
+roulette), then trace this bounce's shadow ray (any-hit) and the next
+bounce's closest ray.  The dimension schedule is tpurt's: camera dims 0-4,
+then 7 dims per bounce (light choice, uLight.xy, lobe choice, uBSDF.xy,
+RR), each a Python int.
+
+The slice's lobes (diffuse, GGX glossy) are never specular, so tpurt's
+``specular`` and ``eta_scale`` lane state stay at False and 1 and are not
+carried here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+
+from tpurt_torch.render.bsdf import bsdf_f, bsdf_pdf, bsdf_sample
+from tpurt_torch.render.interaction import (SurfaceInteraction,
+                                            compute_interaction,
+                                            offset_ray_origin)
+from tpurt_torch.render.intersect import (DeviceGeometry, Hit, intersect_any,
+                                          intersect_closest)
+from tpurt_torch.render.lights import (LightTable, choice_pmf_at,
+                                       choose_light, pdf_li_from_hit,
+                                       sample_li)
+from tpurt_torch.render.materials_build import fetch_lobes
+from tpurt_torch.render.sampling_warps import (build_onb, dot, norm,
+                                               power_heuristic, to_local,
+                                               to_world)
+
+INF = float("inf")
+SHADOW_EPS = 1e-4  # pbrt ShadowEpsilon (pbrt.h:195)
+DIMS_PER_BOUNCE = 7
+CAMERA_DIMS = 5
+
+
+@dataclasses.dataclass(frozen=True)
+class IntegratorConfig:
+    max_depth: int = 5
+    rr_threshold: float = 1.0
+    light_strategy: str = "spatial"  # spatial | power | uniform
+    capture_features: bool = False  # RPF per-sample feature capture
+
+
+@dataclasses.dataclass
+class SceneData:
+    geo: DeviceGeometry
+    lights: LightTable
+    mt_table: torch.Tensor  # (M, 53) fused material rows
+
+
+def _emitted(scene: SceneData, si: SurfaceInteraction):
+    """Area-light radiance toward wo at a hit (DiffuseAreaLight::L,
+    diffuse.h:58: twoSided || dot(n, w) > 0)."""
+    prim_row = scene.lights.prim_to_light[si.prim.clamp(min=0).long()]
+    lrow = torch.where(si.valid, prim_row, -1).long()
+    has = lrow >= 0
+    row = scene.lights.rows[lrow.clamp(min=0)]  # one fused row gather
+    emits = has & ((row[:, 13] > 0) | (dot(si.ng, si.wo) > 0))
+    return torch.where(emits[:, None], row[:, 1:4], 0.0), lrow
+
+
+def _nee_prepare(scene: SceneData, si: SurfaceInteraction, lobes, u_choice,
+                 u_light, strategy: str, alive):
+    """Light-sampling half of next-event estimation: everything except
+    the occlusion trace.  Returns (contrib, o_sh, wi_sh, t_sh, usable)."""
+    lt = scene.lights
+    lidx, pmf = choose_light(lt, u_choice, strategy, p=si.p)
+    ls = sample_li(lt, lidx, si.p, u_light)
+    t, b = build_onb(si.ns)
+    wo_l = to_local(t, b, si.ns, si.wo)
+    wi_l = to_local(t, b, si.ns, ls.wi)
+    f = bsdf_f(lobes, wo_l, wi_l) * dot(ls.wi, si.ns).abs()[:, None]
+    scatter_pdf = bsdf_pdf(lobes, wo_l, wi_l)
+    usable = (alive & si.valid & (ls.pdf > 0)
+              & (ls.li > 0).any(dim=-1) & (f > 0).any(dim=-1))
+    # shadow ray: offset endpoints, shortened by ShadowEpsilon
+    o_sh = offset_ray_origin(si.p, si.ng, ls.wi)
+    dist = norm(ls.p_light - o_sh)
+    t_max = torch.where(
+        usable, dist * (1.0 - SHADOW_EPS) - 2e-3
+        * torch.clamp(ls.p_light.abs().amax(dim=-1), min=1.0), 0.0)
+    w = torch.where(ls.is_delta, 1.0,
+                    power_heuristic(1.0, ls.pdf, 1.0, scatter_pdf))
+    contrib = f * ls.li * (w / torch.clamp(ls.pdf * pmf, min=1e-20))[:, None]
+    return contrib, o_sh, ls.wi, torch.clamp(t_max, min=0.0), usable
+
+
+def _nee_resolve(contrib, usable, occluded):
+    return torch.where((usable & ~occluded)[:, None], contrib, 0.0)
+
+
+def _camera_setup(sampler, camera, px, py, sidx, crop_xy):
+    sctx = sampler.lane_ctx(px, py, sidx)
+    fx, fy = sampler.film_offset(px, py, sidx, sctx)
+    p_film = torch.stack([px.to(torch.float32) + fx,
+                          py.to(torch.float32) + fy], dim=-1)
+    # dim 2 is the shutter time, which a static camera does not read
+    p_lens = torch.stack([sampler.dim(px, py, sidx, 3, sctx),
+                          sampler.dim(px, py, sidx, 4, sctx)], dim=-1)
+    o, d, ray_w = camera.generate_rays(p_film, p_lens)
+    p_film_crop = p_film - torch.tensor(crop_xy, dtype=torch.float32,
+                                        device=p_film.device)
+    return p_film_crop, p_lens, o, d, ray_w, sctx
+
+
+def path_bounce_init(scene: SceneData, sampler, camera, px, py, sidx,
+                     cfg: IntegratorConfig, traverse, crop_xy=(0, 0)
+                     ) -> Dict[str, Any]:
+    """Per-lane wavefront state: camera setup + the bounce-0 closest hit.
+    Every value has leading axis N, so a driver may compact the wavefront
+    between bounces with a boolean index."""
+    p_film_crop, p_lens, o, d, ray_w, sctx = _camera_setup(
+        sampler, camera, px, py, sidx, crop_xy)
+    n = px.shape[0]
+    hit0 = intersect_closest(scene.geo, o, d, INF, traverse)
+    z1 = torch.zeros(n, dtype=torch.float32, device=o.device)
+    z3 = torch.zeros((n, 3), dtype=torch.float32, device=o.device)
+    st = dict(
+        px=px, py=py, sidx=sidx, sctx=sctx, p_film_crop=p_film_crop,
+        p_lens=p_lens, ray_w=ray_w, o=o, d=d, hit_t=hit0.t,
+        hit_prim=hit0.prim, hit_b0=hit0.b0, hit_b1=hit0.b1,
+        beta=z3 + 1.0, L=z3.clone(), alive=torch.ones_like(px, dtype=torch.bool),
+        prev_pdf=z1 + 1.0, prev_p=o)
+    if cfg.capture_features:
+        st.update(n0=z3.clone(), p0=z3.clone(), n1=z3.clone(), p1=z3.clone())
+    return st
+
+
+def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
+                     state: Dict[str, Any], bounce: int, traverse
+                     ) -> Dict[str, Any]:
+    """One shade-then-trace bounce over the lane-state dict."""
+    px, py, sidx, sctx = (state["px"], state["py"], state["sidx"],
+                          state["sctx"])
+    n = px.shape[0]
+    o, d = state["o"], state["d"]
+    beta, L, alive = state["beta"], state["L"], state["alive"]
+    prev_pdf, prev_p = state["prev_pdf"], state["prev_p"]
+    out = dict(state)
+
+    hit = Hit(t=state["hit_t"], prim=state["hit_prim"], b0=state["hit_b0"],
+              b1=state["hit_b1"])
+    si = compute_interaction(scene.geo, hit, o, d)
+
+    if cfg.capture_features:
+        # RPF captures the GEOMETRIC normal + hit point at bounces 0/1
+        # (rpf.cpp:851-857 uses isect.n/isect.p)
+        if bounce in (0, 1):
+            m = (alive & si.valid)[:, None]
+            kn, kp = ("n0", "p0") if bounce == 0 else ("n1", "p1")
+            out[kn] = torch.where(m, si.ng, state[kn])
+            out[kp] = torch.where(m, si.p, state[kp])
+
+    # ---- emitted light (MIS weight folded into the BSDF-sampled hit) ----
+    Le, lrow = _emitted(scene, si)
+    if bounce == 0:
+        w_emit = torch.ones(n, dtype=torch.float32, device=o.device)
+    else:
+        lrow_c = lrow.clamp(min=0)
+        light_pdf = pdf_li_from_hit(scene.lights, lrow_c, prev_p, d, si.p,
+                                    si.ng)
+        pmf = choice_pmf_at(scene.lights, lrow_c, cfg.light_strategy, n,
+                            prev_p)
+        w_emit = power_heuristic(1.0, prev_pdf, 1.0, light_pdf * pmf)
+    L = L + torch.where((alive & si.valid)[:, None],
+                        beta * Le * w_emit[:, None], 0.0)
+
+    alive = alive & si.valid & (bounce < cfg.max_depth)
+    lobes = fetch_lobes(scene.mt_table, si.material_id)
+    alive = alive & lobes.active.any(dim=-1)
+
+    # ---- NEE ----
+    d0 = CAMERA_DIMS + bounce * DIMS_PER_BOUNCE
+    u_choice = sampler.dim(px, py, sidx, d0, sctx)
+    u_light = torch.stack([sampler.dim(px, py, sidx, d0 + 1, sctx),
+                           sampler.dim(px, py, sidx, d0 + 2, sctx)], dim=-1)
+    nee_c, o_sh, wi_sh, t_sh, nee_ok = _nee_prepare(
+        scene, si, lobes, u_choice, u_light, cfg.light_strategy, alive)
+    beta_nee = beta  # pre-continuation throughput scales the NEE term
+
+    # ---- BSDF sampling ----
+    u_lobe = sampler.dim(px, py, sidx, d0 + 3, sctx)
+    u1 = sampler.dim(px, py, sidx, d0 + 4, sctx)
+    u2 = sampler.dim(px, py, sidx, d0 + 5, sctx)
+    t, b = build_onb(si.ns)
+    wo_l = to_local(t, b, si.ns, si.wo)
+    wi_l, f, pdf = bsdf_sample(lobes, wo_l, u_lobe, u1, u2)
+    wi = to_world(t, b, si.ns, wi_l)
+    ok = alive & (pdf > 0) & (f > 0).any(dim=-1)
+    beta = torch.where(ok[:, None],
+                       beta * f * (dot(wi, si.ns).abs()
+                                   / torch.clamp(pdf, min=1e-20))[:, None],
+                       beta)
+    alive = ok
+    prev_pdf = torch.clamp(pdf, min=1e-20)
+    prev_p = si.p
+    o = offset_ray_origin(si.p, si.ng, wi)
+    d = wi
+
+    # ---- Russian roulette (path.cpp: bounces > 3) ----
+    if bounce > 3:
+        u_rr = sampler.dim(px, py, sidx, d0 + 6, sctx)
+        rr_beta = beta.amax(dim=-1)
+        q = torch.clamp(1.0 - rr_beta, min=0.05)
+        do_rr = (rr_beta < cfg.rr_threshold) & alive
+        killed = do_rr & (u_rr < q)
+        alive = alive & ~killed
+        beta = torch.where((do_rr & ~killed)[:, None],
+                           beta / torch.clamp(1.0 - q, min=1e-6)[:, None],
+                           beta)
+
+    # ---- trace: this bounce's shadow ray + the next bounce's closest ----
+    occluded = intersect_any(scene.geo, o_sh, wi_sh, t_sh, traverse)
+    hit_next = intersect_closest(scene.geo, o, d,
+                                 torch.where(alive, INF, 0.0), traverse)
+    L = L + beta_nee * _nee_resolve(nee_c, nee_ok, occluded)
+    out.update(o=o, d=d, hit_t=hit_next.t, hit_prim=hit_next.prim,
+               hit_b0=hit_next.b0, hit_b1=hit_next.b1, beta=beta, L=L,
+               alive=alive, prev_pdf=prev_pdf, prev_p=prev_p)
+    return out

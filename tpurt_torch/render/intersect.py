@@ -1,0 +1,395 @@
+"""Geometry upload and ray queries (port of tpurt/render/intersect.py,
+restricted to static triangle + sphere scenes).
+
+The wide-BVH record table, the fused shading rows and the quadric tables
+are built on the host exactly as tpurt builds them (the unchanged
+``tpurt.geom.wbvh.build_wide_table`` over the unchanged
+``tpurt.render.geometry_build`` flattening), then uploaded.  Triangles
+are found by BVH traversal (``tpurt_torch.kernels.traverse``: a CUDA
+kernel on CUDA tensors, its plain twin on CPU tensors); spheres are tested
+outside the tree in one vectorized pass per sphere, as in tpurt.
+
+The traversal is an explicit argument of ``intersect_closest`` and
+``intersect_any`` so a caller can run the whole renderer through either
+implementation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tpurt.geom.wbvh import LEAF_K, WIDTH, build_wide_table
+from tpurt.render.geometry_build import PT_SPHERE, PT_TRIANGLE, GeometryArrays
+
+INF = float("inf")
+
+# machine gamma for conservative box tests (pbrt gamma(3)), as in tpurt
+_GAMMA3 = 3.0 * np.finfo(np.float32).eps * 0.5 / (1 - 3 * np.finfo(np.float32).eps * 0.5)
+_BOX_T_SCALE = float(np.float32(1.0 + 2.0 * _GAMMA3))
+
+# interior-record child slots and leaf-record prim slots (wbvh.py layout)
+CHILD_LO = 6 * WIDTH
+PRIM_LO = 9 * LEAF_K
+
+
+@dataclasses.dataclass
+class DeviceGeometry:
+    """Device tables of a static triangle + sphere scene.
+
+    wnodes (M, 128) f32: the wide-BVH record table (tpurt.geom.wbvh
+        layout; slot 126 is the kind flag: 0 interior, 1 leaf).
+    shade_rows (P, 32) f32: fused per-prim shading record
+        [0] flags [1] ptype [2] material_id [3] arealight_id [4] quad_id
+        [5] medium_inside [6] medium_outside (bitcast i32);
+        triangles [7:16] v0,v1,v2 [16:25] n0,n1,n2 [25:31] uv0,uv1,uv2
+        [31] face id (bitcast i32); spheres [7:19] w2o rows 0..2,
+        [19:27] params[0:8].
+    prim_type, quad_id (P,) i32; quad_w2o (Q, 4, 4), quad_params (Q, 16)
+        f32: the quadric tables (padding rows when the scene has none).
+    wstack_depth: traversal stack slots (tpurt's power-of-two sizing).
+    """
+
+    wnodes: torch.Tensor
+    shade_rows: torch.Tensor
+    prim_type: torch.Tensor
+    quad_id: torch.Tensor
+    quad_w2o: torch.Tensor
+    quad_params: torch.Tensor
+    n_tris: int
+    n_quads: int
+    wstack_depth: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.wnodes.device
+
+    @staticmethod
+    def host_tables(g: GeometryArrays) -> dict:
+        """numpy tables of the geometry (the host half of tpurt's
+        DeviceGeometry.from_host, intersect.py:141-287); from_tables
+        uploads them."""
+        if g.has_motion or g.has_quad_motion:
+            raise NotImplementedError("motion blur (animated shapes)")
+        if g.n_curves:
+            raise NotImplementedError('Shape "curve"')
+        bad = set(np.unique(g.prim_type).tolist()) - {PT_TRIANGLE, PT_SPHERE}
+        if bad:
+            raise NotImplementedError(
+                f"quadric shapes other than spheres (prim types {sorted(bad)})")
+        if (g.medium_inside is not None and (g.medium_inside >= 0).any()) or (
+                g.medium_outside is not None and (g.medium_outside >= 0).any()):
+            raise NotImplementedError("MediumInterface (participating media)")
+        if not (g.bvh.n_prims <= 1).all():
+            raise ValueError("collapse expects 1-prim leaves")
+        wnodes, _, wdepth = build_wide_table(g.bvh, g.tri_v0, g.tri_v1,
+                                             g.tri_v2)
+        # worst-case stack residency: (W-1) pushes per interior level
+        need = max(8, (wdepth - 1) * (WIDTH - 1) + 2)
+        sdepth = 8
+        while sdepth < min(need, 192):
+            sdepth *= 2
+
+        p = len(g.prim_type)
+        med = np.full(p, -1, np.int32)
+        ints = np.stack([g.flags, g.prim_type, g.material_id,
+                         g.arealight_id, g.quad_id, med, med],
+                        axis=1).astype(np.int32)
+        rows = np.zeros((p, 32), np.float32)
+        rows[:, 0:7] = ints.view(np.float32)
+        nt = g.n_tris
+        if nt:
+            if g.face_id is not None:
+                rows[:nt, 31] = g.face_id[:nt].astype(np.int32).view(
+                    np.float32)
+            vi = g.tri_vi[:nt]
+            rows[:nt, 7:10] = g.tri_v0[:nt]
+            rows[:nt, 10:13] = g.tri_v1[:nt]
+            rows[:nt, 13:16] = g.tri_v2[:nt]
+            if len(g.vert_n):
+                rows[:nt, 16:25] = g.vert_n[vi].reshape(nt, 9)
+                rows[:nt, 25:31] = g.vert_uv[vi].reshape(nt, 6)
+        if g.n_quads:
+            nq = nt + g.n_quads
+            qi = np.maximum(g.quad_id[nt:nq], 0)
+            rows[nt:nq, 7:19] = g.quad_w2o[qi][:, :3, :].reshape(-1, 12)
+            rows[nt:nq, 19:27] = g.quad_params[qi][:, :8]
+        return dict(wnodes=wnodes, shade_rows=rows,
+                    prim_type=g.prim_type.astype(np.int32),
+                    quad_id=g.quad_id.astype(np.int32),
+                    quad_w2o=g.quad_w2o.astype(np.float32),
+                    quad_params=g.quad_params.astype(np.float32),
+                    n_tris=int(g.n_tris), n_quads=int(g.n_quads),
+                    wstack_depth=sdepth)
+
+    @staticmethod
+    def from_tables(tables: dict, device) -> "DeviceGeometry":
+        kw = {k: (torch.tensor(v, device=device)
+                  if isinstance(v, np.ndarray) else v)
+              for k, v in tables.items()}
+        return DeviceGeometry(**kw)
+
+
+class Hit(NamedTuple):
+    """Closest-hit record (SoA over rays)."""
+
+    t: torch.Tensor  # hit distance (inf if miss)
+    prim: torch.Tensor  # primitive index (-1 if miss), int32
+    b0: torch.Tensor  # triangle barycentric 0 / sphere u
+    b1: torch.Tensor  # triangle barycentric 1 / sphere v
+
+
+# ---------------------------------------------------------------------------
+# leaf and interior record tests (shared by the traversal twin)
+# ---------------------------------------------------------------------------
+
+def _batcher_network(n: int):
+    """Batcher odd-even merge sorting network for n = 2^k elements
+    (19 comparators at n=8)."""
+    pairs = []
+    p = 1
+    while p < n:
+        k = p
+        while k >= 1:
+            for j in range(k % p, n - k, 2 * k):
+                for i in range(0, min(k, n - j - k)):
+                    if (i + j) // (2 * p) == (i + j + k) // (2 * p):
+                        pairs.append((i + j, i + j + k))
+            k //= 2
+        p *= 2
+    return tuple(pairs)
+
+
+SORT8 = _batcher_network(WIDTH)
+
+
+def _tri_bundle_test(o, d, t_max, rec):
+    """Watertight test of the LEAF_K triangles fused in a leaf record.
+    o, d: (N, 3); t_max: (N,); rec: (N, 128).  Returns (hit, t, b0, b1)
+    each (N, LEAF_K); NaN vertex pads never hit."""
+    K = LEAF_K
+    v = [rec[:, i * K:(i + 1) * K] for i in range(9)]  # v0x..v2z, (N, K)
+    ax, ay, az = d[:, 0].abs(), d[:, 1].abs(), d[:, 2].abs()
+    use2 = ((az >= ax) & (az >= ay))[:, None]  # kz=2 -> (x,y,z)
+    use1 = (~use2) & (ay >= ax)[:, None]       # kz=1 -> (z,x,y)
+    # else kz=0 -> (y,z,x)
+
+    def permute(x, y, z):
+        px = torch.where(use2, x, torch.where(use1, z, y))
+        py = torch.where(use2, y, torch.where(use1, x, z))
+        pz = torch.where(use2, z, torch.where(use1, y, x))
+        return px, py, pz
+
+    dpx, dpy, dpz = permute(d[:, 0:1], d[:, 1:2], d[:, 2:3])  # (N, 1)
+    p0x, p0y, p0z = permute(v[0] - o[:, 0:1], v[1] - o[:, 1:2],
+                            v[2] - o[:, 2:3])
+    p1x, p1y, p1z = permute(v[3] - o[:, 0:1], v[4] - o[:, 1:2],
+                            v[5] - o[:, 2:3])
+    p2x, p2y, p2z = permute(v[6] - o[:, 0:1], v[7] - o[:, 1:2],
+                            v[8] - o[:, 2:3])
+    sx = -dpx / dpz
+    sy = -dpy / dpz
+    sz = 1.0 / dpz
+    x0 = p0x + sx * p0z
+    y0 = p0y + sy * p0z
+    x1 = p1x + sx * p1z
+    y1 = p1y + sy * p1z
+    x2 = p2x + sx * p2z
+    y2 = p2y + sy * p2z
+    e0 = x1 * y2 - y1 * x2
+    e1 = x2 * y0 - y2 * x0
+    e2 = x0 * y1 - y0 * x1
+    same_sign = ((e0 >= 0) & (e1 >= 0) & (e2 >= 0)) | (
+        (e0 <= 0) & (e1 <= 0) & (e2 <= 0))
+    det = e0 + e1 + e2
+    t_scaled = (e0 * p0z + e1 * p1z + e2 * p2z) * sz
+    tm = t_max[:, None]
+    t_ok = torch.where(det < 0,
+                       (t_scaled <= 0) & (t_scaled > tm * det),
+                       (t_scaled >= 0) & (t_scaled < tm * det))
+    hit = same_sign & (det != 0) & t_ok
+    inv_det = torch.where(det != 0, 1.0 / det, 0.0)
+    return (hit, torch.where(hit, t_scaled * inv_det, INF),
+            e0 * inv_det, e1 * inv_det)
+
+
+def _box8_test(rec, o, inv_d, t_max):
+    """Slab tests of the 8 child boxes in an interior record.
+    Returns (hit, t_near) each (N, 8); NaN boxes (absent children) never
+    hit: torch.minimum/maximum propagate NaN like jnp's."""
+    W = WIDTH
+    b = [rec[:, i * W:(i + 1) * W] for i in range(6)]  # lo xyz, hi xyz
+    n = rec.shape[0]
+    t_near = torch.full((n, W), -INF, dtype=rec.dtype, device=rec.device)
+    t_far = torch.full((n, W), INF, dtype=rec.dtype, device=rec.device)
+    for a in range(3):
+        t0 = (b[a] - o[:, a:a + 1]) * inv_d[:, a:a + 1]
+        t1 = (b[3 + a] - o[:, a:a + 1]) * inv_d[:, a:a + 1]
+        t_near = torch.maximum(t_near, torch.minimum(t0, t1))
+        t_far = torch.minimum(t_far, torch.maximum(t0, t1))
+    t_far = t_far * _BOX_T_SCALE
+    hit = (t_near <= t_far) & (t_far > 0) & (t_near < t_max[:, None])
+    return hit, t_near
+
+
+def safe_inv_dir(d):
+    """1/d with signed infinities on zero components (intersect.py:1234)."""
+    return torch.where(d != 0, 1.0 / d, torch.where(d >= 0, INF, -INF))
+
+
+# ---------------------------------------------------------------------------
+# spheres (the sphere case of tpurt's ray_quadric)
+# ---------------------------------------------------------------------------
+
+def _dot3(a, b):
+    return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+
+
+def _xform_point(m, p):
+    return torch.stack([
+        m[0, 0] * p[:, 0] + m[0, 1] * p[:, 1] + m[0, 2] * p[:, 2] + m[0, 3],
+        m[1, 0] * p[:, 0] + m[1, 1] * p[:, 1] + m[1, 2] * p[:, 2] + m[1, 3],
+        m[2, 0] * p[:, 0] + m[2, 1] * p[:, 1] + m[2, 2] * p[:, 2] + m[2, 3],
+    ], dim=-1)
+
+
+def _xform_vector(m, v):
+    return torch.stack([
+        m[0, 0] * v[:, 0] + m[0, 1] * v[:, 1] + m[0, 2] * v[:, 2],
+        m[1, 0] * v[:, 0] + m[1, 1] * v[:, 1] + m[1, 2] * v[:, 2],
+        m[2, 0] * v[:, 0] + m[2, 1] * v[:, 1] + m[2, 2] * v[:, 2],
+    ], dim=-1)
+
+
+def _veltkamp_split(x):
+    """Exact f32 hi/lo split (Dekker): x == hi + lo."""
+    c = 4097.0 * x  # 2^12 + 1
+    hi = c - (c - x)
+    return hi, x - hi
+
+
+def _two_prod(x, y):
+    """(p, e) with p = fl(x*y) and x*y == p + e exactly (Dekker)."""
+    p = x * y
+    xh, xl = _veltkamp_split(x)
+    yh, yl = _veltkamp_split(y)
+    e = ((xh * yh - p) + xh * yl + xl * yh) + xl * yl
+    return p, e
+
+
+def _disc_compensated(a, b, c):
+    """b^2 - 4ac in double-float precision (intersect.py:412-431), so
+    grazing sphere hits decide like the reference's double discriminant."""
+    p1, e1 = _two_prod(b, b)
+    p2, e2 = _two_prod(4.0 * a, c)
+    s = p1 - p2
+    bb = s - p1
+    err = (p1 - (s - bb)) + ((-p2) - bb)
+    comp = s + (err + (e1 - e2))
+    thr = 8.0e34  # the Veltkamp split overflows past ~8.3e34
+    huge = (b.abs() > thr) | ((4.0 * a).abs() > thr) | (c.abs() > thr)
+    return torch.where(huge, b * b - 4.0 * a * c, comp)
+
+
+def _roots_from_disc(a, b, disc):
+    ok = disc >= 0
+    sqrt_d = torch.sqrt(torch.clamp(disc, min=0.0))
+    q = torch.where(b < 0, -0.5 * (b - sqrt_d), -0.5 * (b + sqrt_d))
+    q = torch.where(q == 0, 1e-20, q)
+    t0 = q / a
+    t1 = ((b * b - disc) / (4.0 * a)) / q
+    return ok, torch.minimum(t0, t1), torch.maximum(t0, t1)
+
+
+def ray_sphere(o, d, t_max, w2o, params):
+    """The sphere case of tpurt's ray_quadric (intersect.py:469-499) for
+    one sphere against (N,) rays: w2o (4, 4), params (16,) =
+    [radius, zmin, zmax, phimax, ...].  Returns (hit, t, u, v)."""
+    oo = _xform_point(w2o, o)
+    od = _xform_vector(w2o, d)
+    radius, zmin, zmax, phimax = params[0], params[1], params[2], params[3]
+    a = _dot3(od, od)
+    b = 2.0 * _dot3(oo, od)
+    c = _dot3(oo, oo) - radius * radius
+    has, t0, t1 = _roots_from_disc(a, b, _disc_compensated(a, b, c))
+    full = (zmin <= -radius) & (zmax >= radius) & (phimax >= 2 * np.pi - 1e-6)
+
+    def test(t):
+        p = oo + t[:, None] * od
+        # reproject for precision (pbrt refines pHit to the surface)
+        p = p * (radius / torch.sqrt(_dot3(p, p)))[:, None]
+        phi = torch.atan2(p[:, 1], p[:, 0])
+        phi = torch.where(phi < 0, phi + 2 * np.pi, phi)
+        ok = full | ((p[:, 2] >= zmin) & (p[:, 2] <= zmax) & (phi <= phimax))
+        ok = ok & (t > 1e-7) & (t < t_max)
+        return ok, p, phi
+
+    ok0, p0, phi0 = test(t0)
+    ok1, p1, phi1 = test(t1)
+    use1 = ~ok0 & ok1
+    hit = has & (ok0 | ok1)
+    t = torch.where(use1, t1, t0)
+    p = torch.where(use1[:, None], p1, p0)
+    phi = torch.where(use1, phi1, phi0)
+    u = phi / phimax
+    zc = torch.clamp(p[:, 2] / radius, -1.0, 1.0)
+    theta = torch.acos(zc)
+    theta_min = torch.acos(torch.clamp(zmax / radius, -1, 1))
+    theta_max = torch.acos(torch.clamp(zmin / radius, -1, 1))
+    v = (theta - theta_min) / torch.clamp(theta_max - theta_min, min=1e-12)
+    return hit, torch.where(hit, t, INF), u, v
+
+
+def _quadric_pass(geo: DeviceGeometry, o, d, t, prim, b0, b1):
+    """Test every sphere against the whole wavefront (tpurt's
+    _quadric_pass): one vectorized pass per sphere, outside the tree."""
+    n_tris = geo.n_tris
+    for q in range(geo.n_quads):
+        qi = int(geo.quad_id[n_tris + q])
+        h, tq, u, v = ray_sphere(o, d, t, geo.quad_w2o[qi],
+                                 geo.quad_params[qi])
+        better = h & (tq < t)
+        t = torch.where(better, tq, t)
+        prim = torch.where(better, n_tris + q, prim)
+        b0 = torch.where(better, u, b0)
+        b1 = torch.where(better, v, b1)
+    return t, prim, b0, b1
+
+
+def _lanes(t_max, o):
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
+    return t_max.expand(o.shape[0]).contiguous()
+
+
+def intersect_closest(geo: DeviceGeometry, o, d, t_max, traverse) -> Hit:
+    """Closest hit for a wavefront: o, d (N, 3); t_max scalar or (N,).
+    traverse is the BVH traversal (kernels.traverse.traverse_wide or its
+    plain twin)."""
+    o, d, t_max = o.contiguous(), d.contiguous(), _lanes(t_max, o)
+    t, prim, b0, b1 = traverse(geo, o, d, t_max, any_hit=False)
+    if geo.n_quads:
+        t, prim, b0, b1 = _quadric_pass(geo, o, d, t, prim, b0, b1)
+    return Hit(t=t, prim=torch.where(torch.isfinite(t), prim, -1), b0=b0,
+               b1=b1)
+
+
+def intersect_any(geo: DeviceGeometry, o, d, t_max, traverse):
+    """Shadow-ray predicate: does anything lie along the ray before t_max?"""
+    o, d, t_max = o.contiguous(), d.contiguous(), _lanes(t_max, o)
+    n = o.shape[0]
+    occ = torch.zeros(n, dtype=torch.bool, device=o.device)
+    if geo.n_quads:
+        inf = torch.full((n,), INF, dtype=torch.float32, device=o.device)
+        zero = torch.zeros(n, dtype=torch.float32, device=o.device)
+        tq, pq, _, _ = _quadric_pass(
+            geo, o, d, inf,
+            torch.full((n,), -1, dtype=torch.int32, device=o.device),
+            zero, zero)
+        occ = (pq >= 0) & (tq < t_max)
+        # already-occluded lanes skip the tree walk (t_max = 0)
+        t_max = torch.where(occ, 0.0, t_max)
+    _, prim, _, _ = traverse(geo, o, d, t_max, any_hit=True)
+    return occ | (prim >= 0)

@@ -1,0 +1,162 @@
+"""Material table and per-lane lobe fetch for matte and plastic (port of
+tpurt/render/materials_build.py: the host half of build_material_table,
+fuse_material_rows and fetch_lobes).
+
+The table keeps tpurt's fused 53-column row layout, so a tpurt table and
+this one can be compared bit for bit (tpurt_torch.convert).  Every other
+material, textured slots and bump maps raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from tpurt.scene.records import MaterialRecord
+from tpurt_torch.render.bsdf import LobeParams, roughness_to_alpha
+
+# columns of the constant-parameter table (tpurt's layout)
+_N_COLS = 39
+(C_KD0, C_KD1, C_KD2, C_KS0, C_KS1, C_KS2, C_KR0, C_KR1, C_KR2,
+ C_KT0, C_KT1, C_KT2, C_ROUGH, C_UROUGH, C_VROUGH, C_ETA, C_SIGMA,
+ C_ETA30, C_ETA31, C_ETA32, C_REMAP, C_FRESNEL,
+ C_TR0, C_TR1, C_TR2, C_TT0, C_TT1, C_TT2,
+ C_METALLIC, C_SPECTRANS, C_ANISO, C_SHEEN, C_SHEENTINT, C_CC, C_CCGLOSS,
+ C_SPECTINT, C_FLAT, C_DIFFTRANS, C_THIN) = range(_N_COLS)
+# fused-row extension columns: kind, conductor k, mix sub-ids, hair,
+# fourier table index
+C_KIND = _N_COLS
+C_FK30 = _N_COLS + 1
+C_MIX0 = _N_COLS + 4
+C_HAIR0 = _N_COLS + 6
+C_FTIX = _N_COLS + 13
+N_FUSED_COLS = _N_COLS + 14
+
+MAT_NONE = 0
+MAT_MATTE = 1
+MAT_PLASTIC = 2
+_KIND_CODES = {"matte": MAT_MATTE, "plastic": MAT_PLASTIC}
+FRESNEL_DIELECTRIC = 0
+
+
+def _const(slot):
+    kind, val = slot
+    if kind == "constant":
+        return np.asarray(val, dtype=np.float64)
+    return None  # textured
+
+
+def build_material_table(materials: List[Optional[MaterialRecord]]):
+    """Deduplicated material list (index == material id) -> (table
+    (M, 39) f32, kinds (M,) i32), tpurt's constant-table layout."""
+    m = len(materials)
+    table = np.zeros((max(m, 1), _N_COLS), np.float32)
+    kinds = np.zeros(max(m, 1), np.int32)
+    for i, rec in enumerate(materials):
+        if rec is None:
+            raise NotImplementedError('Material "none" (media boundaries)')
+        kind = _KIND_CODES.get(rec.name)
+        if kind is None:
+            raise NotImplementedError(f'Material "{rec.name}"')
+        if "bumpmap" in rec.slots:
+            raise NotImplementedError("bump mapping (bumpmap)")
+        kinds[i] = kind
+        s = rec.slots
+
+        def value(slot_name, default):
+            if slot_name not in s:
+                return np.asarray(default, dtype=np.float64)
+            v = _const(s[slot_name])
+            if v is None:
+                raise NotImplementedError(
+                    f'textured "{slot_name}" on Material "{rec.name}"')
+            return v
+
+        def put3(slot_name, cols, default):
+            v = value(slot_name, default) * np.ones(3)
+            for k, c in enumerate(cols):
+                table[i, c] = v[k]
+
+        def put1(slot_name, col, default):
+            table[i, col] = float(np.asarray(value(slot_name, default))
+                                  .reshape(-1)[0])
+
+        put3("Kd", (C_KD0, C_KD1, C_KD2), 0.0)
+        put3("Ks", (C_KS0, C_KS1, C_KS2), 0.0)
+        put3("Kr", (C_KR0, C_KR1, C_KR2), 0.0)
+        put3("Kt", (C_KT0, C_KT1, C_KT2), 0.0)
+        put1("roughness", C_ROUGH, 0.1)
+        put1("uroughness", C_UROUGH, -1.0)
+        put1("vroughness", C_VROUGH, -1.0)
+        put1("sigma", C_SIGMA, 0.0)
+        put1("eta", C_ETA, 1.5)
+        put3("reflect", (C_TR0, C_TR1, C_TR2), 0.5)
+        put3("transmit", (C_TT0, C_TT1, C_TT2), 0.5)
+        put1("metallic", C_METALLIC, 0.0)
+        put1("spectrans", C_SPECTRANS, 0.0)
+        put1("anisotropic", C_ANISO, 0.0)
+        put1("sheen", C_SHEEN, 0.0)
+        put1("sheentint", C_SHEENTINT, 0.5)
+        put1("clearcoat", C_CC, 0.0)
+        put1("clearcoatgloss", C_CCGLOSS, 1.0)
+        put1("speculartint", C_SPECTINT, 0.0)
+        put1("flatness", C_FLAT, 0.0)
+        put1("difftrans", C_DIFFTRANS, 1.0)
+        # an absent flag slot reads as off, as in tpurt
+        table[i, C_THIN] = float("thin" in s and _const(s["thin"]) in (True, 1.0))
+        table[i, C_REMAP] = float("remaproughness" in s and
+                                  _const(s["remaproughness"]) in (True, 1.0))
+        table[i, C_FRESNEL] = FRESNEL_DIELECTRIC
+    return table, kinds
+
+
+def fuse_material_rows(table: np.ndarray, kinds: np.ndarray) -> np.ndarray:
+    """Append tpurt's side-table columns (kind, conductor k, mix ids, hair,
+    fourier index) so rows match tpurt's fused layout."""
+    m = table.shape[0]
+    return np.concatenate([
+        table, kinds.astype(np.float32)[:, None],
+        np.zeros((m, 3), np.float32), np.full((m, 2), -1.0, np.float32),
+        np.zeros((m, 7), np.float32), np.full((m, 1), -1.0, np.float32),
+    ], axis=1)
+
+
+def fetch_lobes(mt_table: torch.Tensor, mat_id: torch.Tensor) -> LobeParams:
+    """Per-lane lobe parameters from the fused material table: matte ->
+    diffuse (Oren-Nayar) lobe, plastic -> diffuse + GGX glossy lobes.
+    mat_id (N,) i32, -1 = no material -> all lobes inactive."""
+    row = mt_table[mat_id.clamp(min=0).long()]
+    kind = torch.where(mat_id >= 0, row[:, C_KIND].to(torch.int32), MAT_NONE)
+    kd = row[:, C_KD0:C_KD0 + 3]
+    ks = row[:, C_KS0:C_KS0 + 3]
+    rough = row[:, C_ROUGH]
+    urough = row[:, C_UROUGH]
+    vrough = row[:, C_VROUGH]
+    sigma = row[:, C_SIGMA]
+    remap = row[:, C_REMAP] > 0
+
+    # roughness -> alpha (per-axis when u/v given)
+    ur = torch.where(urough >= 0, urough, rough)
+    vr = torch.where(vrough >= 0, vrough, rough)
+    ax = torch.where(remap, roughness_to_alpha(ur), torch.clamp(ur, min=1e-3))
+    ay = torch.where(remap, roughness_to_alpha(vr), torch.clamp(vr, min=1e-3))
+
+    # Oren-Nayar A/B from sigma degrees (reflection.h:364-372)
+    sig_rad = torch.clamp(sigma, min=0.0) * float(np.float32(np.pi / 180))
+    s2 = sig_rad * sig_rad
+    oren_a = 1.0 - s2 / (2.0 * (s2 + 0.33))
+    oren_b = 0.45 * s2 / (s2 + 0.09)
+
+    is_matte = kind == MAT_MATTE
+    is_plastic = kind == MAT_PLASTIC
+    z3 = torch.zeros_like(kd)
+    return LobeParams(
+        kd=torch.where((is_matte | is_plastic)[:, None], kd, z3),
+        oren_a=torch.where(is_matte, oren_a, 1.0),
+        oren_b=torch.where(is_matte, oren_b, 0.0),
+        ks=torch.where(is_plastic[:, None], ks, z3),
+        alpha_x=ax, alpha_y=ay,
+        eta=row[:, C_ETA],
+    )
