@@ -1,23 +1,41 @@
-"""Drive the PyTorch/CUDA port's main path once on one GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths once on one GPU and check them.
 
     python3 chip_smoke.py             # needs one CUDA card
     python3 chip_smoke.py --profile   # also prints a torch.profiler
-                                      # breakdown of one full-frame render
+                                      # breakdown of one path frame and
+                                      # one RPF frame
 
 Phases (any failure exits non-zero; none is caught):
   1. environment: versions, the card's name and power limit
-  2. build: the traversal kernel library, from the sources in this checkout
-  3. scene: the 700x700, 8 spp, ~66k-triangle stand-in for killeroo-simple
-  4. kernel against its plain PyTorch version on 2^20 primary rays and
-     2^20 shadow-like rays toward the light (closest-hit prim equal on
+  2. build: every kernel library (traversal K1, gather probe K2) from the
+     sources in this checkout, one nvcc each, started together
+  3. scenes: the 700x700, 8 spp, ~66k-triangle stand-in for
+     killeroo-simple, as a path scene and as an RPF scene, and their
+     32x32 small versions
+  4. K1 against its plain PyTorch version on 2^20 primary rays and 2^20
+     shadow-like rays toward the light (closest-hit prim equal on
      >= 99.99% of lanes, t within rtol 1e-5 where both hit; any-hit
-     occlusion equal on >= 99.99%), with both times
-  5. main path: the CLI renders the full frame on the card and writes the
-     EXR; the traversal kernel must have launched and the plain version
-     must not have run; then one warm-up and 3 timed renders
-  6. cross-checks: a 64x64 crop rendered with the kernel and with the plain
-     traversal (mean |diff| < 1e-4 of the image mean), and the small
-     stand-in rendered on the card and on the CPU
+     occlusion equal on >= 99.99%), with both times and the work the
+     rays need (records fetched, by the twin) for the bound
+  5. K2 against its plain version in float64 at the probe's sizes (16384
+     x 128 f32 table, 8192 lanes, 128 rounds; max error <= 1e-6 of the
+     column's sum of |rows|, the same sum on a second run), with the
+     kernel's, the plain version's and one PyTorch call's times
+  6. main path A: the CLI renders the full path frame on the card and
+     writes the EXR; K1 must have launched and the plain traversal must
+     not have run; then one warm-up and 3 timed renders
+  7. main path B: the CLI renders the full RPF frame (sampling pass with
+     features, the RPF filter at box 7, splat) on the card; K1 must have
+     launched and the plain traversal must not have run; the image is
+     finite with mean > 0 and the six feature EXRs are written; then one
+     warm-up and 3 timed frames (sampling, filter, splat, total, peak
+     memory)
+  8. the gather probe's entry point (python -m tpurt_torch.kernels.
+     gather_bench): K2 must have launched
+  9. cross-checks: a 64x64 crop rendered with K1 and with the plain
+     traversal (mean |diff| < 1e-4 of the image mean), and the small path
+     and RPF stand-ins rendered on the card and on the CPU (means within
+     1e-3 relative, >= 99% of pixels within 1e-3 abs + 1e-3 rel)
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
 """
@@ -37,6 +55,22 @@ import torch
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 LANES = 1 << 20
+# published H100 SXM peaks (NVIDIA data sheet) for the bounds
+HBM_BYTES_S = 3.35e12
+FP32_OPS_S = 67e12
+# float32 operations of the twin's arithmetic per record a ray reads: an
+# interior record is 8 slab tests (28 each) + the 19-comparator sort (3
+# each); a leaf is 12 watertight triangle tests (52 each) + the
+# closest-of-12 pick
+K1_OPS_INTERIOR = 8 * 28 + 19 * 3
+K1_OPS_LEAF = 12 * 52 + 12
+
+
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 rate."""
+    b_ms, o_ms = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
 def gpu_line() -> str:
@@ -73,24 +107,29 @@ def phase_env():
 
 
 def phase_build():
-    from tpurt_torch.kernels.traverse import load_library
+    from tpurt_torch.kernels import build, gather_bench, traverse
 
     t0 = time.time()
-    lib = load_library()
-    print(f"build: {lib.path} nvcc {lib.build_s:.2f}s "
-          f"(load {time.time() - t0:.2f}s)")
-    for ln in lib.log.splitlines():
-        if "registers" in ln or "spill" in ln or "stack frame" in ln:
-            print("  ptxas:", ln.strip())
-    return lib
+    libs = build.build_all([(traverse.SOURCE, traverse.EXTRA_FLAGS),
+                            (gather_bench.SOURCE, gather_bench.EXTRA_FLAGS)])
+    print(f"build: {len(libs)} kernel libraries in {time.time() - t0:.2f}s")
+    for lib in libs:
+        print(f"  {lib.path} nvcc {lib.build_s:.2f}s")
+        for ln in lib.log.splitlines():
+            if "registers" in ln or "spill" in ln or "stack frame" in ln:
+                print("    ptxas:", ln.strip())
+    # bind both (argtypes) from the libraries just built
+    traverse.load_library()
+    gather_bench.load_library()
 
 
-def phase_scene(size: str = "full"):
+def phase_scene(size: str = "full", integrator: str = "path"):
     from tpurt_torch.testscenes import write_standin
 
     WORK.mkdir(parents=True, exist_ok=True)
-    path = write_standin(str(WORK / f"standin_{size}.pbrt"), size)
-    return path
+    name = "standin" if integrator == "path" else "standin_rpf"
+    return write_standin(str(WORK / f"{name}_{size}.pbrt"), size,
+                         integrator=integrator)
 
 
 def phase_kernel(job):
@@ -138,6 +177,20 @@ def phase_kernel(job):
     torch.cuda.synchronize()
     any_agree = ((ref_a[1] >= 0) == (ker_a[1] >= 0)).float().mean().item()
 
+    # the work these rays need, counted by the twin: each distinct record
+    # read once, the rays in and the hits out once; the twin's arithmetic
+    # per record read
+    work = {}
+    traverse_wide_reference(geo, o, d, tm, any_hit=False, stats=work)
+    nbytes = work["records"] * 512 + LANES * (7 * 4 + 4 * 4)
+    ops = (work["interior_steps"] * K1_OPS_INTERIOR
+           + work["leaf_steps"] * K1_OPS_LEAF)
+    bound_ms, bound_by = bound(nbytes, ops)
+    print(f"K1 work @ {LANES} rays: {work['records']} distinct records, "
+          f"{work['interior_steps']} interior + {work['leaf_steps']} leaf "
+          f"steps; {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} Gop; bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+
     ms = cuda_ms(lambda: traverse_wide(geo, o, d, tm, any_hit=False))
     plain_ms = cuda_ms(lambda: traverse_wide_reference(geo, o, d, tm,
                                                        any_hit=False))
@@ -154,7 +207,51 @@ def phase_kernel(job):
     assert closest_agree >= 0.9999, closest_agree
     assert t_ok >= 0.9999, t_ok
     assert any_agree >= 0.9999, any_agree
-    return dict(max_abs_err=t_err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=t_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def phase_gather(gpu: str):
+    """K2 against its plain version (float64) at the probe's sizes."""
+    from tpurt_torch.kernels import gather_bench as gb
+
+    idx, table = gb.probe_inputs("cuda")
+    rows = gb.row_indices(idx, gb.M, gb.R)
+    got = gb.gather_rows_sum(idx, table, gb.R)
+    again = gb.gather_rows_sum(idx, table, gb.R)
+    exact = gb.gather_rows_sum_reference(idx, table, gb.R,
+                                         dtype=torch.float64)
+    abs_sum = gb.gather_rows_sum_reference(idx, table.abs(), gb.R,
+                                           dtype=torch.float64)
+    torch.cuda.synchronize()
+    err = (got.double() - exact).abs()
+    max_err = err.max().item()
+    worst = (err / abs_sum).max().item()
+    lib_err = (gb.library_gather_sum(rows, table).double()
+               - exact).abs().max().item()
+    n = gb.B * gb.R
+    ms = cuda_ms(lambda: gb.gather_rows_sum(idx, table, gb.R))
+    plain_ms = cuda_ms(lambda: gb.gather_rows_sum_reference(idx, table,
+                                                            gb.R))
+    library_ms = cuda_ms(lambda: gb.library_gather_sum(rows, table))
+    # least work: each distinct row reached read once, idx read, out
+    # written; one float32 add per element of every row read
+    distinct = int(torch.unique(rows).numel())
+    nbytes = distinct * gb.REC * 4 + gb.B * 4 + gb.REC * 4
+    bound_ms, bound_by = bound(nbytes, float(n) * gb.REC)
+    print(f"K2 vs float64 @ M={gb.M} B={gb.B} R={gb.R}: max |err| "
+          f"{max_err:.3e} ({worst:.3e} of the sum of |rows|), second run "
+          f"equal {torch.equal(got, again)}; library max |err| "
+          f"{lib_err:.3e}")
+    print(f"K2 ms: kernel {ms:.4f} ({ms * 1e6 / n:.4f} ns/row), plain "
+          f"{plain_ms:.4f} ({plain_ms * 1e6 / n:.4f} ns/row), library "
+          f"embedding_bag {library_ms:.4f} ({library_ms * 1e6 / n:.4f} "
+          f"ns/row); bound {bound_ms:.4f} ms ({bound_by}: {distinct} "
+          f"distinct rows, {n} row reads) on {gpu}")
+    assert worst <= 1e-6, worst
+    assert torch.equal(got, again)
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
 def phase_main(scene_path: str, gpu: str):
@@ -203,9 +300,89 @@ def phase_main(scene_path: str, gpu: str):
     return job, launches, render_s
 
 
-def phase_cross(scene_path: str, small_path: str):
+def phase_rpf(scene_path: str, gpu: str):
+    from tpurt_torch import cli
+    from tpurt_torch.io.image import read_image
+    from tpurt_torch.kernels.traverse import (traverse_wide,
+                                              traverse_wide_reference)
+    from tpurt_torch.render.driver import build_job, load_scene
+    from tpurt_torch.rpf.driver import feature_exr_paths, render_rpf_job
+
+    out = WORK / "standin_rpf_full_out.exr"
+    sd = load_scene(scene_path)
+    exrs = [Path(p) for p in feature_exr_paths(sd.film_params.find_one_string(
+        "filename", ""))]
+    for p in exrs + [out]:
+        p.unlink(missing_ok=True)
+    traverse_wide.launches = 0
+    traverse_wide_reference.calls = 0
+    t0 = time.time()
+    rc = cli.main([scene_path, "--device", "cuda", "--outfile", str(out),
+                   "--quiet"])
+    torch.cuda.synchronize()
+    cli_s = time.time() - t0
+    launches = traverse_wide.launches
+    plain_calls = traverse_wide_reference.calls
+    img = read_image(str(out))
+    print(f"main path B (RPF CLI, first run incl. scene build): "
+          f"{cli_s:.2f}s, traversal kernel launches {launches}, plain calls "
+          f"{plain_calls}, image mean {img.mean():.5f}, feature EXRs "
+          f"{sum(p.exists() for p in exrs)}/6")
+    assert rc == 0 and launches > 0 and plain_calls == 0
+    res = (sd.film_params.find_one_int("yresolution", 0),
+           sd.film_params.find_one_int("xresolution", 0), 3)
+    assert img.shape == res and np.isfinite(img).all() and img.mean() > 0
+    assert all(p.exists() and p.stat().st_size > 0 for p in exrs)
+
+    job = build_job(load_scene(scene_path), "cuda")
+    torch.cuda.synchronize()
+    render_rpf_job(job, write_feature_exrs=False)  # warm-up
+    runs, peak = [], 0
+    for _ in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img, ex = render_rpf_job(job, write_feature_exrs=False)
+        torch.cuda.synchronize()
+        runs.append(dict(total=time.time() - t0, sampling=ex["sampling_time"],
+                         filter=ex["filter_time"], splat=ex["splat_time"]))
+        peak = max(peak, torch.cuda.max_memory_allocated())
+    assert np.isfinite(img).all() and img.mean() > 0
+    med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    print(f"rpf_sampling_s {med['sampling']:.4f} rpf_filter_s "
+          f"{med['filter']:.4f} rpf_splat_s {med['splat']:.4f} rpf_total_s "
+          f"{med['total']:.4f} (medians of 3; total runs "
+          f"{['%.4f' % r['total'] for r in runs]}) peak mem "
+          f"{peak / 2**30:.3f} GiB, image mean {img.mean():.5f}, TF32 "
+          f"matmul {torch.backends.cuda.matmul.allow_tf32} on {gpu}")
+    return launches, job, med["total"]
+
+
+def phase_probe():
+    """The gather probe's entry point, as a user runs it."""
+    from tpurt_torch.kernels import gather_bench as gb
+
+    gb.gather_rows_sum.launches = 0
+    assert gb.main() == 0
+    launches = gb.gather_rows_sum.launches
+    print(f"probe entry point: gather kernel launches {launches}")
+    assert launches > 0
+    return launches
+
+
+def _close(g, h, what):
+    d = np.abs(g - h)
+    frac = (d <= 1e-3 + 1e-3 * np.abs(h)).all(axis=-1).mean()
+    mrel = abs(g.mean() - h.mean()) / h.mean()
+    print(f"{what} cuda vs cpu: mean rel {mrel:.3e}, pixels within "
+          f"1e-3 {frac:.4f}, max |diff| {d.max():.3e}")
+    assert np.isfinite(g).all() and mrel < 1e-3 and frac >= 0.99
+
+
+def phase_cross(scene_path: str, small_path: str, small_rpf: str):
     from tpurt_torch.kernels.traverse import traverse_wide_reference
     from tpurt_torch.render.driver import load_scene, render
+    from tpurt_torch.rpf.driver import render_rpf
 
     c0, c1 = 319.5 / 700, 383.5 / 700  # a centred 64x64 crop
     crop = (c0, c1, c0, c1)
@@ -220,35 +397,33 @@ def phase_cross(scene_path: str, small_path: str):
 
     g, _ = render(load_scene(small_path), "cuda")
     h, _ = render(load_scene(small_path), "cpu")
-    d = np.abs(g - h)
-    frac = (d <= 1e-3 + 1e-3 * np.abs(h)).all(axis=-1).mean()
-    mrel = abs(g.mean() - h.mean()) / h.mean()
-    print(f"small stand-in cuda vs cpu: mean rel {mrel:.3e}, pixels within "
-          f"1e-3 {frac:.4f}, max |diff| {d.max():.3e}")
-    assert np.isfinite(g).all() and mrel < 1e-3 and frac >= 0.99
+    _close(g, h, "small path stand-in")
+    g, _, _ = render_rpf(load_scene(small_rpf), "cuda",
+                         write_feature_exrs=False)
+    h, _, _ = render_rpf(load_scene(small_rpf), "cpu",
+                         write_feature_exrs=False)
+    _close(g, h, "small RPF stand-in")
 
 
-def phase_profile(job, render_s: float):
-    """Device time by kernel over one full-frame render.  The idle share
-    is 1 - kernel time / the unprofiled render_s (tracing inflates the
-    profiled wall clock)."""
+def phase_profile(label: str, frame, wall_s: float):
+    """Device time by kernel over one full frame (``frame()``).  The idle
+    share is 1 - kernel time / the unprofiled wall time ``wall_s``
+    (tracing inflates the profiled wall clock)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from tpurt_torch.render.driver import render_job
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        render_job(job)
+        frame()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     launches = sum(e.count for e in kernels)
-    print(f"profile: {launches} kernel launches, device busy {busy:.4f}s "
-          f"of render_s {render_s:.4f}s (idle share {1 - busy / render_s:.3f})")
+    print(f"profile {label}: {launches} kernel launches, device busy "
+          f"{busy:.4f}s of {wall_s:.4f}s (idle share {1 - busy / wall_s:.3f})")
     for e in kernels[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
               f"{e.key[:100]}")
@@ -261,6 +436,8 @@ def main(argv=None) -> int:
     phase_build()
     full = phase_scene("full")
     small = phase_scene("small")
+    full_rpf = phase_scene("full", "rpf")
+    small_rpf = phase_scene("small", "rpf")
 
     from tpurt_torch.render.driver import build_job, load_scene
 
@@ -270,17 +447,31 @@ def main(argv=None) -> int:
           f"{g.wnodes.shape[0]} rows ({g.wnodes.numel() * 4 / 1e6:.1f} MB), "
           f"wstack_depth {g.wstack_depth}, {job.film.width}x"
           f"{job.film.height} {job.sampler.spp} spp")
-    kstats = phase_kernel(job)
-    job, launches, render_s = phase_main(full, gpu)
-    phase_cross(full, small)
+    k1 = phase_kernel(job)
+    k2 = phase_gather(gpu)
+    job, launches_a, render_s = phase_main(full, gpu)
+    launches_b, rpf_job, rpf_total_s = phase_rpf(full_rpf, gpu)
+    launches_probe = phase_probe()
+    phase_cross(full, small, small_rpf)
     if "--profile" in argv:
-        phase_profile(job, render_s)
-    assert "jax" not in sys.modules
-    print(json.dumps({"kernels": [dict(
-        name="traverse_wide", route="cuda",
-        source="tpurt_torch/csrc/traverse.cu",
-        replaces="tpurt/kernels/traverse.py:54",
-        launches=launches, **kstats)]}))
+        from tpurt_torch.render.driver import render_job
+        from tpurt_torch.rpf.driver import render_rpf_job
+
+        phase_profile("path frame", lambda: render_job(job), render_s)
+        phase_profile("RPF frame", lambda: render_rpf_job(
+            rpf_job, write_feature_exrs=False), rpf_total_s)
+    assert "jax" not in sys.modules and "tpurt" not in sys.modules
+    print(json.dumps({"kernels": [
+        dict(name="traverse_wide", route="cuda",
+             source="tpurt_torch/csrc/traverse.cu",
+             replaces="tpurt/kernels/traverse.py:54",
+             launches=launches_a + launches_b,
+             launches_by_path={"path": launches_a, "rpf": launches_b}, **k1),
+        dict(name="gather_rows_sum", route="cuda",
+             source="tpurt_torch/csrc/gather_bench.cu",
+             replaces="tpurt/kernels/gather_bench.py:24",
+             launches=launches_probe,
+             launches_by_path={"gather_probe": launches_probe}, **k2)]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

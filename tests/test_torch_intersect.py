@@ -11,7 +11,6 @@ function rounds differently.
 """
 
 import re
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -23,11 +22,13 @@ from tpurt.geom.wbvh import LEAF_K, REC, SLOT_KIND, WIDTH
 from tpurt.render import intersect as tix
 from tpurt.render.driver import build_job as tpurt_build_job
 from tpurt.render.geometry_build import PT_SPHERE
-from tpurt.scene import load_scene_string
+from tpurt.scene import load_scene_string as tpurt_load_scene_string
 from tpurt_torch.convert import scene_from_tpurt
+from tpurt_torch.kernels import build as kbuild
 from tpurt_torch.kernels import traverse as ktr
 from tpurt_torch.render import intersect as pix
 from tpurt_torch.render.driver import host_tables, job_from_tables
+from tpurt_torch.scene import load_scene_string
 from tpurt_torch.testscenes import mixed_scene, standin_scene
 
 T_ATOL = 4 * float(np.spacing(np.float32(10.0)))
@@ -50,7 +51,7 @@ def scenes():
     out = {}
     for name, text in (("kernels", KERNELS_SCENE), ("mesh", mixed_scene()),
                        ("standin", standin_scene("small"))):
-        job = tpurt_build_job(load_scene_string(text))
+        job = tpurt_build_job(tpurt_load_scene_string(text))
         out[name] = (text, job,
                      job_from_tables(scene_from_tpurt(job), "cpu"))
     return out
@@ -260,7 +261,7 @@ def test_intersect_queries_match_tpurt(scenes):
 def test_cuda_source_sort_network_is_tpurts():
     """The comparator list compiled into traverse.cu is tpurt's _SORT8, and
     its layout constants are the table's."""
-    src = Path(ktr.CSRC).read_text()
+    src = (kbuild.CSRC / ktr.SOURCE).read_text()
     pairs = tuple((int(a), int(b))
                   for a, b in re.findall(r"CSWAP\((\d), (\d)\)", src))
     assert pairs == tix._SORT8 == pix.SORT8

@@ -15,11 +15,12 @@ import torch
 
 from tpurt.io.image import read_image
 from tpurt.render.driver import render as tpurt_render
-from tpurt.scene import load_scene_string
+from tpurt.scene import load_scene_string as tpurt_load_scene_string
 from tpurt_torch import cli
 from tpurt_torch.config import resolve_device
 from tpurt_torch.convert import scene_from_tpurt
 from tpurt_torch.render.driver import job_from_tables, render, render_job
+from tpurt_torch.scene import load_scene_string
 from tpurt_torch.testscenes import mixed_scene, standin_scene
 
 SCENES = {"standin": lambda: standin_scene("small"),
@@ -32,7 +33,7 @@ def renders(request, tmp_path_factory):
     d = tmp_path_factory.mktemp(request.param)
     path = d / "scene.pbrt"
     path.write_text(SCENES[request.param]())
-    want, job = tpurt_render(load_scene_string(path.read_text()),
+    want, job = tpurt_render(tpurt_load_scene_string(path.read_text()),
                              progress=False)
     out = d / "port.pfm"
     assert cli.main([str(path), "--device", "cpu", "--outfile", str(out),

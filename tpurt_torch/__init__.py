@@ -1,19 +1,22 @@
-"""PyTorch/CUDA port of tpurt's path-render slice.
+"""PyTorch/CUDA port of tpurt's path-render and RPF slices.
 
 The JAX package ``tpurt`` is the reference; this package renders the same
-``.pbrt`` scenes with ``Integrator "path"`` (RGB), the Halton sampler
-(affine scramble), a perspective camera, a box filter, matte and plastic
-materials, triangle meshes, spheres, sphere/triangle area lights and
-point lights.  Anything else raises ``NotImplementedError`` naming the
-feature.
+``.pbrt`` scenes with ``Integrator "path"`` (RGB) or ``Integrator "rpf"``
+(the path sampling pass with feature capture, the Random Parameter Filter
+and the splat), the Halton sampler (affine scramble), a perspective
+camera, a box filter, matte and plastic materials, triangle meshes,
+spheres, sphere/triangle area lights and point lights.  Anything else
+raises ``NotImplementedError`` naming the feature.
 
-It imports torch and never jax: the host halves it shares with tpurt come
-from tpurt's jax-free modules only (``tpurt.scene``, ``tpurt.geom.wbvh``,
-``tpurt.render.geometry_build``, ``tpurt.io``,
-``tpurt.sampling.lowdiscrepancy``).  The device is always explicit: pass
-``device="cuda"`` or ``device="cpu"``.
+It imports torch and never jax, and nothing of tpurt: the host modules it
+shares with tpurt are its own copies under the same names
+(``tpurt_torch.scene``, ``geom``, ``render.geometry_build``,
+``render.materials``, ``render.textures``, ``sampling.lowdiscrepancy``,
+``sampling.rng``, ``spectrum``, ``io``, ``native``).  The device is always
+explicit: pass ``device="cuda"`` or ``device="cpu"``.
 
-BVH traversal runs through a hand-written CUDA kernel
-(``tpurt_torch/csrc/traverse.cu``) on CUDA tensors and through its plain
-PyTorch twin on CPU tensors (``tpurt_torch.kernels.traverse``).
+Both of tpurt's Pallas kernels run as hand-written CUDA kernels on CUDA
+tensors and as their plain PyTorch versions on CPU tensors
+(``tpurt_torch.kernels``): BVH traversal (``csrc/traverse.cu``) and the
+gather probe (``csrc/gather_bench.cu``).
 """

@@ -1,10 +1,12 @@
-"""Command line for the ported path slice (counterpart of tpurt/cli.py).
+"""Command line for the ported slices (counterpart of tpurt/cli.py).
 
     python -m tpurt_torch.cli scene.pbrt --device cuda
 
-renders each scene with the path integrator and writes the image named by
-the scene's Film (or --outfile) through tpurt.io (EXR, PFM or PNG by
-extension).  The device is explicit: --device cuda (the default) raises
+renders each scene with its integrator and writes the image named by the
+scene's Film (or --outfile) through tpurt_torch.io (EXR, PFM or PNG by
+extension).  ``Integrator "rpf"`` runs the sampling pass, the RPF filter
+at box 7 and the splat, and writes the six feature EXRs beside the Film's
+filename.  The device is explicit: --device cuda (the default) raises
 when CUDA is absent; pass --device cpu to render on the CPU.
 """
 
@@ -18,7 +20,7 @@ import sys
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="tpurt_torch",
-        description="PyTorch/CUDA port of tpurt's path-render slice")
+        description="PyTorch/CUDA port of tpurt's path and RPF slices")
     ap.add_argument("scenes", nargs="*", help=".pbrt scene files")
     ap.add_argument("--outfile", "-o", help="override Film filename")
     ap.add_argument("--quick", action="store_true",
@@ -45,14 +47,21 @@ def main(argv=None) -> int:
     if args.spectrum != "rgb":
         raise NotImplementedError("--spectrum sampled")
 
-    from tpurt.io.image import write_image
+    from tpurt_torch.io.image import write_image
     from tpurt_torch.render.driver import load_scene, render
 
     for path in args.scenes:
         log.info("parsing %s", path)
         sd = load_scene(path)
-        img, job = render(sd, device=args.device, quick=args.quick,
-                          crop_override=args.cropwindow)
+        if sd.integrator_name == "rpf":
+            from tpurt_torch.rpf.driver import render_rpf
+
+            img, job, _extras = render_rpf(sd, device=args.device,
+                                           quick=args.quick,
+                                           crop_override=args.cropwindow)
+        else:
+            img, job = render(sd, device=args.device, quick=args.quick,
+                              crop_override=args.cropwindow)
         out = args.outfile or job.film.filename
         write_image(out, img)
         log.info("wrote %s (%dx%d)", out, img.shape[1], img.shape[0])

@@ -7,7 +7,17 @@ features outside this slice, so they have no counterpart here.
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import torch
+
+# Where the port builds what it compiles (the CUDA kernels, the native
+# SAH builder) and caches host tables: build/tpurt_torch/ at the
+# repository root, which .gitignore lists.
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "tpurt_torch"
+
+# Curve handling of the scene loader (tpurt's config.curve_mode default).
+CURVE_MODE = "raytrace"
 
 # Lanes per wavefront chunk: a frame of up to 2^20 camera paths runs whole,
 # larger frames in 2^20-lane chunks.  (tpurt's 2^18 was set by a TPU

@@ -11,93 +11,42 @@ Hopper and what its design does about it.
 ``traverse_wide`` is the entry point.  On a CPU tensor it runs
 ``traverse_wide_reference``, the lockstep twin of ``_wide_step_fns``; on a
 CUDA tensor it launches the kernel or raises.  The kernel library is built
-with nvcc from the sources in this checkout at first use, into
-``build/tpurt_torch/`` at the repository root, and bound with ctypes.
+by ``kernels.build`` (nvcc, from the sources in this checkout, at first
+use, into ``build/tpurt_torch/``) and bound with ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-from typing import NamedTuple
 
 import torch
 
-from tpurt.geom.wbvh import REC, SLOT_KIND, WIDTH
+from tpurt_torch.geom.wbvh import REC, SLOT_KIND, WIDTH
+from tpurt_torch.kernels import build
 from tpurt_torch.render.intersect import (
     _BOX_T_SCALE, CHILD_LO, INF, PRIM_LO, SORT8, _box8_test,
     _tri_bundle_test, safe_inv_dir)
 
-CSRC = Path(__file__).resolve().parents[1] / "csrc" / "traverse.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpurt_torch"
+SOURCE = "traverse.cu"
+# IEEE rounding of every op, in the twin's order: no FMA contraction
+EXTRA_FLAGS = ("-fmad=false",)
 # must equal TPURT_STACK_MAX in traverse.cu: the largest stack depth
 # DeviceGeometry.host_tables produces (the 192 cap rounded up to a power
 # of two)
 STACK_MAX = 256
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
-
-
-class KernelLibrary(NamedTuple):
-    cdll: ctypes.CDLL
-    path: str
-    build_s: float  # 0.0 when an identical build was already on disk
-    log: str  # nvcc/ptxas output of the build (registers, spills)
-
-
-def _nvcc() -> str:
-    cands = [os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc")
-             if os.environ.get("CUDA_HOME") else None,
-             shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
-    for c in cands:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> KernelLibrary:
-    """Build (once per source version) and load the kernel library."""
-    src = CSRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libtpurt_traverse-{tag}.so"
-    build_s, log = 0.0, ""
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.time()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(CSRC)], capture_output=True, text=True)
-        build_s = time.time() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    fn = lib.tpurt_traverse_wide
+def load_library() -> build.KernelLibrary:
+    """Build (once per source version) and bind the kernel library."""
+    lib = build.load_library(SOURCE, EXTRA_FLAGS)
+    fn = lib.cdll.tpurt_traverse_wide
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, ci, vp, vp, vp, ci, ci, ci, ctypes.c_float,
                    vp, vp, vp, vp, vp]
     fn.restype = ci
-    return KernelLibrary(lib, str(out), build_s, log)
-
-
-def _check(name, x, dtype, shape, device):
-    if x.device != device:
-        raise ValueError(f"{name} on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name} shape {tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
+    return lib
 
 
 def traverse_wide(geo, o, d, t_max, any_hit: bool):
@@ -112,10 +61,10 @@ def traverse_wide(geo, o, d, t_max, any_hit: bool):
     n = o.shape[0]
     dev = o.device
     m = geo.wnodes.shape[0]
-    _check("wnodes", geo.wnodes, torch.float32, (m, REC), dev)
-    _check("o", o, torch.float32, (n, 3), dev)
-    _check("d", d, torch.float32, (n, 3), dev)
-    _check("t_max", t_max, torch.float32, (n,), dev)
+    build.check_tensor("wnodes", geo.wnodes, torch.float32, (m, REC), dev)
+    build.check_tensor("o", o, torch.float32, (n, 3), dev)
+    build.check_tensor("d", d, torch.float32, (n, 3), dev)
+    build.check_tensor("t_max", t_max, torch.float32, (n,), dev)
     if geo.wstack_depth > STACK_MAX:
         raise ValueError(f"wstack_depth {geo.wstack_depth} exceeds the "
                          f"kernel's compiled maximum {STACK_MAX}")
@@ -127,14 +76,12 @@ def traverse_wide(geo, o, d, t_max, any_hit: bool):
         return t, prim, b0, b1
     lib = load_library().cdll
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tpurt_traverse_wide(
             geo.wnodes.data_ptr(), m, o.data_ptr(), d.data_ptr(),
             t_max.data_ptr(), n, geo.wstack_depth, int(bool(any_hit)),
             _BOX_T_SCALE, t.data_ptr(), prim.data_ptr(), b0.data_ptr(),
-            b1.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"traverse_wide_kernel launch failed: cudaError {err}")
+            b1.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    build.raise_on_error("traverse_wide_kernel", err)
     traverse_wide.launches += 1
     return t, prim, b0, b1
 
@@ -142,7 +89,7 @@ def traverse_wide(geo, o, d, t_max, any_hit: bool):
 traverse_wide.launches = 0
 
 
-def traverse_wide_reference(geo, o, d, t_max, any_hit: bool):
+def traverse_wide_reference(geo, o, d, t_max, any_hit: bool, stats=None):
     """Plain PyTorch twin of tpurt's ``_wide_step_fns`` traversal.
 
     Lockstep over the live lanes: each step gathers one record per lane,
@@ -152,7 +99,11 @@ def traverse_wide_reference(geo, o, d, t_max, any_hit: bool):
     the working set between steps (a boolean index), which changes no
     lane's result.  Stack slots at or past ``geo.wstack_depth`` are
     dropped on push and read as 0 on pop, exactly as tpurt's one-hot
-    stack behaves."""
+    stack behaves.
+
+    ``stats``, a dict, receives what the rays fetched: "leaf_steps" and
+    "interior_steps" (records read, by kind) and "records" (distinct
+    records read), the work a traversal of these rays has to do."""
     traverse_wide_reference.calls += 1
     dev = o.device
     n = o.shape[0]
@@ -167,10 +118,18 @@ def traverse_wide_reference(geo, o, d, t_max, any_hit: bool):
     sp = torch.zeros(n, dtype=torch.int64, device=dev)
     stack = torch.zeros((n, S), dtype=torch.int32, device=dev)
     live = torch.nonzero(cur >= 0).squeeze(1)
+    if stats is not None:
+        seen = torch.zeros(nodes.shape[0], dtype=torch.bool, device=dev)
+        stats.update(leaf_steps=0, interior_steps=0)
     while live.numel():
         rec = nodes[cur[live]]  # (m, 128): one record per live lane
         is_leaf = rec[:, SLOT_KIND] > 0
         m = live.numel()
+        if stats is not None:
+            seen[cur[live]] = True
+            n_leaf = int(is_leaf.sum())
+            stats["leaf_steps"] += n_leaf
+            stats["interior_steps"] += m - n_leaf
         descend = torch.zeros(m, dtype=torch.bool, device=dev)
         first = torch.zeros(m, dtype=torch.int64, device=dev)
 
@@ -236,6 +195,8 @@ def traverse_wide_reference(geo, o, d, t_max, any_hit: bool):
         sp[live] = torch.where(pop, sp_l - 1, sp_l)
         cur[live] = nxt
         live = live[nxt >= 0]
+    if stats is not None:
+        stats["records"] = int(seen.sum())
     return t_best, prim_best, b0_best, b1_best
 
 

@@ -15,8 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpurt.geom import transform as xf
-from tpurt.scene.paramset import ParamSet
+from tpurt_torch.geom import transform as xf
+from tpurt_torch.scene.paramset import ParamSet
 from tpurt_torch.render.sampling_warps import concentric_sample_disk, norm
 
 

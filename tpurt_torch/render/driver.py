@@ -1,6 +1,7 @@
 """Render driver: SceneDescription -> device tables -> bounce-compacted
 wavefront render (port of tpurt/render/driver.py: build_job restricted to
-the path slice, and the loop of _render_compact).
+the path and rpf slices, and the loop of _render_compact; the RPF passes
+live in tpurt_torch.rpf).
 
 Scene features outside the slice raise NotImplementedError naming the
 feature.  Between bounces the driver keeps the alive lanes with a boolean
@@ -19,15 +20,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from tpurt.render.geometry_build import flatten_geometry
-from tpurt.scene import load_scene  # noqa: F401  (the port's scene loader)
-from tpurt.scene.records import MaterialRecord, SceneDescription
 from tpurt_torch.config import WAVEFRONT_SIZE, resolve_device
 from tpurt_torch.kernels.traverse import traverse_wide
 from tpurt_torch.render.camera import (Camera, camera_from_tables,
                                        camera_tables)
 from tpurt_torch.render.film import Film, make_film
 from tpurt_torch.render.filters import make_filter
+from tpurt_torch.render.geometry_build import flatten_geometry
 from tpurt_torch.render.integrator import (IntegratorConfig, SceneData,
                                            path_bounce_init,
                                            path_bounce_step)
@@ -37,6 +36,8 @@ from tpurt_torch.render.materials_build import (build_material_table,
                                                 fuse_material_rows)
 from tpurt_torch.sampling.samplers import (HaltonSampler, halton_from_tables,
                                           halton_tables)
+from tpurt_torch.scene import load_scene  # noqa: F401  (re-exported)
+from tpurt_torch.scene.records import MaterialRecord, SceneDescription
 
 log = logging.getLogger("tpurt_torch.render")
 
@@ -67,7 +68,7 @@ class MaterialIndexer:
 
 def _check_slice(sd: SceneDescription) -> None:
     """Raise NotImplementedError for scene features outside the slice."""
-    if sd.integrator_name != "path":
+    if sd.integrator_name not in ("path", "rpf"):
         raise NotImplementedError(f'Integrator "{sd.integrator_name}"')
     if sd.sampler_name != "halton":
         raise NotImplementedError(f'Sampler "{sd.sampler_name}"')
@@ -133,7 +134,8 @@ def host_tables(sd: SceneDescription, quick: bool = False,
     cfg = IntegratorConfig(
         max_depth=ip.find_one_int("maxdepth", 5),
         rr_threshold=ip.find_one_float("rrthreshold", 1.0),
-        light_strategy=ip.find_one_string("lightsamplestrategy", "spatial"))
+        light_strategy=ip.find_one_string("lightsamplestrategy", "spatial"),
+        capture_features=sd.integrator_name == "rpf")
     if cfg.light_strategy not in ("spatial", "power", "uniform"):
         raise NotImplementedError(
             f'lightsamplestrategy "{cfg.light_strategy}"')
@@ -167,18 +169,24 @@ def build_job(sd: SceneDescription, device, quick: bool = False,
                            resolve_device(device))
 
 
-def render_job(job: RenderJob, traverse=None) -> np.ndarray:
-    """Render a built job; returns the (H, W, 3) float32 image.  traverse
-    defaults to the kernel wrapper (kernels.traverse.traverse_wide)."""
-    traverse = traverse or traverse_wide
-    film, cfg = job.film, job.cfg
+def trace_lanes(job: RenderJob, cfg: IntegratorConfig, traverse, bank
+                ) -> None:
+    """Run every (pixel, sample) lane of the film through the bounce loop.
+
+    Lanes are numbered in pixel-major order (lane = pixel * spp + sample,
+    pixels row-major over the crop) and run in chunks of WAVEFRONT_SIZE.
+    Between bounces the alive lanes are kept with a boolean index; the
+    state carries each lane's number as ``st["lane"]``, so finished lanes
+    can be put back in order.  ``bank(st, sel)`` receives each batch of
+    finished lanes: the lanes of ``st`` where the boolean mask ``sel`` is
+    set, or all of them when ``sel`` is None."""
+    film = job.film
     dev = job.scene.geo.device
     spp = job.sampler.spp
     x0, _, y0, _ = film.crop
     w = film.width
     total = film.width * film.height * spp
     chunk = min(total, WAVEFRONT_SIZE)
-    state = film.initial_state(dev)
     for start in range(0, total, chunk):
         ids = torch.arange(start, min(start + chunk, total), device=dev)
         pid = ids // spp
@@ -187,6 +195,7 @@ def render_job(job: RenderJob, traverse=None) -> np.ndarray:
         py = y0 + pid // w
         st = path_bounce_init(job.scene, job.sampler, job.camera, px, py,
                               sidx, cfg, traverse, crop_xy=(x0, y0))
+        st["lane"] = ids
         for bounce in range(cfg.max_depth + 1):
             alive = st["alive"]
             n_alive = int(alive.sum())
@@ -194,13 +203,25 @@ def render_job(job: RenderJob, traverse=None) -> np.ndarray:
                 break
             if n_alive < alive.shape[0]:
                 # bank the terminated lanes, keep the alive ones
-                dead = ~alive
-                film.add_samples(state, st["p_film_crop"][dead],
-                                 st["L"][dead], st["ray_w"][dead])
+                bank(st, ~alive)
                 st = {k: v[alive] for k, v in st.items()}
             st = path_bounce_step(job.scene, job.sampler, cfg, st, bounce,
                                   traverse)
-        film.add_samples(state, st["p_film_crop"], st["L"], st["ray_w"])
+        bank(st, None)
+
+
+def render_job(job: RenderJob, traverse=None) -> np.ndarray:
+    """Render a built job; returns the (H, W, 3) float32 image.  traverse
+    defaults to the kernel wrapper (kernels.traverse.traverse_wide)."""
+    film = job.film
+    state = film.initial_state(job.scene.geo.device)
+
+    def bank(st, sel):
+        pick = (lambda v: v) if sel is None else (lambda v: v[sel])
+        film.add_samples(state, pick(st["p_film_crop"]), pick(st["L"]),
+                         pick(st["ray_w"]))
+
+    trace_lanes(job, job.cfg, traverse or traverse_wide, bank)
     return film.to_image(state)
 
 

@@ -16,7 +16,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from tpurt.scene.paramset import ParamSet
+from tpurt_torch.scene.paramset import ParamSet
 from tpurt_torch.render.filters import Filter
 
 

@@ -6,7 +6,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from tpurt.scene.paramset import ParamSet
+from tpurt_torch.scene.paramset import ParamSet
 
 
 class Filter(NamedTuple):

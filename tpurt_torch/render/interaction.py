@@ -12,7 +12,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpurt.render.geometry_build import (
+from tpurt_torch.render.geometry_build import (
     FLAG_HAS_NORMALS,
     FLAG_HAS_UV,
     FLAG_REVERSE_ORIENTATION,

@@ -22,8 +22,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpurt.geom.wbvh import LEAF_K, WIDTH, build_wide_table
-from tpurt.render.geometry_build import PT_SPHERE, PT_TRIANGLE, GeometryArrays
+from tpurt_torch.geom.wbvh import LEAF_K, WIDTH, build_wide_table
+from tpurt_torch.render.geometry_build import PT_SPHERE, PT_TRIANGLE, GeometryArrays
 
 INF = float("inf")
 

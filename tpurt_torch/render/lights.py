@@ -19,8 +19,8 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
-from tpurt.render.geometry_build import PT_SPHERE, PT_TRIANGLE, GeometryArrays
-from tpurt.scene.records import LightRecord
+from tpurt_torch.render.geometry_build import PT_SPHERE, PT_TRIANGLE, GeometryArrays
+from tpurt_torch.scene.records import LightRecord
 from tpurt_torch.render.sampling_warps import (
     build_onb, cross, dot, norm, normalize, to_world, uniform_cone_pdf,
     uniform_sample_cone, uniform_sample_sphere, uniform_sample_triangle)

@@ -14,7 +14,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from tpurt.scene.records import MaterialRecord
+from tpurt_torch.scene.records import MaterialRecord
 from tpurt_torch.render.bsdf import LobeParams, roughness_to_alpha
 
 # columns of the constant-parameter table (tpurt's layout)

@@ -6,8 +6,8 @@ Sample values are pure functions of (pixel, sample index, dimension).
 The bounce loop is Python here, so every dimension is a Python int and the
 per-dimension scramble parameters are computed on the host, exactly as in
 tpurt's static-dimension branch.  Index math is int64 on the device.
-The pixel-to-index algebra comes from tpurt's jax-free
-``tpurt.sampling.lowdiscrepancy``; the PCG32 permutation tables of the
+The pixel-to-index algebra comes from the port's copy of tpurt's
+``sampling/lowdiscrepancy.py``; the PCG32 permutation tables of the
 ``pbrt`` scramble mode are never built here.
 """
 
@@ -18,7 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpurt.sampling import lowdiscrepancy as ld
+from tpurt_torch.sampling import lowdiscrepancy as ld
 
 ONE_MINUS_EPS = float(np.float32(1.0) - np.float32(2 ** -24))
 _M32 = 0xFFFFFFFF

@@ -10,6 +10,9 @@ Sizes:
   "full":  700x700, 8 spp, 2 x 33,024 triangles (~66k, the frame the
            JAX package's bench.py times with killeroo)
   "small": 32x32, 2 spp, 2 x 312 triangles (CPU tests)
+
+``integrator="rpf"`` gives the same scene through ``Integrator "rpf"``
+(sample.pbrt's structure: the frame bench.py times second).
 """
 
 from __future__ import annotations
@@ -61,8 +64,10 @@ def _mesh_text(v, idx) -> str:
 
 
 def standin_scene(size: str = "full", filename: str = "standin.exr",
-                  seed: int = 0) -> str:
-    """The stand-in scene as .pbrt text."""
+                  seed: int = 0, integrator: str = "path") -> str:
+    """The stand-in scene as .pbrt text; integrator is "path" or "rpf"."""
+    if integrator not in ("path", "rpf"):
+        raise ValueError(f"integrator {integrator!r}")
     cfg = SIZES[size]
     v, idx = blob_mesh(cfg["mesh_n"], seed)
     v = v * 1.6
@@ -72,7 +77,7 @@ def standin_scene(size: str = "full", filename: str = "standin.exr",
 LookAt 0 4.5 -15  0 2.2 0  0 1 0
 Camera "perspective" "float fov" [39]
 Sampler "halton" "integer pixelsamples" [{spp}]
-Integrator "path" "integer maxdepth" [5]
+Integrator "{integrator}" "integer maxdepth" [5]
 PixelFilter "box"
 Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]
   "string filename" "{filename}"
@@ -142,9 +147,9 @@ WorldEnd
 
 
 def write_standin(path: str, size: str = "full", filename: str = None,
-                  seed: int = 0) -> str:
+                  seed: int = 0, integrator: str = "path") -> str:
     """Write the stand-in scene to ``path``; returns ``path``."""
     with open(path, "w") as f:
         f.write(standin_scene(size, filename or path.rsplit(".", 1)[0]
-                              + ".exr", seed))
+                              + ".exr", seed, integrator))
     return path
