@@ -16,11 +16,19 @@ Phases (any failure exits non-zero; none is caught):
      shadow-like rays toward the light (closest-hit prim equal on
      >= 99.99% of lanes, t within rtol 1e-5 where both hit; any-hit
      occlusion equal on >= 99.99%), with both times and the work the
-     rays need (records fetched, by the twin) for the bound
+     rays need (counted by the twin: distinct records, present children,
+     non-pad triangles, sorts) for the bound; then the same on the
+     incoherent rays of the real frame: the bounce-2 rays and their shadow
+     rays, recorded from the integrator's second bounce step over 2^20
+     camera paths.  A kernel's "ms" is one launch between two CUDA events,
+     host enqueue included; "ms_burst" is per launch in bursts of 10, the
+     kernel's own time
   5. K2 against its plain version in float64 at the probe's sizes (16384
      x 128 f32 table, 8192 lanes, 128 rounds; max error <= 1e-6 of the
      column's sum of |rows|, the same sum on a second run), with the
-     kernel's, the plain version's and one PyTorch call's times
+     kernel's, the plain version's and one PyTorch call's times; then a
+     staged case (512-B rows through the cp.async ring) and a narrow-row
+     case (64-B rows, 8 lanes sharing a row) under the same two checks
   6. main path A: the CLI renders the full path frame on the card and
      writes the EXR; K1 must have launched and the plain traversal must
      not have run; then one warm-up and 3 timed renders
@@ -31,7 +39,8 @@ Phases (any failure exits non-zero; none is caught):
      warm-up and 3 timed frames (sampling, filter, splat, total, peak
      memory)
   8. the gather probe's entry point (python -m tpurt_torch.kernels.
-     gather_bench): K2 must have launched
+     gather_bench): K2 must have launched; it prints the layout sweep
+     (row width x fetch variant x access pattern)
   9. cross-checks: a 64x64 crop rendered with K1 and with the plain
      traversal (mean |diff| < 1e-4 of the image mean), and the small path
      and RPF stand-ins rendered on the card and on the CPU (means within
@@ -58,12 +67,19 @@ LANES = 1 << 20
 # published H100 SXM peaks (NVIDIA data sheet) for the bounds
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
-# float32 operations of the twin's arithmetic per record a ray reads: an
-# interior record is 8 slab tests (28 each) + the 19-comparator sort (3
-# each); a leaf is 12 watertight triangle tests (52 each) + the
-# closest-of-12 pick
-K1_OPS_INTERIOR = 8 * 28 + 19 * 3
-K1_OPS_LEAF = 12 * 52 + 12
+# float32 operations of the twin's arithmetic that a traversal cannot do
+# without: a slab test of a present child box, a watertight test of a
+# non-pad triangle with its share of the closest-of-12 pick, and the
+# 19-comparator sort (3 each) where two or more children are hit
+K1_OPS_CHILD = 28
+K1_OPS_TRIANGLE = 52 + 1
+K1_OPS_SORT = 19 * 3
+# live bytes of a record in the kernel's tables: an interior row's 48
+# bounds + 8 references, a leaf's 108 vertex floats, and its 12 prim rows,
+# which are read only where a hit is found
+K1_BYTES_INTERIOR = 56 * 4
+K1_BYTES_LEAF = 108 * 4
+K1_BYTES_PRIMS = 12 * 4
 
 
 def bound(nbytes: float, ops: float):
@@ -80,9 +96,13 @@ def gpu_line() -> str:
     return out.splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 5):
+def cuda_ms(fn, reps: int = 5, burst: int = 1):
     """Median milliseconds of fn() over reps runs after one warm-up,
-    synchronised around each run."""
+    synchronised around each run.  With burst > 1 a run is that many
+    calls enqueued back to back between one pair of events, and the time
+    is per call: a kernel's own time, where one call between two events
+    also counts the host's time to enqueue it, which for a sub-millisecond
+    kernel is a large share."""
     fn()
     times = []
     for _ in range(reps):
@@ -90,10 +110,11 @@ def cuda_ms(fn, reps: int = 5):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(burst):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / burst)
     return statistics.median(times)
 
 
@@ -132,34 +153,103 @@ def phase_scene(size: str = "full", integrator: str = "path"):
                          integrator=integrator)
 
 
-def phase_kernel(job):
-    """Kernel against its plain version at the main path's shapes."""
-    from tpurt_torch.kernels.traverse import (traverse_wide,
-                                              traverse_wide_reference)
-    from tpurt_torch.render.integrator import _camera_setup
+def frame_ray_sets(job):
+    """The rays K1 gets in the real frame, as its wrapper receives them:
+    "primary" (2^20 camera rays spread over the frame), and "bounce" /
+    "shadow", the closest-hit and any-hit calls of the integrator's second
+    bounce step (the rays that leave the second surface hit), recorded
+    from path_bounce_init + two path_bounce_step calls with the wavefront
+    loop's compaction between them.  Each set is (o, d, t_max, any_hit)."""
+    from tpurt_torch.kernels.traverse import traverse_wide
+    from tpurt_torch.render.integrator import (path_bounce_init,
+                                               path_bounce_step)
 
-    geo = job.scene.geo
-    dev = geo.device
+    dev = job.scene.geo.device
     film, spp = job.film, job.sampler.spp
     total = film.width * film.height * spp
     ids = torch.arange(LANES, device=dev) * total // LANES  # whole frame
     pid = ids // spp
     px = (pid % film.width).to(torch.int64)
     py = (pid // film.width).to(torch.int64)
-    _, _, o, d, _, _ = _camera_setup(job.sampler, job.camera, px, py,
-                                     ids % spp, (0, 0))
-    o, d = o.contiguous(), d.contiguous()
-    tm = torch.full((LANES,), float("inf"), device=dev)
+    calls = []
+
+    def recording(geo, o, d, t_max, any_hit):
+        calls.append((o, d, t_max, any_hit))
+        return traverse_wide(geo, o, d, t_max, any_hit)
+
+    st = path_bounce_init(job.scene, job.sampler, job.camera, px, py,
+                          ids % spp, job.cfg, recording)
+    for bounce in range(2):
+        st = {k: v[st["alive"]] for k, v in st.items()}
+        st = path_bounce_step(job.scene, job.sampler, job.cfg, st, bounce,
+                              recording)
+    torch.cuda.synchronize()
+    assert [c[3] for c in calls] == [False, True, False, True, False]
+    return dict(primary=calls[0], shadow=calls[3], bounce=calls[4])
+
+
+def k1_work(geo, rays):
+    """(bound_ms, bound_by, text): the least time for these rays.  The
+    work is counted by the twin from what this run's rays need: each
+    distinct record's live bytes read once (prim rows only of leaves in
+    which a hit was found), the rays in and the hits out once; the twin's
+    arithmetic on the present children and non-pad triangles of every
+    record read, and a sort only where two or more children were hit."""
+    from tpurt_torch.kernels.traverse import traverse_wide_reference
+
+    o, d, tm, any_hit = rays
+    w = {}
+    traverse_wide_reference(geo, o, d, tm, any_hit=any_hit, stats=w)
+    n = o.shape[0]
+    nbytes = (w["interior_records"] * K1_BYTES_INTERIOR
+              + w["leaf_records"] * K1_BYTES_LEAF
+              + w["hit_leaves"] * K1_BYTES_PRIMS + n * (7 * 4 + 4 * 4))
+    ops = (w["children"] * K1_OPS_CHILD + w["triangles"] * K1_OPS_TRIANGLE
+           + w["sorts"] * K1_OPS_SORT)
+    b_ms, o_ms = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
+    bound_ms, bound_by = bound(nbytes, ops)
+    steps = w["interior_steps"] + w["leaf_steps"]
+    return bound_ms, bound_by, (
+        f"{n} rays: {w['interior_steps']} interior + {w['leaf_steps']} leaf "
+        f"steps ({steps / n:.2f} a ray) on {w['interior_records']} + "
+        f"{w['leaf_records']} distinct records ({w['hit_leaves']} leaves "
+        f"with a hit); {w['children']} children "
+        f"({w['children'] / max(w['interior_steps'], 1):.2f} a record), "
+        f"{w['sorts']} sorts, {w['triangles']} triangles "
+        f"({w['triangles'] / max(w['leaf_steps'], 1):.2f} a leaf); "
+        f"{nbytes / 1e6:.2f} MB ({b_ms:.4f} ms), {ops / 1e9:.3f} Gop "
+        f"({o_ms:.4f} ms); bound {bound_ms:.4f} ms ({bound_by})")
+
+
+def k1_agreement(ref, ker, any_hit):
+    """Kernel against plain version on one ray set: (share of lanes with
+    equal prim or equal occlusion, share of common hits with t within rtol
+    1e-5, max |dt| over them)."""
+    if any_hit:
+        agree = ((ref[1] >= 0) == (ker[1] >= 0)).float().mean().item()
+        return agree, 1.0, 0.0
+    both = (ref[1] >= 0) & (ker[1] >= 0)
+    agree = (ref[1] == ker[1]).float().mean().item()
+    if not both.any():
+        return agree, 1.0, 0.0
+    dt = (ref[0] - ker[0]).abs()[both]
+    t_ok = (dt / ref[0].abs()[both] <= 1e-5).float().mean().item()
+    return agree, t_ok, dt.max().item()
+
+
+def phase_kernel(job):
+    """Kernel against its plain version at the main path's shapes."""
+    from tpurt_torch.kernels.traverse import (traverse_wide,
+                                              traverse_wide_reference)
+
+    geo = job.scene.geo
+    sets = frame_ray_sets(job)
+    o, d, tm, _ = sets["primary"]
 
     ref = traverse_wide_reference(geo, o, d, tm, any_hit=False)
     ker = traverse_wide(geo, o, d, tm, any_hit=False)
     torch.cuda.synchronize()
-    same = (ref[1] == ker[1])
-    both = (ref[1] >= 0) & (ker[1] >= 0)
-    rel = ((ref[0] - ker[0]).abs() / ref[0].abs())[both]
-    closest_agree = same.float().mean().item()
-    t_ok = (rel <= 1e-5).float().mean().item() if both.any() else 1.0
-    t_err = (ref[0] - ker[0]).abs()[both].max().item() if both.any() else 0.0
+    closest_agree, t_ok, t_err = k1_agreement(ref, ker, False)
 
     # shadow-like rays: from the primary hits toward the area light
     lt = job.scene.lights
@@ -175,26 +265,18 @@ def phase_kernel(job):
     ref_a = traverse_wide_reference(geo, o_sh, d_sh, t_sh, any_hit=True)
     ker_a = traverse_wide(geo, o_sh, d_sh, t_sh, any_hit=True)
     torch.cuda.synchronize()
-    any_agree = ((ref_a[1] >= 0) == (ker_a[1] >= 0)).float().mean().item()
+    any_agree = k1_agreement(ref_a, ker_a, True)[0]
 
-    # the work these rays need, counted by the twin: each distinct record
-    # read once, the rays in and the hits out once; the twin's arithmetic
-    # per record read
-    work = {}
-    traverse_wide_reference(geo, o, d, tm, any_hit=False, stats=work)
-    nbytes = work["records"] * 512 + LANES * (7 * 4 + 4 * 4)
-    ops = (work["interior_steps"] * K1_OPS_INTERIOR
-           + work["leaf_steps"] * K1_OPS_LEAF)
-    bound_ms, bound_by = bound(nbytes, ops)
-    print(f"K1 work @ {LANES} rays: {work['records']} distinct records, "
-          f"{work['interior_steps']} interior + {work['leaf_steps']} leaf "
-          f"steps; {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} Gop; bound "
-          f"{bound_ms:.4f} ms ({bound_by})")
+    bound_ms, bound_by, text = k1_work(geo, sets["primary"])
+    print(f"K1 work @ primary {text}")
 
     ms = cuda_ms(lambda: traverse_wide(geo, o, d, tm, any_hit=False))
+    ms_burst = cuda_ms(lambda: traverse_wide(geo, o, d, tm, any_hit=False),
+                       burst=10)
     plain_ms = cuda_ms(lambda: traverse_wide_reference(geo, o, d, tm,
                                                        any_hit=False))
-    ms_a = cuda_ms(lambda: traverse_wide(geo, o_sh, d_sh, t_sh, any_hit=True))
+    ms_a = cuda_ms(lambda: traverse_wide(geo, o_sh, d_sh, t_sh, any_hit=True),
+                   burst=10)
     plain_ms_a = cuda_ms(lambda: traverse_wide_reference(
         geo, o_sh, d_sh, t_sh, any_hit=True))
     print(f"kernel vs plain @ {LANES} lanes: closest prim agree "
@@ -202,13 +284,43 @@ def phase_kernel(job):
           f"t within rtol 1e-5 {t_ok:.6f}, max |dt| {t_err:.3e}; "
           f"any-hit occlusion agree {any_agree:.6f} "
           f"(occluded {(ker_a[1] >= 0).float().mean().item():.3f})")
-    print(f"traversal ms @ {LANES} lanes: closest kernel {ms:.3f} plain "
-          f"{plain_ms:.3f}; any-hit kernel {ms_a:.3f} plain {plain_ms_a:.3f}")
+    print(f"traversal ms @ {LANES} lanes: closest kernel {ms:.4f} (one "
+          f"launch between two events, host enqueue included; {ms_burst:.4f} "
+          f"per launch in bursts of 10) plain {plain_ms:.3f}; any-hit "
+          f"kernel {ms_a:.4f} (bursts) plain {plain_ms_a:.3f}")
     assert closest_agree >= 0.9999, closest_agree
     assert t_ok >= 0.9999, t_ok
     assert any_agree >= 0.9999, any_agree
-    return dict(max_abs_err=t_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    out = dict(max_abs_err=t_err, ms=ms, ms_burst=ms_burst,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=None)
+
+    # the frame's incoherent rays: bounce 2 (closest) and its shadow rays
+    for name in ("bounce", "shadow"):
+        o_i, d_i, t_i, any_hit = sets[name]
+        ref_i = traverse_wide_reference(geo, o_i, d_i, t_i, any_hit=any_hit)
+        ker_i = traverse_wide(geo, o_i, d_i, t_i, any_hit=any_hit)
+        torch.cuda.synchronize()
+        agree, t_ok_i, t_err_i = k1_agreement(ref_i, ker_i, any_hit)
+        b_ms, b_by, text = k1_work(geo, sets[name])
+        ms_i = cuda_ms(lambda: traverse_wide(geo, o_i, d_i, t_i,
+                                             any_hit=any_hit))
+        burst_i = cuda_ms(lambda: traverse_wide(geo, o_i, d_i, t_i,
+                                                any_hit=any_hit), burst=10)
+        plain_i = cuda_ms(lambda: traverse_wide_reference(
+            geo, o_i, d_i, t_i, any_hit=any_hit), reps=3)
+        print(f"K1 work @ {name} {text}")
+        print(f"kernel vs plain @ {name} rays ({'any-hit' if any_hit else 'closest'}"
+              f"): agree {agree:.6f}, t within rtol 1e-5 {t_ok_i:.6f}, max "
+              f"|dt| {t_err_i:.3e}; kernel {ms_i:.4f} ms one launch, "
+              f"{burst_i:.4f} ms in bursts, plain {plain_i:.3f} ms"
+              f" (hits {(ker_i[1] >= 0).float().mean().item():.3f})")
+        assert agree >= 0.9999 and t_ok_i >= 0.9999, (name, agree, t_ok_i)
+        out.update({f"{name}_rays": o_i.shape[0], f"ms_{name}": ms_i,
+                    f"ms_burst_{name}": burst_i,
+                    f"plain_ms_{name}": plain_i, f"bound_ms_{name}": b_ms,
+                    f"bound_by_{name}": b_by})
+    return out
 
 
 def phase_gather(gpu: str):
@@ -231,6 +343,7 @@ def phase_gather(gpu: str):
                - exact).abs().max().item()
     n = gb.B * gb.R
     ms = cuda_ms(lambda: gb.gather_rows_sum(idx, table, gb.R))
+    ms_burst = cuda_ms(lambda: gb.gather_rows_sum(idx, table, gb.R), burst=10)
     plain_ms = cuda_ms(lambda: gb.gather_rows_sum_reference(idx, table,
                                                             gb.R))
     library_ms = cuda_ms(lambda: gb.library_gather_sum(rows, table))
@@ -243,15 +356,30 @@ def phase_gather(gpu: str):
           f"{max_err:.3e} ({worst:.3e} of the sum of |rows|), second run "
           f"equal {torch.equal(got, again)}; library max |err| "
           f"{lib_err:.3e}")
-    print(f"K2 ms: kernel {ms:.4f} ({ms * 1e6 / n:.4f} ns/row), plain "
+    print(f"K2 ms: kernel {ms:.4f} one launch, {ms_burst:.4f} in bursts of "
+          f"10 ({ms_burst * 1e6 / n:.4f} ns/row), plain "
           f"{plain_ms:.4f} ({plain_ms * 1e6 / n:.4f} ns/row), library "
           f"embedding_bag {library_ms:.4f} ({library_ms * 1e6 / n:.4f} "
           f"ns/row); bound {bound_ms:.4f} ms ({bound_by}: {distinct} "
           f"distinct rows, {n} row reads) on {gpu}")
     assert worst <= 1e-6, worst
     assert torch.equal(got, again)
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    # one staged and one narrow-row case, under the same two checks
+    # (sweep_case raises past 1e-6 of the sum of |rows|)
+    for width, variant, group in ((gb.REC, "cp_async", 1), (16, "direct", 8)):
+        tab = table[:, :width].contiguous()
+        c = gb.sweep_case(idx, table, width, variant, group, reps=5)
+        plain_c = cuda_ms(lambda: gb.gather_rows_sum_reference(
+            idx, tab, gb.R, group=group))
+        rerun = torch.equal(gb.gather_rows_sum(idx, tab, gb.R, variant, group),
+                            gb.gather_rows_sum(idx, tab, gb.R, variant, group))
+        print(f"K2 {c['row_bytes']} B {variant} group {group}: "
+              f"{c['rel_err']:.3e} of the sum of |rows|, second run equal "
+              f"{rerun}; kernel {c['ms']:.4f} ms ({c['ns_per_row']:.4f} "
+              f"ns/row), plain {plain_c:.4f} ms")
+        assert rerun
+    return dict(max_abs_err=max_err, ms=ms, ms_burst=ms_burst,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
 def phase_main(scene_path: str, gpu: str):
@@ -363,11 +491,16 @@ def phase_probe():
     from tpurt_torch.kernels import gather_bench as gb
 
     gb.gather_rows_sum.launches = 0
-    assert gb.main() == 0
+    assert gb.main([]) == 0
     launches = gb.gather_rows_sum.launches
     print(f"probe entry point: gather kernel launches {launches}")
     assert launches > 0
-    return launches
+    wide = [c for c in gb.LAST_SWEEP if c["row_bytes"] == gb.REC * 4
+            and c["group"] == 1]
+    best = max(wide, key=lambda c: c["l2_gb_s"])
+    return launches, dict(l2_bytes=gb.B * gb.R * gb.REC * 4,
+                          l2_gb_s=best["l2_gb_s"],
+                          l2_best_variant=best["variant"])
 
 
 def _close(g, h, what):
@@ -447,11 +580,20 @@ def main(argv=None) -> int:
           f"{g.wnodes.shape[0]} rows ({g.wnodes.numel() * 4 / 1e6:.1f} MB), "
           f"wstack_depth {g.wstack_depth}, {job.film.width}x"
           f"{job.film.height} {job.sampler.spp} spp")
+    kids = (~torch.isnan(g.inodes[:, :8])).sum(1)
+    fill = (~torch.isnan(g.leaves[:, :12])).sum(1)
+    print(f"traversal tables: {g.inodes.shape[0]} interior rows of "
+          f"{g.inodes.shape[1] * 4} B ({g.inodes.numel() * 4 / 1e6:.2f} MB), "
+          f"{g.leaves.shape[0]} leaf rows of {g.leaves.shape[1] * 4} B "
+          f"({g.leaves.numel() * 4 / 1e6:.2f} MB); children a record "
+          f"{kids.float().mean().item():.2f} (none in the upper four: "
+          f"{(kids <= 4).float().mean().item():.3f}), triangles a leaf "
+          f"{fill.float().mean().item():.2f} of 12")
     k1 = phase_kernel(job)
     k2 = phase_gather(gpu)
     job, launches_a, render_s = phase_main(full, gpu)
     launches_b, rpf_job, rpf_total_s = phase_rpf(full_rpf, gpu)
-    launches_probe = phase_probe()
+    launches_probe, k2_l2 = phase_probe()
     phase_cross(full, small, small_rpf)
     if "--profile" in argv:
         from tpurt_torch.render.driver import render_job
@@ -471,7 +613,8 @@ def main(argv=None) -> int:
              source="tpurt_torch/csrc/gather_bench.cu",
              replaces="tpurt/kernels/gather_bench.py:24",
              launches=launches_probe,
-             launches_by_path={"gather_probe": launches_probe}, **k2)]}))
+             launches_by_path={"gather_probe": launches_probe}, **k2,
+             **k2_l2)]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,7 @@ same sum with ``jnp.take``.  Importing tpurt's module runs its probe loop
 """
 
 import numpy as np
+import pytest
 import torch
 
 from tpurt_torch.kernels import gather_bench as gb
@@ -34,6 +35,32 @@ def test_plain_gather_rows_sum_matches_tpurt_run_xla():
     for x in (got.numpy(), want):
         assert (np.abs(x - exact) <= 1e-7 * abs_sum).all()
     assert (np.abs(got.numpy() - want) <= 1e-7 * abs_sum).all()
+
+
+@pytest.mark.parametrize("group", [1, 8])
+@pytest.mark.parametrize("width", gb.WIDTHS)
+def test_plain_widths_and_patterns_match_float64_numpy(width, group):
+    """Every row width and access pattern of the sweep, through the
+    wrapper on the CPU, against a float64 numpy sum of the same rows
+    (float32 sums of 4,000 rows: 1e-6 of the column's sum of |rows|)."""
+    rng = np.random.default_rng(width + group)
+    m, b, rounds = 257, 200, 20
+    idx = rng.integers(0, m, b).astype(np.int32)
+    table = rng.normal(size=(m, width)).astype(np.float32)
+    lanes = idx[np.arange(b) // group * group].astype(np.int64)
+    rows = np.concatenate([(lanes + r * gb.STRIDE) % m for r in range(rounds)])
+    want = table.astype(np.float64)[rows].sum(0)
+    scale = np.abs(table).astype(np.float64)[rows].sum(0)
+    np.testing.assert_array_equal(
+        gb.row_indices(torch.as_tensor(idx), m, rounds, group).numpy(), rows)
+    for variant in gb.VARIANTS:  # one function, whatever the fetch
+        got = gb.gather_rows_sum(torch.as_tensor(idx), torch.as_tensor(table),
+                                 rounds, variant, group)
+        assert got.shape == (1, width) and got.dtype == torch.float32
+        assert (np.abs(got.numpy()[0] - want) <= 1e-6 * scale).all()
+    with pytest.raises(ValueError):
+        gb.gather_rows_sum(torch.as_tensor(idx), torch.as_tensor(table),
+                           rounds, "staged", group)
 
 
 def test_row_indices_and_library_sum_are_the_same_function():

@@ -27,17 +27,18 @@ def _need_cuda():
         pytest.skip("needs a CUDA device")
 
 
-def _check(idx, table, rounds):
+def _check(idx, table, rounds, variant="direct", group=1):
     launches = gb.gather_rows_sum.launches
-    got = gb.gather_rows_sum(idx, table, rounds)
+    got = gb.gather_rows_sum(idx, table, rounds, variant, group)
     torch.cuda.synchronize()
     assert gb.gather_rows_sum.launches == launches + 1
     exact = gb.gather_rows_sum_reference(idx, table, rounds,
-                                         dtype=torch.float64)
+                                         dtype=torch.float64, group=group)
     abs_sum = gb.gather_rows_sum_reference(idx, table.abs(), rounds,
-                                           dtype=torch.float64)
+                                           dtype=torch.float64, group=group)
     err = (got.double() - exact).abs()
-    assert got.shape == (1, gb.REC) and bool((err <= 1e-6 * abs_sum).all())
+    assert got.shape == (1, table.shape[1])
+    assert bool((err <= 1e-6 * abs_sum).all())
     return got
 
 
@@ -61,13 +62,30 @@ def test_kernel_matches_plain_at_other_shapes(m, b, rounds):
     _check(idx, table, rounds)
 
 
+@pytest.mark.parametrize("group", [1, 8])
+@pytest.mark.parametrize("variant", sorted(gb.VARIANTS))
+@pytest.mark.parametrize("width", gb.WIDTHS)
+def test_kernel_widths_variants_patterns(width, variant, group):
+    """Narrow rows and the staged fetches at the probe's sizes, and at a
+    ragged size whose last chunk and last ring stages are partly empty."""
+    _need_cuda()
+    idx, table = gb.probe_inputs("cuda")
+    tab = table[:, :width].contiguous()
+    a = _check(idx, tab, gb.R, variant, group)
+    assert torch.equal(a, gb.gather_rows_sum(idx, tab, gb.R, variant, group))
+    _check(idx[:1001].contiguous(), tab[:777].contiguous(), 3, variant, group)
+    _check(idx[:5].contiguous(), tab, 1, variant, group)
+
+
 def test_wrapper_rejects_bad_inputs():
     _need_cuda()
     idx, table = gb.probe_inputs("cuda")
     with pytest.raises(TypeError):
         gb.gather_rows_sum(idx.long(), table, 2)
     with pytest.raises(ValueError):
-        gb.gather_rows_sum(idx, table[:, :64].contiguous(), 2)
+        gb.gather_rows_sum(idx, table[:, :48].contiguous(), 2)
+    with pytest.raises(ValueError):
+        gb.gather_rows_sum(idx, table, 2, variant="staged")
     with pytest.raises(ValueError):
         gb.gather_rows_sum(idx.cpu(), table, 2)
     with pytest.raises(ValueError):

@@ -8,6 +8,14 @@ while-loop traversal XLA's CPU backend contracts a*b+c into FMAs (the port
 never does), which is the reason for the atol on traversal t values:
 four ulp of the scenes' largest coordinate (10), where a contracted edge
 function rounds differently.
+
+Both packages have two SAH builders, the C++ one (built with g++ at first
+use) and a numpy fallback.  They give the same tree shape, but the C++ one
+stores every node box one float wider (``nextafterf`` outward on each
+bound) while the fallback stores the exact float32 bounds, and primitives
+with identical boxes may land in each other's leaves (the C++ partition
+is not stable).  The bit-for-bit table test therefore makes the port
+build with the same one of the two as tpurt did.
 """
 
 import re
@@ -23,7 +31,10 @@ from tpurt.render import intersect as tix
 from tpurt.render.driver import build_job as tpurt_build_job
 from tpurt.render.geometry_build import PT_SPHERE
 from tpurt.scene import load_scene_string as tpurt_load_scene_string
+import tpurt.native as tpurt_native
+import tpurt_torch.native as port_native
 from tpurt_torch.convert import scene_from_tpurt
+from tpurt_torch.geom.bvh import build_bvh
 from tpurt_torch.kernels import build as kbuild
 from tpurt_torch.kernels import traverse as ktr
 from tpurt_torch.render import intersect as pix
@@ -79,11 +90,158 @@ def _assert_same_tables(a, b, path="tables"):
         assert a == b, path
 
 
+def _fallback_widened(lo, hi, max_leaf=1):
+    """The C++ builder's result from the numpy builder: the same tree with
+    every bound moved one float outward (build_bvh_native's signature)."""
+    b = build_bvh(lo, hi, max_leaf, use_native=False)
+    return (np.nextafter(b.bounds_lo, np.float32(-np.inf)),
+            np.nextafter(b.bounds_hi, np.float32(np.inf)), b.right_child,
+            b.prim_offset, b.n_prims, b.axis, b.prim_order)
+
+
+def _build_like_tpurt(monkeypatch):
+    """Make the port's SAH build use the same kind of builder as tpurt's
+    did for its jobs (its library is loaded once a process; reading it
+    changes nothing)."""
+    if tpurt_native.get_lib() is None:
+        monkeypatch.setattr(port_native, "build_bvh_native",
+                            lambda *a, **k: None)
+    elif port_native.get_lib() is None:
+        pytest.skip("tpurt built with its C++ builder and the port has "
+                    "none (no g++ now): nothing of the port's to compare")
+
+
 @pytest.mark.parametrize("name", ["kernels", "mesh", "standin"])
-def test_scene_from_tpurt_tables_equal_port_build(scenes, name):
+def test_scene_from_tpurt_tables_equal_port_build(scenes, name, monkeypatch):
     text, job, _ = scenes[name]
+    _build_like_tpurt(monkeypatch)
     _assert_same_tables(scene_from_tpurt(job),
                         host_tables(load_scene_string(text)))
+
+
+def test_port_sah_builders_agree_within_one_ulp(monkeypatch):
+    """The port's C++ builder against its numpy fallback on the mesh
+    scene: every table equal bit for bit once the fallback's boxes are
+    widened by one float, so the two differ in the boxes only and by one
+    ulp."""
+    if port_native.get_lib() is None:
+        pytest.skip("needs g++ (the port's native builder)")
+    sd = load_scene_string(mixed_scene())
+    native = host_tables(sd)
+    with monkeypatch.context() as mp:
+        mp.setattr(port_native, "build_bvh_native", _fallback_widened)
+        _assert_same_tables(native, host_tables(sd))
+    monkeypatch.setattr(port_native, "build_bvh_native", lambda *a, **k: None)
+    fallback = host_tables(sd)
+    a, b = native["geo"].pop("wnodes"), fallback["geo"].pop("wnodes")
+    _assert_same_tables(native, fallback)
+    interior = a[:, SLOT_KIND] == 0
+    assert interior.any() and (~interior).any()
+    boxes = np.zeros(a.shape, bool)
+    boxes[interior, :6 * WIDTH] = True
+    assert a[~boxes].tobytes() == b[~boxes].tobytes()  # topology, leaves
+    lo, hi = a[interior, :3 * WIDTH], a[interior, 3 * WIDTH:6 * WIDTH]
+    flo, fhi = b[interior, :3 * WIDTH], b[interior, 3 * WIDTH:6 * WIDTH]
+    np.testing.assert_array_equal(np.isnan(lo), np.isnan(flo))
+    ok = ~np.isnan(lo)
+    np.testing.assert_array_equal(
+        lo[ok], np.nextafter(flo[ok], np.float32(-np.inf)))
+    np.testing.assert_array_equal(
+        hi[ok], np.nextafter(fhi[ok], np.float32(np.inf)))
+
+
+@pytest.mark.parametrize("name", ["kernels", "mesh", "standin"])
+def test_traversal_tables_hold_the_reachable_records(scenes, name):
+    """The tables the CUDA kernel reads hold exactly the records reachable
+    from row 0 of the host table, split by kind, and the uploaded geometry
+    carries them."""
+    _, _, pjob = scenes[name]
+    geo = pjob.scene.geo
+    wn = geo.wnodes.numpy()
+    tab = pix.derive_traversal_tables(wn)
+    irow, lrow = tab["irow"], tab["lrow"]
+    # an independent walk of the host table from row 0
+    seen, todo = set(), [0]
+    while todo:
+        row = todo.pop()
+        seen.add(row)
+        if wn[row, SLOT_KIND] == 0:
+            kids = wn[row, 6 * WIDTH:7 * WIDTH].view(np.int32)
+            todo += [int(k) for k, x in zip(kids, wn[row, :WIDTH])
+                     if not np.isnan(x)]
+    assert len(seen) == len(irow) + len(lrow)
+    assert seen == set(irow.tolist()) | set(lrow.tolist())
+    assert (wn[irow, SLOT_KIND] == 0).all() and (wn[lrow, SLOT_KIND] > 0).all()
+    assert tab["inodes"].shape == (max(len(irow), 1), pix.INTERIOR_REC)
+    assert tab["leaves"].shape == (max(len(lrow), 1), REC)
+    assert geo.root_ref == tab["root_ref"]
+    assert geo.inodes.numpy().tobytes() == tab["inodes"].tobytes()
+    assert geo.leaves.numpy().tobytes() == tab["leaves"].tobytes()
+
+
+@pytest.mark.parametrize("name", ["kernels", "mesh", "standin"])
+def test_traversal_tables_decode_back_to_wnodes(scenes, name):
+    """The derived tables decode back to the host records: boxes, vertices
+    and prim rows bit for bit, and every rewritten child reference leads
+    to the child's row."""
+    _, _, pjob = scenes[name]
+    wn = pjob.scene.geo.wnodes.numpy()
+    tab = pix.derive_traversal_tables(wn)
+    inodes, leaves = tab["inodes"], tab["leaves"]
+    irow, lrow = tab["irow"], tab["lrow"]
+    # leaves: the records as they are; interior: the 48 bounds
+    assert leaves[:len(lrow)].tobytes() == wn[lrow].tobytes()
+    assert (inodes[:len(irow), :6 * WIDTH].tobytes()
+            == wn[irow, :6 * WIDTH].tobytes())
+    # child references: 2 * packed row + kind, 0 where the child is absent
+    ref = np.ascontiguousarray(
+        inodes[:len(irow), 6 * WIDTH:7 * WIDTH]).view(np.int32)
+    host = np.ascontiguousarray(wn[irow, 6 * WIDTH:7 * WIDTH]).view(np.int32)
+    there = ~np.isnan(wn[irow, :WIDTH])
+    back = np.where(ref & 1, lrow[np.minimum(ref >> 1, len(lrow) - 1)],
+                    irow[np.minimum(ref >> 1, max(len(irow) - 1, 0))]
+                    if len(irow) else 0)
+    np.testing.assert_array_equal(back[there], host[there])
+    assert not ref[~there].any()
+    root = tab["root_ref"]
+    assert (lrow if root & 1 else irow)[root >> 1] == 0
+
+
+def test_traverse_twin_stack_overflow_stops_at_the_step_guard(scenes):
+    """With fewer stack slots than the tree needs, dropped pushes read back
+    as row 0 and a lane could restart at the root for ever; the twin stops
+    every lane after one step per table row plus one, as the kernel does,
+    and lanes that never overflow keep their results."""
+    import dataclasses
+
+    _, _, pjob = scenes["standin"]  # the smallest table with a deep tree
+    geo = pjob.scene.geo
+    rng = np.random.default_rng(9)
+    n = 64
+    o, d = (torch.as_tensor(x) for x in _rays(rng, n,
+                                              aim=np.array([0.0, 1.0, 0.0])))
+    tm = torch.full((n,), np.inf)
+    full = ktr.traverse_wide_reference(geo, o, d, tm, any_hit=False)
+    small = dataclasses.replace(geo, wstack_depth=1)
+    work = {}
+    cut = ktr.traverse_wide_reference(small, o, d, tm, any_hit=False,
+                                      stats=work)
+    steps = work["leaf_steps"] + work["interior_steps"]
+    assert steps <= n * (geo.wnodes.shape[0] + 1)
+    # the work counters: at most 8 children and one sort an interior read,
+    # 12 triangles a leaf read, every record a row of the table
+    assert 0 < work["children"] <= WIDTH * work["interior_steps"]
+    assert 0 < work["triangles"] <= LEAF_K * work["leaf_steps"]
+    assert work["sorts"] <= work["interior_steps"]
+    assert work["hit_leaves"] <= work["leaf_records"] <= work["leaf_steps"]
+    assert (work["interior_records"] + work["leaf_records"]
+            <= geo.wnodes.shape[0])
+    assert not torch.equal(cut[1], full[1])  # the short stack lost hits
+    # a hit found with a short stack is a real hit, never closer than the
+    # closest one
+    hit = cut[1] >= 0
+    assert hit.any() and (full[1][hit] >= 0).all()
+    assert (cut[0][hit] >= full[0][hit]).all()
 
 
 def test_tri_bundle_test_matches_tpurt():

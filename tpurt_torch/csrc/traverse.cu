@@ -9,49 +9,92 @@
 // wrapper) instead of 1 + 6e-7.  any_hit adds the shadow-ray mode: a lane
 // stops at the first leaf that yields a hit.
 //
-// Table layout (tpurt/geom/wbvh.py), 128 f32 per record, slot 126 = kind:
-//   interior: [0:48] child bounds lo.x lo.y lo.z hi.x hi.y hi.z (8 each,
-//             absent children are NaN boxes), [48:56] child rows (i32)
-//   leaf:     [0:108] 12 triangles' v0.x..v2.z (12 each, pads NaN),
-//             [108:120] prim rows (i32, pads -1)
+// Tables (derived at upload from the host record table of
+// tpurt/geom/wbvh.py by render/intersect.py:derive_traversal_tables):
+//   interior table, 64 f32 a row (256 B, 56 live):
+//     [0:48] child bounds lo.x lo.y lo.z hi.x hi.y hi.z (8 each, absent
+//     children are NaN boxes), [48:56] child references (i32)
+//   leaf table, 128 f32 a row: [0:108] 12 triangles' v0.x..v2.z (12 each,
+//     pads NaN), [108:120] prim rows (i32, pads -1)
+//   a reference is 2 * row + (1 if the row is in the leaf table), so a
+//   lane knows a record's kind before it reads it; root_ref is the root's.
 //
-// What bounds it on this card: dependent-load latency.  Each step reads
-// one record whose address comes from the previous step, and the whole
-// table (8.4 MB for a ~66k-triangle mesh) sits in the 50 MB L2, so a step
-// waits on an L2 round trip rather than on DRAM bandwidth.  The design
-// answers that with occupancy: one thread per ray, 128 threads per block,
-// a per-thread stack in local memory, and only the slots the record kind
-// needs are loaded (kind first, then 14 float4 for an interior record or
-// 30 float4 for a leaf), so many warps have a load in flight at once.
-// Divergent threads replace tpurt's lockstep schedule and its two-phase
-// straggler compaction (intersect.py:1251-1290), which this form does
-// not need.  Staging records in shared memory, warp-cooperative
-// traversal and ray sorting are later work.
+// What bounds it on this card: instruction throughput under divergence, not
+// memory.  A ray reads few records (3.9 for a primary ray of the stand-in
+// frame, 1 to 1.6 for a bounce or shadow ray), each from L1 or L2 (the
+// tables fit the 50 MB L2), and does a few hundred non-fused float
+// operations, compares and selects on each; there is no product for the
+// tensor cores.  What multiplies the instruction cost is that the lanes of a
+// warp disagree: a warp that holds interior and leaf records runs both
+// bodies, and it lives as long as its longest ray.  Measured with every
+// ray repeated 32 times, so that each warp holds one ray, the same work
+// takes about half the time.  What each part of the design does about it:
+//   - fewer instructions per record: PTX min.NaN/max.NaN for the
+//     NaN-propagating slab test, the watertight test's axis permutation
+//     done by addressing (the ray picks which vertex rows it loads) rather
+//     than by selects, the record kind carried in the reference, no test
+//     of the upper four children or of a group of four triangles when all
+//     are absent, and no sort when at most one child is hit;
+//   - persistent warps: a grid sized to the card, each warp taking
+//     K1_CHUNK rays at a time from a global integer counter and refilling
+//     its dead lanes when K1_REFILL or fewer are live, so a warp of bounce
+//     rays does not idle on its longest ray; a ray's result depends only
+//     on its own walk, so the schedule does not change it;
+//   - the body most lanes want: a turn runs the interior body when at
+//     least as many live lanes hold an interior record as a leaf, else the
+//     leaf body, never both;
+//   - records are loaded directly, 16 bytes a lane and only the live
+//     slots: lanes that hold the same record get one L1 broadcast, and the
+//     stack stays in local memory (TPURT_STACK_MAX slots, of which a walk
+//     touches a few).
+// Measured on an NVIDIA H100 80GB HBM3 (700 W) and not used, each slower
+// than what is here: a warp-cooperative fetch of shared records through
+// shared memory (__match_any_sync, one float4 a lane into per-warp slots;
+// 10-16% slower on every ray set: the staging adds a shared-memory round
+// trip and the match to every step), while-while scheduling with
+// postponed leaves (Aila and Laine 2009) and one step a lane a turn (both
+// slower on bounce and shadow rays), a shared-memory stack sized by
+// stack_depth (costs occupancy), a leaf prefetch into L1, and a grid of
+// one ray a thread.
+// Each lane visits its records in the order the plain version does, so
+// ties resolve the same way; only when a lane does a step changes.
 //
 // Numerics follow the plain twin (tpurt_torch/kernels/traverse.py) op for
 // op.  Build without --use_fast_math and with -fmad=false so products are
 // not contracted into FMAs; divisions are IEEE.  jnp/torch minimum and
 // maximum propagate NaN while fminf/fmaxf drop it, so the slab test uses
-// the NaN-propagating helpers below: a NaN box must never be hit.
+// min.NaN/max.NaN: a NaN box must never be hit.  (They order -0 below +0,
+// which the twin's does not; the slab values only feed comparisons, where
+// the two zeros are equal.)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#define K1_REFILL 24  // refill a warp's dead lanes when <= this many live
+#define K1_CHUNK 32   // rays a warp takes from the counter at a time
+// blocks per SM the register budget is set for: 80 registers, no spills
+// (4 gives 96 registers and the same times, 8 spills)
+#define K1_MINBLOCKS 6
+
 #define TPURT_WIDTH 8
 #define TPURT_LEAF_K 12
-#define TPURT_REC4 32          // float4 per 128-slot record
 #define TPURT_STACK_MAX 256    // must equal STACK_MAX in kernels/traverse.py
 #define TPURT_BLOCK 128
-
-__device__ __forceinline__ float qnan() { return __int_as_float(0x7fc00000); }
+#define TPURT_INT_ROW4 16      // float4 per interior-table row (256 B)
+#define TPURT_LEAF_ROW4 32     // float4 per leaf-table row (512 B)
+#define FULL 0xffffffffu
 
 // jnp.minimum / torch.minimum: NaN if either operand is NaN
 __device__ __forceinline__ float min_nan(float a, float b) {
-  return (a != a || b != b) ? qnan() : (b < a ? b : a);
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 __device__ __forceinline__ float max_nan(float a, float b) {
-  return (a != a || b != b) ? qnan() : (b > a ? b : a);
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 // one comparator of tpurt's _SORT8 network: strict '>' swap of keys+vals
@@ -63,214 +106,357 @@ __device__ __forceinline__ float max_nan(float a, float b) {
     }                                                      \
   }
 
-__global__ void __launch_bounds__(TPURT_BLOCK)
-traverse_wide_kernel(const float4* __restrict__ nodes, int n_nodes,
+// what a lane keeps of its ray
+struct Ray {
+  float ox, oy, oz;     // origin
+  float ix, iy, iz;     // 1/d with signed infinities on zero components
+  float opx, opy, opz;  // origin, permuted for the watertight test
+  float sx, sy, sz;     // its shear
+  int kx, ky, kz;       // float4 offset of the permuted x, y, z vertex rows
+};
+
+// 8 slab tests of an interior record, then the
+// near-first order: key/val sorted, returns the number of children hit
+__device__ __forceinline__ int interior_test(const float4* __restrict__ rec,
+                                             const Ray& r, float t_best,
+                                             float box_scale, float* key,
+                                             int* val) {
+  const float inf = __int_as_float(0x7f800000);
+  int n_hit = 0;
+  int only = 0;  // the last child hit: the next record when n_hit == 1
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // children 4h .. 4h+3
+    const float4 lx = rec[0 + h];
+    // children fill a record from slot 0, so the upper four are often
+    // absent; a box whose lo.x is NaN is hit by no ray
+    if (h == 1 && lx.x != lx.x && lx.y != lx.y && lx.z != lx.z &&
+        lx.w != lx.w) {
+#pragma unroll
+      for (int j = 4; j < TPURT_WIDTH; ++j) {
+        key[j] = inf;
+        val[j] = 0;
+      }
+      break;
+    }
+    const float4 ly = rec[2 + h], lz = rec[4 + h];
+    const float4 hx = rec[6 + h], hy = rec[8 + h], hz = rec[10 + h];
+    const float4 ch = rec[12 + h];
+    const float* plx = reinterpret_cast<const float*>(&lx);
+    const float* ply = reinterpret_cast<const float*>(&ly);
+    const float* plz = reinterpret_cast<const float*>(&lz);
+    const float* phx = reinterpret_cast<const float*>(&hx);
+    const float* phy = reinterpret_cast<const float*>(&hy);
+    const float* phz = reinterpret_cast<const float*>(&hz);
+    const float* pch = reinterpret_cast<const float*>(&ch);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // max(-inf, x) and min(inf, x) of the twin are x, NaN included
+      float t0 = (plx[j] - r.ox) * r.ix, t1 = (phx[j] - r.ox) * r.ix;
+      float t_near = min_nan(t0, t1);
+      float t_far = max_nan(t0, t1);
+      t0 = (ply[j] - r.oy) * r.iy;
+      t1 = (phy[j] - r.oy) * r.iy;
+      t_near = max_nan(t_near, min_nan(t0, t1));
+      t_far = min_nan(t_far, max_nan(t0, t1));
+      t0 = (plz[j] - r.oz) * r.iz;
+      t1 = (phz[j] - r.oz) * r.iz;
+      t_near = max_nan(t_near, min_nan(t0, t1));
+      t_far = min_nan(t_far, max_nan(t0, t1));
+      t_far = t_far * box_scale;
+      const bool hit = (t_near <= t_far) && (t_far > 0.f) &&
+                       (t_near < t_best);
+      key[4 * h + j] = hit ? t_near : inf;
+      val[4 * h + j] = __float_as_int(pch[j]);
+      n_hit += hit ? 1 : 0;
+      only = hit ? val[4 * h + j] : only;
+    }
+  }
+  // nothing to order: no child to descend into, or exactly one
+  if (n_hit <= 1) {
+    val[0] = only;
+    return n_hit;
+  }
+  // tpurt.render.intersect._SORT8 (Batcher odd-even merge, 8 inputs);
+  // tests/test_torch_intersect.py holds this list equal to tpurt's
+  CSWAP(0, 1) CSWAP(2, 3) CSWAP(4, 5) CSWAP(6, 7) CSWAP(0, 2)
+  CSWAP(1, 3) CSWAP(4, 6) CSWAP(5, 7) CSWAP(1, 2) CSWAP(5, 6)
+  CSWAP(0, 4) CSWAP(1, 5) CSWAP(2, 6) CSWAP(3, 7) CSWAP(2, 4)
+  CSWAP(3, 5) CSWAP(1, 2) CSWAP(3, 4) CSWAP(5, 6)
+  return n_hit;
+}
+
+// 12 fused watertight triangle tests of a leaf record, 4 per float4 group;
+// the closest hit below t_best, the lowest slot winning a tie as
+// jnp.argmin does
+__device__ __forceinline__ void leaf_test(const float4* __restrict__ rec,
+                                          const Ray& r, float t_best,
+                                          float& t_min, int& k_best,
+                                          float& bb0, float& bb1) {
+#pragma unroll 1
+  for (int g = 0; g < 3; ++g) {
+    float4 v[9];  // permuted x, y, z rows of v0, v1, v2
+    // triangles fill a leaf from slot 0, so the later groups are often
+    // pads; a triangle whose v0.x is NaN is hit by no ray
+    if (g > 0) {
+      const float4 x = rec[g];  // v0.x of triangles 4g .. 4g+3
+      if (x.x != x.x && x.y != x.y && x.z != x.z && x.w != x.w) continue;
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      v[3 * i + 0] = rec[9 * i + r.kx + g];
+      v[3 * i + 1] = rec[9 * i + r.ky + g];
+      v[3 * i + 2] = rec[9 * i + r.kz + g];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // (v - o) permuted equals permuted v minus permuted o, bit for bit
+      const float p0x = reinterpret_cast<const float*>(&v[0])[j] - r.opx;
+      const float p0y = reinterpret_cast<const float*>(&v[1])[j] - r.opy;
+      const float p0z = reinterpret_cast<const float*>(&v[2])[j] - r.opz;
+      const float p1x = reinterpret_cast<const float*>(&v[3])[j] - r.opx;
+      const float p1y = reinterpret_cast<const float*>(&v[4])[j] - r.opy;
+      const float p1z = reinterpret_cast<const float*>(&v[5])[j] - r.opz;
+      const float p2x = reinterpret_cast<const float*>(&v[6])[j] - r.opx;
+      const float p2y = reinterpret_cast<const float*>(&v[7])[j] - r.opy;
+      const float p2z = reinterpret_cast<const float*>(&v[8])[j] - r.opz;
+      const float x0 = p0x + r.sx * p0z, y0 = p0y + r.sy * p0z;
+      const float x1 = p1x + r.sx * p1z, y1 = p1y + r.sy * p1z;
+      const float x2 = p2x + r.sx * p2z, y2 = p2y + r.sy * p2z;
+      const float e0 = x1 * y2 - y1 * x2;
+      const float e1 = x2 * y0 - y2 * x0;
+      const float e2 = x0 * y1 - y0 * x1;
+      const bool same_sign = (e0 >= 0.f && e1 >= 0.f && e2 >= 0.f) ||
+                             (e0 <= 0.f && e1 <= 0.f && e2 <= 0.f);
+      const float det = e0 + e1 + e2;
+      const float t_scaled = (e0 * p0z + e1 * p1z + e2 * p2z) * r.sz;
+      const float tmd = t_best * det;
+      const bool t_ok = det < 0.f ? (t_scaled <= 0.f && t_scaled > tmd)
+                                  : (t_scaled >= 0.f && t_scaled < tmd);
+      if (same_sign && det != 0.f && t_ok) {
+        const float inv_det = 1.f / det;
+        const float t = t_scaled * inv_det;
+        if (t < t_min) {  // strict: the lowest slot wins a tie
+          t_min = t;
+          k_best = 4 * g + j;
+          bb0 = e0 * inv_det;
+          bb1 = e1 * inv_det;
+        }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(TPURT_BLOCK, K1_MINBLOCKS)
+traverse_wide_kernel(const float4* __restrict__ inodes, int n_inodes,
+                     const float4* __restrict__ leaves,
+                     int n_leaves, int root_ref, int step_limit,
                      const float* __restrict__ o_in,
                      const float* __restrict__ d_in,
                      const float* __restrict__ t_max_in, int n,
                      int stack_depth, int any_hit, float box_scale,
                      float* __restrict__ t_out, int* __restrict__ prim_out,
-                     float* __restrict__ b0_out, float* __restrict__ b1_out) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+                     float* __restrict__ b0_out, float* __restrict__ b1_out,
+                     int* __restrict__ counter) {
+  int stack[TPURT_STACK_MAX];  // local memory; only touched slots cost
+  const int lane = threadIdx.x & 31;
   const float inf = __int_as_float(0x7f800000);
 
-  const float ox = o_in[3 * lane], oy = o_in[3 * lane + 1],
-              oz = o_in[3 * lane + 2];
-  const float dx = d_in[3 * lane], dy = d_in[3 * lane + 1],
-              dz = d_in[3 * lane + 2];
-  // 1/d with signed infinities on zero components (intersect.py:1234)
-  const float ix = dx != 0.f ? 1.f / dx : (dx >= 0.f ? inf : -inf);
-  const float iy = dy != 0.f ? 1.f / dy : (dy >= 0.f ? inf : -inf);
-  const float iz = dz != 0.f ? 1.f / dz : (dz >= 0.f ? inf : -inf);
+  Ray r;
+  float t_best = 0.f, b0_best = 0.f, b1_best = 0.f;
+  int prim_best = -1;
+  int ray = -1;   // the ray this lane holds, -1 when none
+  int cur = -1;   // its current reference, -1 when it is done
+  int sp = 0, steps = 0;
+  // the warp's pool of rays taken from the counter, and whether the
+  // counter may hold more (all warp-uniform)
+  int pool = 0, pool_end = 0;
+  bool more = true;
 
-  // watertight-test permutation: |d| largest axis becomes z
-  const float ax = fabsf(dx), ay = fabsf(dy), az = fabsf(dz);
-  const bool use2 = (az >= ax) && (az >= ay);   // (x, y, z)
-  const bool use1 = !use2 && (ay >= ax);        // (z, x, y); else (y, z, x)
+  for (;;) {
+    // ---- retire finished rays, fetch new ones ----
+    if (cur < 0 && ray >= 0) {
+      t_out[ray] = t_best;
+      prim_out[ray] = prim_best;
+      b0_out[ray] = b0_best;
+      b1_out[ray] = b1_best;
+      ray = -1;
+    }
+    unsigned alive = __ballot_sync(FULL, cur >= 0);
+    if ((more || pool < pool_end) && __popc(alive) <= K1_REFILL) {
+      const unsigned dead = ~alive;
+      if (pool >= pool_end) {
+        int base = 0;
+        if (lane == 0) base = atomicAdd(counter, K1_CHUNK);
+        base = __shfl_sync(FULL, base, 0);
+        more = base < n;
+        pool = more ? base : 0;
+        pool_end = more ? min(base + K1_CHUNK, n) : 0;
+      }
+      const int mine = pool + __popc(dead & ((1u << lane) - 1u));
+      if (cur < 0 && mine < pool_end) {
+        ray = mine;
+        r.ox = o_in[3 * ray];
+        r.oy = o_in[3 * ray + 1];
+        r.oz = o_in[3 * ray + 2];
+        const float dx = d_in[3 * ray], dy = d_in[3 * ray + 1],
+                    dz = d_in[3 * ray + 2];
+        // 1/d with signed infinities on zero components (intersect.py:1234)
+        r.ix = dx != 0.f ? 1.f / dx : (dx >= 0.f ? inf : -inf);
+        r.iy = dy != 0.f ? 1.f / dy : (dy >= 0.f ? inf : -inf);
+        r.iz = dz != 0.f ? 1.f / dz : (dz >= 0.f ? inf : -inf);
+        // watertight-test permutation: |d| largest axis becomes z
+        const float ax = fabsf(dx), ay = fabsf(dy), az = fabsf(dz);
+        const bool use2 = (az >= ax) && (az >= ay);  // (x, y, z)
+        const bool use1 = !use2 && (ay >= ax);       // (z, x, y); else (y, z, x)
 #define PERM_X(x, y, z) (use2 ? (x) : (use1 ? (z) : (y)))
 #define PERM_Y(x, y, z) (use2 ? (y) : (use1 ? (x) : (z)))
 #define PERM_Z(x, y, z) (use2 ? (z) : (use1 ? (y) : (x)))
-  const float dpx = PERM_X(dx, dy, dz), dpy = PERM_Y(dx, dy, dz),
-              dpz = PERM_Z(dx, dy, dz);
-  const float sx = -dpx / dpz;
-  const float sy = -dpy / dpz;
-  const float sz = 1.f / dpz;
-
-  float t_best = t_max_in[lane];
-  int prim_best = -1;
-  float b0_best = 0.f, b1_best = 0.f;
-  int cur = t_best > 0.f ? 0 : -1;
-  int sp = 0;
-  int stack[TPURT_STACK_MAX];
-  // a tree visits each record at most once, so a lane never needs more
-  // steps than there are records; the bound only guards against a
-  // malformed table hanging the card
-  int steps = 0;
-
-  while (cur >= 0 && cur < n_nodes && steps++ <= n_nodes) {
-    const float4* rec = nodes + (size_t)cur * TPURT_REC4;
-    const float kind = rec[31].z;  // slot 126
-    bool descend = false;
-    int first = -1;
-    if (kind > 0.f) {
-      // ---- leaf: 12 fused triangles, 4 per float4 group ----
-      float t_min = inf, bb0 = 0.f, bb1 = 0.f;
-      int k_best = 0;
-#pragma unroll 1
-      for (int g = 0; g < 3; ++g) {
-        float4 v[9];
-#pragma unroll
-        for (int i = 0; i < 9; ++i) v[i] = rec[i * 3 + g];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float v0x = reinterpret_cast<const float*>(&v[0])[j];
-          const float v0y = reinterpret_cast<const float*>(&v[1])[j];
-          const float v0z = reinterpret_cast<const float*>(&v[2])[j];
-          const float v1x = reinterpret_cast<const float*>(&v[3])[j];
-          const float v1y = reinterpret_cast<const float*>(&v[4])[j];
-          const float v1z = reinterpret_cast<const float*>(&v[5])[j];
-          const float v2x = reinterpret_cast<const float*>(&v[6])[j];
-          const float v2y = reinterpret_cast<const float*>(&v[7])[j];
-          const float v2z = reinterpret_cast<const float*>(&v[8])[j];
-          const float q0x = v0x - ox, q0y = v0y - oy, q0z = v0z - oz;
-          const float q1x = v1x - ox, q1y = v1y - oy, q1z = v1z - oz;
-          const float q2x = v2x - ox, q2y = v2y - oy, q2z = v2z - oz;
-          const float p0x = PERM_X(q0x, q0y, q0z), p0y = PERM_Y(q0x, q0y, q0z),
-                      p0z = PERM_Z(q0x, q0y, q0z);
-          const float p1x = PERM_X(q1x, q1y, q1z), p1y = PERM_Y(q1x, q1y, q1z),
-                      p1z = PERM_Z(q1x, q1y, q1z);
-          const float p2x = PERM_X(q2x, q2y, q2z), p2y = PERM_Y(q2x, q2y, q2z),
-                      p2z = PERM_Z(q2x, q2y, q2z);
-          const float x0 = p0x + sx * p0z, y0 = p0y + sy * p0z;
-          const float x1 = p1x + sx * p1z, y1 = p1y + sy * p1z;
-          const float x2 = p2x + sx * p2z, y2 = p2y + sy * p2z;
-          const float e0 = x1 * y2 - y1 * x2;
-          const float e1 = x2 * y0 - y2 * x0;
-          const float e2 = x0 * y1 - y0 * x1;
-          const bool same_sign = (e0 >= 0.f && e1 >= 0.f && e2 >= 0.f) ||
-                                 (e0 <= 0.f && e1 <= 0.f && e2 <= 0.f);
-          const float det = e0 + e1 + e2;
-          const float t_scaled = (e0 * p0z + e1 * p1z + e2 * p2z) * sz;
-          const float tmd = t_best * det;
-          const bool t_ok = det < 0.f ? (t_scaled <= 0.f && t_scaled > tmd)
-                                      : (t_scaled >= 0.f && t_scaled < tmd);
-          if (same_sign && det != 0.f && t_ok) {
-            const float inv_det = 1.f / det;
-            const float t = t_scaled * inv_det;
-            // strict '<' over k = 0..11: the lowest slot wins a tie,
-            // as jnp.argmin does
-            if (t < t_min) {
-              t_min = t;
-              k_best = 4 * g + j;
-              bb0 = e0 * inv_det;
-              bb1 = e1 * inv_det;
-            }
-          }
-        }
-      }
-      if (t_min < t_best) {
-        const float4 pr = rec[27 + (k_best >> 2)];  // slots 108..119
-        const float* prf = reinterpret_cast<const float*>(&pr);
-        t_best = t_min;
-        prim_best = __float_as_int(prf[k_best & 3]);
-        b0_best = bb0;
-        b1_best = bb1;
-      }
-    } else {
-      // ---- interior: 8 slab tests, near-first order by _SORT8 ----
-      float key[TPURT_WIDTH];
-      int val[TPURT_WIDTH];
-      int n_hit = 0;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // children 4h .. 4h+3
-        const float4 lx = rec[0 + h], ly = rec[2 + h], lz = rec[4 + h];
-        const float4 hx = rec[6 + h], hy = rec[8 + h], hz = rec[10 + h];
-        const float4 ch = rec[12 + h];
-        const float* plx = reinterpret_cast<const float*>(&lx);
-        const float* ply = reinterpret_cast<const float*>(&ly);
-        const float* plz = reinterpret_cast<const float*>(&lz);
-        const float* phx = reinterpret_cast<const float*>(&hx);
-        const float* phy = reinterpret_cast<const float*>(&hy);
-        const float* phz = reinterpret_cast<const float*>(&hz);
-        const float* pch = reinterpret_cast<const float*>(&ch);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float t0 = (plx[j] - ox) * ix, t1 = (phx[j] - ox) * ix;
-          float t_near = max_nan(-inf, min_nan(t0, t1));
-          float t_far = min_nan(inf, max_nan(t0, t1));
-          t0 = (ply[j] - oy) * iy;
-          t1 = (phy[j] - oy) * iy;
-          t_near = max_nan(t_near, min_nan(t0, t1));
-          t_far = min_nan(t_far, max_nan(t0, t1));
-          t0 = (plz[j] - oz) * iz;
-          t1 = (phz[j] - oz) * iz;
-          t_near = max_nan(t_near, min_nan(t0, t1));
-          t_far = min_nan(t_far, max_nan(t0, t1));
-          t_far = t_far * box_scale;
-          const bool hit = (t_near <= t_far) && (t_far > 0.f) &&
-                           (t_near < t_best);
-          key[4 * h + j] = hit ? t_near : inf;
-          val[4 * h + j] = __float_as_int(pch[j]);
-          n_hit += hit ? 1 : 0;
-        }
-      }
-      // tpurt.render.intersect._SORT8 (Batcher odd-even merge, 8 inputs);
-      // tests/test_torch_intersect.py holds this list equal to tpurt's
-      CSWAP(0, 1) CSWAP(2, 3) CSWAP(4, 5) CSWAP(6, 7) CSWAP(0, 2)
-      CSWAP(1, 3) CSWAP(4, 6) CSWAP(5, 7) CSWAP(1, 2) CSWAP(5, 6)
-      CSWAP(0, 4) CSWAP(1, 5) CSWAP(2, 6) CSWAP(3, 7) CSWAP(2, 4)
-      CSWAP(3, 5) CSWAP(1, 2) CSWAP(3, 4) CSWAP(5, 6)
-      if (n_hit > 0) {
-        // push hit children 1..n_hit-1 far-to-near above the old top
-        // (intersect.py:1010-1016); descend into the nearest, no push
-#pragma unroll
-        for (int k = 1; k < TPURT_WIDTH; ++k) {
-          const int pos = sp + n_hit - 1 - k;
-          if (k < n_hit && pos < stack_depth) stack[pos] = val[k];
-        }
-        sp += n_hit - 1;
-        descend = true;
-        first = val[0];
-      }
-    }
-    int nxt;
-    if (descend) {
-      nxt = first;
-    } else if (sp > 0) {
-      // slots past stack_depth read as 0, like the twin's one-hot read
-      nxt = (sp - 1 < stack_depth) ? stack[sp - 1] : 0;
-      --sp;
-    } else {
-      nxt = -1;
-    }
-    if (any_hit && prim_best >= 0) nxt = -1;
-    cur = nxt;
-  }
+        const float dpx = PERM_X(dx, dy, dz), dpy = PERM_Y(dx, dy, dz),
+                    dpz = PERM_Z(dx, dy, dz);
+        r.opx = PERM_X(r.ox, r.oy, r.oz);
+        r.opy = PERM_Y(r.ox, r.oy, r.oz);
+        r.opz = PERM_Z(r.ox, r.oy, r.oz);
+        // a leaf's x, y, z rows of one vertex are 3 float4 apart
+        r.kx = 3 * PERM_X(0, 1, 2);
+        r.ky = 3 * PERM_Y(0, 1, 2);
+        r.kz = 3 * PERM_Z(0, 1, 2);
 #undef PERM_X
 #undef PERM_Y
 #undef PERM_Z
+        r.sx = -dpx / dpz;
+        r.sy = -dpy / dpz;
+        r.sz = 1.f / dpz;
+        t_best = t_max_in[ray];
+        prim_best = -1;
+        b0_best = 0.f;
+        b1_best = 0.f;
+        sp = 0;
+        steps = 0;
+        cur = t_best > 0.f ? root_ref : -1;
+      }
+      pool = min(pool + __popc(dead), pool_end);
+      alive = __ballot_sync(FULL, cur >= 0);
+    }
+    if (!alive) {
+      if (!more && pool >= pool_end && !__any_sync(FULL, ray >= 0)) break;
+      continue;
+    }
 
-  t_out[lane] = t_best;
-  prim_out[lane] = prim_best;
-  b0_out[lane] = b0_best;
-  b1_out[lane] = b1_best;
+    // ---- one turn: the body most live lanes want, never both ----
+    const bool do_interior =
+        __popc(__ballot_sync(FULL, cur >= 0 && !(cur & 1))) >=
+        __popc(__ballot_sync(FULL, cur >= 0 && (cur & 1)));
+    if (do_interior) {
+      // interior records: 8 slab tests, near-first order, push and descend
+      if (cur >= 0 && !(cur & 1)) {
+        if ((cur >> 1) >= n_inodes) {  // malformed table
+          cur = -1;
+        } else {
+          float key[TPURT_WIDTH];
+          int val[TPURT_WIDTH];
+          const int n_hit =
+              interior_test(inodes + (size_t)(cur >> 1) * TPURT_INT_ROW4, r,
+                            t_best, box_scale, key, val);
+          int nxt;
+          if (n_hit > 0) {
+            // push hit children 1..n_hit-1 far-to-near above the old top
+            // (intersect.py:1010-1016); descend into the nearest, no push
+#pragma unroll
+            for (int k = 1; k < TPURT_WIDTH; ++k) {
+              const int pos = sp + n_hit - 1 - k;
+              if (k < n_hit && pos < stack_depth) stack[pos] = val[k];
+            }
+            sp += n_hit - 1;
+            nxt = val[0];
+          } else if (sp > 0) {
+            // slots past stack_depth read as row 0 (the root), like the
+            // twin's one-hot read
+            nxt = (sp - 1 < stack_depth) ? stack[sp - 1] : root_ref;
+            --sp;
+          } else {
+            nxt = -1;
+          }
+          // a tree visits each record at most once, so a lane never needs
+          // more steps than there are records; the bound only guards
+          // against a malformed table (or an overflowed stack) hanging the
+          // card
+          if (++steps > step_limit) nxt = -1;
+          cur = nxt;
+        }
+      }
+    } else if (cur >= 0 && (cur & 1)) {
+      // leaf records: the 12-triangle test
+      if ((cur >> 1) >= n_leaves) {  // malformed table
+        cur = -1;
+      } else {
+        const float4* rec = leaves + (size_t)(cur >> 1) * TPURT_LEAF_ROW4;
+        float t_min = inf, bb0 = 0.f, bb1 = 0.f;
+        int k_best = 0;
+        leaf_test(rec, r, t_best, t_min, k_best, bb0, bb1);
+        if (t_min < t_best) {
+          t_best = t_min;
+          prim_best = reinterpret_cast<const int*>(rec)[108 + k_best];
+          b0_best = bb0;
+          b1_best = bb1;
+        }
+        int nxt;
+        if (sp > 0) {
+          nxt = (sp - 1 < stack_depth) ? stack[sp - 1] : root_ref;
+          --sp;
+        } else {
+          nxt = -1;
+        }
+        if (any_hit && prim_best >= 0) nxt = -1;
+        if (++steps > step_limit) nxt = -1;
+        cur = nxt;
+      }
+    }
+  }
 }
 
 // C entry point for ctypes.  Launches on `stream`, does not synchronise,
-// allocates nothing; returns cudaGetLastError() (0 = launched).
-extern "C" int tpurt_traverse_wide(const float* nodes, int n_nodes,
-                                   const float* o, const float* d,
-                                   const float* t_max, int n,
+// allocates nothing (`counter` is one int of scratch, zeroed here on the
+// stream); returns cudaGetLastError() (0 = launched).  step_limit is the
+// host table's row count, the bound the plain twin uses.
+extern "C" int tpurt_traverse_wide(const float* inodes, int n_inodes,
+                                   const float* leaves,
+                                   int n_leaves, int root_ref,
+                                   int step_limit, const float* o,
+                                   const float* d, const float* t_max, int n,
                                    int stack_depth, int any_hit,
                                    float box_scale, float* t_out,
                                    int* prim_out, float* b0_out,
-                                   float* b1_out, void* stream) {
+                                   float* b1_out, int* counter,
+                                   void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (stack_depth > TPURT_STACK_MAX) return (int)cudaErrorInvalidValue;
-  const int blocks = (n + TPURT_BLOCK - 1) / TPURT_BLOCK;
-  traverse_wide_kernel<<<blocks, TPURT_BLOCK, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<const float4*>(nodes), n_nodes, o, d, t_max, n,
-      stack_depth, any_hit, box_scale, t_out, prim_out, b0_out, b1_out);
+  if (stack_depth > TPURT_STACK_MAX || stack_depth < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int blocks = (n + TPURT_BLOCK - 1) / TPURT_BLOCK;
+  // as many blocks as the card holds at once; they share the ray counter.
+  // The count is asked once per device (a benign race: every thread
+  // writes the same value).
+  static int resident[64] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidValue;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, traverse_wide_kernel, TPURT_BLOCK, 0);
+    if (err != cudaSuccess) return (int)err;
+    resident[dev] = sms * (per_sm < 1 ? 1 : per_sm);
+  }
+  if (blocks > resident[dev]) blocks = resident[dev];
+  err = cudaMemsetAsync(counter, 0, sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  traverse_wide_kernel<<<blocks, TPURT_BLOCK, 0, s>>>(
+      reinterpret_cast<const float4*>(inodes), n_inodes,
+      reinterpret_cast<const float4*>(leaves), n_leaves, root_ref,
+      step_limit, o, d, t_max, n, stack_depth, any_hit, box_scale, t_out,
+      prim_out, b0_out, b1_out, counter);
   return (int)cudaGetLastError();
 }

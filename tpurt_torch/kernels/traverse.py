@@ -12,7 +12,10 @@ Hopper and what its design does about it.
 ``traverse_wide_reference``, the lockstep twin of ``_wide_step_fns``; on a
 CUDA tensor it launches the kernel or raises.  The kernel library is built
 by ``kernels.build`` (nvcc, from the sources in this checkout, at first
-use, into ``build/tpurt_torch/``) and bound with ctypes.
+use, into ``build/tpurt_torch/``) and bound with ctypes.  The twin reads
+the host record table ``geo.wnodes``; the kernel reads the tables derived
+from it at upload (``geo.inodes``, ``geo.leaves``, ``geo.root_ref``:
+``render.intersect.derive_traversal_tables``).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 from tpurt_torch.geom.wbvh import REC, SLOT_KIND, WIDTH
 from tpurt_torch.kernels import build
 from tpurt_torch.render.intersect import (
-    _BOX_T_SCALE, CHILD_LO, INF, PRIM_LO, SORT8, _box8_test,
+    _BOX_T_SCALE, CHILD_LO, INF, INTERIOR_REC, PRIM_LO, SORT8, _box8_test,
     _tri_bundle_test, safe_inv_dir)
 
 SOURCE = "traverse.cu"
@@ -41,12 +44,50 @@ STACK_MAX = 256
 def load_library() -> build.KernelLibrary:
     """Build (once per source version) and bind the kernel library."""
     lib = build.load_library(SOURCE, EXTRA_FLAGS)
-    fn = lib.cdll.tpurt_traverse_wide
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci, vp, vp, vp, ci, ci, ci, ctypes.c_float,
-                   vp, vp, vp, vp, vp]
-    fn.restype = ci
+    _bind(lib.cdll)
     return lib
+
+
+def _bind(cdll) -> None:
+    fn = cdll.tpurt_traverse_wide
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, ci, vp, ci, ci, ci, vp, vp, vp, ci, ci, ci,
+                   ctypes.c_float, vp, vp, vp, vp, vp, vp]
+    fn.restype = ci
+
+
+def _launch(geo, o, d, t_max, any_hit: bool):
+    """Check the inputs and launch the traversal kernel on the current
+    stream; returns (t, prim, b0, b1)."""
+    n = o.shape[0]
+    dev = o.device
+    mi, ml = geo.inodes.shape[0], geo.leaves.shape[0]
+    build.check_tensor("inodes", geo.inodes, torch.float32,
+                       (mi, INTERIOR_REC), dev)
+    build.check_tensor("leaves", geo.leaves, torch.float32, (ml, REC), dev)
+    build.check_tensor("o", o, torch.float32, (n, 3), dev)
+    build.check_tensor("d", d, torch.float32, (n, 3), dev)
+    build.check_tensor("t_max", t_max, torch.float32, (n,), dev)
+    if not 1 <= geo.wstack_depth <= STACK_MAX:
+        raise ValueError(f"wstack_depth {geo.wstack_depth} outside the "
+                         f"kernel's compiled range 1..{STACK_MAX}")
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    prim = torch.empty(n, dtype=torch.int32, device=dev)
+    b0 = torch.empty(n, dtype=torch.float32, device=dev)
+    b1 = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return t, prim, b0, b1
+    counter = torch.empty(1, dtype=torch.int32, device=dev)  # ray fetch
+    with torch.cuda.device(dev):
+        err = load_library().cdll.tpurt_traverse_wide(
+            geo.inodes.data_ptr(), mi, geo.leaves.data_ptr(), ml,
+            geo.root_ref, geo.wnodes.shape[0], o.data_ptr(), d.data_ptr(),
+            t_max.data_ptr(), n, geo.wstack_depth, int(bool(any_hit)),
+            _BOX_T_SCALE, t.data_ptr(), prim.data_ptr(), b0.data_ptr(),
+            b1.data_ptr(), counter.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.raise_on_error("traverse_wide_kernel", err)
+    return t, prim, b0, b1
 
 
 def traverse_wide(geo, o, d, t_max, any_hit: bool):
@@ -58,32 +99,10 @@ def traverse_wide(geo, o, d, t_max, any_hit: bool):
         return traverse_wide_reference(geo, o, d, t_max, any_hit)
     if o.device.type != "cuda":
         raise NotImplementedError(f"traversal on {o.device}")
-    n = o.shape[0]
-    dev = o.device
-    m = geo.wnodes.shape[0]
-    build.check_tensor("wnodes", geo.wnodes, torch.float32, (m, REC), dev)
-    build.check_tensor("o", o, torch.float32, (n, 3), dev)
-    build.check_tensor("d", d, torch.float32, (n, 3), dev)
-    build.check_tensor("t_max", t_max, torch.float32, (n,), dev)
-    if geo.wstack_depth > STACK_MAX:
-        raise ValueError(f"wstack_depth {geo.wstack_depth} exceeds the "
-                         f"kernel's compiled maximum {STACK_MAX}")
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    prim = torch.empty(n, dtype=torch.int32, device=dev)
-    b0 = torch.empty(n, dtype=torch.float32, device=dev)
-    b1 = torch.empty(n, dtype=torch.float32, device=dev)
-    if n == 0:
-        return t, prim, b0, b1
-    lib = load_library().cdll
-    with torch.cuda.device(dev):
-        err = lib.tpurt_traverse_wide(
-            geo.wnodes.data_ptr(), m, o.data_ptr(), d.data_ptr(),
-            t_max.data_ptr(), n, geo.wstack_depth, int(bool(any_hit)),
-            _BOX_T_SCALE, t.data_ptr(), prim.data_ptr(), b0.data_ptr(),
-            b1.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    build.raise_on_error("traverse_wide_kernel", err)
-    traverse_wide.launches += 1
-    return t, prim, b0, b1
+    out = _launch(geo, o, d, t_max, any_hit)
+    if o.shape[0]:
+        traverse_wide.launches += 1
+    return out
 
 
 traverse_wide.launches = 0
@@ -99,11 +118,18 @@ def traverse_wide_reference(geo, o, d, t_max, any_hit: bool, stats=None):
     the working set between steps (a boolean index), which changes no
     lane's result.  Stack slots at or past ``geo.wstack_depth`` are
     dropped on push and read as 0 on pop, exactly as tpurt's one-hot
-    stack behaves.
+    stack behaves.  A lane takes at most one step per record of the table
+    plus one, the kernel's guard: a tree never needs more, and a stack
+    that overflowed (a pop that reads row 0 restarts at the root) cannot
+    run on for ever.
 
-    ``stats``, a dict, receives what the rays fetched: "leaf_steps" and
-    "interior_steps" (records read, by kind) and "records" (distinct
-    records read), the work a traversal of these rays has to do."""
+    ``stats``, a dict, receives the work a traversal of these rays has to
+    do: "interior_steps" and "leaf_steps" (records read, by kind),
+    "children" and "triangles" (present child boxes and non-pad triangles
+    tested in them), "sorts" (interior reads with two or more children
+    hit, where an order is needed), and the distinct records read:
+    "interior_records", "leaf_records", and "hit_leaves", the leaves in
+    which some lane found a closer hit (whose prim rows are then read)."""
     traverse_wide_reference.calls += 1
     dev = o.device
     n = o.shape[0]
@@ -120,8 +146,12 @@ def traverse_wide_reference(geo, o, d, t_max, any_hit: bool, stats=None):
     live = torch.nonzero(cur >= 0).squeeze(1)
     if stats is not None:
         seen = torch.zeros(nodes.shape[0], dtype=torch.bool, device=dev)
-        stats.update(leaf_steps=0, interior_steps=0)
-    while live.numel():
+        seen_hit = torch.zeros_like(seen)
+        stats.update(leaf_steps=0, interior_steps=0, children=0,
+                     triangles=0, sorts=0)
+    steps = 0
+    while live.numel() and steps <= nodes.shape[0]:
+        steps += 1
         rec = nodes[cur[live]]  # (m, 128): one record per live lane
         is_leaf = rec[:, SLOT_KIND] > 0
         m = live.numel()
@@ -144,6 +174,10 @@ def traverse_wide_reference(geo, o, d, t_max, any_hit: bool, stats=None):
             kbest = torch.argmin(tk, dim=1, keepdim=True)  # first minimum
             t_min = tk.gather(1, kbest)[:, 0]
             better = t_min < t_best[lanes]
+            if stats is not None:
+                stats["triangles"] += int(
+                    (~torch.isnan(lrec[:, :12])).sum())
+                seen_hit[cur[lanes[better]]] = True
             bl = lanes[better]
             kb = kbest[better]
             t_best[bl] = t_min[better]
@@ -171,6 +205,10 @@ def traverse_wide_reference(geo, o, d, t_max, any_hit: bool, stats=None):
                 vals[i], vals[j] = (torch.where(swap, vals[j], vals[i]),
                                     torch.where(swap, vals[i], vals[j]))
             n_hit = hit8.sum(dim=1)
+            if stats is not None:
+                stats["children"] += int(
+                    (~torch.isnan(irec[:, :WIDTH])).sum())
+                stats["sorts"] += int((n_hit >= 2).sum())
             dsc = n_hit > 0
             sp_i = sp[lanes]
             # push hit children 1..n_hit-1 far-to-near above the old top
@@ -196,7 +234,10 @@ def traverse_wide_reference(geo, o, d, t_max, any_hit: bool, stats=None):
         cur[live] = nxt
         live = live[nxt >= 0]
     if stats is not None:
-        stats["records"] = int(seen.sum())
+        leaf_rows = nodes[:, SLOT_KIND] > 0
+        stats.update(interior_records=int((seen & ~leaf_rows).sum()),
+                     leaf_records=int((seen & leaf_rows).sum()),
+                     hit_leaves=int(seen_hit.sum()))
     return t_best, prim_best, b0_best, b1_best
 
 

@@ -22,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpurt_torch.geom.wbvh import LEAF_K, WIDTH, build_wide_table
+from tpurt_torch.geom.wbvh import LEAF_K, SLOT_KIND, WIDTH, build_wide_table
 from tpurt_torch.render.geometry_build import PT_SPHERE, PT_TRIANGLE, GeometryArrays
 
 INF = float("inf")
@@ -34,6 +34,55 @@ _BOX_T_SCALE = float(np.float32(1.0 + 2.0 * _GAMMA3))
 # interior-record child slots and leaf-record prim slots (wbvh.py layout)
 CHILD_LO = 6 * WIDTH
 PRIM_LO = 9 * LEAF_K
+# floats per row of the traversal kernel's packed interior table: the 56
+# live slots of an interior record (48 bounds + 8 child references),
+# padded to 256 B
+INTERIOR_REC = 64
+
+
+def derive_traversal_tables(wnodes: np.ndarray) -> dict:
+    """The tables the CUDA traversal kernel reads, from the host record
+    table ``wnodes`` (M, 128), which stays what the plain twin reads.
+
+    The rows reachable from row 0 are split by kind, in row order:
+      inodes (Mi, 64) f32: an interior record's 48 child bounds and its
+          8 child references, rewritten;
+      leaves (Ml, 128) f32: the leaf records as they are.
+    A reference is ``2 * row + kind``: ``row`` in ``inodes`` (kind 0) or
+    in ``leaves`` (kind 1), so the kernel knows a record's kind before it
+    fetches it.  References of absent children (NaN boxes, never hit) are
+    0.  ``root_ref`` is row 0's reference; ``irow`` / ``lrow`` (int32) give
+    each packed row's row in ``wnodes``.
+    """
+    m = wnodes.shape[0]
+    is_leaf = wnodes[:, SLOT_KIND] > 0
+    cref = np.ascontiguousarray(
+        wnodes[:, CHILD_LO:CHILD_LO + WIDTH]).view(np.int32)
+    present = ~np.isnan(wnodes[:, 0:WIDTH]) & ~is_leaf[:, None]
+    reach = np.zeros(m, bool)
+    reach[0] = True
+    front = np.array([0]) if not is_leaf[0] else np.array([], np.int64)
+    while front.size:
+        ch = np.unique(cref[front][present[front]])
+        ch = ch[~reach[ch]]
+        reach[ch] = True
+        front = ch[~is_leaf[ch]]
+    irow = np.nonzero(reach & ~is_leaf)[0].astype(np.int32)
+    lrow = np.nonzero(reach & is_leaf)[0].astype(np.int32)
+    ref = np.zeros(m, np.int32)
+    ref[irow] = 2 * np.arange(len(irow), dtype=np.int32)
+    ref[lrow] = 2 * np.arange(len(lrow), dtype=np.int32) + 1
+    # at least one row each, so the kernel never gets a null table
+    inodes = np.zeros((max(len(irow), 1), INTERIOR_REC), np.float32)
+    inodes[:, 0:CHILD_LO] = np.nan
+    inodes[:len(irow), 0:CHILD_LO] = wnodes[irow, 0:CHILD_LO]
+    inodes[:len(irow), CHILD_LO:CHILD_LO + WIDTH] = np.where(
+        present[irow], ref[cref[irow]], 0).astype(np.int32).view(np.float32)
+    leaves = np.zeros((max(len(lrow), 1), wnodes.shape[1]), np.float32)
+    leaves[:, 0:PRIM_LO] = np.nan
+    leaves[:len(lrow)] = wnodes[lrow]
+    return dict(inodes=inodes, leaves=leaves, root_ref=int(ref[0]),
+                irow=irow, lrow=lrow)
 
 
 @dataclasses.dataclass
@@ -51,6 +100,8 @@ class DeviceGeometry:
     prim_type, quad_id (P,) i32; quad_w2o (Q, 4, 4), quad_params (Q, 16)
         f32: the quadric tables (padding rows when the scene has none).
     wstack_depth: traversal stack slots (tpurt's power-of-two sizing).
+    inodes, leaves, root_ref: the CUDA traversal kernel's tables, derived
+        from wnodes at upload (``derive_traversal_tables``).
     """
 
     wnodes: torch.Tensor
@@ -62,6 +113,9 @@ class DeviceGeometry:
     n_tris: int
     n_quads: int
     wstack_depth: int
+    inodes: torch.Tensor = None
+    leaves: torch.Tensor = None
+    root_ref: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -127,6 +181,9 @@ class DeviceGeometry:
 
     @staticmethod
     def from_tables(tables: dict, device) -> "DeviceGeometry":
+        trav = derive_traversal_tables(tables["wnodes"])
+        tables = dict(tables, inodes=trav["inodes"], leaves=trav["leaves"],
+                      root_ref=trav["root_ref"])
         kw = {k: (torch.tensor(v, device=device)
                   if isinstance(v, np.ndarray) else v)
               for k, v in tables.items()}
