@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py             # needs one CUDA card
     python3 chip_smoke.py --profile   # also prints a torch.profiler
-                                      # breakdown of one path frame and
-                                      # one RPF frame
+                                      # breakdown of one path frame, one
+                                      # RPF frame and one direct-lighting
+                                      # textured frame
 
 Phases (any failure exits non-zero; none is caught):
   1. environment: versions, the card's name and power limit
@@ -31,13 +32,14 @@ Phases (any failure exits non-zero; none is caught):
      case (64-B rows, 8 lanes sharing a row) under the same two checks
   6. main path A: the CLI renders the full path frame on the card and
      writes the EXR; K1 must have launched and the plain traversal must
-     not have run; then one warm-up and 3 timed renders
+     not have run; then one warm-up and one timed render
   7. main path B: the CLI renders the full RPF frame (sampling pass with
      features, the RPF filter at box 7, splat) on the card; K1 must have
      launched and the plain traversal must not have run; the image is
      finite with mean > 0 and the six feature EXRs are written; then one
-     warm-up and 3 timed frames (sampling, filter, splat, total, peak
-     memory)
+     timed frame on a built job (sampling, filter, splat, total, peak
+     memory); then K1 against its plain version on this pass's rays
+     (see "K1 on every path" below)
   8. the gather probe's entry point (python -m tpurt_torch.kernels.
      gather_bench): K2 must have launched; it prints the layout sweep
      (row width x fetch variant x access pattern)
@@ -45,6 +47,43 @@ Phases (any failure exits non-zero; none is caught):
      traversal (mean |diff| < 1e-4 of the image mean), and the small path
      and RPF stand-ins rendered on the card and on the CPU (means within
      1e-3 relative, >= 99% of pixels within 1e-3 abs + 1e-3 rel)
+ 10. main path C1: the CLI renders the full direct-lighting textured frame
+     (700x700, 8 spp: Integrator "directlighting", a distant light, a
+     checkerboard Kd, an image-map Kd through EWA) on the card and writes
+     the EXR; K1 must have launched and the plain traversal must not have
+     run; the image is finite with mean > 0 and the image map's stripes
+     show on the sphere (an unreadable map would render black and pass
+     every other check); K1 against its plain version on this frame's
+     rays; then one warm-up and 3 timed renders
+     (direct_textured_render_s, peak memory); then the same frame under
+     Sampler "sobol" and a gaussian filter, once, with the K1 check too
+ 11. main path C2: the full RPF frame under Sampler "random" (8 spp) and
+     "stratified" (4x4 = 16 spp): the CLI renders it (the warm-up; K1
+     launched, no plain traversal, finite image), then one timed frame on
+     a built job (sampling, filter, splat, total, peak memory), and K1
+     against its plain version on each pass's rays
+ 12. the whitted variant (a glass sphere and a mirror added) at 256x256
+     through the CLI, with the same counter and image checks, and K1
+     against its plain version on its rays, the refracted and mirrored
+     ones of every bounce step included
+ 13. cross-checks of the new paths: the small textured and whitted scenes
+     on the card against the CPU (the bounds of phase 9), and 2^20 lanes of
+     every sampler's ``dim`` on the card bit-equal to the CPU's
+K1 on every path: phase 4 holds the kernel to its plain version on path
+A's rays; paths B, C1, C2 and the whitted variant walk other scenes or
+other rays, so each records the calls K1's wrapper receives while 2^20
+lanes of its own frame (all of them at 256x256) go through the
+integrator as trace_lanes takes them (frame_ray_calls: every bounce step
+of C1 and the whitted variant, the first two of the RPF passes), and
+every recorded call goes through the kernel and the plain version on the
+same card tensors under phase 4's bounds, with its work counts, bound and
+both times (k1_on_path; "vs_plain_by_path" in the kernels line).  These
+launches are made outside the counted runs.
+
+Paths A and B are timed over one frame each (three until the script grew
+paths C1 and C2), which keeps the whole run near two minutes; C1 keeps
+its three.
+
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
 """
@@ -153,24 +192,29 @@ def phase_scene(size: str = "full", integrator: str = "path"):
                          integrator=integrator)
 
 
-def frame_ray_sets(job):
-    """The rays K1 gets in the real frame, as its wrapper receives them:
-    "primary" (2^20 camera rays spread over the frame), and "bounce" /
-    "shadow", the closest-hit and any-hit calls of the integrator's second
-    bounce step (the rays that leave the second surface hit), recorded
-    from path_bounce_init + two path_bounce_step calls with the wavefront
-    loop's compaction between them.  Each set is (o, d, t_max, any_hit)."""
+def frame_ray_calls(job, bounces: int, cfg=None):
+    """Every call K1's wrapper receives, in order, while 2^20 of the
+    frame's lanes (all of them where the frame has fewer), spread over the
+    whole frame, go through the integrator as render.driver.trace_lanes
+    takes them: path_bounce_init, then up to ``bounces`` path_bounce_step
+    calls with the alive lanes kept by a boolean index between them, until
+    none is alive.  ``cfg`` defaults to the job's (the RPF sampling pass
+    has its own).  Each call is (o, d, t_max, any_hit) as the wrapper got
+    it, on the card."""
     from tpurt_torch.kernels.traverse import traverse_wide
     from tpurt_torch.render.integrator import (path_bounce_init,
                                                path_bounce_step)
 
+    cfg = cfg or job.cfg
     dev = job.scene.geo.device
     film, spp = job.film, job.sampler.spp
     total = film.width * film.height * spp
-    ids = torch.arange(LANES, device=dev) * total // LANES  # whole frame
+    n = min(LANES, total)
+    ids = torch.arange(n, device=dev) * total // n  # whole frame
     pid = ids // spp
-    px = (pid % film.width).to(torch.int64)
-    py = (pid // film.width).to(torch.int64)
+    x0, _, y0, _ = film.crop
+    px = (x0 + pid % film.width).to(torch.int64)
+    py = (y0 + pid // film.width).to(torch.int64)
     calls = []
 
     def recording(geo, o, d, t_max, any_hit):
@@ -178,12 +222,26 @@ def frame_ray_sets(job):
         return traverse_wide(geo, o, d, t_max, any_hit)
 
     st = path_bounce_init(job.scene, job.sampler, job.camera, px, py,
-                          ids % spp, job.cfg, recording)
-    for bounce in range(2):
-        st = {k: v[st["alive"]] for k, v in st.items()}
-        st = path_bounce_step(job.scene, job.sampler, job.cfg, st, bounce,
-                              recording)
+                          ids % spp, cfg, recording, crop_xy=(x0, y0))
+    for bounce in range(bounces):
+        alive = st["alive"]
+        if not bool(alive.any()):
+            break
+        # (a sampler without a lane context carries None)
+        st = {k: None if v is None else v[alive] for k, v in st.items()}
+        st = path_bounce_step(job.scene, job.sampler, cfg, st, bounce,
+                              recording, camera=job.camera,
+                              texture_eval=job.texture_eval)
     torch.cuda.synchronize()
+    return calls
+
+
+def frame_ray_sets(job):
+    """The path frame's rays for phase 4: "primary" (2^20 camera rays
+    spread over the frame), and "bounce" / "shadow", the closest-hit and
+    any-hit calls of the integrator's second bounce step (the rays that
+    leave the second surface hit)."""
+    calls = frame_ray_calls(job, 2)
     assert [c[3] for c in calls] == [False, True, False, True, False]
     return dict(primary=calls[0], shadow=calls[3], bounce=calls[4])
 
@@ -323,6 +381,48 @@ def phase_kernel(job):
     return out
 
 
+def k1_on_path(label: str, job, bounces: int, cfg=None):
+    """K1 against its plain version on the card at one driven path's own
+    shapes: every call of frame_ray_calls(job, bounces, cfg) goes through
+    the kernel and the plain version on the same tensors (the bounds of
+    phase 4: prims or occlusion equal on >= 99.99% of lanes, t within
+    rtol 1e-5 on >= 99.99% of common hits), with the work its rays need,
+    the bound from it, the kernel's time per launch in bursts of 10 and
+    the plain version's.  Returns one record a call for the kernels line;
+    these launches are made outside the counted runs."""
+    from tpurt_torch.kernels.traverse import (traverse_wide,
+                                              traverse_wide_reference)
+
+    geo = job.scene.geo
+    calls = frame_ray_calls(job, bounces, cfg)
+    assert calls and not calls[0][3], label
+    out = []
+    for i, rays in enumerate(calls):
+        o, d, tm, any_hit = rays
+        ref = traverse_wide_reference(geo, o, d, tm, any_hit=any_hit)
+        ker = traverse_wide(geo, o, d, tm, any_hit=any_hit)
+        torch.cuda.synchronize()
+        agree, t_ok, t_err = k1_agreement(ref, ker, any_hit)
+        b_ms, b_by, text = k1_work(geo, rays)
+        ms = cuda_ms(lambda: traverse_wide(geo, o, d, tm, any_hit=any_hit),
+                     burst=10)
+        plain = cuda_ms(lambda: traverse_wide_reference(
+            geo, o, d, tm, any_hit=any_hit), reps=1)
+        kind = "any-hit" if any_hit else "closest"
+        print(f"K1 work @ {label} call {i} {text}")
+        print(f"kernel vs plain @ {label} call {i} ({kind}, live rays "
+              f"{(tm > 0).float().mean().item():.3f}, hits "
+              f"{(ker[1] >= 0).float().mean().item():.3f}): agree "
+              f"{agree:.6f}, t within rtol 1e-5 {t_ok:.6f}, max |dt| "
+              f"{t_err:.3e}; kernel {ms:.4f} ms in bursts, plain "
+              f"{plain:.3f} ms")
+        assert agree >= 0.9999 and t_ok >= 0.9999, (label, i, agree, t_ok)
+        out.append(dict(rays=o.shape[0], any_hit=any_hit, agree=agree,
+                        max_abs_err=t_err, ms_burst=ms, plain_ms=plain,
+                        bound_ms=b_ms, bound_by=b_by))
+    return out
+
+
 def phase_gather(gpu: str):
     """K2 against its plain version (float64) at the probe's sizes."""
     from tpurt_torch.kernels import gather_bench as gb
@@ -408,20 +508,17 @@ def phase_main(scene_path: str, gpu: str):
     torch.cuda.synchronize()
     build_s = time.time() - t0
     img = render_job(job)  # warm-up
-    runs, peak = [], 0
-    for _ in range(3):
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        img = render_job(job)
-        torch.cuda.synchronize()
-        runs.append(time.time() - t0)
-        peak = max(peak, torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    img = render_job(job)
+    torch.cuda.synchronize()
+    render_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
     assert img.shape == (700, 700, 3) and np.isfinite(img).all()
     assert img.mean() > 0
-    render_s = statistics.median(runs)
     paths = job.film.width * job.film.height * job.sampler.spp
-    print(f"render_s {render_s:.4f} (runs {['%.4f' % r for r in runs]}) "
+    print(f"render_s {render_s:.4f} (one frame after one warm-up) "
           f"camera Mrays/s {paths / render_s / 1e6:.4f} ({paths} paths) "
           f"peak mem {peak / 2**30:.3f} GiB, scene build {build_s:.2f}s, "
           f"image mean {img.mean():.5f} on {gpu}")
@@ -434,7 +531,8 @@ def phase_rpf(scene_path: str, gpu: str):
     from tpurt_torch.kernels.traverse import (traverse_wide,
                                               traverse_wide_reference)
     from tpurt_torch.render.driver import build_job, load_scene
-    from tpurt_torch.rpf.driver import feature_exr_paths, render_rpf_job
+    from tpurt_torch.rpf.driver import (feature_exr_paths, render_rpf_job,
+                                        sampling_config)
 
     out = WORK / "standin_rpf_full_out.exr"
     sd = load_scene(scene_path)
@@ -464,26 +562,21 @@ def phase_rpf(scene_path: str, gpu: str):
 
     job = build_job(load_scene(scene_path), "cuda")
     torch.cuda.synchronize()
-    render_rpf_job(job, write_feature_exrs=False)  # warm-up
-    runs, peak = [], 0
-    for _ in range(3):
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        img, ex = render_rpf_job(job, write_feature_exrs=False)
-        torch.cuda.synchronize()
-        runs.append(dict(total=time.time() - t0, sampling=ex["sampling_time"],
-                         filter=ex["filter_time"], splat=ex["splat_time"]))
-        peak = max(peak, torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    img, ex = render_rpf_job(job, write_feature_exrs=False)
+    torch.cuda.synchronize()
+    total = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
     assert np.isfinite(img).all() and img.mean() > 0
-    med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-    print(f"rpf_sampling_s {med['sampling']:.4f} rpf_filter_s "
-          f"{med['filter']:.4f} rpf_splat_s {med['splat']:.4f} rpf_total_s "
-          f"{med['total']:.4f} (medians of 3; total runs "
-          f"{['%.4f' % r['total'] for r in runs]}) peak mem "
+    print(f"rpf_sampling_s {ex['sampling_time']:.4f} rpf_filter_s "
+          f"{ex['filter_time']:.4f} rpf_splat_s {ex['splat_time']:.4f} "
+          f"rpf_total_s {total:.4f} (one frame after the CLI's) peak mem "
           f"{peak / 2**30:.3f} GiB, image mean {img.mean():.5f}, TF32 "
           f"matmul {torch.backends.cuda.matmul.allow_tf32} on {gpu}")
-    return launches, job, med["total"]
+    k1_path = k1_on_path("B RPF", job, 2, sampling_config(job))
+    return launches, job, total, k1_path
 
 
 def phase_probe():
@@ -536,6 +629,193 @@ def phase_cross(scene_path: str, small_path: str, small_rpf: str):
     h, _, _ = render_rpf(load_scene(small_rpf), "cpu",
                          write_feature_exrs=False)
     _close(g, h, "small RPF stand-in")
+
+
+def cli_counted(scene_path: str, out: Path, what: str):
+    """Render a scene through the CLI on the card with the traversal
+    counters set to 0 just before: returns (image read back from ``out``,
+    K1 launches, seconds).  Fails if K1 did not launch, if the plain
+    traversal ran, or if the image is not finite with mean > 0."""
+    from tpurt_torch import cli
+    from tpurt_torch.io.image import read_image
+    from tpurt_torch.kernels.traverse import (traverse_wide,
+                                              traverse_wide_reference)
+
+    out.unlink(missing_ok=True)
+    traverse_wide.launches = 0
+    traverse_wide_reference.calls = 0
+    t0 = time.time()
+    rc = cli.main([scene_path, "--device", "cuda", "--outfile", str(out),
+                   "--quiet"])
+    torch.cuda.synchronize()
+    cli_s = time.time() - t0
+    launches = traverse_wide.launches
+    plain_calls = traverse_wide_reference.calls
+    img = read_image(str(out))
+    print(f"{what} (CLI, first run incl. scene build): {cli_s:.2f}s, "
+          f"traversal kernel launches {launches}, plain calls {plain_calls}, "
+          f"image {img.shape[1]}x{img.shape[0]} mean {img.mean():.5f}")
+    assert rc == 0 and launches > 0 and plain_calls == 0
+    assert np.isfinite(img).all() and img.mean() > 0
+    return img, launches, cli_s
+
+
+def phase_direct(gpu: str):
+    """Main path C1: the direct-lighting textured frame."""
+    from tpurt_torch.render.driver import build_job, load_scene, render_job
+    from tpurt_torch.testscenes import write_textured
+
+    scene = write_textured(str(WORK / "textured_full.pbrt"), "full")
+    img, launches, _ = cli_counted(scene, WORK / "textured_full_out.exr",
+                                   "main path C1 (direct-lighting textured)")
+    assert img.shape == (700, 700, 3)
+    # the image map was read and filtered: its red and green stripes
+    # (0.9 against 0.2, out of phase) show on the sphere, which fills this
+    # window; an unreadable map renders Kd = 0 and leaves only the
+    # highlight, whose red to green ratio is the lights' and nearly constant
+    win = img[205:365, 270:430].reshape(-1, 3)
+    lit = win[win.min(axis=-1) > 1e-3]
+    ratio = np.sort(lit[:, 0] / lit[:, 1])
+    lo, hi = ratio[len(ratio) // 20], ratio[-len(ratio) // 20]
+    print(f"image map on the sphere: {len(lit)} of {len(win)} pixels of its "
+          f"window lit, red/green at their 5th and 95th percentile "
+          f"{lo:.3f}, {hi:.3f}")
+    assert len(lit) > len(win) // 2 and hi > 2.0 * lo, (len(lit), lo, hi)
+    job = build_job(load_scene(scene), "cuda")
+    assert job.cfg.specular_only and job.scene.has_texfilter
+    k1_paths = {"direct_textured": k1_on_path(
+        "C1 direct-lighting textured", job, job.cfg.max_depth + 1)}
+    render_job(job)  # warm-up
+    runs, peak = [], 0
+    for _ in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img = render_job(job)
+        torch.cuda.synchronize()
+        runs.append(time.time() - t0)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+    assert np.isfinite(img).all() and img.mean() > 0
+    render_s = statistics.median(runs)
+    print(f"direct_textured_render_s {render_s:.4f} (runs "
+          f"{['%.4f' % r for r in runs]}) peak mem {peak / 2**30:.3f} GiB, "
+          f"image mean {img.mean():.5f} on {gpu}")
+
+    other = write_textured(str(WORK / "textured_full_sobol.pbrt"), "full",
+                           sampler="sobol", pixel_filter="gaussian")
+    job2 = build_job(load_scene(other), "cuda")
+    k1_paths["direct_textured_sobol"] = k1_on_path(
+        "C1 under sobol", job2, job2.cfg.max_depth + 1)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    img2 = render_job(job2)
+    torch.cuda.synchronize()
+    print(f"direct textured frame under sobol + gaussian, one cold run: "
+          f"{time.time() - t0:.4f}s, image mean {img2.mean():.5f}")
+    assert np.isfinite(img2).all() and img2.mean() > 0
+    assert abs(img2.mean() - img.mean()) < 0.05 * img.mean()
+    return job, launches, render_s, k1_paths
+
+
+def phase_rpf_samplers(gpu: str):
+    """Main path C2: the RPF frame under the random and stratified
+    samplers.  Returns {sampler: K1 launches of the CLI run} and K1's
+    records against its plain version on each frame's rays (the sampling
+    pass's first two bounce steps: 2^20 camera paths, depth cut)."""
+    from tpurt_torch.render.driver import build_job, load_scene
+    from tpurt_torch.rpf.driver import render_rpf_job, sampling_config
+    from tpurt_torch.testscenes import write_standin
+
+    launches, k1_paths = {}, {}
+    for sampler, spp in (("random", 8), ("stratified", 16)):
+        scene = write_standin(str(WORK / f"standin_rpf_{sampler}.pbrt"),
+                              "full", integrator="rpf", sampler=sampler)
+        img, launches[sampler], _ = cli_counted(
+            scene, WORK / f"standin_rpf_{sampler}_out.exr",
+            f"main path C2 (RPF under {sampler})")
+        assert img.shape == (700, 700, 3)
+        job = build_job(load_scene(scene), "cuda")
+        assert job.sampler.name == sampler and job.sampler.spp == spp
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img, ex = render_rpf_job(job, write_feature_exrs=False)
+        torch.cuda.synchronize()
+        total = time.time() - t0
+        peak = torch.cuda.max_memory_allocated()
+        assert np.isfinite(img).all() and img.mean() > 0
+        print(f"rpf_{sampler}_sampling_s {ex['sampling_time']:.4f} "
+              f"rpf_{sampler}_filter_s {ex['filter_time']:.4f} "
+              f"rpf_{sampler}_splat_s {ex['splat_time']:.4f} "
+              f"rpf_{sampler}_total_s {total:.4f} ({spp} spp, one run after "
+              f"the CLI's) peak mem {peak / 2**30:.3f} GiB, image mean "
+              f"{img.mean():.5f} on {gpu}")
+        k1_paths[f"rpf_{sampler}"] = k1_on_path(
+            f"C2 RPF under {sampler}", job, 2, sampling_config(job))
+        del job
+        torch.cuda.empty_cache()
+    return launches, k1_paths
+
+
+def phase_whitted():
+    """The whitted variant at 256x256 through the CLI."""
+    from tpurt_torch.render.driver import build_job, load_scene
+    from tpurt_torch.testscenes import write_textured
+
+    scene = write_textured(str(WORK / "whitted_256.pbrt"), "full",
+                           variant="whitted", res=256)
+    img, launches, _ = cli_counted(scene, WORK / "whitted_256_out.exr",
+                                   "whitted variant 256x256")
+    assert img.shape == (256, 256, 3)
+    job = build_job(load_scene(scene), "cuda")
+    # (the refracted and mirrored rays of every bounce step)
+    return launches, k1_on_path("whitted variant", job,
+                                job.cfg.max_depth + 1)
+
+
+SAMPLER_DIMS = (0, 1, 2, 5, 11, 19, 33)
+
+
+def phase_cross_new():
+    """The new paths on the card against the CPU."""
+    from tpurt_torch.render.driver import load_scene, render
+    from tpurt_torch.sampling.samplers import (halton_tables,
+                                               sampler_from_tables,
+                                               sampler_tables)
+    from tpurt_torch.scene.paramset import ParamSet
+    from tpurt_torch.testscenes import write_textured
+
+    for variant in ("directlighting", "whitted"):
+        small = write_textured(str(WORK / f"textured_small_{variant}.pbrt"),
+                               "small", variant=variant)
+        g, _ = render(load_scene(small), "cuda")
+        h, _ = render(load_scene(small), "cpu")
+        _close(g, h, f"small textured scene ({variant})")
+
+    gen = torch.Generator().manual_seed(5)
+    px = torch.randint(0, 700, (LANES,), generator=gen)
+    py = torch.randint(0, 700, (LANES,), generator=gen)
+    for name, scramble in (("halton", "affine"), ("halton", "pbrt"),
+                           ("random", ""), ("stratified", ""),
+                           ("02sequence", ""), ("sobol", ""),
+                           ("maxmindist", "")):
+        ps = ParamSet()
+        ps.add("integer", "pixelsamples", [8])
+        tab = (dict(halton_tables(8, 700, 700, scramble=scramble),
+                    name="halton") if name == "halton"
+               else sampler_tables(name, ps, 700, 700))
+        cpu = sampler_from_tables(tab, "cpu")
+        gpu = sampler_from_tables(tab, "cuda")
+        s = torch.randint(0, cpu.spp, (LANES,), generator=gen)
+        lanes_c = (px, py, s)
+        lanes_g = tuple(a.cuda() for a in lanes_c)
+        equal = all(torch.equal(
+            gpu.dim(*lanes_g, d, gpu.lane_ctx(*lanes_g)).cpu(),
+            cpu.dim(*lanes_c, d, cpu.lane_ctx(*lanes_c)))
+            for d in SAMPLER_DIMS)
+        print(f"sampler {name} {scramble}: dims {SAMPLER_DIMS} of {LANES} "
+              f"lanes on the card bit-equal to the CPU's: {equal}")
+        assert equal, name
 
 
 def phase_profile(label: str, frame, wall_s: float):
@@ -592,9 +872,14 @@ def main(argv=None) -> int:
     k1 = phase_kernel(job)
     k2 = phase_gather(gpu)
     job, launches_a, render_s = phase_main(full, gpu)
-    launches_b, rpf_job, rpf_total_s = phase_rpf(full_rpf, gpu)
+    launches_b, rpf_job, rpf_total_s, k1_b = phase_rpf(full_rpf, gpu)
     launches_probe, k2_l2 = phase_probe()
     phase_cross(full, small, small_rpf)
+    direct_job, launches_c1, direct_s, k1_paths = phase_direct(gpu)
+    launches_c2, k1_c2 = phase_rpf_samplers(gpu)
+    launches_w, k1_w = phase_whitted()
+    k1_paths.update(k1_c2, rpf=k1_b, whitted=k1_w)
+    phase_cross_new()
     if "--profile" in argv:
         from tpurt_torch.render.driver import render_job
         from tpurt_torch.rpf.driver import render_rpf_job
@@ -602,13 +887,22 @@ def main(argv=None) -> int:
         phase_profile("path frame", lambda: render_job(job), render_s)
         phase_profile("RPF frame", lambda: render_rpf_job(
             rpf_job, write_feature_exrs=False), rpf_total_s)
+        phase_profile("direct-lighting textured frame",
+                      lambda: render_job(direct_job), direct_s)
     assert "jax" not in sys.modules and "tpurt" not in sys.modules
     print(json.dumps({"kernels": [
         dict(name="traverse_wide", route="cuda",
              source="tpurt_torch/csrc/traverse.cu",
              replaces="tpurt/kernels/traverse.py:54",
-             launches=launches_a + launches_b,
-             launches_by_path={"path": launches_a, "rpf": launches_b}, **k1),
+             launches=(launches_a + launches_b + launches_c1 + launches_w
+                       + sum(launches_c2.values())),
+             launches_by_path={
+                 "path": launches_a, "rpf": launches_b,
+                 "direct_textured": launches_c1,
+                 "rpf_random": launches_c2["random"],
+                 "rpf_stratified": launches_c2["stratified"],
+                 "whitted": launches_w},
+             vs_plain_by_path=k1_paths, **k1),
         dict(name="gather_rows_sum", route="cuda",
              source="tpurt_torch/csrc/gather_bench.cu",
              replaces="tpurt/kernels/gather_bench.py:24",

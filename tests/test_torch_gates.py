@@ -1,0 +1,21 @@
+"""Gate scenes, diffuse and glossy (the furnace and the plastic highlight): the port against tpurt and against the
+closed forms (scenes, bounds and checks in torch_gate_scenes.py)."""
+
+import pytest
+
+import torch_gate_scenes as gates
+
+NAMES = [n for n in sorted(gates.CASES) if n.split("-")[0] in ("furnace", "plastic")]
+
+
+@pytest.fixture(scope="module", params=NAMES)
+def images(request):
+    return (request.param,) + gates.render_both(request.param)
+
+
+def test_gate_scene_matches_tpurt(images):
+    gates.check_matches_tpurt(images[1], images[2])
+
+
+def test_gate_scene_closed_form(images):
+    gates.check_closed_form(images[0], images[2])

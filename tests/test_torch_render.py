@@ -122,24 +122,67 @@ def test_supported_base_scene_renders_on_cpu():
 @pytest.mark.parametrize("key,value,feature", [
     ("integrator", "bdpt", 'Integrator "bdpt"'),
     ("integrator", "volpath", 'Integrator "volpath"'),
-    ("sampler", "sobol", 'Sampler "sobol"'),
-    ("material", "glass", 'Material "glass"'),
-    ("light", "spot", 'LightSource "spot"'),
+    ("integrator", "ao", 'Integrator "ao"'),
+    ("sampler", "adaptive", 'Sampler "adaptive"'),
+    ("material", "metal", 'Material "metal"'),
+    ("material", "uber", 'Material "uber"'),
+    ("light", "infinite", 'LightSource "infinite"'),
+    ("light", "goniometric", 'LightSource "goniometric"'),
     ("shape", "cylinder", 'Shape "cylinder"'),
     ("accel", 'Accelerator "kdtree"', 'Accelerator "kdtree"'),
-    ("filter", "gaussian", 'PixelFilter "gaussian"'),
+    ("filter", "catmullrom", 'PixelFilter "catmullrom"'),
     ("camera", "orthographic", 'Camera "orthographic"'),
-    ("kd", '"texture Kd" "checks"', 'textured "Kd"'),
+    ("kd", '"texture Kd" "checks"', 'Texture "ptex"'),
+    ("kd", '"texture eta" "checks"', 'textured "eta"'),
     ("medium", 'MakeNamedMedium "fog" "string type" "homogeneous"\n'
                'MediumInterface "" "fog"', "media"),
 ])
 def test_outside_the_slice_raises(key, value, feature):
     text = BASE.format(**dict(OK, **{key: value}))
-    if key == "kd":
+    if "ptex" in feature:
         text = text.replace("WorldBegin", 'WorldBegin\nTexture "checks" '
-                            '"spectrum" "checkerboard"')
+                            '"spectrum" "ptex" "string filename" "faces.ptx"')
+    elif key == "kd":  # glass has an eta slot, and no texture may drive it
+        text = text.replace("WorldBegin", 'WorldBegin\nTexture "checks" '
+                            '"float" "checkerboard"').replace(
+                                'Material "matte"', 'Material "glass"')
     with pytest.raises(NotImplementedError, match=feature):
         render(load_scene_string(text), device="cpu")
+
+
+@pytest.mark.parametrize("key,value", [
+    ("integrator", "directlighting"), ("integrator", "whitted"),
+    ("sampler", "sobol"), ("sampler", "random"), ("sampler", "stratified"),
+    ("sampler", "02sequence"), ("sampler", "maxmindist"),
+    ("material", "glass"), ("material", "mirror"), ("light", "spot"),
+    ("light", "distant"), ("filter", "gaussian"), ("filter", "mitchell"),
+    ("filter", "triangle"), ("filter", "sinc"),
+    ("kd", '"texture Kd" "checks"'),
+])
+def test_what_earlier_slices_refused_now_renders(key, value):
+    """Each feature this slice added, one at a time in the base scene."""
+    text = "LookAt 0 1 -5  0 0 0  0 1 0\n" + BASE.format(
+        **dict(OK, **{key: value})).replace(
+        "WorldBegin", 'WorldBegin\nTexture "checks" "spectrum" '
+        '"checkerboard" "float uscale" [4] "float vscale" [4]')
+    if value == "spot":  # aim it at the sphere from the light's place
+        text = text.replace('"point from" [0 4 0]',
+                            '"point from" [0 4 0] "point to" [0 0 0]')
+    img, job = render(load_scene_string(text), device="cpu")
+    assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+    # (every surface specular under a point light: nothing to see)
+    assert img.mean() > 0 or key == "material"
+
+
+def test_halton_pbrt_scramble_selected_by_environment(monkeypatch):
+    from tpurt_torch.render.driver import build_job
+
+    monkeypatch.setenv("TPURT_HALTON_SCRAMBLE", "pbrt")
+    job = build_job(load_scene_string(BASE.format(**OK)), "cpu")
+    assert job.sampler.scramble == "pbrt" and job.sampler.perms is not None
+    monkeypatch.delenv("TPURT_HALTON_SCRAMBLE")
+    job = build_job(load_scene_string(BASE.format(**OK)), "cpu")
+    assert job.sampler.scramble == "affine" and job.sampler.perms is None
 
 
 def test_cli_sampled_spectrum_raises():

@@ -79,6 +79,9 @@ def test_compute_interaction_matches_tpurt(jobs):
         _t(o), _t(d))
     for f in pint.SurfaceInteraction._fields:
         g, w = getattr(got, f), getattr(want, f)
+        if g is None:  # derivative / footprint fields: off on both sides
+            assert w is None, f
+            continue
         if g.dtype in (torch.int32, torch.bool):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w), f)
         else:
@@ -107,9 +110,10 @@ def lobes(jobs):
 def test_fetch_lobes_matches_tpurt(lobes):
     _, want, got = lobes
     for f in pbsdf.LobeParams._fields:
-        _close(getattr(got, f), getattr(want, f), rtol=1e-6, atol=0)
+        if f != "active":  # tpurt's has 7 columns: compared below
+            _close(getattr(got, f), getattr(want, f), rtol=1e-6, atol=0)
     np.testing.assert_array_equal(got.active.numpy(),
-                                  np.asarray(want.active)[:, :2])
+                                  np.asarray(want.active)[:, :5])
     assert not np.asarray(want.active)[:, 2:].any()
 
 
@@ -130,11 +134,11 @@ def test_bsdf_f_pdf_sample_match_tpurt(lobes):
     _close(got[0].numpy()[ok], np.asarray(want[0])[ok])  # wi
     _close(got[1], want[1])  # f
     _close(got[2], want[2])  # pdf
-    # matte and plastic are never specular or transmissive: tpurt's two
-    # flags stay False and the port does not return them
-    assert len(got) == 3
-    for w in want[3:]:
-        assert not np.asarray(w).any()
+    # matte and plastic are never specular or transmissive: the two
+    # flags stay False on both sides
+    assert len(got) == 5
+    for g, w in zip(got[3:], want[3:]):
+        assert not np.asarray(w).any() and not g.any()
 
 
 @pytest.mark.parametrize("strategy", ["spatial", "power", "uniform"])

@@ -1,11 +1,11 @@
 """Carry a tpurt render job across to the port.
 
 ``scene_from_tpurt(job)`` reads every table of a tpurt ``RenderJob``
-(geometry, lights, materials, camera, Halton sampler, film, integrator
-config) with ``np.asarray`` and returns the host-table dict that
-``tpurt_torch.render.driver.host_tables`` builds from a scene description,
-so tests can feed both packages identical state and compare the two
-builds bit for bit.  Upload it with ``driver.job_from_tables``.
+(geometry, lights, materials with their texture records, camera, sampler,
+film, integrator config) with ``np.asarray`` and returns the host-table
+dict that ``tpurt_torch.render.driver.host_tables`` builds from a scene
+description, so tests can feed both packages identical state and compare
+the two builds bit for bit.  Upload it with ``driver.job_from_tables``.
 
 This module never imports jax: it only reads attributes of the job it is
 handed.
@@ -15,32 +15,102 @@ from __future__ import annotations
 
 import numpy as np
 
+from tpurt_torch.geom.transform import Transform
+from tpurt_torch.render.driver import INTEGRATORS, any_imagemap, has_bump
 from tpurt_torch.render.film import Film
 from tpurt_torch.render.filters import Filter
 from tpurt_torch.render.integrator import IntegratorConfig
+from tpurt_torch.scene.records import MaterialRecord, TextureRecord
+
+
+def _closure_value(fn, name: str):
+    """The free variable ``name`` of the closure ``fn``, or None."""
+    code = getattr(fn, "__code__", None)
+    if code is None or name not in code.co_freevars:
+        return None
+    return fn.__closure__[code.co_freevars.index(name)].cell_contents
+
+
+def _port_slot(v):
+    """A tpurt slot value with every TextureRecord rebuilt as the port's."""
+    if isinstance(v, tuple) and len(v) == 2 and v[0] in ("constant",
+                                                         "texture"):
+        return (v[0], _port_slot(v[1]))
+    if hasattr(v, "tex_type") and hasattr(v, "params"):
+        w2t = v.world_to_texture
+        return TextureRecord(
+            name=v.name, tex_type=v.tex_type,
+            params={k: _port_slot(x) for k, x in v.params.items()},
+            world_to_texture=None if w2t is None else Transform(w2t.m,
+                                                                w2t.m_inv))
+    return v
+
+
+def _materials(job) -> dict:
+    """The material records behind a tpurt job's texture callbacks.  A
+    tpurt RenderJob keeps them only in the closures of its ``texture_eval``
+    (the slot overrides close over the MaterialTable, the bump pass over
+    its (material id, texture) list), so they are read from there."""
+    n = int(np.asarray(job.scene.mt_table).shape[0])
+    records = [None] * n
+    textured = []
+    te = job.texture_eval
+    mt = _closure_value(getattr(te, "_fn", None), "mt")
+    if mt is not None:
+        textured = [(int(i), str(slot)) for i, slot in mt.textured]
+        for i, rec in enumerate(mt.records[:n]):
+            if rec is not None and any(i == j for j, _s in textured):
+                records[i] = MaterialRecord(
+                    rec.name, {k: _port_slot(v) for k, v in rec.slots.items()})
+    for i, rec in _closure_value(getattr(te, "bump", None), "recs") or []:
+        if records[i] is None:
+            records[i] = MaterialRecord("", {})
+        records[i].slots["bumpmap"] = ("texture", _port_slot(rec))
+    return dict(records=records, textured=textured,
+                has_bump=has_bump(records),
+                has_texfilter=any_imagemap(records))
+
+
+def _sampler(s) -> dict:
+    a = np.asarray
+    if s.name == "halton":
+        return dict(name="halton", spp=int(s.spp),
+                    offsets=a(s.offsets).astype(np.int64),
+                    stride=int(s.stride), exp_x=int(s.exp_x),
+                    scale_y=int(s.scale_y),
+                    sample_at_center=bool(s.sample_at_center),
+                    max_index=int(s.max_index), scramble=s.scramble,
+                    perms=(a(s.perms).astype(np.int64)
+                           if s.scramble == "pbrt" else None))
+    if s.name == "sobol":
+        return dict(name="sobol", spp=int(s.spp), m=int(s.m), mats=a(s.mats),
+                    inv_cols=a(s.inv_cols), fmap_cols=a(s.fmap_cols),
+                    smin_x=int(s.smin_x), smin_y=int(s.smin_y))
+    if s.name == "maxmindist":
+        return dict(name="maxmindist", spp=int(s.spp), seed=int(s.seed),
+                    res_x=int(s.res_x),
+                    cpixel=tuple(int(c) for c in s.cpixel))
+    if s.name in ("random", "stratified", "02sequence"):
+        return dict(s._asdict())
+    raise NotImplementedError(f'tpurt sampler "{s.name}"')
 
 
 def scene_from_tpurt(job) -> dict:
-    """Host tables of a tpurt RenderJob for the path slice."""
+    """Host tables of a tpurt RenderJob for the ported slices."""
     cfg = job.cfg
-    if cfg.name != "path" or cfg.spectral:
+    if cfg.name not in INTEGRATORS or cfg.spectral:
         raise NotImplementedError(f'tpurt job integrator "{cfg.name}"')
     g = job.scene.geo
     if (g.accel != "bvh" or g.n_curves or g.wnodes_delta is not None
             or g.quad_trs is not None):
-        raise NotImplementedError("tpurt geometry outside the path slice")
+        raise NotImplementedError("tpurt geometry outside the ported slices")
     lt = job.scene.lights
     if lt.has_infinite or lt.has_lightmaps:
-        raise NotImplementedError("tpurt lights outside the path slice")
+        raise NotImplementedError("tpurt lights outside the ported slices")
     cam = job.camera
     if cam.kind != "perspective" or cam.animated:
         raise NotImplementedError(f'tpurt camera "{cam.kind}"')
-    s = job.sampler
-    if s.name != "halton" or s.scramble != "affine":
-        raise NotImplementedError("tpurt sampler outside the path slice")
     f = job.film
-    if f.filter.name != "box":
-        raise NotImplementedError(f'tpurt filter "{f.filter.name}"')
     a = np.asarray
     return dict(
         geo=dict(wnodes=a(g.wnodes), shade_rows=a(g.shade_rows),
@@ -53,7 +123,8 @@ def scene_from_tpurt(job) -> dict:
                     spat_cdf=a(lt.spat_cdf), spat_pmf=a(lt.spat_pmf),
                     spat_lo=a(lt.spat_lo),
                     spat_inv_extent=a(lt.spat_inv_extent),
-                    spat_res=int(lt.spat_res), n_lights=int(lt.n_lights)),
+                    spat_res=int(lt.spat_res), n_lights=int(lt.n_lights),
+                    world_radius=float(lt.world_radius)),
         mt_table=a(job.scene.mt_table),
         camera=dict(camera_to_world=a(cam.camera_to_world),
                     raster_to_camera=a(cam.raster_to_camera),
@@ -61,18 +132,19 @@ def scene_from_tpurt(job) -> dict:
                     focal_distance=cam.focal_distance,
                     shutter_open=cam.shutter_open,
                     shutter_close=cam.shutter_close,
-                    res_x=cam.res_x, res_y=cam.res_y),
-        sampler=dict(spp=int(s.spp), offsets=a(s.offsets).astype(np.int64),
-                     stride=int(s.stride), exp_x=int(s.exp_x),
-                     scale_y=int(s.scale_y),
-                     sample_at_center=bool(s.sample_at_center),
-                     max_index=int(s.max_index)),
+                    res_x=cam.res_x, res_y=cam.res_y,
+                    fp_base=float(cam.fp_base), fp_slope=float(cam.fp_slope)),
+        materials=_materials(job),
+        sampler=_sampler(job.sampler),
         film=Film(full_x=f.full_x, full_y=f.full_y, crop=tuple(f.crop),
-                  filter=Filter(f.filter.name, tuple(f.filter.radius)),
+                  filter=Filter(f.filter.name, tuple(f.filter.radius),
+                                tuple(f.filter.params)),
                   filename=f.filename, scale=f.scale,
                   max_sample_luminance=f.max_sample_luminance),
         cfg=IntegratorConfig(max_depth=cfg.max_depth,
                              rr_threshold=cfg.rr_threshold,
                              light_strategy=cfg.light_strategy,
-                             capture_features=cfg.capture_features),
+                             capture_features=cfg.capture_features,
+                             specular_only=cfg.name in ("directlighting",
+                                                        "whitted")),
     )

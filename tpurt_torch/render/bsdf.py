@@ -1,15 +1,28 @@
-"""BSDF for matte and plastic: the diffuse and GGX glossy lobes of tpurt's
-slot mixture (port of tpurt/render/bsdf.py restricted to slots 0 and 1
-with dielectric Fresnel).
+"""BSDF: the lobe slots of matte, plastic, mirror and glass in tpurt's
+slot mixture (port of tpurt/render/bsdf.py restricted to slots 0-4 with
+dielectric or no-op Fresnel).
 
-  slot 0  DIFFUSE  Lambertian / Oren-Nayar (kd, A, B)
-  slot 1  GLOSSY   microfacet GGX reflection (ks, alpha, dielectric eta)
+  slot 0  DIFFUSE      Lambertian / Oren-Nayar (kd, A, B)
+  slot 1  GLOSSY       microfacet GGX reflection (ks, alpha, dielectric eta)
+  slot 2  SPEC_MIRROR  perfect specular reflection (kr, Fresnel noop/diel)
+  slot 3  SPEC_FRESNEL FresnelSpecular reflection + transmission (smooth
+                       glass: fs_kr, kt, eta)
+  slot 4  GTRANS       GGX microfacet transmission (rough glass: kt_g)
 
 Sampling follows BSDF::Sample_f's uniform choice among active slots
 (reflection.cpp:714): u picks an active slot, the slot samples wi, f sums
-the active slots on the correct hemisphere and pdf averages them.  Both
-slots are non-specular, so is_specular and is_transmission are always
-False here.
+the non-specular active slots on the correct hemisphere and pdf averages
+them; the specular slots keep their discrete pdf.  The slots keep tpurt's
+order, so the same u picks the same lobe; tpurt's slots 5 and 6
+(clearcoat, Lambertian transmission) belong to materials outside the
+port and are never active here.
+
+tpurt computes every slot for every lane and masks, which XLA fuses; in
+eager PyTorch every masked term is a run of kernel launches.  So the
+functions take ``slots``, the slots that some material of the scene can
+activate (materials_build.lobe_slots), and skip the others: a frame of
+matte and plastic surfaces pays nothing for mirror and glass.  The values
+are the same either way, since a skipped slot is inactive on every lane.
 """
 
 from __future__ import annotations
@@ -23,8 +36,12 @@ from tpurt_torch.render.sampling_warps import (INV_PI, cosine_sample_hemisphere,
                                                cross, dot, norm)
 
 F32_EPS = float(np.float32(1e-9))
-N_SLOTS = 2
-SLOT_DIFFUSE, SLOT_GLOSSY = range(N_SLOTS)
+N_SLOTS = 5
+SLOT_DIFFUSE, SLOT_GLOSSY, SLOT_MIRROR, SLOT_FS, SLOT_GTRANS = range(N_SLOTS)
+ALL_SLOTS = tuple(range(N_SLOTS))
+
+FRESNEL_DIELECTRIC = 0
+FRESNEL_NOOP = 3
 
 
 class LobeParams(NamedTuple):
@@ -36,13 +53,33 @@ class LobeParams(NamedTuple):
     ks: torch.Tensor  # (N,3) glossy reflectance scale
     alpha_x: torch.Tensor  # (N,)
     alpha_y: torch.Tensor  # (N,)
-    eta: torch.Tensor  # (N,) dielectric ior of the glossy Fresnel
+    fresnel_kind: torch.Tensor  # (N,) int32 (dielectric | noop)
+    eta: torch.Tensor  # (N,) dielectric ior (glossy + fresnel-specular)
+    kr: torch.Tensor  # (N,3) mirror reflectance
+    kt: torch.Tensor  # (N,3) fresnel-specular transmittance
+    fs_kr: torch.Tensor  # (N,3) fresnel-specular reflectance
+    kt_g: torch.Tensor  # (N,3) microfacet transmission scale
+    t_alpha_x: torch.Tensor  # (N,) transmission distribution alphas
+    t_alpha_y: torch.Tensor  # (N,)
+    active: torch.Tensor  # (N,5) bool lobe activity (lobe_activity)
 
-    @property
-    def active(self):
-        """(N,2) bool lobe activity."""
-        return torch.stack([(self.kd > 0).any(dim=-1),
-                            (self.ks > 0).any(dim=-1)], dim=-1)
+
+def lobe_activity(kd, ks, kr, fs_kr, kt, kt_g, slots=ALL_SLOTS):
+    """(N,5) bool: which slots each lane's parameters activate (a slot
+    outside ``slots`` is inactive on every lane)."""
+    cols = {SLOT_DIFFUSE: lambda: (kd > 0).any(dim=-1),
+            SLOT_GLOSSY: lambda: (ks > 0).any(dim=-1),
+            SLOT_MIRROR: lambda: (kr > 0).any(dim=-1),
+            SLOT_FS: lambda: ((fs_kr > 0).any(dim=-1)
+                              | (kt > 0).any(dim=-1)),
+            SLOT_GTRANS: lambda: (kt_g > 0).any(dim=-1)}
+    off = torch.zeros(kd.shape[0], dtype=torch.bool, device=kd.device)
+    return torch.stack([cols[k]() if k in slots else off
+                        for k in ALL_SLOTS], dim=-1)
+
+
+def _cos_theta(w):
+    return w[:, 2]
 
 
 def _abs_cos_theta(w):
@@ -205,37 +242,128 @@ def _glossy_sample(lp: LobeParams, wo, u1, u2):
     return -wo + 2.0 * dot(wo, wh)[:, None] * wh
 
 
+def _refract(wo, cos_i, eta_rel):
+    """Refract -wo about +/-z; returns (ok, wi).  eta_rel = eta_i/eta_t."""
+    sin2_i = torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+    sin2_t = eta_rel * eta_rel * sin2_i
+    ok = sin2_t < 1.0
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    # local frame: n = (0,0,+-1) facing wo
+    n_z = torch.where(cos_i > 0, 1.0, -1.0)
+    wi = torch.stack([-wo[:, 0] * eta_rel, -wo[:, 1] * eta_rel,
+                      -cos_t * n_z], dim=-1)
+    return ok, wi
+
+
+# -- microfacet transmission (reflection.cpp:246-271, 431-460) ---------------
+
+def _gtrans_eta(lp: LobeParams, wo):
+    """etaB/etaA seen from wo's side (etaA=1 outside, etaB=lp.eta)."""
+    return torch.where(_cos_theta(wo) > 0, lp.eta, 1.0 / lp.eta)
+
+
+def _gtrans_f(lp: LobeParams, wo, wi):
+    co = _cos_theta(wo)
+    ci = _cos_theta(wi)
+    eta = _gtrans_eta(lp, wo)
+    wh = wo + wi * eta[:, None]
+    wh_len = norm(wh)
+    wh = wh / torch.clamp(wh_len, min=F32_EPS)[:, None]
+    wh = torch.where(wh[:, 2:3] < 0, -wh, wh)
+    dwo = dot(wo, wh)
+    dwi = dot(wi, wh)
+    bad = (_same_hemisphere(wo, wi) | (co.abs() < F32_EPS)
+           | (ci.abs() < F32_EPS) | (wh_len < F32_EPS) | (dwo * dwi > 0))
+    fr = fr_dielectric(dwo, torch.ones_like(dwo), lp.eta)
+    d = _ggx_d(wh, lp.t_alpha_x, lp.t_alpha_y)
+    g = _ggx_g(wo, wi, lp.t_alpha_x, lp.t_alpha_y)
+    denom = dwo + eta * dwi
+    factor = 1.0 / eta  # radiance transport (reflection.cpp:265)
+    # ci*co < 0 for transmission: take |.| before the epsilon clamp
+    den_abs = torch.clamp((ci * co).abs() * denom * denom, min=F32_EPS)
+    val = ((1.0 - fr)[:, None] * lp.kt_g
+           * (d * g * eta * eta * dwi * dwo * factor * factor
+              / den_abs).abs()[:, None])
+    return torch.where(bad[:, None], 0.0, val)
+
+
+def _gtrans_pdf(lp: LobeParams, wo, wi):
+    eta = _gtrans_eta(lp, wo)
+    wh = wo + wi * eta[:, None]
+    wh_len = norm(wh)
+    wh = wh / torch.clamp(wh_len, min=F32_EPS)[:, None]
+    dwo = dot(wo, wh)
+    dwi = dot(wi, wh)
+    denom = dwo + eta * dwi
+    dwh_dwi = (eta * eta * dwi).abs() / torch.clamp(denom * denom,
+                                                    min=F32_EPS)
+    wh_fwd = torch.where(wh[:, 2:3] < 0, -wh, wh)
+    pdf = _ggx_pdf_wh(wo, wh_fwd, lp.t_alpha_x, lp.t_alpha_y) * dwh_dwi
+    ok = (~_same_hemisphere(wo, wi)) & (wh_len > F32_EPS) & (dwo * dwi <= 0)
+    return torch.where(ok, pdf, 0.0)
+
+
+def _gtrans_sample(lp: LobeParams, wo, u1, u2):
+    """Sample wh from the VNDF and refract wo about it
+    (MicrofacetTransmission::Sample_f).  Returns (ok, wi)."""
+    wh = _ggx_sample_vndf(wo, lp.t_alpha_x, lp.t_alpha_y, u1, u2)
+    cos_i = dot(wo, wh)
+    eta_rel = torch.where(_cos_theta(wo) > 0, 1.0 / lp.eta, lp.eta)
+    sin2_t = eta_rel * eta_rel * torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+    ok = (cos_i > 0) & (sin2_t < 1.0)
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    wi = -eta_rel[:, None] * wo + (eta_rel * cos_i - cos_t)[:, None] * wh
+    return ok, wi
+
+
 # ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
 
-def bsdf_f(lp: LobeParams, wo, wi):
-    """Sum of the active lobes on the correct hemisphere (BSDF::f)."""
+def bsdf_f(lp: LobeParams, wo, wi, slots=ALL_SLOTS):
+    """Sum of the non-specular lobes on the correct hemisphere (BSDF::f)."""
     act = lp.active
     refl = _same_hemisphere(wo, wi)
-    f = torch.where((act[:, SLOT_DIFFUSE] & refl)[:, None],
-                    _diffuse_f(lp, wo, wi), 0.0)
-    return f + torch.where((act[:, SLOT_GLOSSY] & refl)[:, None],
-                           _glossy_f(lp, wo, wi), 0.0)
+    f = torch.zeros_like(lp.kd)
+    if SLOT_DIFFUSE in slots:
+        f = f + torch.where((act[:, SLOT_DIFFUSE] & refl)[:, None],
+                            _diffuse_f(lp, wo, wi), 0.0)
+    if SLOT_GLOSSY in slots:
+        f = f + torch.where((act[:, SLOT_GLOSSY] & refl)[:, None],
+                            _glossy_f(lp, wo, wi), 0.0)
+    if SLOT_GTRANS in slots:
+        f = f + torch.where(act[:, SLOT_GTRANS][:, None],
+                            _gtrans_f(lp, wo, wi), 0.0)
+    return f
 
 
-def _pdf_sum(lp: LobeParams, wo, wi):
+def _smooth_pdf_sum(lp: LobeParams, wo, wi, slots=ALL_SLOTS):
+    """Sum of the non-specular lobes' pdfs (hemisphere-masked)."""
     act = lp.active
-    return (torch.where(act[:, SLOT_DIFFUSE], _diffuse_pdf(wo, wi), 0.0)
-            + torch.where(act[:, SLOT_GLOSSY], _glossy_pdf(lp, wo, wi), 0.0))
+    pdf = torch.zeros_like(wo[:, 0])
+    if SLOT_DIFFUSE in slots:
+        pdf = pdf + torch.where(act[:, SLOT_DIFFUSE], _diffuse_pdf(wo, wi),
+                                0.0)
+    if SLOT_GLOSSY in slots:
+        pdf = pdf + torch.where(act[:, SLOT_GLOSSY],
+                                _glossy_pdf(lp, wo, wi), 0.0)
+    if SLOT_GTRANS in slots:
+        pdf = pdf + torch.where(act[:, SLOT_GTRANS],
+                                _gtrans_pdf(lp, wo, wi), 0.0)
+    return pdf
 
 
-def bsdf_pdf(lp: LobeParams, wo, wi):
-    """Average pdf over the active lobes (BSDF::Pdf)."""
+def bsdf_pdf(lp: LobeParams, wo, wi, slots=ALL_SLOTS):
+    """Average pdf over the active lobes (BSDF::Pdf); specular lobes add 0
+    but count toward the average, like the reference."""
     n_match = lp.active.sum(dim=-1).to(torch.float32)
-    pdf = _pdf_sum(lp, wo, wi)
+    pdf = _smooth_pdf_sum(lp, wo, wi, slots)
     return torch.where(n_match > 0, pdf / torch.clamp(n_match, min=1.0), 0.0)
 
 
-def bsdf_sample(lp: LobeParams, wo, u_lobe, u1, u2):
-    """Sample an outgoing direction.  Returns (wi, f, pdf); the slice's
-    lobes are never specular or transmissive, so tpurt's two flags are
-    not returned."""
+def bsdf_sample(lp: LobeParams, wo, u_lobe, u1, u2, slots=ALL_SLOTS):
+    """Sample an outgoing direction.  Returns (wi, f, pdf, is_specular,
+    is_transmission)."""
     act = lp.active
     act_i = act.to(torch.int64)
     n_match = act_i.sum(dim=-1)
@@ -246,20 +374,71 @@ def bsdf_sample(lp: LobeParams, wo, u_lobe, u1, u2):
     chosen = torch.argmax(((cum == target[:, None]) & act).to(torch.int64),
                           dim=-1)
     chosen = torch.where(n_match > 0, chosen, -1)
+    n_match_f = torch.clamp(n_match.to(torch.float32), min=1.0)
 
+    def is_slot(k):
+        return chosen == k
+
+    # the diffuse candidate, mirrored below the surface where no slot was
+    # chosen (tpurt's last select branch; such lanes end with pdf 0)
     wi_diff = cosine_sample_hemisphere(u1, u2)
     flip_z = torch.tensor([1.0, 1.0, -1.0], dtype=wi_diff.dtype,
                           device=wi_diff.device)
     wi_diff = torch.where(wo[:, 2:3] < 0, wi_diff * flip_z, wi_diff)
-    wi_gloss = _glossy_sample(lp, wo, u1, u2)
-    wi = torch.where((chosen == SLOT_DIFFUSE)[:, None], wi_diff,
-                     torch.where((chosen == SLOT_GLOSSY)[:, None], wi_gloss,
-                                 wi_diff * flip_z))
+    wi = torch.where(is_slot(SLOT_DIFFUSE)[:, None], wi_diff,
+                     wi_diff * flip_z)
+    if SLOT_GLOSSY in slots:
+        wi = torch.where(is_slot(SLOT_GLOSSY)[:, None],
+                         _glossy_sample(lp, wo, u1, u2), wi)
+    specular = SLOT_MIRROR in slots or SLOT_FS in slots
+    if specular:
+        cos_o = _cos_theta(wo)
+        wi_mirror = torch.stack([-wo[:, 0], -wo[:, 1], wo[:, 2]], dim=-1)
+        f_spec = fr_dielectric(cos_o, torch.ones_like(cos_o), lp.eta)
+        wi = torch.where(is_slot(SLOT_MIRROR)[:, None], wi_mirror, wi)
+    if SLOT_FS in slots:
+        # fresnel specular: reflect or transmit by F (FresnelSpecular)
+        take_refl = u1 < f_spec
+        eta_rel = torch.where(cos_o > 0, 1.0 / lp.eta, lp.eta)
+        t_ok, wi_trans = _refract(wo, cos_o, eta_rel)
+        wi = torch.where(is_slot(SLOT_FS)[:, None],
+                         torch.where(take_refl[:, None], wi_mirror, wi_trans),
+                         wi)
+    if SLOT_GTRANS in slots:
+        gt_ok, wi_gt = _gtrans_sample(lp, wo, u1, u2)
+        wi = torch.where(is_slot(SLOT_GTRANS)[:, None], wi_gt, wi)
 
-    n_match_f = torch.clamp(n_match.to(torch.float32), min=1.0)
-    f = bsdf_f(lp, wo, wi)
-    pdf = _pdf_sum(lp, wo, wi) / n_match_f
-    bad = (n_match == 0) | (pdf <= 0)
+    # smooth slots: f sums all non-specular lobes, pdf averages them
+    f = bsdf_f(lp, wo, wi, slots)
+    pdf = _smooth_pdf_sum(lp, wo, wi, slots) / n_match_f
+    no = torch.zeros_like(n_match, dtype=torch.bool)
+    is_spec, is_trans, bad = no, no, (n_match == 0)
+    if specular:
+        abs_ci = torch.clamp(_abs_cos_theta(wi), min=F32_EPS)
+        is_spec = is_slot(SLOT_MIRROR) | is_slot(SLOT_FS)
+    if SLOT_MIRROR in slots:
+        # SpecularReflection::Sample_f: fresnel noop or dielectric
+        fr_m = torch.where((lp.fresnel_kind == FRESNEL_NOOP)[:, None], 1.0,
+                           f_spec[:, None])
+        f = torch.where(is_slot(SLOT_MIRROR)[:, None],
+                        lp.kr * fr_m / abs_ci[:, None], f)
+        pdf = torch.where(is_slot(SLOT_MIRROR), 1.0 / n_match_f, pdf)
+    if SLOT_FS in slots:
+        # transmission scales radiance by (etaI/etaT)^2
+        f_refl = lp.fs_kr * f_spec[:, None] / abs_ci[:, None]
+        f_trans = (lp.kt * ((1.0 - f_spec) * (eta_rel * eta_rel))[:, None]
+                   / abs_ci[:, None])
+        f_trans = torch.where(t_ok[:, None], f_trans, 0.0)
+        f = torch.where(is_slot(SLOT_FS)[:, None],
+                        torch.where(take_refl[:, None], f_refl, f_trans), f)
+        pdf = torch.where(is_slot(SLOT_FS),
+                          torch.where(take_refl, f_spec, 1.0 - f_spec)
+                          / n_match_f, pdf)
+        is_trans = is_slot(SLOT_FS) & ~take_refl
+    if SLOT_GTRANS in slots:
+        is_trans = is_trans | is_slot(SLOT_GTRANS)
+        bad = bad | (is_slot(SLOT_GTRANS) & ~gt_ok)
+    bad = bad | (pdf <= 0)
     f = torch.where(bad[:, None], 0.0, f)
     pdf = torch.where(bad, 0.0, pdf)
-    return wi, f, pdf
+    return wi, f, pdf, is_spec, is_trans

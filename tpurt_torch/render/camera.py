@@ -4,8 +4,10 @@ Camera.generate_rays for "perspective").
 
 Screen-window convention as in tpurt (camera.h:84): [-1,1] in the
 narrower image axis, scaled by the aspect in the wider one.  Ray
-differentials, the other projections, animated cameras and the realistic
-camera are outside this slice.
+differentials are taken by the integrator, which calls generate_rays at
+the film point shifted one pixel in x and in y; ``fp_slope`` is the
+isotropic footprint model of the deeper bounces.  The other projections,
+animated cameras and the realistic camera are outside this slice.
 """
 
 from __future__ import annotations
@@ -50,6 +52,9 @@ class Camera:
     shutter_close: float
     res_x: int
     res_y: int
+    # world-space filter width at distance t ~= fp_base + t * fp_slope
+    fp_base: float = 0.0
+    fp_slope: float = 0.0
 
     def generate_rays(self, p_film, p_lens):
         """p_film: (N,2) raster points; p_lens: (N,2) in [0,1)^2.
@@ -117,10 +122,21 @@ def camera_tables(name: str, ps: ParamSet, camera_to_world: xf.Transform,
         fov = 2 * half_fov
     cam_to_screen = xf.perspective(fov, 1e-2, 1000.0)
     sw = _screen_window(res_x, res_y, ps)
+    r2c = _raster_to_screen_to_camera(cam_to_screen, sw, res_x, res_y)
+
+    def thru(px, py):
+        v = r2c.astype(np.float64) @ np.array([px, py, 0.0, 1.0])
+        return v[:3] / (v[3] if abs(v[3]) > 1e-12 else 1.0)
+
+    # angle between the rays of two diagonal pixel neighbours at the centre
+    pa = thru(res_x / 2, res_y / 2)
+    pb = thru(res_x / 2 + 1, res_y / 2 + 1)
+    d0 = pa / max(np.linalg.norm(pa), 1e-12)
+    d1 = pb / max(np.linalg.norm(pb), 1e-12)
+    fp_slope = float(np.arccos(np.clip(d0 @ d1, -1, 1)) / np.sqrt(2))
     return dict(
         camera_to_world=camera_to_world.m.astype(np.float32),
-        raster_to_camera=_raster_to_screen_to_camera(cam_to_screen, sw,
-                                                     res_x, res_y),
+        raster_to_camera=r2c, fp_base=0.0, fp_slope=fp_slope,
         lens_radius=ps.find_one_float("lensradius", 0.0),
         focal_distance=ps.find_one_float("focaldistance", 1e6),
         shutter_open=ps.find_one_float("shutteropen", 0.0),

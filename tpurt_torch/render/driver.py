@@ -1,13 +1,16 @@
 """Render driver: SceneDescription -> device tables -> bounce-compacted
-wavefront render (port of tpurt/render/driver.py: build_job restricted to
-the path and rpf slices, and the loop of _render_compact; the RPF passes
-live in tpurt_torch.rpf).
+wavefront render (port of tpurt/render/driver.py: build_job for the path,
+rpf, directlighting and whitted integrators, and the loop of
+_render_compact; the RPF passes live in tpurt_torch.rpf).
 
-Scene features outside the slice raise NotImplementedError naming the
-feature.  Between bounces the driver keeps the alive lanes with a boolean
-index and banks the terminated ones into the film, so terminated paths
-cost nothing in later bounces (tpurt's power-of-two buckets, lax.scan
-twin and trace caches are XLA machinery with no counterpart here).
+Scene features outside the ported slices raise NotImplementedError naming
+the feature: here for the integrator, film, accelerator, media and
+shapes, and in the module that would build them for samplers, filters,
+lights, cameras, materials and textures.  Between bounces the loop
+keeps the alive lanes with a boolean index and banks the terminated ones
+into the film, so terminated paths cost nothing in later bounces (tpurt's
+power-of-two buckets, lax.scan twin and trace caches are XLA machinery
+with no counterpart here).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -33,9 +36,11 @@ from tpurt_torch.render.integrator import (IntegratorConfig, SceneData,
 from tpurt_torch.render.intersect import DeviceGeometry
 from tpurt_torch.render.lights import light_table_from_tables, light_tables
 from tpurt_torch.render.materials_build import (build_material_table,
-                                                fuse_material_rows)
-from tpurt_torch.sampling.samplers import (HaltonSampler, halton_from_tables,
-                                          halton_tables)
+                                                fuse_material_rows,
+                                                lobe_slots)
+from tpurt_torch.render.texeval import TexEval, make_texture_eval
+from tpurt_torch.sampling.samplers import sampler_from_tables, sampler_tables
+from tpurt_torch.scene.records import TextureRecord
 from tpurt_torch.scene import load_scene  # noqa: F401  (re-exported)
 from tpurt_torch.scene.records import MaterialRecord, SceneDescription
 
@@ -46,9 +51,10 @@ log = logging.getLogger("tpurt_torch.render")
 class RenderJob:
     scene: SceneData
     camera: Camera
-    sampler: HaltonSampler
+    sampler: Any  # a sampler of tpurt_torch.sampling.samplers
     film: Film
     cfg: IntegratorConfig
+    texture_eval: Optional[TexEval] = None
 
 
 class MaterialIndexer:
@@ -68,10 +74,8 @@ class MaterialIndexer:
 
 def _check_slice(sd: SceneDescription) -> None:
     """Raise NotImplementedError for scene features outside the slice."""
-    if sd.integrator_name not in ("path", "rpf"):
+    if sd.integrator_name not in INTEGRATORS:
         raise NotImplementedError(f'Integrator "{sd.integrator_name}"')
-    if sd.sampler_name != "halton":
-        raise NotImplementedError(f'Sampler "{sd.sampler_name}"')
     if sd.film_name != "image":
         raise NotImplementedError(f'Film "{sd.film_name}"')
     if sd.accelerator_name != "bvh":
@@ -91,6 +95,48 @@ def _check_slice(sd: SceneDescription) -> None:
             raise NotImplementedError("mesh shading tangents")
         if pr.medium_inside or pr.medium_outside:
             raise NotImplementedError("MediumInterface (participating media)")
+
+
+INTEGRATORS = ("path", "rpf", "directlighting", "whitted")
+
+
+def make_integrator_config(sd: SceneDescription) -> IntegratorConfig:
+    """Integrator parameters with the reference defaults.  tpurt also
+    parses directlighting's "strategy" and reads it nowhere; it is not
+    carried here."""
+    ps = sd.integrator_params
+    name = sd.integrator_name
+    if name in ("directlighting", "whitted"):
+        return IntegratorConfig(specular_only=True,
+                                max_depth=ps.find_one_int("maxdepth", 5))
+    cfg = IntegratorConfig(
+        max_depth=ps.find_one_int("maxdepth", 5),
+        rr_threshold=ps.find_one_float("rrthreshold", 1.0),
+        light_strategy=ps.find_one_string("lightsamplestrategy", "spatial"),
+        capture_features=name == "rpf")
+    if cfg.light_strategy not in ("spatial", "power", "uniform"):
+        raise NotImplementedError(
+            f'lightsamplestrategy "{cfg.light_strategy}"')
+    return cfg
+
+
+def any_imagemap(records) -> bool:
+    """True when any material's texture DAG contains an imagemap (then
+    interactions carry MIP filter widths)."""
+
+    def walk(v):
+        if isinstance(v, TextureRecord):
+            return v.name == "imagemap" or any(walk(x)
+                                               for x in v.params.values())
+        return isinstance(v, tuple) and len(v) == 2 and walk(v[1])
+
+    return any(r is not None and any(walk(s) for s in r.slots.values())
+               for r in records)
+
+
+def has_bump(records) -> bool:
+    return any(r is not None and isinstance(r.slots.get("bumpmap"), tuple)
+               and r.slots["bumpmap"][0] == "texture" for r in records)
 
 
 def host_tables(sd: SceneDescription, quick: bool = False,
@@ -120,7 +166,11 @@ def host_tables(sd: SceneDescription, quick: bool = False,
     geo = DeviceGeometry.host_tables(geo_h)
     log.info("scene flatten + BVH build: %.2fs (%d prims, %d wide rows)",
              time.time() - t0, geo_h.n_prims, geo["wnodes"].shape[0])
-    table, kinds = build_material_table(mat_index.materials)
+    table, kinds, textured = build_material_table(mat_index.materials)
+    # the texture evaluator reads only the records that hold a texture
+    records = [r if r is not None and any(
+        isinstance(v, tuple) and v[0] == "texture" for v in r.slots.values())
+        else None for r in mat_index.materials]
     lights = light_tables(sd.lights, geo_h,
                           [(r.L, r.scale, r.two_sided)
                            for _k, r in area_records])
@@ -128,39 +178,36 @@ def host_tables(sd: SceneDescription, quick: bool = False,
     filt = make_filter(sd.filter_name, sd.filter_params)
     film = make_film(sd.film_params, filt, quick=quick,
                      crop_override=crop_override)
-    sp = sd.sampler_params
-    spp = 1 if quick else sp.find_one_int("pixelsamples", 16)
-    ip = sd.integrator_params
-    cfg = IntegratorConfig(
-        max_depth=ip.find_one_int("maxdepth", 5),
-        rr_threshold=ip.find_one_float("rrthreshold", 1.0),
-        light_strategy=ip.find_one_string("lightsamplestrategy", "spatial"),
-        capture_features=sd.integrator_name == "rpf")
-    if cfg.light_strategy not in ("spatial", "power", "uniform"):
-        raise NotImplementedError(
-            f'lightsamplestrategy "{cfg.light_strategy}"')
     return dict(
         geo=geo, lights=lights,
         mt_table=fuse_material_rows(table, kinds),
+        materials=dict(records=records, textured=textured,
+                       has_bump=has_bump(records),
+                       has_texfilter=any_imagemap(records)),
         camera=camera_tables(sd.camera_name, sd.camera_params,
                              sd.camera_to_world, film.full_x, film.full_y,
                              camera_to_world_end=sd.camera_to_world_end),
-        sampler=halton_tables(spp, film.full_x, film.full_y,
-                              sp.find_one_bool("samplepixelcenter", False),
-                              sample_bounds=film.sample_bounds()),
-        film=film, cfg=cfg)
+        sampler=sampler_tables(sd.sampler_name, sd.sampler_params,
+                               film.full_x, film.full_y, quick=quick,
+                               sample_bounds=film.sample_bounds()),
+        film=film, cfg=make_integrator_config(sd))
 
 
 def job_from_tables(tab: dict, device) -> RenderJob:
     """Upload host tables to ``device``."""
+    mats = tab["materials"]
     scene = SceneData(
         geo=DeviceGeometry.from_tables(tab["geo"], device),
         lights=light_table_from_tables(tab["lights"], device),
-        mt_table=torch.tensor(tab["mt_table"], device=device))
+        mt_table=torch.tensor(tab["mt_table"], device=device),
+        has_bump=mats["has_bump"], has_texfilter=mats["has_texfilter"],
+        lobe_slots=lobe_slots(tab["mt_table"]))
     return RenderJob(scene=scene, camera=camera_from_tables(tab["camera"],
                                                             device),
-                     sampler=halton_from_tables(tab["sampler"], device),
-                     film=tab["film"], cfg=tab["cfg"])
+                     sampler=sampler_from_tables(tab["sampler"], device),
+                     film=tab["film"], cfg=tab["cfg"],
+                     texture_eval=make_texture_eval(
+                         mats["records"], mats["textured"], scene.mt_table))
 
 
 def build_job(sd: SceneDescription, device, quick: bool = False,
@@ -204,9 +251,12 @@ def trace_lanes(job: RenderJob, cfg: IntegratorConfig, traverse, bank
             if n_alive < alive.shape[0]:
                 # bank the terminated lanes, keep the alive ones
                 bank(st, ~alive)
-                st = {k: v[alive] for k, v in st.items()}
+                # (a sampler without a lane context carries None)
+                st = {k: None if v is None else v[alive]
+                      for k, v in st.items()}
             st = path_bounce_step(job.scene, job.sampler, cfg, st, bounce,
-                                  traverse)
+                                  traverse, camera=job.camera,
+                                  texture_eval=job.texture_eval)
         bank(st, None)
 
 

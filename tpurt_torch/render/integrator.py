@@ -1,7 +1,11 @@
-"""Wavefront path integrator, RGB (port of tpurt/render/integrator.py:
-path_bounce_init / path_bounce_step with their helpers _camera_setup,
-_emitted, _nee_prepare, _nee_resolve, Russian roulette and the RPF
-feature capture; the non-fused trace branch).
+"""Wavefront integrators, RGB: path, directlighting and whitted (port of
+tpurt/render/integrator.py: path_bounce_init / path_bounce_step with
+their helpers _camera_setup, _emitted, _nee_prepare, _nee_resolve, the
+texture footprints and camera ray differentials, Russian roulette and the
+RPF feature capture; the non-fused trace branch).  directlighting and
+whitted are the same bounce step with ``specular_only=True``: emitted
+light and next-event estimation at every vertex, continued only through
+specular lobes.
 
 Per bounce: shade the hit carried from the previous bounce (emitted light
 with the folded MIS weight, next-event estimation, BSDF sampling, Russian
@@ -10,19 +14,22 @@ bounce's closest ray.  The dimension schedule is tpurt's: camera dims 0-4,
 then 7 dims per bounce (light choice, uLight.xy, lobe choice, uBSDF.xy,
 RR), each a Python int.
 
-The slice's lobes (diffuse, GGX glossy) are never specular, so tpurt's
-``specular`` and ``eta_scale`` lane state stay at False and 1 and are not
-carried here.
+Scenes with image-map textures carry the camera rays offset one pixel in
+x and in y through the lane state (and so through the render loop's
+boolean-index compaction) to take uv screen derivatives at the camera
+hit; deeper bounces use the isotropic footprint ``fp_base + t*fp_slope``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
-from tpurt_torch.render.bsdf import bsdf_f, bsdf_pdf, bsdf_sample
+from tpurt_torch.render.bsdf import (ALL_SLOTS, SLOT_FS, SLOT_MIRROR, bsdf_f,
+                                     bsdf_pdf, bsdf_sample)
 from tpurt_torch.render.interaction import (SurfaceInteraction,
                                             compute_interaction,
                                             offset_ray_origin)
@@ -48,6 +55,8 @@ class IntegratorConfig:
     rr_threshold: float = 1.0
     light_strategy: str = "spatial"  # spatial | power | uniform
     capture_features: bool = False  # RPF per-sample feature capture
+    # directlighting / whitted: continue only through specular lobes
+    specular_only: bool = False
 
 
 @dataclasses.dataclass
@@ -55,6 +64,13 @@ class SceneData:
     geo: DeviceGeometry
     lights: LightTable
     mt_table: torch.Tensor  # (M, 53) fused material rows
+    # any material carries a bump texture -> interactions compute dpdu/dpdv
+    has_bump: bool = False
+    # any imagemap texture -> footprint-based MIP filtering (EWA)
+    has_texfilter: bool = False
+    # the lobe slots the scene's materials can activate
+    # (materials_build.lobe_slots); the BSDF skips the others
+    lobe_slots: Tuple[int, ...] = ALL_SLOTS
 
 
 def _emitted(scene: SceneData, si: SurfaceInteraction):
@@ -78,8 +94,9 @@ def _nee_prepare(scene: SceneData, si: SurfaceInteraction, lobes, u_choice,
     t, b = build_onb(si.ns)
     wo_l = to_local(t, b, si.ns, si.wo)
     wi_l = to_local(t, b, si.ns, ls.wi)
-    f = bsdf_f(lobes, wo_l, wi_l) * dot(ls.wi, si.ns).abs()[:, None]
-    scatter_pdf = bsdf_pdf(lobes, wo_l, wi_l)
+    f = (bsdf_f(lobes, wo_l, wi_l, scene.lobe_slots)
+         * dot(ls.wi, si.ns).abs()[:, None])
+    scatter_pdf = bsdf_pdf(lobes, wo_l, wi_l, scene.lobe_slots)
     usable = (alive & si.valid & (ls.pdf > 0)
               & (ls.li > 0).any(dim=-1) & (f > 0).any(dim=-1))
     # shadow ray: offset endpoints, shortened by ShadowEpsilon
@@ -98,6 +115,63 @@ def _nee_resolve(contrib, usable, occluded):
     return torch.where((usable & ~occluded)[:, None], contrib, 0.0)
 
 
+def _tex_footprint(si: SurfaceInteraction, hit_t, camera):
+    """uv-space MIP filter widths from the isotropic ray-footprint model
+    (world width ~= fp_base + t*fp_slope), the per-segment cone used for
+    non-camera bounces; camera hits get ray differentials."""
+    w_world = (camera.fp_base
+               + torch.where(si.valid, hit_t, 0.0) * camera.fp_slope)
+    return si._replace(
+        tex_wu=w_world / torch.clamp(norm(si.dpdu), min=1e-9),
+        tex_wv=w_world / torch.clamp(norm(si.dpdv), min=1e-9))
+
+
+def camera_ray_differentials(camera, p_film, p_lens, o, d, spp: int):
+    """Camera rays offset one pixel in x and in y from the ray (o, d) of
+    p_film (Camera::GenerateRayDifferential's default, camera.cpp:46-66),
+    scaled by SamplerIntegrator's ScaleDifferentials(1/sqrt(spp))
+    (integrator.cpp:285)."""
+    dx = torch.tensor([1.0, 0.0], dtype=torch.float32, device=p_film.device)
+    dy = torch.tensor([0.0, 1.0], dtype=torch.float32, device=p_film.device)
+    rx_o, rx_d, _ = camera.generate_rays(p_film + dx, p_lens)
+    ry_o, ry_d, _ = camera.generate_rays(p_film + dy, p_lens)
+    s = float(1.0 / np.sqrt(max(spp, 1)))
+    return (o + (rx_o - o) * s, d + (rx_d - d) * s,
+            o + (ry_o - o) * s, d + (ry_d - d) * s)
+
+
+def _tex_differentials(si: SurfaceInteraction, rx_o, rx_d, ry_o, ry_d):
+    """SurfaceInteraction::ComputeDifferentials (interaction.cpp:125-160):
+    intersect the differential rays with the tangent plane at p, then
+    solve [dpdu dpdv] (du, dv) = dpd{x,y} for the uv screen derivatives by
+    the least-squares Gram-matrix solve.  Returns (dst0, dst1, ok) with
+    dst0 = (du/dx, dv/dx)."""
+    n = si.ng
+    d_plane = dot(n, si.p)
+
+    def plane_hit(ro, rd):
+        denom = dot(n, rd)
+        t = (d_plane - dot(n, ro)) / torch.where(denom == 0, 1e-9, denom)
+        return ro + t[:, None] * rd, denom.abs() > 1e-9
+
+    px, okx = plane_hit(rx_o, rx_d)
+    py, oky = plane_hit(ry_o, ry_d)
+    g11 = dot(si.dpdu, si.dpdu)
+    g12 = dot(si.dpdu, si.dpdv)
+    g22 = dot(si.dpdv, si.dpdv)
+    det = g11 * g22 - g12 * g12
+    ok = okx & oky & (det.abs() > 1e-18) & si.valid
+    inv_det = 1.0 / torch.where(det.abs() > 1e-18, det, 1.0)
+
+    def solve(dp):
+        b1 = dot(dp, si.dpdu)
+        b2 = dot(dp, si.dpdv)
+        return torch.stack([(g22 * b1 - g12 * b2) * inv_det,
+                            (g11 * b2 - g12 * b1) * inv_det], dim=-1)
+
+    return solve(px - si.p), solve(py - si.p), ok
+
+
 def _camera_setup(sampler, camera, px, py, sidx, crop_xy):
     sctx = sampler.lane_ctx(px, py, sidx)
     fx, fy = sampler.film_offset(px, py, sidx, sctx)
@@ -109,7 +183,7 @@ def _camera_setup(sampler, camera, px, py, sidx, crop_xy):
     o, d, ray_w = camera.generate_rays(p_film, p_lens)
     p_film_crop = p_film - torch.tensor(crop_xy, dtype=torch.float32,
                                         device=p_film.device)
-    return p_film_crop, p_lens, o, d, ray_w, sctx
+    return p_film, p_film_crop, p_lens, o, d, ray_w, sctx
 
 
 def path_bounce_init(scene: SceneData, sampler, camera, px, py, sidx,
@@ -118,7 +192,7 @@ def path_bounce_init(scene: SceneData, sampler, camera, px, py, sidx,
     """Per-lane wavefront state: camera setup + the bounce-0 closest hit.
     Every value has leading axis N, so a driver may compact the wavefront
     between bounces with a boolean index."""
-    p_film_crop, p_lens, o, d, ray_w, sctx = _camera_setup(
+    p_film, p_film_crop, p_lens, o, d, ray_w, sctx = _camera_setup(
         sampler, camera, px, py, sidx, crop_xy)
     n = px.shape[0]
     hit0 = intersect_closest(scene.geo, o, d, INF, traverse)
@@ -129,16 +203,23 @@ def path_bounce_init(scene: SceneData, sampler, camera, px, py, sidx,
         p_lens=p_lens, ray_w=ray_w, o=o, d=d, hit_t=hit0.t,
         hit_prim=hit0.prim, hit_b0=hit0.b0, hit_b1=hit0.b1,
         beta=z3 + 1.0, L=z3.clone(), alive=torch.ones_like(px, dtype=torch.bool),
-        prev_pdf=z1 + 1.0, prev_p=o)
+        prev_pdf=z1 + 1.0, prev_p=o,
+        specular=torch.zeros_like(px, dtype=torch.bool), eta_scale=z1 + 1.0)
+    if scene.has_texfilter:
+        st["rx_o"], st["rx_d"], st["ry_o"], st["ry_d"] = (
+            camera_ray_differentials(camera, p_film, p_lens, o, d,
+                                     sampler.spp))
     if cfg.capture_features:
         st.update(n0=z3.clone(), p0=z3.clone(), n1=z3.clone(), p1=z3.clone())
     return st
 
 
 def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
-                     state: Dict[str, Any], bounce: int, traverse
-                     ) -> Dict[str, Any]:
-    """One shade-then-trace bounce over the lane-state dict."""
+                     state: Dict[str, Any], bounce: int, traverse,
+                     camera=None, texture_eval=None) -> Dict[str, Any]:
+    """One shade-then-trace bounce over the lane-state dict.  ``camera``
+    is read only on scenes with image-map textures (its footprint
+    constants); ``texture_eval`` is the job's TexEval or None."""
     px, py, sidx, sctx = (state["px"], state["py"], state["sidx"],
                           state["sctx"])
     n = px.shape[0]
@@ -149,7 +230,24 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
 
     hit = Hit(t=state["hit_t"], prim=state["hit_prim"], b0=state["hit_b0"],
               b1=state["hit_b1"])
-    si = compute_interaction(scene.geo, hit, o, d)
+    si = compute_interaction(scene.geo, hit, o, d,
+                             dpduv=scene.has_bump or scene.has_texfilter)
+    if scene.has_texfilter:
+        si = _tex_footprint(si, hit.t, camera)
+        # camera hits: ray differentials -> anisotropic EWA derivative
+        # vectors; deeper bounces keep the isotropic cone
+        zw = torch.zeros_like(si.tex_wu)
+        dst0 = torch.stack([si.tex_wu, zw], -1)
+        dst1 = torch.stack([zw, si.tex_wv], -1)
+        if bounce == 0:
+            dd0, dd1, okd = _tex_differentials(
+                si, state["rx_o"], state["rx_d"], state["ry_o"],
+                state["ry_d"])
+            dst0 = torch.where(okd[:, None], dd0, dst0)
+            dst1 = torch.where(okd[:, None], dd1, dst1)
+        si = si._replace(tex_dst0=dst0, tex_dst1=dst1)
+    if scene.has_bump and getattr(texture_eval, "bump", None) is not None:
+        si = texture_eval.bump(si)
 
     if cfg.capture_features:
         # RPF captures the GEOMETRIC normal + hit point at bounces 0/1
@@ -171,12 +269,17 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
         pmf = choice_pmf_at(scene.lights, lrow_c, cfg.light_strategy, n,
                             prev_p)
         w_emit = power_heuristic(1.0, prev_pdf, 1.0, light_pdf * pmf)
+        if SLOT_MIRROR in scene.lobe_slots or SLOT_FS in scene.lobe_slots:
+            w_emit = torch.where(state["specular"], 1.0, w_emit)
     L = L + torch.where((alive & si.valid)[:, None],
                         beta * Le * w_emit[:, None], 0.0)
 
     alive = alive & si.valid & (bounce < cfg.max_depth)
-    lobes = fetch_lobes(scene.mt_table, si.material_id)
+    overrides = texture_eval(si) if texture_eval is not None else None
+    lobes = fetch_lobes(scene.mt_table, si.material_id, overrides,
+                        scene.lobe_slots)
     alive = alive & lobes.active.any(dim=-1)
+    has_smooth = lobes.active[:, 0] | lobes.active[:, 1]
 
     # ---- NEE ----
     d0 = CAMERA_DIMS + bounce * DIMS_PER_BOUNCE
@@ -184,7 +287,8 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
     u_light = torch.stack([sampler.dim(px, py, sidx, d0 + 1, sctx),
                            sampler.dim(px, py, sidx, d0 + 2, sctx)], dim=-1)
     nee_c, o_sh, wi_sh, t_sh, nee_ok = _nee_prepare(
-        scene, si, lobes, u_choice, u_light, cfg.light_strategy, alive)
+        scene, si, lobes, u_choice, u_light, cfg.light_strategy,
+        alive & has_smooth)
     beta_nee = beta  # pre-continuation throughput scales the NEE term
 
     # ---- BSDF sampling ----
@@ -193,13 +297,25 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
     u2 = sampler.dim(px, py, sidx, d0 + 5, sctx)
     t, b = build_onb(si.ns)
     wo_l = to_local(t, b, si.ns, si.wo)
-    wi_l, f, pdf = bsdf_sample(lobes, wo_l, u_lobe, u1, u2)
+    wi_l, f, pdf, is_spec, is_trans = bsdf_sample(lobes, wo_l, u_lobe, u1, u2,
+                                                  scene.lobe_slots)
     wi = to_world(t, b, si.ns, wi_l)
     ok = alive & (pdf > 0) & (f > 0).any(dim=-1)
+    if cfg.specular_only:
+        ok = ok & is_spec
     beta = torch.where(ok[:, None],
                        beta * f * (dot(wi, si.ns).abs()
                                    / torch.clamp(pdf, min=1e-20))[:, None],
                        beta)
+    eta_scale = state["eta_scale"]
+    if SLOT_FS in scene.lobe_slots:
+        # refraction radiance scaling bookkeeping (path.cpp etaScale);
+        # only the fresnel-specular slot transmits specularly
+        eta_sq = lobes.eta * lobes.eta
+        eta2 = torch.where(dot(si.wo, si.ng) > 0, eta_sq,
+                           1.0 / torch.clamp(eta_sq, min=1e-9))
+        eta_scale = torch.where(ok & is_spec & is_trans, eta_scale * eta2,
+                                eta_scale)
     alive = ok
     prev_pdf = torch.clamp(pdf, min=1e-20)
     prev_p = si.p
@@ -209,7 +325,7 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
     # ---- Russian roulette (path.cpp: bounces > 3) ----
     if bounce > 3:
         u_rr = sampler.dim(px, py, sidx, d0 + 6, sctx)
-        rr_beta = beta.amax(dim=-1)
+        rr_beta = beta.amax(dim=-1) * eta_scale
         q = torch.clamp(1.0 - rr_beta, min=0.05)
         do_rr = (rr_beta < cfg.rr_threshold) & alive
         killed = do_rr & (u_rr < q)
@@ -225,5 +341,6 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
     L = L + beta_nee * _nee_resolve(nee_c, nee_ok, occluded)
     out.update(o=o, d=d, hit_t=hit_next.t, hit_prim=hit_next.prim,
                hit_b0=hit_next.b0, hit_b1=hit_next.b1, beta=beta, L=L,
-               alive=alive, prev_pdf=prev_pdf, prev_p=prev_p)
+               alive=alive, prev_pdf=prev_pdf, prev_p=prev_p,
+               specular=is_spec, eta_scale=eta_scale)
     return out

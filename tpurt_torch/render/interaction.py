@@ -2,12 +2,15 @@
 tpurt/render/interaction.py: compute_interaction, offset_ray_origin).
 
 One fused shading-row gather per lane; triangle and sphere attributes are
-both computed and a select picks the live one, as in tpurt.
+both computed and a select picks the live one, as in tpurt.  With
+``dpduv=True`` the interaction also carries the uv-parameterization
+derivatives that bump mapping and texture filtering need; the
+``tex_*`` fields are filled in by the integrator.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -20,8 +23,8 @@ from tpurt_torch.render.geometry_build import (
     PT_TRIANGLE,
 )
 from tpurt_torch.render.intersect import DeviceGeometry, Hit
-from tpurt_torch.render.sampling_warps import (cross, dot, face_forward, norm,
-                                               normalize)
+from tpurt_torch.render.sampling_warps import (build_onb, cross, dot,
+                                               face_forward, norm, normalize)
 
 F32_EPS = float(np.float32(1e-12))
 
@@ -38,10 +41,21 @@ class SurfaceInteraction(NamedTuple):
     arealight_id: torch.Tensor  # (N,) i32
     prim: torch.Tensor  # (N,) i32
     valid: torch.Tensor  # (N,) bool
+    # uv-parameterization derivatives (triangle.cpp:160-190); None unless
+    # the scene needs them (bump mapping / texture filtering)
+    dpdu: Optional[torch.Tensor] = None  # (N,3)
+    dpdv: Optional[torch.Tensor] = None  # (N,3)
+    # uv-space ray-footprint widths for MIP selection (None = top level)
+    tex_wu: Optional[torch.Tensor] = None  # (N,)
+    tex_wv: Optional[torch.Tensor] = None  # (N,)
+    # uv-space screen-derivative vectors (du/dx, dv/dx) and (du/dy, dv/dy)
+    # from camera ray differentials; imagemap lookups then use EWA
+    tex_dst0: Optional[torch.Tensor] = None  # (N,2)
+    tex_dst1: Optional[torch.Tensor] = None  # (N,2)
 
 
-def compute_interaction(geo: DeviceGeometry, hit: Hit, o, d
-                        ) -> SurfaceInteraction:
+def compute_interaction(geo: DeviceGeometry, hit: Hit, o, d,
+                        dpduv: bool = False) -> SurfaceInteraction:
     """Shading data for each lane from its Hit.  Invalid lanes get benign
     values (ns=+z) and valid=False."""
     n = hit.t.shape[0]
@@ -124,6 +138,32 @@ def compute_interaction(geo: DeviceGeometry, hit: Hit, o, d
     safe = valid[:, None]
     up = torch.zeros_like(ng)
     up[:, 2] = 1.0
+    dpdu = dpdv = None
+    if dpduv:
+        # triangle uv-parameterization derivatives (triangle.cpp:160-190);
+        # the default uvs are (0,0),(1,0),(1,1)
+        one = torch.ones_like(b0)
+        duv02 = torch.where(has_uv[:, None], uv0 - uv2,
+                            torch.stack([-one, -one], dim=-1))
+        duv12 = torch.where(has_uv[:, None], uv1 - uv2,
+                            torch.stack([0.0 * one, -one], dim=-1))
+        dp02 = v0 - v2
+        dp12 = v1 - v2
+        det = duv02[:, 0] * duv12[:, 1] - duv02[:, 1] * duv12[:, 0]
+        degen = det.abs() < 1e-9
+        inv = 1.0 / torch.where(degen, 1.0, det)
+        dpdu_t = (duv12[:, 1:2] * dp02 - duv02[:, 1:2] * dp12) * inv[:, None]
+        dpdv_t = (-duv12[:, 0:1] * dp02 + duv02[:, 0:1] * dp12) * inv[:, None]
+        t_f, b_f = build_onb(ns)
+        dpdu_t = torch.where(degen[:, None], t_f, dpdu_t)
+        dpdv_t = torch.where(degen[:, None], b_f, dpdv_t)
+        # spheres: ONB tangents scaled by the local size so bump
+        # displacement-to-size ratios stay sane (sphere dpdu ~ 2 pi r)
+        r_q = torch.clamp(rows[:, 19], min=1e-3)
+        dpdu_q = t_f * (2 * np.pi * r_q)[:, None]
+        dpdv_q = b_f * (np.pi * r_q)[:, None]
+        dpdu = torch.where(is_tri[:, None], dpdu_t, dpdu_q)
+        dpdv = torch.where(is_tri[:, None], dpdv_t, dpdv_q)
     return SurfaceInteraction(
         p=torch.where(safe, p, 0.0),
         ng=torch.where(safe, ng, up),
@@ -134,6 +174,8 @@ def compute_interaction(geo: DeviceGeometry, hit: Hit, o, d
         arealight_id=torch.where(valid, arealight_id, -1),
         prim=hit.prim,
         valid=valid,
+        dpdu=dpdu,
+        dpdv=dpdv,
     )
 
 

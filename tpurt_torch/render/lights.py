@@ -1,5 +1,5 @@
-"""Lights: point lights and sphere/triangle area lights (port of
-tpurt/render/lights.py: the host half of build_light_table, the spatial
+"""Lights: point, spot and distant lights and sphere/triangle area lights
+(port of tpurt/render/lights.py: the host half of build_light_table, the spatial
 light distribution, choose_light, sample_li and pdf_li_from_hit).
 
 Like the reference (api.cpp:1330-1400), every emissive primitive is its
@@ -7,8 +7,9 @@ own area light.  Per-lane lookups read ONE fused light row:
   [0] kind, [1:4] L, [4:7] p0, [7:10] p1, [10:14] params
   (cosTotal, cosFalloff, radius, two_sided), [14:23] tri v0/v1/v2,
   [23] prim  (kind/prim as exact small-int f32).
-Spot, distant, infinite, projection and goniometric lights raise
-NotImplementedError.
+Spot lights keep their axis in p1 and (cosTotal, cosFalloff) in params;
+distant lights keep their direction in p0.  Infinite, projection and
+goniometric lights raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from tpurt_torch.render.sampling_warps import (
     uniform_sample_cone, uniform_sample_sphere, uniform_sample_triangle)
 
 LIGHT_POINT = 0
+LIGHT_SPOT = 1
+LIGHT_DISTANT = 2
 LIGHT_AREA_TRI = 3
 LIGHT_AREA_SPHERE = 4
 
@@ -42,6 +45,7 @@ class LightTable:
     spat_inv_extent: torch.Tensor  # (3,)
     spat_res: int  # voxels per axis (1 = fall back to the power pmf)
     n_lights: int
+    world_radius: float  # scene bound radius (distant-light shadow rays)
 
 
 def light_tables(scene_lights: List[LightRecord], geo: GeometryArrays,
@@ -49,13 +53,17 @@ def light_tables(scene_lights: List[LightRecord], geo: GeometryArrays,
     """Host tables of the light set: explicit point lights + one area
     light per emissive primitive (BVH order).  area_records is indexed by
     arealight_id: (L(3,), scale(3,), two_sided)."""
-    kinds, Ls, p0s, params, tv0, tv1, tv2, prim_ids = ([] for _ in range(8))
+    kinds, Ls, p0s, p1s, params, tv0, tv1, tv2, prim_ids = (
+        [] for _ in range(9))
+    center = 0.5 * (geo.world_lo + geo.world_hi)
+    world_radius = float(np.linalg.norm(geo.world_hi - center)) or 1.0
 
-    def add(kind, L, p0=(0, 0, 0), par=(0, 0, 0, 0), v0=(0, 0, 0),
-            v1=(0, 0, 0), v2=(0, 0, 0), prim=-1):
+    def add(kind, L, p0=(0, 0, 0), p1=(0, 0, 1), par=(0, 0, 0, 0),
+            v0=(0, 0, 0), v1=(0, 0, 0), v2=(0, 0, 0), prim=-1):
         kinds.append(kind)
         Ls.append(np.asarray(L, np.float64) * np.ones(3))
         p0s.append(np.asarray(p0, np.float64))
+        p1s.append(np.asarray(p1, np.float64))
         params.append(np.asarray(par, np.float64))
         tv0.append(np.asarray(v0, np.float64))
         tv1.append(np.asarray(v1, np.float64))
@@ -63,14 +71,32 @@ def light_tables(scene_lights: List[LightRecord], geo: GeometryArrays,
         prim_ids.append(prim)
 
     for lr in scene_lights:
-        if lr.kind != "point":
-            raise NotImplementedError(f'LightSource "{lr.kind}"')
         ps = lr.params
+        l2w = lr.light_to_world
         scale = ps.find_one_spectrum("scale", 1.0)
-        intensity = ps.find_one_spectrum("I", 1.0) * scale
-        frm = lr.light_to_world.apply_point(
-            ps.find_one_point3("from", [0, 0, 0]))
-        add(LIGHT_POINT, intensity, p0=frm)
+        if lr.kind == "point":
+            intensity = ps.find_one_spectrum("I", 1.0) * scale
+            frm = l2w.apply_point(ps.find_one_point3("from", [0, 0, 0]))
+            add(LIGHT_POINT, intensity, p0=frm)
+        elif lr.kind == "spot":
+            intensity = ps.find_one_spectrum("I", 1.0) * scale
+            cone = ps.find_one_float("coneangle", 30.0)
+            delta = ps.find_one_float("conedeltaangle", 5.0)
+            wfrm = l2w.apply_point(ps.find_one_point3("from", [0, 0, 0]))
+            wto = l2w.apply_point(ps.find_one_point3("to", [0, 0, 1]))
+            axis = wto - wfrm
+            axis = axis / np.linalg.norm(axis)
+            add(LIGHT_SPOT, intensity, p0=wfrm, p1=axis,
+                par=(np.cos(np.deg2rad(cone)),
+                     np.cos(np.deg2rad(cone - delta)), 0, 0))
+        elif lr.kind == "distant":
+            L = ps.find_one_spectrum("L", 1.0) * scale
+            frm = l2w.apply_point(ps.find_one_point3("from", [0, 0, 0]))
+            to = l2w.apply_point(ps.find_one_point3("to", [0, 0, 1]))
+            w = frm - to
+            add(LIGHT_DISTANT, L, p0=w / np.linalg.norm(w))
+        else:
+            raise NotImplementedError(f'LightSource "{lr.kind}"')
 
     prim_to_light = np.full(geo.n_prims, -1, np.int32)
     for row in range(geo.n_prims):
@@ -117,7 +143,7 @@ def light_tables(scene_lights: List[LightRecord], geo: GeometryArrays,
         kind_a.astype(np.float32)[:, None],
         L_a,
         np.stack(p0s).astype(np.float32),
-        np.zeros((n, 3), np.float32) + np.float32([0, 0, 1]),  # p1 (spot axis)
+        np.stack(p1s).astype(np.float32),
         np.stack(params).astype(np.float32)[:, :4],
         np.stack(tv0).astype(np.float32),
         np.stack(tv1).astype(np.float32),
@@ -128,7 +154,8 @@ def light_tables(scene_lights: List[LightRecord], geo: GeometryArrays,
                 power_pmf=pmf.astype(np.float32),
                 power_cdf=np.cumsum(pmf).astype(np.float32),
                 spat_cdf=spat[0], spat_pmf=spat[1], spat_lo=spat[2],
-                spat_inv_extent=spat[3], spat_res=spat[4], n_lights=n)
+                spat_inv_extent=spat[3], spat_res=spat[4], n_lights=n,
+                world_radius=float(np.float32(world_radius)))
 
 
 def light_table_from_tables(tab: dict, device) -> LightTable:
@@ -153,7 +180,7 @@ def _spatial_distribution(kinds, positions, power, world_lo, world_hi,
     cz, cy, cx = np.meshgrid(ax, ax, ax, indexing="ij")
     centers = np.stack([cx, cy, cz], -1).reshape(-1, 3) * extent + lo
     voxel_r2 = float(np.sum((extent / res / 2) ** 2))
-    positional = np.isin(kinds, (LIGHT_POINT, LIGHT_AREA_TRI,
+    positional = np.isin(kinds, (LIGHT_POINT, LIGHT_SPOT, LIGHT_AREA_TRI,
                                  LIGHT_AREA_SPHERE))
     d2 = np.sum((centers[:, None, :] - positions[None, :, :]) ** 2, -1)
     w = np.where(positional[None, :],
@@ -221,14 +248,29 @@ def sample_li(lt: LightTable, idx, ref_p, u2) -> LightSample:
     kind = row[:, 0].to(torch.int32)
     L = row[:, 1:4]
     p0 = row[:, 4:7]
+    p1 = row[:, 7:10]
     par = row[:, 10:14]
     u, v = u2[:, 0], u2[:, 1]
 
-    # --- point ---
+    # --- point / spot ---
     to_l = p0 - ref_p
     dist2 = torch.clamp(dot(to_l, to_l), min=1e-12)
     wi_point = to_l / torch.sqrt(dist2)[:, None]
     li_point = L / dist2[:, None]
+    # spot falloff (spot.cpp Falloff)
+    cos_t = dot(-wi_point, p1)
+    cos_total, cos_fall = par[:, 0], par[:, 1]
+    delta = torch.clamp((cos_t - cos_total)
+                        / torch.clamp(cos_fall - cos_total, min=1e-6),
+                        0.0, 1.0)
+    d2 = delta * delta
+    falloff = torch.where(cos_t < cos_total, 0.0,
+                          torch.where(cos_t > cos_fall, 1.0, d2 * d2))
+    li_spot = li_point * falloff[:, None]
+
+    # --- distant (the shadow ray ends outside the scene bound) ---
+    wi_dist = p0
+    p_dist = ref_p + wi_dist * (2.0 * lt.world_radius)
 
     # --- area triangle (uniform by area; triangle.cpp Sample) ---
     b0, b1 = uniform_sample_triangle(u, v)
@@ -281,15 +323,21 @@ def sample_li(lt: LightTable, idx, ref_p, u2) -> LightSample:
     emits_sph = (par[:, 3] > 0) | (dot(n_sphere, -wi_sphere) > 0)
     li_sphere = torch.where(emits_sph[:, None], L, 0.0)
 
-    is_pt = (kind == LIGHT_POINT)[:, None]
+    is_spot = (kind == LIGHT_SPOT)[:, None]
+    is_pt = (kind == LIGHT_POINT)[:, None] | is_spot
+    is_dist = (kind == LIGHT_DISTANT)[:, None]
     is_tri = (kind == LIGHT_AREA_TRI)[:, None]
-    wi = torch.where(is_pt, wi_point, torch.where(is_tri, wi_tri, wi_sphere))
-    li = torch.where(is_pt, li_point, torch.where(is_tri, li_tri, li_sphere))
+    wi = torch.where(is_pt, wi_point, torch.where(
+        is_dist, wi_dist, torch.where(is_tri, wi_tri, wi_sphere)))
+    li = torch.where(is_spot, li_spot, torch.where(
+        is_pt, li_point, torch.where(
+            is_dist, L, torch.where(is_tri, li_tri, li_sphere))))
     pdf = torch.where(kind == LIGHT_AREA_TRI, pdf_tri,
                       torch.where(kind == LIGHT_AREA_SPHERE, pdf_sphere, 1.0))
-    p_light = torch.where(is_pt, p0, torch.where(is_tri, p_tri, p_sphere))
+    p_light = torch.where(is_pt, p0, torch.where(
+        is_dist, p_dist, torch.where(is_tri, p_tri, p_sphere)))
     return LightSample(wi=wi, li=li, pdf=pdf, p_light=p_light,
-                       is_delta=kind == LIGHT_POINT)
+                       is_delta=(is_pt | is_dist)[:, 0])
 
 
 def pdf_li_from_hit(lt: LightTable, light_idx, ref_p, wi, p_hit, ng_hit):

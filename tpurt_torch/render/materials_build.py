@@ -1,21 +1,28 @@
-"""Material table and per-lane lobe fetch for matte and plastic (port of
-tpurt/render/materials_build.py: the host half of build_material_table,
-fuse_material_rows and fetch_lobes).
+"""Material table and per-lane lobe fetch for matte, plastic, mirror and
+glass (port of tpurt/render/materials_build.py: the host half of
+build_material_table with its list of textured slots, fuse_material_rows
+and fetch_lobes with texture overrides).
 
 The table keeps tpurt's fused 53-column row layout, so a tpurt table and
-this one can be compared bit for bit (tpurt_torch.convert).  Every other
-material, textured slots and bump maps raise NotImplementedError.
+this one can be compared bit for bit (tpurt_torch.convert).  A textured
+slot keeps its default in the table and is listed in ``textured``; the
+texture evaluator (render/texeval.py) overrides it per lane.  Every other
+material raises NotImplementedError.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tpurt_torch.scene.records import MaterialRecord
-from tpurt_torch.render.bsdf import LobeParams, roughness_to_alpha
+from tpurt_torch.render.bsdf import (ALL_SLOTS, FRESNEL_DIELECTRIC,
+                                     FRESNEL_NOOP, SLOT_DIFFUSE, SLOT_FS,
+                                     SLOT_GLOSSY, SLOT_GTRANS, SLOT_MIRROR,
+                                     LobeParams, lobe_activity,
+                                     roughness_to_alpha)
 
 # columns of the constant-parameter table (tpurt's layout)
 _N_COLS = 39
@@ -37,8 +44,12 @@ N_FUSED_COLS = _N_COLS + 14
 MAT_NONE = 0
 MAT_MATTE = 1
 MAT_PLASTIC = 2
-_KIND_CODES = {"matte": MAT_MATTE, "plastic": MAT_PLASTIC}
-FRESNEL_DIELECTRIC = 0
+MAT_MIRROR = 3
+MAT_GLASS = 4
+_KIND_CODES = {"matte": MAT_MATTE, "plastic": MAT_PLASTIC,
+               "mirror": MAT_MIRROR, "glass": MAT_GLASS}
+# slots a texture can drive (tpurt's make_texture_eval col3/col1)
+TEXTURABLE = ("Kd", "Ks", "Kr", "Kt", "roughness", "sigma")
 
 
 def _const(slot):
@@ -50,29 +61,29 @@ def _const(slot):
 
 def build_material_table(materials: List[Optional[MaterialRecord]]):
     """Deduplicated material list (index == material id) -> (table
-    (M, 39) f32, kinds (M,) i32), tpurt's constant-table layout."""
+    (M, 39) f32, kinds (M,) i32, textured [(material id, slot)]), tpurt's
+    constant-table layout."""
     m = len(materials)
     table = np.zeros((max(m, 1), _N_COLS), np.float32)
     kinds = np.zeros(max(m, 1), np.int32)
+    textured: List[Tuple[int, str]] = []
     for i, rec in enumerate(materials):
         if rec is None:
             raise NotImplementedError('Material "none" (media boundaries)')
         kind = _KIND_CODES.get(rec.name)
         if kind is None:
             raise NotImplementedError(f'Material "{rec.name}"')
-        if "bumpmap" in rec.slots:
-            raise NotImplementedError("bump mapping (bumpmap)")
         kinds[i] = kind
         s = rec.slots
 
         def value(slot_name, default):
-            if slot_name not in s:
-                return np.asarray(default, dtype=np.float64)
-            v = _const(s[slot_name])
-            if v is None:
-                raise NotImplementedError(
-                    f'textured "{slot_name}" on Material "{rec.name}"')
-            return v
+            v = _const(s[slot_name]) if slot_name in s else None
+            if v is None and slot_name in s:
+                if slot_name not in TEXTURABLE:
+                    raise NotImplementedError(
+                        f'textured "{slot_name}" on Material "{rec.name}"')
+                textured.append((i, slot_name))
+            return np.asarray(default, dtype=np.float64) if v is None else v
 
         def put3(slot_name, cols, default):
             v = value(slot_name, default) * np.ones(3)
@@ -108,8 +119,9 @@ def build_material_table(materials: List[Optional[MaterialRecord]]):
         table[i, C_THIN] = float("thin" in s and _const(s["thin"]) in (True, 1.0))
         table[i, C_REMAP] = float("remaproughness" in s and
                                   _const(s["remaproughness"]) in (True, 1.0))
-        table[i, C_FRESNEL] = FRESNEL_DIELECTRIC
-    return table, kinds
+        table[i, C_FRESNEL] = (FRESNEL_NOOP if kind == MAT_MIRROR
+                               else FRESNEL_DIELECTRIC)
+    return table, kinds, textured
 
 
 def fuse_material_rows(table: np.ndarray, kinds: np.ndarray) -> np.ndarray:
@@ -123,18 +135,46 @@ def fuse_material_rows(table: np.ndarray, kinds: np.ndarray) -> np.ndarray:
     ], axis=1)
 
 
-def fetch_lobes(mt_table: torch.Tensor, mat_id: torch.Tensor) -> LobeParams:
+def lobe_slots(mt_table: np.ndarray) -> Tuple[int, ...]:
+    """The lobe slots that some row of the fused material table can
+    activate, by its kind (and, for glass, by its u/v roughness, which no
+    texture drives): what fetch_lobes maps each kind to."""
+    slots = set()
+    for row in np.asarray(mt_table):
+        kind = int(row[C_KIND])
+        if kind in (MAT_MATTE, MAT_PLASTIC):
+            slots.add(SLOT_DIFFUSE)
+        if kind == MAT_PLASTIC:
+            slots.add(SLOT_GLOSSY)
+        if kind == MAT_MIRROR:
+            slots.add(SLOT_MIRROR)
+        if kind == MAT_GLASS:
+            rough = row[C_UROUGH] > 0 or row[C_VROUGH] > 0
+            slots.update((SLOT_GLOSSY, SLOT_GTRANS) if rough else (SLOT_FS,))
+    return tuple(sorted(slots))
+
+
+def fetch_lobes(mt_table: torch.Tensor, mat_id: torch.Tensor,
+                texture_overrides: Optional[Dict[str, torch.Tensor]] = None,
+                slots: Tuple[int, ...] = ALL_SLOTS) -> LobeParams:
     """Per-lane lobe parameters from the fused material table: matte ->
-    diffuse (Oren-Nayar) lobe, plastic -> diffuse + GGX glossy lobes.
-    mat_id (N,) i32, -1 = no material -> all lobes inactive."""
+    diffuse (Oren-Nayar), plastic -> diffuse + GGX glossy, mirror ->
+    specular reflection, glass -> fresnel-specular when smooth, GGX
+    reflection + microfacet transmission when u/v roughness is given.
+    mat_id (N,) i32, -1 = no material -> all lobes inactive.
+    texture_overrides: {slot: per-lane values} from the texture evaluator.
+    slots: lobe_slots of the table (the slots worth looking at)."""
     row = mt_table[mat_id.clamp(min=0).long()]
     kind = torch.where(mat_id >= 0, row[:, C_KIND].to(torch.int32), MAT_NONE)
-    kd = row[:, C_KD0:C_KD0 + 3]
-    ks = row[:, C_KS0:C_KS0 + 3]
-    rough = row[:, C_ROUGH]
+    ov = texture_overrides or {}
+    kd = ov.get("Kd", row[:, C_KD0:C_KD0 + 3])
+    ks = ov.get("Ks", row[:, C_KS0:C_KS0 + 3])
+    kr = ov.get("Kr", row[:, C_KR0:C_KR0 + 3])
+    kt = ov.get("Kt", row[:, C_KT0:C_KT0 + 3])
+    rough = ov.get("roughness", row[:, C_ROUGH])
+    sigma = ov.get("sigma", row[:, C_SIGMA])
     urough = row[:, C_UROUGH]
     vrough = row[:, C_VROUGH]
-    sigma = row[:, C_SIGMA]
     remap = row[:, C_REMAP] > 0
 
     # roughness -> alpha (per-axis when u/v given)
@@ -151,12 +191,22 @@ def fetch_lobes(mt_table: torch.Tensor, mat_id: torch.Tensor) -> LobeParams:
 
     is_matte = kind == MAT_MATTE
     is_plastic = kind == MAT_PLASTIC
+    # glass.cpp: specular unless a u/v roughness is given
+    glass_rough = (kind == MAT_GLASS) & ((urough > 0) | (vrough > 0))
+    glass_smooth = (kind == MAT_GLASS) & ~glass_rough
     z3 = torch.zeros_like(kd)
-    return LobeParams(
+    lobe_ks = torch.where(is_plastic[:, None], ks, z3)
+    lobes = dict(
         kd=torch.where((is_matte | is_plastic)[:, None], kd, z3),
+        ks=torch.where(glass_rough[:, None], kr, lobe_ks),
+        kr=torch.where((kind == MAT_MIRROR)[:, None], kr, z3),
+        kt=torch.where(glass_smooth[:, None], kt, z3),
+        fs_kr=torch.where(glass_smooth[:, None], kr, z3),
+        kt_g=torch.where(glass_rough[:, None], kt, z3))
+    return LobeParams(
         oren_a=torch.where(is_matte, oren_a, 1.0),
         oren_b=torch.where(is_matte, oren_b, 0.0),
-        ks=torch.where(is_plastic[:, None], ks, z3),
         alpha_x=ax, alpha_y=ay,
-        eta=row[:, C_ETA],
-    )
+        fresnel_kind=row[:, C_FRESNEL].to(torch.int32),
+        eta=row[:, C_ETA], t_alpha_x=ax, t_alpha_y=ay,
+        active=lobe_activity(slots=slots, **lobes), **lobes)

@@ -28,6 +28,14 @@ log = logging.getLogger("tpurt_torch.rpf")
 DEFAULT_BOX_SIZES = (7,)  # rpf.cpp:767 (multi-scale list commented out there)
 
 
+def sampling_config(job: RenderJob):
+    """The sampling pass's integrator configuration: the job's with
+    feature capture on.  rpf.cpp Li passes a null light distribution to
+    UniformSampleOneLight -> uniform light choice."""
+    return dataclasses.replace(job.cfg, capture_features=True,
+                               light_strategy="uniform")
+
+
 def fill_sample_buffer(job: RenderJob):
     """FillSampleFilm analog: path-trace every (pixel, sample) lane with
     feature capture into the (H, W, S, 19) sample buffer on the job's
@@ -36,10 +44,7 @@ def fill_sample_buffer(job: RenderJob):
     film = job.film
     spp = job.sampler.spp
     h, w = film.height, film.width
-    # rpf.cpp Li passes a null light distribution to
-    # UniformSampleOneLight -> uniform light choice
-    cfg = dataclasses.replace(job.cfg, capture_features=True,
-                              light_strategy="uniform")
+    cfg = sampling_config(job)
     buf = torch.zeros((h * w * spp, SD_LEN), dtype=torch.float32,
                       device=job.scene.geo.device)
 

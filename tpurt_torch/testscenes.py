@@ -12,7 +12,18 @@ Sizes:
   "small": 32x32, 2 spp, 2 x 312 triangles (CPU tests)
 
 ``integrator="rpf"`` gives the same scene through ``Integrator "rpf"``
-(sample.pbrt's structure: the frame bench.py times second).
+(sample.pbrt's structure: the frame bench.py times second), and
+``sampler=`` picks the Sampler directive (bench.py's sampler sweep runs
+the RPF frame under random, stratified and halton).
+
+``textured_scene(size, texpng)`` is the direct-lighting textured frame
+that bench.py times as its config 5: ``Integrator "directlighting"``, a
+sphere area light and a distant light, a ground quad with a checkerboard
+``Kd`` and a plastic sphere whose ``Kd`` is an image map (the generated
+256x256 colour grid that ``write_grid_texture`` writes), 700x700 at 8 spp
+("full") or 32x32 at 2 spp ("small").  ``variant="whitted"`` swaps the
+integrator for ``"whitted"`` and adds a smooth glass sphere and a mirror
+quad, so that the specular continuation has lobes to follow.
 """
 
 from __future__ import annotations
@@ -63,8 +74,17 @@ def _mesh_text(v, idx) -> str:
     return f'Shape "trianglemesh"\n  "point P" [{pts}]\n  "integer indices" [{ids}]\n'
 
 
+def sampler_directive(sampler: str, spp: int) -> str:
+    """The Sampler line: stratified takes its default 4x4 strata, the
+    others ``pixelsamples``."""
+    if sampler == "stratified":
+        return 'Sampler "stratified"'
+    return f'Sampler "{sampler}" "integer pixelsamples" [{spp}]'
+
+
 def standin_scene(size: str = "full", filename: str = "standin.exr",
-                  seed: int = 0, integrator: str = "path") -> str:
+                  seed: int = 0, integrator: str = "path",
+                  sampler: str = "halton") -> str:
     """The stand-in scene as .pbrt text; integrator is "path" or "rpf"."""
     if integrator not in ("path", "rpf"):
         raise ValueError(f"integrator {integrator!r}")
@@ -76,7 +96,7 @@ def standin_scene(size: str = "full", filename: str = "standin.exr",
     return f"""# tpurt_torch stand-in for killeroo-simple ({size})
 LookAt 0 4.5 -15  0 2.2 0  0 1 0
 Camera "perspective" "float fov" [39]
-Sampler "halton" "integer pixelsamples" [{spp}]
+{sampler_directive(sampler, spp)}
 Integrator "{integrator}" "integer maxdepth" [5]
 PixelFilter "box"
 Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]
@@ -147,9 +167,91 @@ WorldEnd
 
 
 def write_standin(path: str, size: str = "full", filename: str = None,
-                  seed: int = 0, integrator: str = "path") -> str:
+                  seed: int = 0, integrator: str = "path",
+                  sampler: str = "halton") -> str:
     """Write the stand-in scene to ``path``; returns ``path``."""
     with open(path, "w") as f:
         f.write(standin_scene(size, filename or path.rsplit(".", 1)[0]
-                              + ".exr", seed, integrator))
+                              + ".exr", seed, integrator, sampler))
+    return path
+
+
+def write_grid_texture(path: str) -> str:
+    """Write the 256x256 colour-grid texture of the textured frame
+    (32-texel squares, a different phase in each channel)."""
+    from tpurt_torch.io.image import write_image
+
+    yy, xx = np.mgrid[0:256, 0:256]
+    tex = np.stack([(xx // 32 % 2).astype(np.float32),
+                    (yy // 32 % 2).astype(np.float32),
+                    ((xx + yy) // 32 % 2).astype(np.float32)], -1)
+    write_image(path, 0.2 + 0.7 * tex)
+    return path
+
+
+TEXTURED_SIZES = {
+    "full": dict(res=700, spp=8),
+    "small": dict(res=32, spp=2),
+}
+
+
+def textured_scene(size: str, texpng: str, filename: str = "direct_textured.exr",
+                   variant: str = "directlighting", sampler: str = "halton",
+                   pixel_filter: str = "box", res: int = None) -> str:
+    """The direct-lighting textured frame as .pbrt text (module
+    docstring); ``texpng`` is the image map's path."""
+    if variant not in ("directlighting", "whitted"):
+        raise ValueError(f"variant {variant!r}")
+    cfg = TEXTURED_SIZES[size]
+    res = res or cfg["res"]
+    extra = ""
+    if variant == "whitted":
+        extra = """AttributeBegin
+  Material "glass" "color Kr" [.9 .9 .9] "color Kt" [.9 .9 .9] "float eta" [1.5]
+  Translate -2.2 0.7 1.2
+  Shape "sphere" "float radius" [0.7]
+AttributeEnd
+AttributeBegin
+  Material "mirror" "color Kr" [.85 .85 .85]
+  Shape "trianglemesh" "point P" [1.6 0 -1  4 0 -3  4 3 -3  1.6 3 -1]
+    "integer indices" [0 1 2 2 3 0]
+AttributeEnd
+"""
+    return f"""LookAt 0 2.5 6  0 0.5 0  0 1 0
+Camera "perspective" "float fov" [45]
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]
+  "string filename" "{filename}"
+{sampler_directive(sampler, cfg["spp"])}
+PixelFilter "{pixel_filter}"
+Integrator "{variant}" "integer maxdepth" [5]
+WorldBegin
+AttributeBegin
+  AreaLightSource "area" "color L" [18 17 14]
+  Translate -2 4 2
+  Shape "sphere" "float radius" [0.4]
+AttributeEnd
+LightSource "distant" "color L" [.6 .7 .9] "point from" [3 6 4]
+Texture "checks" "spectrum" "checkerboard"
+  "float uscale" [16] "float vscale" [16]
+  "color tex1" [.9 .9 .9] "color tex2" [.15 .2 .3]
+Material "matte" "texture Kd" "checks"
+Shape "trianglemesh" "point P" [-8 0 -8  8 0 -8  8 0 8  -8 0 8]
+  "float uv" [0 0 1 0 1 1 0 1] "integer indices" [0 1 2 2 3 0]
+{extra}Texture "grid" "spectrum" "imagemap" "string filename" "{texpng}"
+Material "plastic" "texture Kd" "grid" "color Ks" [.3 .3 .3]
+  "float roughness" [.02]
+Translate 0 1 0
+Shape "sphere" "float radius" [1]
+WorldEnd
+"""
+
+
+def write_textured(path: str, size: str = "full", **kw) -> str:
+    """Write the textured frame's scene to ``path`` and its grid texture
+    beside it; returns ``path``."""
+    base = path.rsplit(".", 1)[0]
+    tex = write_grid_texture(base + "_grid.png")
+    with open(path, "w") as f:
+        f.write(textured_scene(size, tex, kw.pop("filename", base + ".exr"),
+                               **kw))
     return path
