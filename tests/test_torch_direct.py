@@ -220,7 +220,7 @@ def spec_lobes():
     kinds = table[:, pmat.C_KIND].astype(int).tolist()
     assert sorted(kinds) == [pmat.MAT_MATTE, pmat.MAT_PLASTIC,
                              pmat.MAT_MIRROR, pmat.MAT_GLASS, pmat.MAT_GLASS]
-    assert pmat.lobe_slots(table) == pbsdf.ALL_SLOTS
+    assert pmat.lobe_slots(table) == pbsdf.ALL_SLOTS[:5]
     rng = np.random.default_rng(3)
     n = 6000
     mat = rng.integers(-1, len(kinds), n).astype(np.int32)
@@ -252,14 +252,14 @@ def test_fetch_lobes_mirror_glass_match_tpurt(spec_lobes):
     _, want, got = spec_lobes
     for f in pbsdf.LobeParams._fields:
         g, w = getattr(got, f), getattr(want, f)
-        if f == "active":  # tpurt's has 7 columns: compared below
+        if f == "active" or g is None:  # None: a field no material needs
             continue
         if g.dtype == torch.int32:
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
         else:
             _close(g, w, rtol=1e-6, atol=0)
     act = np.asarray(want.active)
-    np.testing.assert_array_equal(got.active.numpy(), act[:, :5])
+    np.testing.assert_array_equal(got.active.numpy(), act)
     assert not act[:, 5:].any() and act[:, :5].any(axis=0).all()
 
 
@@ -275,7 +275,7 @@ def test_bsdf_with_skipped_slots_equals_all_slots(spec_lobes):
         outside = [k for k in pbsdf.ALL_SLOTS if k not in slots]
         keep = ~lp.active[:, outside].any(dim=-1)
         assert keep.sum() > 500
-        sub = pbsdf.LobeParams(*[f[keep] for f in lp])
+        sub = pbsdf.LobeParams(*[None if f is None else f[keep] for f in lp])
         w, i = wo[keep], wi[keep]
         assert torch.equal(pbsdf.bsdf_f(sub, w, i, slots),
                            pbsdf.bsdf_f(sub, w, i))

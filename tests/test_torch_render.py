@@ -124,16 +124,16 @@ def test_supported_base_scene_renders_on_cpu():
     ("integrator", "volpath", 'Integrator "volpath"'),
     ("integrator", "ao", 'Integrator "ao"'),
     ("sampler", "adaptive", 'Sampler "adaptive"'),
-    ("material", "metal", 'Material "metal"'),
-    ("material", "uber", 'Material "uber"'),
-    ("light", "infinite", 'LightSource "infinite"'),
-    ("light", "goniometric", 'LightSource "goniometric"'),
-    ("shape", "cylinder", 'Shape "cylinder"'),
+    ("integrator", "sppm", 'Integrator "sppm"'),
+    ("material", "hair", 'Material "hair"'),
+    ("material", "fourier", 'Material "fourier"'),
+    ("material", "subsurface", 'Material "subsurface"'),
+    ("material", "kdsubsurface", 'Material "kdsubsurface"'),
+    ("shape", "curve", 'Shape "curve"'),
     ("accel", 'Accelerator "kdtree"', 'Accelerator "kdtree"'),
     ("filter", "catmullrom", 'PixelFilter "catmullrom"'),
-    ("camera", "orthographic", 'Camera "orthographic"'),
+    ("camera", "realistic", 'Camera "realistic"'),
     ("kd", '"texture Kd" "checks"', 'Texture "ptex"'),
-    ("kd", '"texture eta" "checks"', 'textured "eta"'),
     ("medium", 'MakeNamedMedium "fog" "string type" "homogeneous"\n'
                'MediumInterface "" "fog"', "media"),
 ])
@@ -142,10 +142,10 @@ def test_outside_the_slice_raises(key, value, feature):
     if "ptex" in feature:
         text = text.replace("WorldBegin", 'WorldBegin\nTexture "checks" '
                             '"spectrum" "ptex" "string filename" "faces.ptx"')
-    elif key == "kd":  # glass has an eta slot, and no texture may drive it
-        text = text.replace("WorldBegin", 'WorldBegin\nTexture "checks" '
-                            '"float" "checkerboard"').replace(
-                                'Material "matte"', 'Material "glass"')
+    elif value == "curve":
+        text = text.replace('Shape "curve" "float radius" [1]',
+                            'Shape "curve" "point P" [0 0 0 1 1 0 2 -1 0 '
+                            '3 0 0] "float width" [0.1]')
     with pytest.raises(NotImplementedError, match=feature):
         render(load_scene_string(text), device="cpu")
 
@@ -158,6 +158,12 @@ def test_outside_the_slice_raises(key, value, feature):
     ("light", "distant"), ("filter", "gaussian"), ("filter", "mitchell"),
     ("filter", "triangle"), ("filter", "sinc"),
     ("kd", '"texture Kd" "checks"'),
+    ("material", "metal"), ("material", "uber"), ("material", "substrate"),
+    ("material", "translucent"), ("material", "disney"),
+    ("light", "infinite"), ("light", "goniometric"), ("light", "projection"),
+    ("shape", "cylinder"), ("shape", "disk"), ("shape", "cone"),
+    ("shape", "paraboloid"), ("shape", "hyperboloid"),
+    ("camera", "orthographic"), ("camera", "environment"),
 ])
 def test_what_earlier_slices_refused_now_renders(key, value):
     """Each feature this slice added, one at a time in the base scene."""
@@ -168,6 +174,14 @@ def test_what_earlier_slices_refused_now_renders(key, value):
     if value == "spot":  # aim it at the sphere from the light's place
         text = text.replace('"point from" [0 4 0]',
                             '"point from" [0 4 0] "point to" [0 0 0]')
+    if value in ("goniometric", "projection"):  # placed by the CTM: above,
+        text = text.replace(  # looking down
+            f'LightSource "{value}" "point from" [0 4 0]',
+            f'AttributeBegin\nTranslate 0 4 0\nRotate 90 1 0 0\n'
+            f'LightSource "{value}" "color I" [20 20 20]\nAttributeEnd')
+    if value == "environment":  # most of its rays escape: give them sky
+        text = text.replace("WorldBegin", 'WorldBegin\nLightSource '
+                            '"infinite" "color L" [.5 .5 .5]')
     img, job = render(load_scene_string(text), device="cpu")
     assert img.shape == (8, 8, 3) and np.isfinite(img).all()
     # (every surface specular under a point light: nothing to see)

@@ -110,10 +110,10 @@ def lobes(jobs):
 def test_fetch_lobes_matches_tpurt(lobes):
     _, want, got = lobes
     for f in pbsdf.LobeParams._fields:
-        if f != "active":  # tpurt's has 7 columns: compared below
+        # (the fields a matte and plastic scene does not need are None)
+        if f != "active" and getattr(got, f) is not None:
             _close(getattr(got, f), getattr(want, f), rtol=1e-6, atol=0)
-    np.testing.assert_array_equal(got.active.numpy(),
-                                  np.asarray(want.active)[:, :5])
+    np.testing.assert_array_equal(got.active.numpy(), np.asarray(want.active))
     assert not np.asarray(want.active)[:, 2:].any()
 
 

@@ -185,8 +185,9 @@ def test_texture_overrides_and_bump_match_tpurt(records):
         idx(m)
     mt = build_material_table(idx.materials)
     table = fuse_material_rows(mt)
-    ptable, pkinds, ptextured = pmat.build_material_table(precs)
-    assert pmat.fuse_material_rows(ptable, pkinds).tobytes() == table.tobytes()
+    pmt = pmat.build_material_table(precs)
+    ptextured = pmt.textured
+    assert pmat.fuse_material_rows(pmt).tobytes() == table.tobytes()
     assert ptextured == [(int(i), s) for i, s in mt.textured]
     rng = np.random.default_rng(5)
     mat = rng.integers(-1, len(precs), N).astype(np.int32)

@@ -105,10 +105,9 @@ def scene_from_tpurt(job) -> dict:
             or g.quad_trs is not None):
         raise NotImplementedError("tpurt geometry outside the ported slices")
     lt = job.scene.lights
-    if lt.has_infinite or lt.has_lightmaps:
-        raise NotImplementedError("tpurt lights outside the ported slices")
     cam = job.camera
-    if cam.kind != "perspective" or cam.animated:
+    if cam.kind not in ("perspective", "orthographic", "environment") or (
+            cam.animated):
         raise NotImplementedError(f'tpurt camera "{cam.kind}"')
     f = job.film
     a = np.asarray
@@ -124,9 +123,18 @@ def scene_from_tpurt(job) -> dict:
                     spat_lo=a(lt.spat_lo),
                     spat_inv_extent=a(lt.spat_inv_extent),
                     spat_res=int(lt.spat_res), n_lights=int(lt.n_lights),
-                    world_radius=float(lt.world_radius)),
+                    world_radius=float(lt.world_radius),
+                    env_map=a(lt.env_map), env_cond_cdf=a(lt.env_cond_cdf),
+                    env_cond_int=a(lt.env_cond_int),
+                    env_marg_cdf=a(lt.env_marg_cdf), env_w2l=a(lt.env_w2l),
+                    env_l2w=a(lt.env_l2w), img_pool=a(lt.img_pool),
+                    img_off=a(lt.img_off), img_wh=a(lt.img_wh),
+                    w2l=a(lt.w2l), proj=a(lt.proj),
+                    has_infinite=bool(lt.has_infinite),
+                    env_light_row=int(lt.env_light_row),
+                    has_lightmaps=bool(lt.has_lightmaps)),
         mt_table=a(job.scene.mt_table),
-        camera=dict(camera_to_world=a(cam.camera_to_world),
+        camera=dict(kind=cam.kind, camera_to_world=a(cam.camera_to_world),
                     raster_to_camera=a(cam.raster_to_camera),
                     lens_radius=cam.lens_radius,
                     focal_distance=cam.focal_distance,

@@ -1,33 +1,38 @@
-"""BSDF: the lobe slots of matte, plastic, mirror and glass in tpurt's
-slot mixture (port of tpurt/render/bsdf.py restricted to slots 0-4 with
-dielectric or no-op Fresnel).
+"""BSDF: tpurt's seven lobe slots with per-lane parameters (port of
+tpurt/render/bsdf.py).
 
-  slot 0  DIFFUSE      Lambertian / Oren-Nayar (kd, A, B)
-  slot 1  GLOSSY       microfacet GGX reflection (ks, alpha, dielectric eta)
+  slot 0  DIFFUSE      Lambertian / Oren-Nayar (kd, A, B), or the Disney
+                       diffuse stack (retro-reflection, sheen, fake
+                       subsurface)
+  slot 1  GLOSSY       microfacet GGX reflection (ks, alpha; Fresnel:
+                       dielectric | conductor | Schlick | Disney | none)
   slot 2  SPEC_MIRROR  perfect specular reflection (kr, Fresnel noop/diel)
   slot 3  SPEC_FRESNEL FresnelSpecular reflection + transmission (smooth
                        glass: fs_kr, kt, eta)
-  slot 4  GTRANS       GGX microfacet transmission (rough glass: kt_g)
+  slot 4  GTRANS       GGX microfacet transmission (kt_g)
+  slot 5  CLEARCOAT    Disney clearcoat, GTR1 (cc, cc_gloss)
+  slot 6  DTRANS       Lambertian transmission (kd_t)
 
 Sampling follows BSDF::Sample_f's uniform choice among active slots
 (reflection.cpp:714): u picks an active slot, the slot samples wi, f sums
 the non-specular active slots on the correct hemisphere and pdf averages
 them; the specular slots keep their discrete pdf.  The slots keep tpurt's
-order, so the same u picks the same lobe; tpurt's slots 5 and 6
-(clearcoat, Lambertian transmission) belong to materials outside the
-port and are never active here.
+order, so the same u picks the same lobe.
 
-tpurt computes every slot for every lane and masks, which XLA fuses; in
-eager PyTorch every masked term is a run of kernel launches.  So the
-functions take ``slots``, the slots that some material of the scene can
-activate (materials_build.lobe_slots), and skip the others: a frame of
-matte and plastic surfaces pays nothing for mirror and glass.  The values
-are the same either way, since a skipped slot is inactive on every lane.
+tpurt computes every slot and every Fresnel kind for every lane and
+masks, which XLA fuses; in eager PyTorch every masked term is a run of
+kernel launches.  So the functions take ``slots``, what some material of
+the scene can activate (materials_build.lobe_slots: a LobeSet, or a plain
+tuple of slot numbers meaning every Fresnel kind and the Disney terms),
+and skip the rest: a frame of matte and plastic surfaces pays nothing for
+mirror, glass, conductors or Disney.  LobeParams fields that no material
+of the scene needs are None.  The values are the same either way, since a
+skipped term is masked out on every lane.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -36,16 +41,47 @@ from tpurt_torch.render.sampling_warps import (INV_PI, cosine_sample_hemisphere,
                                                cross, dot, norm)
 
 F32_EPS = float(np.float32(1e-9))
-N_SLOTS = 5
-SLOT_DIFFUSE, SLOT_GLOSSY, SLOT_MIRROR, SLOT_FS, SLOT_GTRANS = range(N_SLOTS)
+N_SLOTS = 7
+(SLOT_DIFFUSE, SLOT_GLOSSY, SLOT_MIRROR, SLOT_FS, SLOT_GTRANS,
+ SLOT_CLEARCOAT, SLOT_DTRANS) = range(N_SLOTS)
 ALL_SLOTS = tuple(range(N_SLOTS))
 
 FRESNEL_DIELECTRIC = 0
+FRESNEL_CONDUCTOR = 1
+FRESNEL_SCHLICK = 2
 FRESNEL_NOOP = 3
+FRESNEL_DISNEY = 4  # lerp(metallic, dielectric, FrSchlick(r0)) (disney.cpp:330)
+ALL_FRESNEL = (FRESNEL_DIELECTRIC, FRESNEL_CONDUCTOR, FRESNEL_SCHLICK,
+               FRESNEL_NOOP, FRESNEL_DISNEY)
+
+
+class LobeSet(tuple):
+    """The lobe slots some material of a scene can activate (a tuple of
+    slot numbers), with the glossy slot's Fresnel kinds (``fresnel``),
+    whether any material is Disney (``disney``) and whether any is a mix
+    (``mix``)."""
+
+    def __new__(cls, slots=ALL_SLOTS, fresnel=ALL_FRESNEL, disney=True,
+                mix=True):
+        self = super().__new__(cls, sorted(slots))
+        self.fresnel = tuple(sorted(fresnel))
+        self.disney = bool(disney)
+        self.mix = bool(mix)
+        return self
+
+    def __repr__(self):
+        return (f"LobeSet({tuple(self)}, fresnel={self.fresnel}, "
+                f"disney={self.disney}, mix={self.mix})")
+
+
+def _fresnel_kinds(slots):
+    return getattr(slots, "fresnel", ALL_FRESNEL)
 
 
 class LobeParams(NamedTuple):
-    """Per-lane BSDF parameters, local-frame shading."""
+    """Per-lane BSDF parameters, local-frame shading (tpurt's fields, and
+    ``active``).  The fields after ``t_alpha_y`` are None where no
+    material of the scene needs them."""
 
     kd: torch.Tensor  # (N,3) diffuse reflectance
     oren_a: torch.Tensor  # (N,)
@@ -53,7 +89,7 @@ class LobeParams(NamedTuple):
     ks: torch.Tensor  # (N,3) glossy reflectance scale
     alpha_x: torch.Tensor  # (N,)
     alpha_y: torch.Tensor  # (N,)
-    fresnel_kind: torch.Tensor  # (N,) int32 (dielectric | noop)
+    fresnel_kind: torch.Tensor  # (N,) int32
     eta: torch.Tensor  # (N,) dielectric ior (glossy + fresnel-specular)
     kr: torch.Tensor  # (N,3) mirror reflectance
     kt: torch.Tensor  # (N,3) fresnel-specular transmittance
@@ -61,18 +97,42 @@ class LobeParams(NamedTuple):
     kt_g: torch.Tensor  # (N,3) microfacet transmission scale
     t_alpha_x: torch.Tensor  # (N,) transmission distribution alphas
     t_alpha_y: torch.Tensor  # (N,)
-    active: torch.Tensor  # (N,5) bool lobe activity (lobe_activity)
+    active: torch.Tensor  # (N,7) bool lobe activity (lobe_activity)
+    eta3: Optional[torch.Tensor] = None  # (N,3) conductor eta
+    k3: Optional[torch.Tensor] = None  # (N,3) conductor k
+    cc: Optional[torch.Tensor] = None  # (N,) clearcoat weight
+    cc_gloss: Optional[torch.Tensor] = None  # (N,) clearcoat GTR1 alpha
+    kd_t: Optional[torch.Tensor] = None  # (N,3) lambertian transmission
+    disney: Optional[torch.Tensor] = None  # (N,) bool: Disney diffuse + G1G1
+    metallic: Optional[torch.Tensor] = None  # (N,) disney fresnel mix
+    r0: Optional[torch.Tensor] = None  # (N,3) Schlick R0 color (disney)
+    sheen: Optional[torch.Tensor] = None  # (N,3) disney sheen (weighted)
+    retro: Optional[torch.Tensor] = None  # (N,3) disney retro-reflection
+    kd_ss: Optional[torch.Tensor] = None  # (N,3) disney fake subsurface
+    d_rough: Optional[torch.Tensor] = None  # (N,) raw disney roughness
 
 
-def lobe_activity(kd, ks, kr, fs_kr, kt, kt_g, slots=ALL_SLOTS):
-    """(N,5) bool: which slots each lane's parameters activate (a slot
-    outside ``slots`` is inactive on every lane)."""
-    cols = {SLOT_DIFFUSE: lambda: (kd > 0).any(dim=-1),
+def lobe_activity(kd, ks, kr, fs_kr, kt, kt_g, cc=None, kd_t=None,
+                  retro=None, sheen=None, kd_ss=None, slots=ALL_SLOTS):
+    """(N,7) bool: which slots each lane's parameters activate (tpurt's
+    LobeParams.active; a slot outside ``slots`` is inactive on every
+    lane)."""
+
+    def diffuse():
+        act = (kd > 0).any(dim=-1)
+        for extra in (retro, sheen, kd_ss):
+            if extra is not None:
+                act = act | (extra > 0).any(dim=-1)
+        return act
+
+    cols = {SLOT_DIFFUSE: diffuse,
             SLOT_GLOSSY: lambda: (ks > 0).any(dim=-1),
             SLOT_MIRROR: lambda: (kr > 0).any(dim=-1),
             SLOT_FS: lambda: ((fs_kr > 0).any(dim=-1)
                               | (kt > 0).any(dim=-1)),
-            SLOT_GTRANS: lambda: (kt_g > 0).any(dim=-1)}
+            SLOT_GTRANS: lambda: (kt_g > 0).any(dim=-1),
+            SLOT_CLEARCOAT: lambda: cc > 0,
+            SLOT_DTRANS: lambda: (kd_t > 0).any(dim=-1)}
     off = torch.zeros(kd.shape[0], dtype=torch.bool, device=kd.device)
     return torch.stack([cols[k]() if k in slots else off
                         for k in ALL_SLOTS], dim=-1)
@@ -88,6 +148,12 @@ def _abs_cos_theta(w):
 
 def _same_hemisphere(a, b):
     return a[:, 2] * b[:, 2] > 0
+
+
+def _pow5(c):
+    """c ** 5 as jax's integer_pow evaluates it (binary powering)."""
+    c2 = c * c
+    return c * (c2 * c2)
 
 
 def fr_dielectric(cos_i, eta_i, eta_t):
@@ -107,6 +173,58 @@ def fr_dielectric(cos_i, eta_i, eta_t):
                                                    min=F32_EPS)
     f = 0.5 * (r_par * r_par + r_perp * r_perp)
     return torch.where(tir, 1.0, f)
+
+
+def fr_conductor(cos_i, eta, k):
+    """Per-channel conductor Fresnel (FrConductor, bsdf.py:155): complex
+    arithmetic spelled out in reals, in tpurt's operation order.  eta, k
+    (N,3); cos_i (N,)."""
+    c = torch.clamp(cos_i.abs(), 0.0, 1.0)[:, None]
+    c2 = c * c
+    s2 = 1.0 - c2
+    e2 = eta * eta
+    k2 = k * k
+    t0 = e2 - k2 - s2
+    a2b2 = torch.sqrt(torch.clamp(t0 * t0 + 4 * e2 * k2, min=0.0))
+    t1 = a2b2 + c2
+    a = torch.sqrt(torch.clamp(0.5 * (a2b2 + t0), min=0.0))
+    t2 = 2.0 * a * c
+    rs = (t1 - t2) / torch.clamp(t1 + t2, min=F32_EPS)
+    t3 = c2 * a2b2 + s2 * s2
+    t4 = t2 * s2
+    rp = rs * (t3 - t4) / torch.clamp(t3 + t4, min=F32_EPS)
+    return 0.5 * (rp + rs)
+
+
+def _schlick(rs, cos_i):
+    c = torch.clamp(1.0 - cos_i.abs(), 0.0, 1.0)[:, None]
+    return rs + (1.0 - rs) * _pow5(c)
+
+
+def _fresnel(lp: LobeParams, cos_i, kinds=ALL_FRESNEL):
+    """Glossy-slot Fresnel (tpurt's _fresnel): the kinds in ``kinds``
+    computed, each lane taking its own; any other lane gets 1 (noop)."""
+    f = torch.ones_like(lp.ks)
+    k = lp.fresnel_kind[:, None]
+    fd = None
+    if FRESNEL_DIELECTRIC in kinds or FRESNEL_DISNEY in kinds:
+        fd = (fr_dielectric(cos_i, torch.ones_like(cos_i), lp.eta)[:, None]
+              * torch.ones_like(lp.ks))
+    # tpurt's select chain, innermost first
+    if FRESNEL_DISNEY in kinds:
+        # DisneyFresnel (disney.cpp:327-341): metallic mix of dielectric
+        # and Schlick with the tinted R0
+        fdis = ((1.0 - lp.metallic)[:, None] * fd
+                + lp.metallic[:, None] * _schlick(lp.r0, cos_i))
+        f = torch.where(k == FRESNEL_DISNEY, fdis, f)
+    if FRESNEL_SCHLICK in kinds:
+        f = torch.where(k == FRESNEL_SCHLICK, _schlick(lp.ks, cos_i), f)
+    if FRESNEL_CONDUCTOR in kinds:
+        f = torch.where(k == FRESNEL_CONDUCTOR,
+                        fr_conductor(cos_i, lp.eta3, lp.k3), f)
+    if FRESNEL_DIELECTRIC in kinds:
+        f = torch.where(k == FRESNEL_DIELECTRIC, fd, f)
+    return f
 
 
 def roughness_to_alpha(rough):
@@ -186,8 +304,15 @@ def _ggx_pdf_wh(wo, wh, ax, ay):
 # per-slot eval / pdf / sample
 # ---------------------------------------------------------------------------
 
+def _schlick_weight(cos_t):
+    return _pow5(torch.clamp(1.0 - cos_t, 0.0, 1.0))
+
+
 def _diffuse_f(lp: LobeParams, wo, wi):
-    """Oren-Nayar; A=1, B=0 reduces to Lambertian (reflection.h:358)."""
+    """Oren-Nayar; A=1, B=0 reduces to Lambertian (reflection.h:358), or
+    where lp.disney the Disney diffuse stack: Burley diffuse +
+    retro-reflection + sheen + fake subsurface (disney.cpp:92-228), folded
+    into one additive cosine-sampled slot."""
     si = torch.sqrt(torch.clamp(1.0 - wi[:, 2] * wi[:, 2], min=0.0))
     so = torch.sqrt(torch.clamp(1.0 - wo[:, 2] * wo[:, 2], min=0.0))
     denom = torch.clamp(si * so, min=F32_EPS)
@@ -200,7 +325,31 @@ def _diffuse_f(lp: LobeParams, wo, wi):
     sin_alpha = torch.where(abs_ci > abs_co, so, si)
     tan_beta = torch.where(abs_ci > abs_co, si / abs_ci, so / abs_co)
     scale = lp.oren_a + lp.oren_b * max_cos * sin_alpha * tan_beta
-    return lp.kd * (INV_PI * scale)[:, None]
+    f_on = lp.kd * (INV_PI * scale)[:, None]
+    if lp.disney is None:
+        return f_on
+
+    # --- disney variant ---
+    fo = _schlick_weight(abs_co)
+    fi = _schlick_weight(abs_ci)
+    f_base = lp.kd * (INV_PI * (1.0 - fo / 2.0) * (1.0 - fi / 2.0))[:, None]
+    wh = wo + wi
+    wh_len = norm(wh)
+    degen = wh_len < F32_EPS
+    whn = wh / torch.clamp(wh_len, min=F32_EPS)[:, None]
+    cos_d = dot(wi, whn)
+    rr = 2.0 * lp.d_rough * cos_d * cos_d
+    f_retro = lp.retro * (INV_PI * rr
+                          * (fo + fi + fo * fi * (rr - 1.0)))[:, None]
+    f_sheen = lp.sheen * _schlick_weight(cos_d.abs())[:, None]
+    fss90 = cos_d * cos_d * lp.d_rough
+    fss = ((1.0 + fo * (fss90 - 1.0)) * (1.0 + fi * (fss90 - 1.0)))
+    ss = 1.25 * (fss * (1.0 / torch.clamp(abs_co + abs_ci, min=F32_EPS) - 0.5)
+                 + 0.5)
+    f_ss = lp.kd_ss * (INV_PI * ss)[:, None]
+    f_dis = f_base + torch.where(degen[:, None], 0.0,
+                                 f_retro + f_sheen + f_ss)
+    return torch.where(lp.disney[:, None], f_dis, f_on)
 
 
 def _diffuse_pdf(wo, wi):
@@ -208,7 +357,7 @@ def _diffuse_pdf(wo, wi):
                        _abs_cos_theta(wi) * INV_PI, 0.0)
 
 
-def _glossy_f(lp: LobeParams, wo, wi):
+def _glossy_f(lp: LobeParams, wo, wi, kinds=ALL_FRESNEL):
     """GGX microfacet reflection (MicrofacetReflection::f)."""
     co = _abs_cos_theta(wo)
     ci = _abs_cos_theta(wi)
@@ -218,11 +367,19 @@ def _glossy_f(lp: LobeParams, wo, wi):
     wh = wh / torch.clamp(wh_len, min=F32_EPS)
     d = _ggx_d(wh, lp.alpha_x, lp.alpha_y)
     g = _ggx_g(wo, wi, lp.alpha_x, lp.alpha_y)
+    if lp.disney is not None:
+        # Disney uses the separable Smith form G1*G1 (disney.cpp:352-357)
+        g = torch.where(lp.disney,
+                        _ggx_g1(wo, lp.alpha_x, lp.alpha_y)
+                        * _ggx_g1(wi, lp.alpha_x, lp.alpha_y), g)
     # Fresnel with cos at the half vector, oriented toward the normal
     wh_fwd = torch.where(wh[:, 2:3] < 0, -wh, wh)
-    f = fr_dielectric(dot(wi, wh_fwd), torch.ones_like(co), lp.eta)
-    val = lp.ks * f[:, None] * (d * g / torch.clamp(4.0 * ci * co,
-                                                    min=F32_EPS))[:, None]
+    f = _fresnel(lp, dot(wi, wh_fwd), kinds)
+    ks = lp.ks
+    if FRESNEL_SCHLICK in kinds:  # Schlick folds ks into F
+        ks = torch.where((lp.fresnel_kind == FRESNEL_SCHLICK)[:, None], 1.0,
+                         ks)
+    val = ks * f * (d * g / torch.clamp(4.0 * ci * co, min=F32_EPS))[:, None]
     return torch.where((degenerate | ~_same_hemisphere(wo, wi))[:, None], 0.0,
                        val)
 
@@ -316,6 +473,75 @@ def _gtrans_sample(lp: LobeParams, wo, u1, u2):
     return ok, wi
 
 
+# -- disney clearcoat (disney.cpp:230-318) ------------------------------------
+
+def _gtr1(cos_t, alpha):
+    # the sign-flipped form of disney.cpp:248-252 (bsdf.py:448): for
+    # alpha < 1 both (1-a2) and -log(a2) are positive
+    a2 = alpha * alpha
+    num = 1.0 - a2
+    den = (np.pi * torch.clamp(-torch.log(torch.clamp(a2, min=F32_EPS)),
+                               min=F32_EPS)
+           * torch.clamp(1.0 + (a2 - 1.0) * cos_t * cos_t, min=F32_EPS))
+    return num / den
+
+
+def _smith_g_sep(cos_t, alpha):
+    a2 = alpha * alpha
+    c2 = cos_t * cos_t
+    return 1.0 / torch.clamp(cos_t + torch.sqrt(a2 + c2 - a2 * c2),
+                             min=F32_EPS)
+
+
+def _cc_f(lp: LobeParams, wo, wi):
+    wh = wo + wi
+    wh_len = norm(wh)
+    wh = wh / torch.clamp(wh_len, min=F32_EPS)[:, None]
+    dr = _gtr1(_abs_cos_theta(wh), lp.cc_gloss)
+    fr = 0.04 + 0.96 * _schlick_weight(dot(wo, wh))
+    gr = (_smith_g_sep(_abs_cos_theta(wo), 0.25)
+          * _smith_g_sep(_abs_cos_theta(wi), 0.25))
+    val = lp.cc * gr * fr * dr / 4.0
+    ok = _same_hemisphere(wo, wi) & (wh_len > F32_EPS)
+    return torch.where(ok, val, 0.0)[:, None] * torch.ones_like(lp.kd)
+
+
+def _cc_pdf(lp: LobeParams, wo, wi):
+    wh = wo + wi
+    wh_len = norm(wh)
+    wh = wh / torch.clamp(wh_len, min=F32_EPS)[:, None]
+    dr = _gtr1(_abs_cos_theta(wh), lp.cc_gloss)
+    pdf = (dr * _abs_cos_theta(wh)
+           / torch.clamp(4.0 * dot(wo, wh), min=F32_EPS))
+    return torch.where(_same_hemisphere(wo, wi) & (wh_len > F32_EPS), pdf,
+                       0.0)
+
+
+def _cc_sample(lp: LobeParams, wo, u1, u2):
+    a2 = lp.cc_gloss * lp.cc_gloss
+    cos_t = torch.sqrt(torch.clamp(
+        (1.0 - torch.pow(torch.clamp(a2, min=F32_EPS), 1.0 - u1))
+        / torch.clamp(1.0 - a2, min=F32_EPS), min=0.0))
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = 2.0 * np.pi * u2
+    wh = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t],
+                     dim=-1)
+    wh = torch.where(_same_hemisphere(wo, wh)[:, None], wh, -wh)
+    return -wo + 2.0 * dot(wo, wh)[:, None] * wh
+
+
+# -- lambertian transmission (reflection.h:390, cpp:397-409) ------------------
+
+def _dtrans_f(lp: LobeParams, wo, wi):
+    return torch.where((~_same_hemisphere(wo, wi))[:, None],
+                       lp.kd_t * INV_PI, 0.0)
+
+
+def _dtrans_pdf(wo, wi):
+    return torch.where(~_same_hemisphere(wo, wi),
+                       _abs_cos_theta(wi) * INV_PI, 0.0)
+
+
 # ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
@@ -330,10 +556,16 @@ def bsdf_f(lp: LobeParams, wo, wi, slots=ALL_SLOTS):
                             _diffuse_f(lp, wo, wi), 0.0)
     if SLOT_GLOSSY in slots:
         f = f + torch.where((act[:, SLOT_GLOSSY] & refl)[:, None],
-                            _glossy_f(lp, wo, wi), 0.0)
+                            _glossy_f(lp, wo, wi, _fresnel_kinds(slots)), 0.0)
     if SLOT_GTRANS in slots:
         f = f + torch.where(act[:, SLOT_GTRANS][:, None],
                             _gtrans_f(lp, wo, wi), 0.0)
+    if SLOT_CLEARCOAT in slots:
+        f = f + torch.where((act[:, SLOT_CLEARCOAT] & refl)[:, None],
+                            _cc_f(lp, wo, wi), 0.0)
+    if SLOT_DTRANS in slots:
+        f = f + torch.where(act[:, SLOT_DTRANS][:, None],
+                            _dtrans_f(lp, wo, wi), 0.0)
     return f
 
 
@@ -341,15 +573,14 @@ def _smooth_pdf_sum(lp: LobeParams, wo, wi, slots=ALL_SLOTS):
     """Sum of the non-specular lobes' pdfs (hemisphere-masked)."""
     act = lp.active
     pdf = torch.zeros_like(wo[:, 0])
-    if SLOT_DIFFUSE in slots:
-        pdf = pdf + torch.where(act[:, SLOT_DIFFUSE], _diffuse_pdf(wo, wi),
-                                0.0)
-    if SLOT_GLOSSY in slots:
-        pdf = pdf + torch.where(act[:, SLOT_GLOSSY],
-                                _glossy_pdf(lp, wo, wi), 0.0)
-    if SLOT_GTRANS in slots:
-        pdf = pdf + torch.where(act[:, SLOT_GTRANS],
-                                _gtrans_pdf(lp, wo, wi), 0.0)
+    terms = ((SLOT_DIFFUSE, lambda: _diffuse_pdf(wo, wi)),
+             (SLOT_GLOSSY, lambda: _glossy_pdf(lp, wo, wi)),
+             (SLOT_GTRANS, lambda: _gtrans_pdf(lp, wo, wi)),
+             (SLOT_CLEARCOAT, lambda: _cc_pdf(lp, wo, wi)),
+             (SLOT_DTRANS, lambda: _dtrans_pdf(wo, wi)))
+    for k, term in terms:
+        if k in slots:
+            pdf = pdf + torch.where(act[:, k], term(), 0.0)
     return pdf
 
 
@@ -379,8 +610,9 @@ def bsdf_sample(lp: LobeParams, wo, u_lobe, u1, u2, slots=ALL_SLOTS):
     def is_slot(k):
         return chosen == k
 
-    # the diffuse candidate, mirrored below the surface where no slot was
-    # chosen (tpurt's last select branch; such lanes end with pdf 0)
+    # the diffuse candidate; its mirror image below the surface is
+    # Lambertian transmission's sample and tpurt's last select branch
+    # (where no slot was chosen, such lanes end with pdf 0)
     wi_diff = cosine_sample_hemisphere(u1, u2)
     flip_z = torch.tensor([1.0, 1.0, -1.0], dtype=wi_diff.dtype,
                           device=wi_diff.device)
@@ -407,6 +639,9 @@ def bsdf_sample(lp: LobeParams, wo, u_lobe, u1, u2, slots=ALL_SLOTS):
     if SLOT_GTRANS in slots:
         gt_ok, wi_gt = _gtrans_sample(lp, wo, u1, u2)
         wi = torch.where(is_slot(SLOT_GTRANS)[:, None], wi_gt, wi)
+    if SLOT_CLEARCOAT in slots:
+        wi = torch.where(is_slot(SLOT_CLEARCOAT)[:, None],
+                         _cc_sample(lp, wo, u1, u2), wi)
 
     # smooth slots: f sums all non-specular lobes, pdf averages them
     f = bsdf_f(lp, wo, wi, slots)
@@ -438,6 +673,9 @@ def bsdf_sample(lp: LobeParams, wo, u_lobe, u1, u2, slots=ALL_SLOTS):
     if SLOT_GTRANS in slots:
         is_trans = is_trans | is_slot(SLOT_GTRANS)
         bad = bad | (is_slot(SLOT_GTRANS) & ~gt_ok)
+    if SLOT_DTRANS in slots:
+        is_trans = is_trans | (is_slot(SLOT_DTRANS)
+                               & ~_same_hemisphere(wo, wi))
     bad = bad | (pdf <= 0)
     f = torch.where(bad[:, None], 0.0, f)
     pdf = torch.where(bad, 0.0, pdf)

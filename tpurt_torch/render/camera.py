@@ -1,13 +1,15 @@
-"""Perspective camera with thin lens (port of tpurt/render/camera.py:
-make_camera, as camera_tables + camera_from_tables, and
-Camera.generate_rays for "perspective").
+"""Perspective and orthographic cameras with thin lens, and the
+environment camera (port of tpurt/render/camera.py: make_camera, as
+camera_tables + camera_from_tables, and Camera.generate_rays for
+"perspective", "orthographic" and "environment").
 
 Screen-window convention as in tpurt (camera.h:84): [-1,1] in the
 narrower image axis, scaled by the aspect in the wider one.  Ray
 differentials are taken by the integrator, which calls generate_rays at
 the film point shifted one pixel in x and in y; ``fp_slope`` is the
-isotropic footprint model of the deeper bounces.  The other projections,
-animated cameras and the realistic camera are outside this slice.
+isotropic footprint model of the deeper bounces (``fp_base`` its width at
+the camera, the orthographic camera's).  Animated cameras and the
+realistic camera are outside the port.
 """
 
 from __future__ import annotations
@@ -55,18 +57,33 @@ class Camera:
     # world-space filter width at distance t ~= fp_base + t * fp_slope
     fp_base: float = 0.0
     fp_slope: float = 0.0
+    kind: str = "perspective"  # perspective | orthographic | environment
 
     def generate_rays(self, p_film, p_lens):
         """p_film: (N,2) raster points; p_lens: (N,2) in [0,1)^2.
-        Returns (o, d, weight); d normalized (perspective.cpp:79-93)."""
+        Returns (o, d, weight); d normalized (tpurt's generate_rays,
+        camera.py:129-173: perspective.cpp:79-93, orthographic.cpp,
+        environment.cpp)."""
         n = p_film.shape[0]
         p_raster = torch.cat(
             [p_film, torch.zeros((n, 1), dtype=p_film.dtype,
                                  device=p_film.device)], dim=-1)
         p_cam = _xform_point_batch(self.raster_to_camera, p_raster)
-        d = p_cam / norm(p_cam, keepdim=True)
-        o = torch.zeros_like(d)
-        if self.lens_radius > 0:
+        if self.kind == "perspective":
+            d = p_cam / norm(p_cam, keepdim=True)
+            o = torch.zeros_like(d)
+        elif self.kind == "orthographic":
+            o = p_cam
+            d = torch.zeros_like(p_cam)
+            d[:, 2] = 1.0
+        else:  # environment: theta over the height, phi over the width
+            theta = np.pi * p_film[:, 1] / self.res_y
+            phi = 2 * np.pi * p_film[:, 0] / self.res_x
+            d = torch.stack([torch.sin(theta) * torch.cos(phi),
+                             torch.cos(theta),
+                             torch.sin(theta) * torch.sin(phi)], dim=-1)
+            o = torch.zeros_like(d)
+        if self.lens_radius > 0 and self.kind != "environment":
             p_disk = self.lens_radius * torch.stack(
                 concentric_sample_disk(p_lens[:, 0], p_lens[:, 1]), dim=-1)
             dz = torch.where(d[:, 2] == 0, 1e-9, d[:, 2])
@@ -111,16 +128,22 @@ def _raster_to_screen_to_camera(camera_to_screen: xf.Transform, sw,
 def camera_tables(name: str, ps: ParamSet, camera_to_world: xf.Transform,
                   res_x: int, res_y: int,
                   camera_to_world_end: xf.Transform = None) -> dict:
-    """Host-side camera constants (MakeCamera, api.cpp:786-815)."""
-    if name != "perspective":
+    """Host-side camera constants (MakeCamera, api.cpp:786-815; tpurt's
+    make_camera, camera.py:308-424)."""
+    if name not in ("perspective", "orthographic", "environment"):
         raise NotImplementedError(f'Camera "{name}"')
     if camera_to_world_end is not None:
         raise NotImplementedError("animated camera (motion blur)")
-    fov = ps.find_one_float("fov", 90.0)
-    half_fov = ps.find_one_float("halffov", -1.0)
-    if half_fov > 0:
-        fov = 2 * half_fov
-    cam_to_screen = xf.perspective(fov, 1e-2, 1000.0)
+    if name == "perspective":
+        fov = ps.find_one_float("fov", 90.0)
+        half_fov = ps.find_one_float("halffov", -1.0)
+        if half_fov > 0:
+            fov = 2 * half_fov
+        cam_to_screen = xf.perspective(fov, 1e-2, 1000.0)
+    elif name == "orthographic":
+        cam_to_screen = xf.orthographic(0.0, 1.0)
+    else:
+        cam_to_screen = xf.Transform()
     sw = _screen_window(res_x, res_y, ps)
     r2c = _raster_to_screen_to_camera(cam_to_screen, sw, res_x, res_y)
 
@@ -128,15 +151,22 @@ def camera_tables(name: str, ps: ParamSet, camera_to_world: xf.Transform,
         v = r2c.astype(np.float64) @ np.array([px, py, 0.0, 1.0])
         return v[:3] / (v[3] if abs(v[3]) > 1e-12 else 1.0)
 
-    # angle between the rays of two diagonal pixel neighbours at the centre
+    fp_base = fp_slope = 0.0
     pa = thru(res_x / 2, res_y / 2)
     pb = thru(res_x / 2 + 1, res_y / 2 + 1)
-    d0 = pa / max(np.linalg.norm(pa), 1e-12)
-    d1 = pb / max(np.linalg.norm(pb), 1e-12)
-    fp_slope = float(np.arccos(np.clip(d0 @ d1, -1, 1)) / np.sqrt(2))
+    if name == "perspective":
+        # angle between the rays of two diagonal pixel neighbours at the
+        # centre
+        d0 = pa / max(np.linalg.norm(pa), 1e-12)
+        d1 = pb / max(np.linalg.norm(pb), 1e-12)
+        fp_slope = float(np.arccos(np.clip(d0 @ d1, -1, 1)) / np.sqrt(2))
+    elif name == "orthographic":
+        fp_base = float(np.linalg.norm((pb - pa)[:2]) / np.sqrt(2))
+    else:
+        fp_slope = float(np.pi / res_y)
     return dict(
-        camera_to_world=camera_to_world.m.astype(np.float32),
-        raster_to_camera=r2c, fp_base=0.0, fp_slope=fp_slope,
+        kind=name, camera_to_world=camera_to_world.m.astype(np.float32),
+        raster_to_camera=r2c, fp_base=fp_base, fp_slope=fp_slope,
         lens_radius=ps.find_one_float("lensradius", 0.0),
         focal_distance=ps.find_one_float("focaldistance", 1e6),
         shutter_open=ps.find_one_float("shutteropen", 0.0),

@@ -85,7 +85,7 @@ def _check_slice(sd: SceneDescription) -> None:
     for pr in sd.primitives:
         sh = pr.shape
         kind = getattr(sh, "kind", type(sh).__name__)
-        if kind not in ("trianglemesh", "sphere"):
+        if kind not in SHAPES:
             raise NotImplementedError(f'Shape "{kind}"')
         if pr.shape_end is not None:
             raise NotImplementedError("motion blur (animated shapes)")
@@ -98,6 +98,8 @@ def _check_slice(sd: SceneDescription) -> None:
 
 
 INTEGRATORS = ("path", "rpf", "directlighting", "whitted")
+SHAPES = ("trianglemesh", "sphere", "cylinder", "disk", "cone", "paraboloid",
+          "hyperboloid")
 
 
 def make_integrator_config(sd: SceneDescription) -> IntegratorConfig:
@@ -166,11 +168,11 @@ def host_tables(sd: SceneDescription, quick: bool = False,
     geo = DeviceGeometry.host_tables(geo_h)
     log.info("scene flatten + BVH build: %.2fs (%d prims, %d wide rows)",
              time.time() - t0, geo_h.n_prims, geo["wnodes"].shape[0])
-    table, kinds, textured = build_material_table(mat_index.materials)
+    mt = build_material_table(mat_index.materials)
     # the texture evaluator reads only the records that hold a texture
     records = [r if r is not None and any(
         isinstance(v, tuple) and v[0] == "texture" for v in r.slots.values())
-        else None for r in mat_index.materials]
+        else None for r in mt.records]
     lights = light_tables(sd.lights, geo_h,
                           [(r.L, r.scale, r.two_sided)
                            for _k, r in area_records])
@@ -180,8 +182,8 @@ def host_tables(sd: SceneDescription, quick: bool = False,
                      crop_override=crop_override)
     return dict(
         geo=geo, lights=lights,
-        mt_table=fuse_material_rows(table, kinds),
-        materials=dict(records=records, textured=textured,
+        mt_table=fuse_material_rows(mt),
+        materials=dict(records=records, textured=mt.textured,
                        has_bump=has_bump(records),
                        has_texfilter=any_imagemap(records)),
         camera=camera_tables(sd.camera_name, sd.camera_params,

@@ -1,8 +1,9 @@
 """Wavefront integrators, RGB: path, directlighting and whitted (port of
 tpurt/render/integrator.py: path_bounce_init / path_bounce_step with
-their helpers _camera_setup, _emitted, _nee_prepare, _nee_resolve, the
-texture footprints and camera ray differentials, Russian roulette and the
-RPF feature capture; the non-fused trace branch).  directlighting and
+their helpers _camera_setup, _emitted, _escape_radiance, _escape_pdf,
+_nee_prepare, _nee_resolve, the texture footprints and camera ray
+differentials, Russian roulette and the RPF feature capture; the
+non-fused trace branch).  directlighting and
 whitted are the same bounce step with ``specular_only=True``: emitted
 light and next-event estimation at every vertex, continued only through
 specular lobes.
@@ -36,8 +37,8 @@ from tpurt_torch.render.interaction import (SurfaceInteraction,
 from tpurt_torch.render.intersect import (DeviceGeometry, Hit, intersect_any,
                                           intersect_closest)
 from tpurt_torch.render.lights import (LightTable, choice_pmf_at,
-                                       choose_light, pdf_li_from_hit,
-                                       sample_li)
+                                       choose_light, env_le, env_pdf,
+                                       pdf_li_from_hit, sample_li)
 from tpurt_torch.render.materials_build import fetch_lobes
 from tpurt_torch.render.sampling_warps import (build_onb, dot, norm,
                                                power_heuristic, to_local,
@@ -82,6 +83,25 @@ def _emitted(scene: SceneData, si: SurfaceInteraction):
     row = scene.lights.rows[lrow.clamp(min=0)]  # one fused row gather
     emits = has & ((row[:, 13] > 0) | (dot(si.ng, si.wo) > 0))
     return torch.where(emits[:, None], row[:, 1:4], 0.0), lrow
+
+
+def _escape_radiance(lights: LightTable, d):
+    """Infinite-light radiance for escaped rays along d: the constant
+    lights' sum plus the mapped light's lookup (integrator.py:204-221)."""
+    L = lights.inf_L.expand(d.shape[0], 3)
+    if lights.env_light_row >= 0:
+        L = L + env_le(lights, d)
+    return L
+
+
+def _escape_pdf(lights: LightTable, d):
+    """Sample_Li's solid-angle pdf for escaped directions, for the MIS
+    weight: the map's importance pdf, else the uniform sphere's
+    (integrator.py:224-231)."""
+    if lights.env_light_row >= 0:
+        return env_pdf(lights, d)
+    return torch.full((d.shape[0],), 1.0 / (4 * np.pi), dtype=torch.float32,
+                      device=d.device)
 
 
 def _nee_prepare(scene: SceneData, si: SurfaceInteraction, lobes, u_choice,
@@ -273,6 +293,23 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
             w_emit = torch.where(state["specular"], 1.0, w_emit)
     L = L + torch.where((alive & si.valid)[:, None],
                         beta * Le * w_emit[:, None], 0.0)
+
+    # escaped rays -> infinite lights (integrator.py:951-964)
+    lt = scene.lights
+    if lt.has_infinite:
+        if cfg.light_strategy in ("power", "spatial"):
+            pmf_inf = lt.inf_power_pmf
+        else:
+            pmf_inf = 1.0 / lt.n_lights
+        if bounce == 0:
+            w_inf = torch.ones(n, dtype=torch.float32, device=o.device)
+        else:
+            w_inf = power_heuristic(1.0, prev_pdf, 1.0,
+                                    _escape_pdf(lt, d) * pmf_inf)
+            w_inf = torch.where(state["specular"], 1.0, w_inf)
+        L = L + torch.where((alive & ~si.valid)[:, None],
+                            beta * _escape_radiance(lt, d) * w_inf[:, None],
+                            0.0)
 
     alive = alive & si.valid & (bounce < cfg.max_depth)
     overrides = texture_eval(si) if texture_eval is not None else None

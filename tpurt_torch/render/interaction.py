@@ -1,8 +1,10 @@
-"""Surface interactions for triangles and spheres (port of
+"""Surface interactions for triangles and quadrics (port of
 tpurt/render/interaction.py: compute_interaction, offset_ray_origin).
 
-One fused shading-row gather per lane; triangle and sphere attributes are
-both computed and a select picks the live one, as in tpurt.  With
+One fused shading-row gather per lane; triangle and quadric attributes
+are both computed and a select picks the live one, as in tpurt.  A
+quadric's normal is its object-space gradient: only the gradients of the
+quadric kinds the scene holds are computed.  With
 ``dpduv=True`` the interaction also carries the uv-parameterization
 derivatives that bump mapping and texture filtering need; the
 ``tex_*`` fields are filled in by the integrator.
@@ -20,6 +22,12 @@ from tpurt_torch.render.geometry_build import (
     FLAG_HAS_UV,
     FLAG_REVERSE_ORIENTATION,
     FLAG_XFORM_SWAPS_HANDEDNESS,
+    PT_CONE,
+    PT_CYLINDER,
+    PT_DISK,
+    PT_HYPERBOLOID,
+    PT_PARABOLOID,
+    PT_SPHERE,
     PT_TRIANGLE,
 )
 from tpurt_torch.render.intersect import DeviceGeometry, Hit
@@ -105,7 +113,8 @@ def compute_interaction(geo: DeviceGeometry, hit: Hit, o, d,
         duv,
     )
 
-    # --- sphere attributes: normal from the object-space gradient ---
+    # --- quadric attributes: normal from the object-space gradient
+    # (interaction.py:151-208) ---
     w2o = rows[:, 7:19].reshape(n, 3, 4)
     x, y, z = p_ray[:, 0], p_ray[:, 1], p_ray[:, 2]
     p_obj = torch.stack([
@@ -113,7 +122,9 @@ def compute_interaction(geo: DeviceGeometry, hit: Hit, o, d,
         w2o[:, 1, 0] * x + w2o[:, 1, 1] * y + w2o[:, 1, 2] * z + w2o[:, 1, 3],
         w2o[:, 2, 0] * x + w2o[:, 2, 1] * y + w2o[:, 2, 2] * z + w2o[:, 2, 3],
     ], dim=-1)
-    gx, gy, gz = p_obj[:, 0], p_obj[:, 1], p_obj[:, 2]
+    gx, gy, gz = _quadric_gradient(
+        p_obj, rows[:, 19:27], ptype,
+        sorted({k for k, _q in geo.quads}) or [PT_SPHERE])
     # normals transform by the inverse transpose: n' = n @ w2o
     ng_sph = normalize(torch.stack([
         w2o[:, 0, 0] * gx + w2o[:, 1, 0] * gy + w2o[:, 2, 0] * gz,
@@ -157,7 +168,7 @@ def compute_interaction(geo: DeviceGeometry, hit: Hit, o, d,
         t_f, b_f = build_onb(ns)
         dpdu_t = torch.where(degen[:, None], t_f, dpdu_t)
         dpdv_t = torch.where(degen[:, None], b_f, dpdv_t)
-        # spheres: ONB tangents scaled by the local size so bump
+        # quadrics: ONB tangents scaled by the local size so bump
         # displacement-to-size ratios stay sane (sphere dpdu ~ 2 pi r)
         r_q = torch.clamp(rows[:, 19], min=1e-3)
         dpdu_q = t_f * (2 * np.pi * r_q)[:, None]
@@ -177,6 +188,39 @@ def compute_interaction(geo: DeviceGeometry, hit: Hit, o, d,
         dpdu=dpdu,
         dpdv=dpdv,
     )
+
+
+def _quadric_gradient(p_obj, params, ptype, kinds):
+    """Object-space gradient (gx, gy, gz) of each lane's quadric, for the
+    quadric kinds in ``kinds`` (interaction.py:182-206); a lane of another
+    kind takes the last kind's."""
+    px, py, pz = p_obj[:, 0], p_obj[:, 1], p_obj[:, 2]
+    radius, zmax = params[:, 0], params[:, 2]
+
+    def grad(kind):
+        if kind == PT_SPHERE:
+            return px, py, pz
+        if kind == PT_CYLINDER:
+            return px, py, torch.zeros_like(px)
+        if kind == PT_DISK:
+            zero = torch.zeros_like(px)
+            return zero, zero, torch.ones_like(px)
+        if kind == PT_CONE:
+            h = torch.clamp(zmax, min=F32_EPS)
+            rh = radius / h
+            return px, py, (rh * rh) * (h - pz)
+        if kind == PT_PARABOLOID:
+            k2 = 2 * (zmax / torch.clamp(radius * radius, min=F32_EPS))
+            return k2 * px, k2 * py, -torch.ones_like(px)
+        assert kind == PT_HYPERBOLOID, kind
+        ah2 = 2 * params[:, 6]
+        return ah2 * px, ah2 * py, -2 * params[:, 7] * pz
+
+    g = grad(kinds[-1])
+    for kind in kinds[-2::-1]:
+        m = ptype == kind
+        g = tuple(torch.where(m, a, b) for a, b in zip(grad(kind), g))
+    return g
 
 
 def offset_ray_origin(p, ng, w):

@@ -1,13 +1,15 @@
 """Geometry upload and ray queries (port of tpurt/render/intersect.py,
-restricted to static triangle + sphere scenes).
+restricted to static scenes of triangles and the six quadrics).
 
 The wide-BVH record table, the fused shading rows and the quadric tables
 are built on the host exactly as tpurt builds them (the unchanged
 ``tpurt.geom.wbvh.build_wide_table`` over the unchanged
 ``tpurt.render.geometry_build`` flattening), then uploaded.  Triangles
 are found by BVH traversal (``tpurt_torch.kernels.traverse``: a CUDA
-kernel on CUDA tensors, its plain twin on CPU tensors); spheres are tested
-outside the tree in one vectorized pass per sphere, as in tpurt.
+kernel on CUDA tensors, its plain twin on CPU tensors); quadrics (sphere,
+cylinder, disk, cone, paraboloid, hyperboloid) are tested outside the
+tree in one vectorized pass per quadric, as in tpurt, each by the test of
+its kind, which the host knows.
 
 The traversal is an explicit argument of ``intersect_closest`` and
 ``intersect_any`` so a caller can run the whole renderer through either
@@ -23,7 +25,10 @@ import numpy as np
 import torch
 
 from tpurt_torch.geom.wbvh import LEAF_K, SLOT_KIND, WIDTH, build_wide_table
-from tpurt_torch.render.geometry_build import PT_SPHERE, PT_TRIANGLE, GeometryArrays
+from tpurt_torch.render.geometry_build import (PT_CONE, PT_CYLINDER, PT_DISK,
+                                              PT_HYPERBOLOID, PT_PARABOLOID,
+                                              PT_SPHERE, PT_TRIANGLE,
+                                              GeometryArrays)
 
 INF = float("inf")
 
@@ -87,7 +92,7 @@ def derive_traversal_tables(wnodes: np.ndarray) -> dict:
 
 @dataclasses.dataclass
 class DeviceGeometry:
-    """Device tables of a static triangle + sphere scene.
+    """Device tables of a static scene of triangles and quadrics.
 
     wnodes (M, 128) f32: the wide-BVH record table (tpurt.geom.wbvh
         layout; slot 126 is the kind flag: 0 interior, 1 leaf).
@@ -95,13 +100,15 @@ class DeviceGeometry:
         [0] flags [1] ptype [2] material_id [3] arealight_id [4] quad_id
         [5] medium_inside [6] medium_outside (bitcast i32);
         triangles [7:16] v0,v1,v2 [16:25] n0,n1,n2 [25:31] uv0,uv1,uv2
-        [31] face id (bitcast i32); spheres [7:19] w2o rows 0..2,
+        [31] face id (bitcast i32); quadrics [7:19] w2o rows 0..2,
         [19:27] params[0:8].
     prim_type, quad_id (P,) i32; quad_w2o (Q, 4, 4), quad_params (Q, 16)
         f32: the quadric tables (padding rows when the scene has none).
     wstack_depth: traversal stack slots (tpurt's power-of-two sizing).
     inodes, leaves, root_ref: the CUDA traversal kernel's tables, derived
         from wnodes at upload (``derive_traversal_tables``).
+    quads: (prim type, quad_id) of each quadric prim in prim order, read
+        on the host at upload, so each quadric's pass runs its own test.
     """
 
     wnodes: torch.Tensor
@@ -116,6 +123,7 @@ class DeviceGeometry:
     inodes: torch.Tensor = None
     leaves: torch.Tensor = None
     root_ref: int = 0
+    quads: tuple = ()
 
     @property
     def device(self) -> torch.device:
@@ -130,10 +138,10 @@ class DeviceGeometry:
             raise NotImplementedError("motion blur (animated shapes)")
         if g.n_curves:
             raise NotImplementedError('Shape "curve"')
-        bad = set(np.unique(g.prim_type).tolist()) - {PT_TRIANGLE, PT_SPHERE}
+        bad = set(np.unique(g.prim_type).tolist()) - {PT_TRIANGLE,
+                                                      *_QUADRIC_TESTS}
         if bad:
-            raise NotImplementedError(
-                f"quadric shapes other than spheres (prim types {sorted(bad)})")
+            raise NotImplementedError(f"prim types {sorted(bad)}")
         if (g.medium_inside is not None and (g.medium_inside >= 0).any()) or (
                 g.medium_outside is not None and (g.medium_outside >= 0).any()):
             raise NotImplementedError("MediumInterface (participating media)")
@@ -182,8 +190,11 @@ class DeviceGeometry:
     @staticmethod
     def from_tables(tables: dict, device) -> "DeviceGeometry":
         trav = derive_traversal_tables(tables["wnodes"])
+        nt, nq = tables["n_tris"], tables["n_quads"]
+        quads = tuple((int(k), int(q)) for k, q in zip(
+            tables["prim_type"][nt:nt + nq], tables["quad_id"][nt:nt + nq]))
         tables = dict(tables, inodes=trav["inodes"], leaves=trav["leaves"],
-                      root_ref=trav["root_ref"])
+                      root_ref=trav["root_ref"], quads=quads)
         kw = {k: (torch.tensor(v, device=device)
                   if isinstance(v, np.ndarray) else v)
               for k, v in tables.items()}
@@ -195,8 +206,8 @@ class Hit(NamedTuple):
 
     t: torch.Tensor  # hit distance (inf if miss)
     prim: torch.Tensor  # primitive index (-1 if miss), int32
-    b0: torch.Tensor  # triangle barycentric 0 / sphere u
-    b1: torch.Tensor  # triangle barycentric 1 / sphere v
+    b0: torch.Tensor  # triangle barycentric 0 / quadric u
+    b1: torch.Tensor  # triangle barycentric 1 / quadric v
 
 
 # ---------------------------------------------------------------------------
@@ -298,7 +309,7 @@ def safe_inv_dir(d):
 
 
 # ---------------------------------------------------------------------------
-# spheres (the sphere case of tpurt's ray_quadric)
+# quadrics (tpurt's ray_quadric)
 # ---------------------------------------------------------------------------
 
 def _dot3(a, b):
@@ -351,6 +362,11 @@ def _disc_compensated(a, b, c):
     return torch.where(huge, b * b - 4.0 * a * c, comp)
 
 
+def _quadratic(a, b, c):
+    """Numerically stable quadratic; (has_roots, t0, t1), t0 <= t1."""
+    return _roots_from_disc(a, b, _disc_compensated(a, b, c))
+
+
 def _roots_from_disc(a, b, disc):
     ok = disc >= 0
     sqrt_d = torch.sqrt(torch.clamp(disc, min=0.0))
@@ -361,56 +377,192 @@ def _roots_from_disc(a, b, disc):
     return ok, torch.minimum(t0, t1), torch.maximum(t0, t1)
 
 
-def ray_sphere(o, d, t_max, w2o, params):
-    """The sphere case of tpurt's ray_quadric (intersect.py:469-499) for
-    one sphere against (N,) rays: w2o (4, 4), params (16,) =
-    [radius, zmin, zmax, phimax, ...].  Returns (hit, t, u, v)."""
-    oo = _xform_point(w2o, o)
-    od = _xform_vector(w2o, d)
+def _phi(p):
+    phi = torch.atan2(p[:, 1], p[:, 0])
+    return torch.where(phi < 0, phi + 2 * np.pi, phi)
+
+
+def _pick(has, t0, t1, ok0, ok1, *pairs):
+    """The nearer root that passes its test: (hit, t, values...) for the
+    (value at t0, value at t1) pairs."""
+    use1 = ~ok0 & ok1
+    hit = has & (ok0 | ok1)
+    t = torch.where(use1, t1, t0)
+    return (hit, t) + tuple(
+        torch.where(use1[:, None] if a.dim() == 2 else use1, b, a)
+        for a, b in pairs)
+
+
+def _sphere(oo, od, t_max, params):
     radius, zmin, zmax, phimax = params[0], params[1], params[2], params[3]
     a = _dot3(od, od)
     b = 2.0 * _dot3(oo, od)
     c = _dot3(oo, oo) - radius * radius
-    has, t0, t1 = _roots_from_disc(a, b, _disc_compensated(a, b, c))
+    has, t0, t1 = _quadratic(a, b, c)
     full = (zmin <= -radius) & (zmax >= radius) & (phimax >= 2 * np.pi - 1e-6)
 
     def test(t):
         p = oo + t[:, None] * od
         # reproject for precision (pbrt refines pHit to the surface)
         p = p * (radius / torch.sqrt(_dot3(p, p)))[:, None]
-        phi = torch.atan2(p[:, 1], p[:, 0])
-        phi = torch.where(phi < 0, phi + 2 * np.pi, phi)
+        phi = _phi(p)
         ok = full | ((p[:, 2] >= zmin) & (p[:, 2] <= zmax) & (phi <= phimax))
         ok = ok & (t > 1e-7) & (t < t_max)
         return ok, p, phi
 
     ok0, p0, phi0 = test(t0)
     ok1, p1, phi1 = test(t1)
-    use1 = ~ok0 & ok1
-    hit = has & (ok0 | ok1)
-    t = torch.where(use1, t1, t0)
-    p = torch.where(use1[:, None], p1, p0)
-    phi = torch.where(use1, phi1, phi0)
+    hit, t, p, phi = _pick(has, t0, t1, ok0, ok1, (p0, p1), (phi0, phi1))
     u = phi / phimax
     zc = torch.clamp(p[:, 2] / radius, -1.0, 1.0)
     theta = torch.acos(zc)
     theta_min = torch.acos(torch.clamp(zmax / radius, -1, 1))
     theta_max = torch.acos(torch.clamp(zmin / radius, -1, 1))
     v = (theta - theta_min) / torch.clamp(theta_max - theta_min, min=1e-12)
+    return hit, t, u, v
+
+
+def _clip_phi_z(oo, od, t, t_max, zmin, zmax, phimax):
+    p = oo + t[:, None] * od
+    phi = _phi(p)
+    ok = ((phi <= phimax) & (t > 0) & (t < t_max)
+          & (p[:, 2] >= zmin) & (p[:, 2] <= zmax))
+    return ok, p, phi
+
+
+def _cylinder(oo, od, t_max, params):
+    radius, zmin, zmax, phimax = params[0], params[1], params[2], params[3]
+    a = od[:, 0] * od[:, 0] + od[:, 1] * od[:, 1]
+    a = torch.where(a == 0, 1e-20, a)
+    b = 2.0 * (oo[:, 0] * od[:, 0] + oo[:, 1] * od[:, 1])
+    c = oo[:, 0] * oo[:, 0] + oo[:, 1] * oo[:, 1] - radius * radius
+    has, t0, t1 = _quadratic(a, b, c)
+    ok0, p0, phi0 = _clip_phi_z(oo, od, t0, t_max, zmin, zmax, phimax)
+    ok1, p1, phi1 = _clip_phi_z(oo, od, t1, t_max, zmin, zmax, phimax)
+    hit, t, p, phi = _pick(has, t0, t1, ok0, ok1, (p0, p1), (phi0, phi1))
+    return (hit, t, phi / phimax,
+            (p[:, 2] - zmin) / torch.clamp(zmax - zmin, min=1e-12))
+
+
+def _disk(oo, od, t_max, params):
+    radius, phimax = params[0], params[3]
+    height, inner_r = params[4], params[5]
+    t = (height - oo[:, 2]) / torch.where(od[:, 2] != 0, od[:, 2], 1e-20)
+    p = oo + t[:, None] * od
+    r2 = p[:, 0] * p[:, 0] + p[:, 1] * p[:, 1]
+    phi = _phi(p)
+    hit = ((od[:, 2] != 0) & (t > 1e-7) & (t < t_max)
+           & (r2 <= radius * radius) & (r2 >= inner_r * inner_r)
+           & (phi <= phimax))
+    r_hit = torch.sqrt(torch.clamp(r2, min=0.0))
+    return (hit, t, phi / phimax,
+            (radius - r_hit) / torch.clamp(radius - inner_r, min=1e-12))
+
+
+def _cone(oo, od, t_max, params):
+    # x^2 + y^2 = ((h - z) r / h)^2, z in [0, h]; zmax holds h
+    radius, h, phimax = params[0], params[2], params[3]
+    rh = radius / h
+    k = rh * rh
+    dz = oo[:, 2] - h
+    a = od[:, 0] * od[:, 0] + od[:, 1] * od[:, 1] - k * (od[:, 2] * od[:, 2])
+    b = 2 * (oo[:, 0] * od[:, 0] + oo[:, 1] * od[:, 1] - k * od[:, 2] * dz)
+    c = oo[:, 0] * oo[:, 0] + oo[:, 1] * oo[:, 1] - k * (dz * dz)
+    has, t0, t1 = _quadratic(a, b, c)
+
+    def test(t):
+        p = oo + t[:, None] * od
+        phi = _phi(p)
+        ok = ((t > 1e-7) & (t < t_max) & (p[:, 2] >= 0) & (p[:, 2] <= h)
+              & (phi <= phimax))
+        return ok, p, phi
+
+    ok0, p0, phi0 = test(t0)
+    ok1, p1, phi1 = test(t1)
+    hit, t, p, phi = _pick(has, t0, t1, ok0, ok1, (p0, p1), (phi0, phi1))
+    return hit, t, phi / phimax, p[:, 2] / h
+
+
+def _paraboloid(oo, od, t_max, params):
+    # z = zmax * (x^2 + y^2) / r^2, z in [zmin, zmax]
+    radius, zmin, zmax, phimax = params[0], params[1], params[2], params[3]
+    k = zmax / (radius * radius)
+    a = k * (od[:, 0] * od[:, 0] + od[:, 1] * od[:, 1])
+    b = 2 * k * (oo[:, 0] * od[:, 0] + oo[:, 1] * od[:, 1]) - od[:, 2]
+    c = k * (oo[:, 0] * oo[:, 0] + oo[:, 1] * oo[:, 1]) - oo[:, 2]
+    has, t0, t1 = _quadratic(torch.where(a != 0, a, 1e-20), b, c)
+    ok0, p0, phi0 = _clip_phi_z(oo, od, t0, t_max, zmin, zmax, phimax)
+    ok1, p1, phi1 = _clip_phi_z(oo, od, t1, t_max, zmin, zmax, phimax)
+    hit, t, p, phi = _pick(has, t0, t1, ok0, ok1, (p0, p1), (phi0, phi1))
+    return (hit, t, phi / phimax,
+            (p[:, 2] - zmin) / torch.clamp(zmax - zmin, min=1e-12))
+
+
+def _hyperboloid(oo, od, t_max, params):
+    # ah (x^2+y^2) - ch z^2 = 1 (hyperboloid.cpp:89-93), phi measured
+    # against the z-interpolated profile point (:107-111)
+    zmin, zmax, phimax = params[1], params[2], params[3]
+    ah, ch = params[6], params[7]
+    hp1, hp2 = params[8:11], params[11:14]
+    a = (ah * (od[:, 0] * od[:, 0] + od[:, 1] * od[:, 1])
+         - ch * (od[:, 2] * od[:, 2]))
+    b = 2.0 * (ah * (od[:, 0] * oo[:, 0] + od[:, 1] * oo[:, 1])
+               - ch * od[:, 2] * oo[:, 2])
+    c = (ah * (oo[:, 0] * oo[:, 0] + oo[:, 1] * oo[:, 1])
+         - ch * (oo[:, 2] * oo[:, 2]) - 1.0)
+    has, t0, t1 = _quadratic(torch.where(a != 0, a, 1e-20), b, c)
+    dz = hp2[2] - hp1[2]
+    dz = torch.where(dz.abs() > 1e-12, dz, 1e-12)
+
+    def test(t):
+        p = oo + t[:, None] * od
+        vv = (p[:, 2] - hp1[2]) / dz
+        pr = (1 - vv)[:, None] * hp1 + vv[:, None] * hp2
+        phi = torch.atan2(pr[:, 0] * p[:, 1] - p[:, 0] * pr[:, 1],
+                          p[:, 0] * pr[:, 0] + p[:, 1] * pr[:, 1])
+        phi = torch.where(phi < 0, phi + 2 * np.pi, phi)
+        ok = ((t > 1e-7) & (t < t_max) & (p[:, 2] >= zmin)
+              & (p[:, 2] <= zmax) & (phi <= phimax))
+        return ok, phi, vv
+
+    ok0, phi0, v0 = test(t0)
+    ok1, phi1, v1 = test(t1)
+    hit, t, phi, v = _pick(has, t0, t1, ok0, ok1, (phi0, phi1), (v0, v1))
+    return hit, t, phi / phimax, v
+
+
+_QUADRIC_TESTS = {PT_SPHERE: _sphere, PT_CYLINDER: _cylinder, PT_DISK: _disk,
+                  PT_CONE: _cone, PT_PARABOLOID: _paraboloid,
+                  PT_HYPERBOLOID: _hyperboloid}
+
+
+def ray_quadric(o, d, t_max, kind: int, w2o, params):
+    """tpurt's ray_quadric (intersect.py:451-617) for one quadric against
+    (N,) rays, in its object space: ``kind`` a PT_* code of a quadric;
+    w2o (4, 4), params (16,) = [radius, zmin, zmax, phimax, height,
+    inner_r, ah, ch, p1 (3), p2 (3), ...].  Returns (hit, t, u, v) with
+    t = inf where there is no hit."""
+    oo = _xform_point(w2o, o)
+    od = _xform_vector(w2o, d)
+    hit, t, u, v = _QUADRIC_TESTS[kind](oo, od, t_max, params)
     return hit, torch.where(hit, t, INF), u, v
 
 
+def ray_sphere(o, d, t_max, w2o, params):
+    """The sphere case of ray_quadric."""
+    return ray_quadric(o, d, t_max, PT_SPHERE, w2o, params)
+
+
 def _quadric_pass(geo: DeviceGeometry, o, d, t, prim, b0, b1):
-    """Test every sphere against the whole wavefront (tpurt's
-    _quadric_pass): one vectorized pass per sphere, outside the tree."""
-    n_tris = geo.n_tris
-    for q in range(geo.n_quads):
-        qi = int(geo.quad_id[n_tris + q])
-        h, tq, u, v = ray_sphere(o, d, t, geo.quad_w2o[qi],
-                                 geo.quad_params[qi])
+    """Test every quadric against the whole wavefront (tpurt's
+    _quadric_pass, intersect.py:1342-1381): one vectorized pass per
+    quadric, outside the tree, by its kind."""
+    for q, (kind, qi) in enumerate(geo.quads):
+        h, tq, u, v = ray_quadric(o, d, t, kind, geo.quad_w2o[qi],
+                                  geo.quad_params[qi])
         better = h & (tq < t)
         t = torch.where(better, tq, t)
-        prim = torch.where(better, n_tris + q, prim)
+        prim = torch.where(better, geo.n_tris + q, prim)
         b0 = torch.where(better, u, b0)
         b1 = torch.where(better, v, b1)
     return t, prim, b0, b1

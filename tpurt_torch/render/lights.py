@@ -1,6 +1,9 @@
-"""Lights: point, spot and distant lights and sphere/triangle area lights
-(port of tpurt/render/lights.py: the host half of build_light_table, the spatial
-light distribution, choose_light, sample_li and pdf_li_from_hit).
+"""Lights: point, spot, distant, infinite (constant or environment-mapped),
+projection and goniometric lights and sphere/triangle area lights (port
+of tpurt/render/lights.py: the host half of build_light_table with the
+environment distribution and the pooled light maps, the spatial light
+distribution, choose_light, sample_li, pdf_li_from_hit and the
+environment map's env_sample / env_pdf / env_le).
 
 Like the reference (api.cpp:1330-1400), every emissive primitive is its
 own area light.  Per-lane lookups read ONE fused light row:
@@ -8,18 +11,25 @@ own area light.  Per-lane lookups read ONE fused light row:
   (cosTotal, cosFalloff, radius, two_sided), [14:23] tri v0/v1/v2,
   [23] prim  (kind/prim as exact small-int f32).
 Spot lights keep their axis in p1 and (cosTotal, cosFalloff) in params;
-distant lights keep their direction in p0.  Infinite, projection and
-goniometric lights raise NotImplementedError.
+distant lights keep their direction in p0; projection and goniometric
+lights keep their position in p0, their world-to-light matrix in ``w2l``
+and their image in the flat ``img_pool``.  As in tpurt, one infinite light
+with a map is importance-sampled (the first); a second map is rendered as
+its mean radiance.  The terms of a light kind the scene lacks are not
+computed (``has_infinite``, ``has_lightmaps``).  Emission sampling
+(sample_le / pdf_le) belongs to bdpt and sppm and is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import List, NamedTuple
 
 import numpy as np
 import torch
 
+from tpurt_torch.io.image import read_image
 from tpurt_torch.render.geometry_build import PT_SPHERE, PT_TRIANGLE, GeometryArrays
 from tpurt_torch.scene.records import LightRecord
 from tpurt_torch.render.sampling_warps import (
@@ -31,6 +41,11 @@ LIGHT_SPOT = 1
 LIGHT_DISTANT = 2
 LIGHT_AREA_TRI = 3
 LIGHT_AREA_SPHERE = 4
+LIGHT_INFINITE = 5
+LIGHT_PROJECTION = 6
+LIGHT_GONIO = 7
+
+log = logging.getLogger("tpurt_torch.render")
 
 
 @dataclasses.dataclass
@@ -46,20 +61,48 @@ class LightTable:
     spat_res: int  # voxels per axis (1 = fall back to the power pmf)
     n_lights: int
     world_radius: float  # scene bound radius (distant-light shadow rays)
+    # environment map of ONE infinite light (infinite.cpp): equirect
+    # radiance and the 2D luminance * sin(theta) sampling distribution
+    # (a 1x1 black map when absent)
+    env_map: torch.Tensor  # (He, We, 3)
+    env_cond_cdf: torch.Tensor  # (He, We+1) conditional CDFs over u
+    env_cond_int: torch.Tensor  # (He,) row integrals
+    env_marg_cdf: torch.Tensor  # (He+1,) marginal CDF over v
+    env_w2l: torch.Tensor  # (4,4) world-to-light
+    env_l2w: torch.Tensor  # (4,4)
+    # projection / goniometric lights: pooled image pixels, per-light
+    # offset and size, world-to-light matrix, projection constants
+    img_pool: torch.Tensor  # (D,3)
+    img_off: torch.Tensor  # (L,) i32 offset into img_pool
+    img_wh: torch.Tensor  # (L,2) i32 (w, h); (0, 0) = no image
+    w2l: torch.Tensor  # (L,4,4)
+    proj: torch.Tensor  # (L,8) x0,y0,x1,y1,invTanAng,hither,cosTotal,_
+    has_infinite: bool = False
+    env_light_row: int = -1  # row of the importance-sampled infinite light
+    has_lightmaps: bool = False
+    # derived at upload (light_table_from_tables):
+    # the conditional CDFs as one sorted int64 key (_row_search): one
+    # searchsorted over it inverts every lane's own row
+    env_cdf_key: torch.Tensor = None  # (He * (We+1),) i64
+    inf_L: torch.Tensor = None  # (3,) constant radiance of infinite lights
+    inf_power_pmf: float = 0.0  # power pmf summed over the infinite lights
 
 
 def light_tables(scene_lights: List[LightRecord], geo: GeometryArrays,
                  area_records: List) -> dict:
-    """Host tables of the light set: explicit point lights + one area
-    light per emissive primitive (BVH order).  area_records is indexed by
-    arealight_id: (L(3,), scale(3,), two_sided)."""
+    """Host tables of the light set (tpurt's build_light_table,
+    lights.py:123-377): explicit lights + one area light per emissive
+    primitive (BVH order).  area_records is indexed by arealight_id:
+    (L(3,), scale(3,), two_sided)."""
     kinds, Ls, p0s, p1s, params, tv0, tv1, tv2, prim_ids = (
         [] for _ in range(9))
+    w2l_rows, proj_rows, img_rows = [], [], []
     center = 0.5 * (geo.world_lo + geo.world_hi)
     world_radius = float(np.linalg.norm(geo.world_hi - center)) or 1.0
 
     def add(kind, L, p0=(0, 0, 0), p1=(0, 0, 1), par=(0, 0, 0, 0),
-            v0=(0, 0, 0), v1=(0, 0, 0), v2=(0, 0, 0), prim=-1):
+            v0=(0, 0, 0), v1=(0, 0, 0), v2=(0, 0, 0), prim=-1, w2l=None,
+            projp=None, img=None):
         kinds.append(kind)
         Ls.append(np.asarray(L, np.float64) * np.ones(3))
         p0s.append(np.asarray(p0, np.float64))
@@ -69,7 +112,16 @@ def light_tables(scene_lights: List[LightRecord], geo: GeometryArrays,
         tv1.append(np.asarray(v1, np.float64))
         tv2.append(np.asarray(v2, np.float64))
         prim_ids.append(prim)
+        w2l_rows.append(np.eye(4, dtype=np.float32) if w2l is None else w2l)
+        proj_rows.append(np.zeros(8, np.float32) if projp is None
+                         else np.asarray(projp, np.float32))
+        img_rows.append(img)
 
+    env_img = None
+    env_w2l = np.eye(4, dtype=np.float32)
+    env_l2w = np.eye(4, dtype=np.float32)
+    env_row = -1
+    has_infinite = False
     for lr in scene_lights:
         ps = lr.params
         l2w = lr.light_to_world
@@ -95,6 +147,54 @@ def light_tables(scene_lights: List[LightRecord], geo: GeometryArrays,
             to = l2w.apply_point(ps.find_one_point3("to", [0, 0, 1]))
             w = frm - to
             add(LIGHT_DISTANT, L, p0=w / np.linalg.norm(w))
+        elif lr.kind in ("infinite", "exinfinite"):
+            L = ps.find_one_spectrum("L", 1.0) * scale
+            mapname = ps.find_one_filename("mapname", "")
+            if mapname and env_img is None:
+                try:
+                    env_img = (read_image(mapname).astype(np.float64)
+                               * L.reshape(1, 1, 3)).astype(np.float32)
+                    env_w2l = l2w.m_inv.astype(np.float32)
+                    env_l2w = l2w.m.astype(np.float32)
+                    env_row = len(kinds)
+                    L = env_img.reshape(-1, 3).mean(axis=0)  # for power pmf
+                except (OSError, ValueError) as e:
+                    log.error("infinite light map %s unreadable: %s",
+                              mapname, e)
+            elif mapname:
+                log.warning("only one environment-mapped infinite light is "
+                            "importance-sampled; %s uses its mean", mapname)
+            add(LIGHT_INFINITE, L)
+            has_infinite = True
+        elif lr.kind in ("projection", "goniometric"):
+            intensity = ps.find_one_spectrum("I", 1.0) * scale
+            frm = l2w.apply_point([0, 0, 0])
+            mapname = ps.find_one_filename("mapname", "")
+            img = None
+            if mapname:
+                try:
+                    img = np.asarray(read_image(mapname), np.float32)[..., :3]
+                except (OSError, ValueError) as e:
+                    log.error('%s light map "%s" unreadable: %s', lr.kind,
+                              mapname, e)
+            w2l_m = l2w.inverse().m.astype(np.float32)
+            if lr.kind == "projection":
+                # screen window + cone from the image aspect + fov
+                # (projection.cpp:59-74)
+                fov = ps.find_one_float("fov", 45.0)
+                aspect = (img.shape[1] / img.shape[0] if img is not None
+                          else 1.0)
+                if aspect > 1:
+                    x0, x1, y0, y1 = -aspect, aspect, -1.0, 1.0
+                else:
+                    x0, x1, y0, y1 = -1.0, 1.0, -1 / aspect, 1 / aspect
+                inv_tan = 1.0 / np.tan(np.deg2rad(fov) / 2)
+                cos_total = 1.0 / np.sqrt((x1 / inv_tan) ** 2
+                                          + (y1 / inv_tan) ** 2 + 1.0)
+                add(LIGHT_PROJECTION, intensity, p0=frm, w2l=w2l_m, img=img,
+                    projp=(x0, y0, x1, y1, inv_tan, 1e-3, cos_total, 0.0))
+            else:
+                add(LIGHT_GONIO, intensity, p0=frm, w2l=w2l_m, img=img)
         else:
             raise NotImplementedError(f'LightSource "{lr.kind}"')
 
@@ -134,8 +234,37 @@ def light_tables(scene_lights: List[LightRecord], geo: GeometryArrays,
             power[i] *= 0.5 * np.linalg.norm(np.cross(e1, e2)) * np.pi
         elif kind_a[i] == LIGHT_AREA_SPHERE:
             power[i] *= 4 * np.pi * params[i][2] ** 2 * np.pi
+        elif kind_a[i] == LIGHT_INFINITE:
+            power[i] *= np.pi * world_radius ** 2
+        elif kind_a[i] == LIGHT_PROJECTION:
+            # I * avg(map) * 2pi(1 - cosTotalWidth) (projection.cpp Power)
+            avg = img_rows[i].mean() if img_rows[i] is not None else 1.0
+            power[i] *= avg * 2 * np.pi * (1.0 - proj_rows[i][6])
+        elif kind_a[i] == LIGHT_GONIO:
+            avg = img_rows[i].mean() if img_rows[i] is not None else 1.0
+            power[i] *= avg * 4 * np.pi
     total = power.sum()
     pmf = (power / total) if total > 0 else np.full(n, 1.0 / n)
+
+    if env_img is None:
+        env_img = np.zeros((1, 1, 3), np.float32)
+    cond_cdf, cond_int, marg_cdf = _build_env_distribution(env_img)
+    # pool the projection / goniometric images into one flat pixel array
+    img_off = np.zeros(n, np.int32)
+    img_wh = np.zeros((n, 2), np.int32)
+    pool_parts = []
+    off = 0
+    for i, im in enumerate(img_rows):
+        if im is None:
+            continue
+        h, w = im.shape[:2]
+        img_off[i] = off
+        img_wh[i] = (w, h)
+        pool_parts.append(im.reshape(-1, 3))
+        off += h * w
+    img_pool = (np.concatenate(pool_parts).astype(np.float32) if pool_parts
+                else np.zeros((1, 3), np.float32))
+
     spat = _spatial_distribution(kind_a, np.stack(p0s), power,
                                  np.asarray(geo.world_lo),
                                  np.asarray(geo.world_hi))
@@ -155,13 +284,37 @@ def light_tables(scene_lights: List[LightRecord], geo: GeometryArrays,
                 power_cdf=np.cumsum(pmf).astype(np.float32),
                 spat_cdf=spat[0], spat_pmf=spat[1], spat_lo=spat[2],
                 spat_inv_extent=spat[3], spat_res=spat[4], n_lights=n,
-                world_radius=float(np.float32(world_radius)))
+                world_radius=float(np.float32(world_radius)),
+                env_map=env_img, env_cond_cdf=cond_cdf,
+                env_cond_int=cond_int, env_marg_cdf=marg_cdf,
+                env_w2l=env_w2l, env_l2w=env_l2w,
+                img_pool=img_pool, img_off=img_off, img_wh=img_wh,
+                w2l=np.stack(w2l_rows), proj=np.stack(proj_rows),
+                has_infinite=has_infinite, env_light_row=env_row,
+                has_lightmaps=bool(((kind_a == LIGHT_PROJECTION)
+                                    | (kind_a == LIGHT_GONIO)).any()))
 
 
 def light_table_from_tables(tab: dict, device) -> LightTable:
+    """Upload the host tables, with what the device side derives from
+    them: the environment CDF search key, the infinite lights' constant
+    radiance (tpurt's _infinite_L, integrator.py:204-211, without the
+    mapped light) and their summed power pmf (the escaped-ray MIS pmf)."""
+    he = tab["env_cond_cdf"].shape[0]
+    key = (np.arange(he, dtype=np.int64)[:, None] * (1 << 32)
+           + _f32_key(tab["env_cond_cdf"])).reshape(-1)
+    kind = tab["rows"][:, 0].astype(np.int32)
+    inf_mask = kind == LIGHT_INFINITE
+    if tab["env_light_row"] >= 0:
+        inf_mask = inf_mask & (np.arange(len(kind)) != tab["env_light_row"])
+    inf_L = np.where(inf_mask[:, None], tab["rows"][:, 1:4],
+                     np.float32(0)).sum(axis=0, dtype=np.float32)
+    inf_pmf = np.where(kind == LIGHT_INFINITE, tab["power_pmf"],
+                       np.float32(0)).sum(dtype=np.float32)
+    extra = dict(env_cdf_key=key, inf_L=inf_L, inf_power_pmf=float(inf_pmf))
     return LightTable(**{k: (torch.tensor(v, device=device)
                              if isinstance(v, np.ndarray) else v)
-                         for k, v in tab.items()})
+                         for k, v in dict(tab, **extra).items()})
 
 
 def _spatial_distribution(kinds, positions, power, world_lo, world_hi,
@@ -193,6 +346,30 @@ def _spatial_distribution(kinds, positions, power, world_lo, world_hi,
     cdf[:, 1:] = np.cumsum(pmf, axis=1)
     return (cdf.astype(np.float32), pmf.astype(np.float32),
             lo.astype(np.float32), (1.0 / extent).astype(np.float32), res)
+
+
+def _build_env_distribution(img: np.ndarray):
+    """Distribution2D over luminance * sin(theta) (tpurt's
+    _build_env_distribution, lights.py:413-435; infinite.cpp ctor +
+    core/sampling.h Distribution2D)."""
+    he, we = img.shape[:2]
+    lum = (0.212671 * img[..., 0] + 0.715160 * img[..., 1]
+           + 0.072169 * img[..., 2]).astype(np.float64)
+    sin_t = np.sin(np.pi * (np.arange(he) + 0.5) / he)
+    f = lum * sin_t[:, None]
+    cond_int = f.sum(axis=1) / we
+    cond_cdf = np.zeros((he, we + 1))
+    cond_cdf[:, 1:] = np.cumsum(f, axis=1) / we
+    safe = np.where(cond_int > 0, cond_int, 1.0)[:, None]
+    cond_cdf = np.where(cond_int[:, None] > 0, cond_cdf / safe,
+                        np.linspace(0, 1, we + 1)[None, :])
+    marg_int = cond_int.sum() / he
+    marg_cdf = np.zeros(he + 1)
+    marg_cdf[1:] = np.cumsum(cond_int) / he
+    marg_cdf = (marg_cdf / marg_int if marg_int > 0
+                else np.linspace(0, 1, he + 1))
+    return (cond_cdf.astype(np.float32), cond_int.astype(np.float32),
+            marg_cdf.astype(np.float32))
 
 
 def _voxel(lt: LightTable, p):
@@ -242,8 +419,67 @@ class LightSample(NamedTuple):
     is_delta: torch.Tensor  # (N,) bool
 
 
+def _pool_lookup(lt: LightTable, idx, s, t, valid):
+    """Bilinear lookup of each lane's light image in the pooled pixels at
+    (s, t) in [0,1]^2; 1 where the light has no image, 0 where not
+    ``valid`` (lights.py:507-531)."""
+    wh = lt.img_wh[idx]
+    has_img = wh[:, 0] > 0
+    fx = torch.clamp(s, 0.0, 1.0) * (wh[:, 0] - 1).to(torch.float32)
+    fy = torch.clamp(t, 0.0, 1.0) * (wh[:, 1] - 1).to(torch.float32)
+    x0 = torch.minimum(torch.clamp(fx.to(torch.int32), min=0),
+                       torch.clamp(wh[:, 0] - 2, min=0))
+    y0 = torch.minimum(torch.clamp(fy.to(torch.int32), min=0),
+                       torch.clamp(wh[:, 1] - 2, min=0))
+    dx = fx - x0
+    dy = fy - y0
+    base = lt.img_off[idx]
+
+    def px(xx, yy):
+        i = (base + torch.minimum(yy, wh[:, 1] - 1) * wh[:, 0]
+             + torch.minimum(xx, wh[:, 0] - 1))
+        return lt.img_pool[torch.clamp(i, 0, lt.img_pool.shape[0] - 1).long()]
+
+    v = ((1 - dx)[:, None] * ((1 - dy)[:, None] * px(x0, y0)
+                              + dy[:, None] * px(x0, y0 + 1))
+         + dx[:, None] * ((1 - dy)[:, None] * px(x0 + 1, y0)
+                          + dy[:, None] * px(x0 + 1, y0 + 1)))
+    v = torch.where(has_img[:, None], v, 1.0)
+    return torch.where(valid[:, None], v, 0.0)
+
+
+def _lightmap_factor(lt: LightTable, idx, kind, wi_point):
+    """Direction-dependent intensity scale of projection and goniometric
+    lights toward -wi_point (projection.cpp Projection, goniometric.h
+    Scale; lights.py:498-555)."""
+    w2l = lt.w2l[idx]
+    pr = lt.proj[idx]
+    w = -wi_point  # direction FROM the light
+    wl = torch.einsum("nij,nj->ni", w2l[:, :3, :3], w)
+    # projection: perspective-project wl onto the screen window
+    zc = torch.clamp(wl[:, 2], min=1e-12)
+    sx = wl[:, 0] * pr[:, 4] / zc
+    sy = wl[:, 1] * pr[:, 4] / zc
+    in_front = wl[:, 2] >= pr[:, 5]
+    inside = ((sx >= pr[:, 0]) & (sx <= pr[:, 2])
+              & (sy >= pr[:, 1]) & (sy <= pr[:, 3]))
+    s_p = (sx - pr[:, 0]) / torch.clamp(pr[:, 2] - pr[:, 0], min=1e-9)
+    t_p = (sy - pr[:, 1]) / torch.clamp(pr[:, 3] - pr[:, 1], min=1e-9)
+    f_proj = _pool_lookup(lt, idx, s_p, t_p, in_front & inside)
+    # goniometric: spherical lookup with the reference's y/z swap
+    wn = wl / torch.clamp(norm(wl, keepdim=True), min=1e-12)
+    wx, wy, wz = wn[:, 0], wn[:, 2], wn[:, 1]
+    theta = torch.acos(torch.clamp(wz, -1.0, 1.0))
+    phi = torch.atan2(wy, wx)
+    phi = torch.where(phi < 0, phi + 2 * np.pi, phi)
+    f_gonio = _pool_lookup(lt, idx, phi / (2 * np.pi), theta / np.pi,
+                           torch.ones_like(in_front))
+    return torch.where((kind == LIGHT_PROJECTION)[:, None], f_proj, f_gonio)
+
+
 def sample_li(lt: LightTable, idx, ref_p, u2) -> LightSample:
-    """Batched Sample_Li for the chosen lights (masked over types)."""
+    """Batched Sample_Li for the chosen lights (masked over types;
+    lights.py:472-653)."""
     row = lt.rows[idx]  # ONE fused row gather
     kind = row[:, 0].to(torch.int32)
     L = row[:, 1:4]
@@ -267,6 +503,16 @@ def sample_li(lt: LightTable, idx, ref_p, u2) -> LightSample:
     falloff = torch.where(cos_t < cos_total, 0.0,
                           torch.where(cos_t > cos_fall, 1.0, d2 * d2))
     li_spot = li_point * falloff[:, None]
+    is_spot = (kind == LIGHT_SPOT)[:, None]
+    is_pt = (kind == LIGHT_POINT)[:, None] | is_spot
+    if lt.has_lightmaps:
+        # projection / goniometric: a delta position whose intensity
+        # depends on the direction
+        pg = (kind == LIGHT_PROJECTION)[:, None] | (kind == LIGHT_GONIO)[:, None]
+        li_point = torch.where(
+            pg, li_point * _lightmap_factor(lt, idx, kind, wi_point),
+            li_point)
+        is_pt = is_pt | pg
 
     # --- distant (the shadow ray ends outside the scene bound) ---
     wi_dist = p0
@@ -322,9 +568,25 @@ def sample_li(lt: LightTable, idx, ref_p, u2) -> LightSample:
     n_sphere = normalize(p_sphere - c)
     emits_sph = (par[:, 3] > 0) | (dot(n_sphere, -wi_sphere) > 0)
     li_sphere = torch.where(emits_sph[:, None], L, 0.0)
+    pdf_rest = 1.0
 
-    is_spot = (kind == LIGHT_SPOT)[:, None]
-    is_pt = (kind == LIGHT_POINT)[:, None] | is_spot
+    if lt.has_infinite:
+        # --- infinite: the environment map's 2D-CDF importance sampling
+        # when a map exists, else the uniform sphere over the constant
+        # radiance (infinite.cpp Sample_Li) ---
+        if lt.env_light_row >= 0:
+            wi_inf, li_inf, pdf_inf = env_sample(lt, u, v)
+        else:
+            wi_inf = uniform_sample_sphere(u, v)
+            pdf_inf = torch.full_like(u, 1.0 / (4 * np.pi))
+            li_inf = L
+        p_inf = ref_p + wi_inf * (2.0 * lt.world_radius)
+        is_sph = (kind == LIGHT_AREA_SPHERE)[:, None]
+        wi_sphere = torch.where(is_sph, wi_sphere, wi_inf)
+        li_sphere = torch.where(is_sph, li_sphere, li_inf)
+        p_sphere = torch.where(is_sph, p_sphere, p_inf)
+        pdf_rest = torch.where(kind == LIGHT_INFINITE, pdf_inf, 1.0)
+
     is_dist = (kind == LIGHT_DISTANT)[:, None]
     is_tri = (kind == LIGHT_AREA_TRI)[:, None]
     wi = torch.where(is_pt, wi_point, torch.where(
@@ -333,7 +595,8 @@ def sample_li(lt: LightTable, idx, ref_p, u2) -> LightSample:
         is_pt, li_point, torch.where(
             is_dist, L, torch.where(is_tri, li_tri, li_sphere))))
     pdf = torch.where(kind == LIGHT_AREA_TRI, pdf_tri,
-                      torch.where(kind == LIGHT_AREA_SPHERE, pdf_sphere, 1.0))
+                      torch.where(kind == LIGHT_AREA_SPHERE, pdf_sphere,
+                                  pdf_rest))
     p_light = torch.where(is_pt, p0, torch.where(
         is_dist, p_dist, torch.where(is_tri, p_tri, p_sphere)))
     return LightSample(wi=wi, li=li, pdf=pdf, p_light=p_light,
@@ -342,7 +605,8 @@ def sample_li(lt: LightTable, idx, ref_p, u2) -> LightSample:
 
 def pdf_li_from_hit(lt: LightTable, light_idx, ref_p, wi, p_hit, ng_hit):
     """Solid-angle pdf that Sample_Li would have generated wi from ref_p,
-    for the MIS weight when a BSDF-sampled ray lands on a light."""
+    for the MIS weight when a BSDF-sampled ray lands on a light
+    (lights.py:656-696)."""
     row = lt.rows[light_idx]
     kind = row[:, 0].to(torch.int32)
     par = row[:, 10:14]
@@ -364,5 +628,129 @@ def pdf_li_from_hit(lt: LightTable, light_idx, ref_p, wi, p_hit, ng_hit):
     pdf_sph = torch.where(
         outside, uniform_cone_pdf(cos_max),
         d2 / torch.clamp(cos_l * 4 * np.pi * r * r, min=1e-12))
+    pdf_rest = 0.0
+    if lt.has_infinite:
+        pdf_inf = (env_pdf(lt, wi) if lt.env_light_row >= 0
+                   else torch.full_like(d2, 1.0 / (4 * np.pi)))
+        pdf_rest = torch.where(kind == LIGHT_INFINITE, pdf_inf, 0.0)
     return torch.where(kind == LIGHT_AREA_TRI, pdf_tri,
-                       torch.where(kind == LIGHT_AREA_SPHERE, pdf_sph, 0.0))
+                       torch.where(kind == LIGHT_AREA_SPHERE, pdf_sph,
+                                   pdf_rest))
+
+
+# ---------------------------------------------------------------------------
+# environment map (infinite.cpp): direction <-> (u,v), sampling, pdf, Le
+# (lights.py:703-800)
+# ---------------------------------------------------------------------------
+
+def _env_dir_to_uv(lt: LightTable, d):
+    m = lt.env_w2l
+    x = m[0, 0] * d[:, 0] + m[0, 1] * d[:, 1] + m[0, 2] * d[:, 2]
+    y = m[1, 0] * d[:, 0] + m[1, 1] * d[:, 1] + m[1, 2] * d[:, 2]
+    z = m[2, 0] * d[:, 0] + m[2, 1] * d[:, 1] + m[2, 2] * d[:, 2]
+    theta = torch.acos(torch.clamp(z, -1.0, 1.0))
+    phi = torch.atan2(y, x)
+    phi = torch.where(phi < 0, phi + 2 * np.pi, phi)
+    return phi * (0.5 / np.pi), theta * (1.0 / np.pi), theta
+
+
+def _cdf_invert(cdf, u):
+    """Continuous inversion of a (n+1,) CDF: (index, fraction, pdf) like
+    Distribution1D::SampleContinuous.  torch.searchsorted(right=True) is
+    jnp.searchsorted(side="right"): ties break to the same side."""
+    n = cdf.shape[0] - 1
+    i = torch.clamp(torch.searchsorted(cdf, u.contiguous(), right=True) - 1,
+                    0, n - 1)
+    lo = cdf[i]
+    hi = cdf[i + 1]
+    du = torch.where(hi > lo, (u - lo) / torch.clamp(hi - lo, min=1e-20), 0.0)
+    return i, du, (hi - lo) * n
+
+
+def _f32_key(x):
+    """A non-negative float32 array's values as int64 keys in the same
+    order: the bit pattern of a float >= 0 (+0 for -0) grows with it."""
+    if isinstance(x, np.ndarray):
+        return (x.astype(np.float32) + np.float32(0)).view(np.int32).astype(
+            np.int64)
+    return (x.to(torch.float32) + 0.0).view(torch.int32).to(torch.int64)
+
+
+def _row_search(lt: LightTable, vi, u):
+    """For each lane, jnp.searchsorted(env_cond_cdf[vi], u, side="right")
+    without gathering the lane's row: the key holds row r's entries as
+    r * 2^32 + their float bits, so one search over it counts the rows
+    before vi and the entries of row vi that are <= u, exactly."""
+    we1 = lt.env_cond_cdf.shape[1]
+    q = vi.to(torch.int64) * (1 << 32) + _f32_key(u)
+    return torch.searchsorted(lt.env_cdf_key, q.contiguous(),
+                              right=True) - vi * we1
+
+
+def env_sample(lt: LightTable, u1, u2):
+    """Sample the environment map: returns (wi, Li, solid-angle pdf)."""
+    he, we = lt.env_map.shape[:2]
+    vi, dv, pdf_v = _cdf_invert(lt.env_marg_cdf, u2)
+    ui = torch.clamp(_row_search(lt, vi, u1) - 1, 0, we - 1)
+    flat = lt.env_cond_cdf.reshape(-1)
+    base = vi * (we + 1) + ui
+    lo = flat[base]
+    hi = flat[base + 1]
+    du = torch.where(hi > lo, (u1 - lo) / torch.clamp(hi - lo, min=1e-20),
+                     0.0)
+    pdf_u = (hi - lo) * we
+    uu = (ui.to(torch.float32) + du) / we
+    vv = (vi.to(torch.float32) + dv) / he
+    theta = vv * np.pi
+    phi = uu * 2 * np.pi
+    sin_t = torch.sin(theta)
+    wl = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi),
+                      torch.cos(theta)], dim=-1)
+    m = lt.env_l2w
+    wi = torch.stack([
+        m[0, 0] * wl[:, 0] + m[0, 1] * wl[:, 1] + m[0, 2] * wl[:, 2],
+        m[1, 0] * wl[:, 0] + m[1, 1] * wl[:, 1] + m[1, 2] * wl[:, 2],
+        m[2, 0] * wl[:, 0] + m[2, 1] * wl[:, 1] + m[2, 2] * wl[:, 2],
+    ], dim=-1)
+    li = lt.env_map[torch.clamp(vi, 0, he - 1), torch.clamp(ui, 0, we - 1)]
+    pdf = torch.where(sin_t > 1e-7,
+                      pdf_u * pdf_v / (2.0 * np.pi * np.pi * sin_t), 0.0)
+    return wi, li, pdf
+
+
+def env_pdf(lt: LightTable, wi):
+    """Solid-angle pdf of env_sample producing wi (infinite.cpp Pdf_Li)."""
+    he, we = lt.env_map.shape[:2]
+    uu, vv, theta = _env_dir_to_uv(lt, wi)
+    ui = torch.clamp((uu * we).to(torch.int64), 0, we - 1)
+    vi = torch.clamp((vv * he).to(torch.int64), 0, he - 1)
+    pdf_v = (lt.env_marg_cdf[vi + 1] - lt.env_marg_cdf[vi]) * he
+    flat = lt.env_cond_cdf.reshape(-1)
+    base = vi * (we + 1) + ui
+    pdf_u = (flat[base + 1] - flat[base]) * we
+    sin_t = torch.sin(theta)
+    return torch.where(sin_t > 1e-7,
+                       pdf_u * pdf_v / (2.0 * np.pi * np.pi * sin_t), 0.0)
+
+
+def env_le(lt: LightTable, d):
+    """Escaped-ray radiance from the environment map (infinite.cpp Le),
+    bilinear-filtered."""
+    he, we = lt.env_map.shape[:2]
+    uu, vv, _ = _env_dir_to_uv(lt, d)
+    x = uu * we - 0.5
+    y = vv * he - 0.5
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    fx = (x - x0)[:, None]
+    fy = (y - y0)[:, None]
+
+    def fetch(xi, yi):
+        return lt.env_map[torch.clamp(yi, 0, he - 1), torch.remainder(xi, we)]
+
+    c00 = fetch(x0, y0)
+    c10 = fetch(x0 + 1, y0)
+    c01 = fetch(x0, y0 + 1)
+    c11 = fetch(x0 + 1, y0 + 1)
+    return ((c00 * (1 - fx) + c10 * fx) * (1 - fy)
+            + (c01 * (1 - fx) + c11 * fx) * fy)

@@ -1,28 +1,33 @@
-"""Material table and per-lane lobe fetch for matte, plastic, mirror and
-glass (port of tpurt/render/materials_build.py: the host half of
-build_material_table with its list of textured slots, fuse_material_rows
-and fetch_lobes with texture overrides).
+"""Material table and per-lane lobe fetch (port of
+tpurt/render/materials_build.py: build_material_table with its list of
+textured slots and its mix sub-rows, fuse_material_rows, and fetch_lobes
+with texture overrides and the mix blend).
 
 The table keeps tpurt's fused 53-column row layout, so a tpurt table and
 this one can be compared bit for bit (tpurt_torch.convert).  A textured
 slot keeps its default in the table and is listed in ``textured``; the
-texture evaluator (render/texeval.py) overrides it per lane.  Every other
-material raises NotImplementedError.
+texture evaluator (render/texeval.py) overrides the slots fetch_lobes
+reads per lane.  Hair, fourier, subsurface and kdsubsurface, and any
+material name tpurt does not know, raise NotImplementedError (tpurt maps
+the last to matte with a warning).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from tpurt_torch.render.bsdf import (ALL_SLOTS, FRESNEL_CONDUCTOR,
+                                     FRESNEL_DIELECTRIC, FRESNEL_DISNEY,
+                                     FRESNEL_NOOP, FRESNEL_SCHLICK,
+                                     SLOT_CLEARCOAT, SLOT_DIFFUSE, SLOT_DTRANS,
+                                     SLOT_FS, SLOT_GLOSSY, SLOT_GTRANS,
+                                     SLOT_MIRROR, LobeParams, LobeSet,
+                                     lobe_activity, roughness_to_alpha)
+from tpurt_torch.render.materials import COPPER_ETA_RGB, COPPER_K_RGB
 from tpurt_torch.scene.records import MaterialRecord
-from tpurt_torch.render.bsdf import (ALL_SLOTS, FRESNEL_DIELECTRIC,
-                                     FRESNEL_NOOP, SLOT_DIFFUSE, SLOT_FS,
-                                     SLOT_GLOSSY, SLOT_GTRANS, SLOT_MIRROR,
-                                     LobeParams, lobe_activity,
-                                     roughness_to_alpha)
 
 # columns of the constant-parameter table (tpurt's layout)
 _N_COLS = 39
@@ -46,26 +51,81 @@ MAT_MATTE = 1
 MAT_PLASTIC = 2
 MAT_MIRROR = 3
 MAT_GLASS = 4
+MAT_METAL = 5
+MAT_UBER = 6
+MAT_SUBSTRATE = 7
+MAT_TRANSLUCENT = 8
+MAT_DISNEY = 9
+MAT_MIX = 10
 _KIND_CODES = {"matte": MAT_MATTE, "plastic": MAT_PLASTIC,
-               "mirror": MAT_MIRROR, "glass": MAT_GLASS}
-# slots a texture can drive (tpurt's make_texture_eval col3/col1)
+               "mirror": MAT_MIRROR, "glass": MAT_GLASS, "metal": MAT_METAL,
+               "uber": MAT_UBER, "substrate": MAT_SUBSTRATE,
+               "translucent": MAT_TRANSLUCENT, "disney": MAT_DISNEY,
+               "mix": MAT_MIX, "metal_": MAT_METAL}
+# the slots fetch_lobes reads per lane, so the slots a texture drives
+# (tpurt's make_texture_eval col3/col1 with a table column)
 TEXTURABLE = ("Kd", "Ks", "Kr", "Kt", "roughness", "sigma")
 
 
+class MaterialTable(NamedTuple):
+    """Host half of tpurt's MaterialTable for the ported kinds."""
+
+    table: np.ndarray  # (M, 39) f32 constants
+    kinds: np.ndarray  # (M,) i32 material kind
+    textured: List[Tuple[int, str]]  # (material id, slot) of textured slots
+    k3: np.ndarray  # (M, 3) f32 conductor k
+    mix: np.ndarray  # (M, 2) i32 mix sub-material rows (-1 = none)
+    records: List[Optional[MaterialRecord]]  # index == row, mix subs appended
+
+
 def _const(slot):
+    """A constant slot's value; None for a textured or absent slot (a
+    record may hold None, as metal's unset u/v roughness: read as
+    absent, as tpurt's _const does)."""
+    if slot is None:
+        return None
     kind, val = slot
     if kind == "constant":
         return np.asarray(val, dtype=np.float64)
     return None  # textured
 
 
-def build_material_table(materials: List[Optional[MaterialRecord]]):
-    """Deduplicated material list (index == material id) -> (table
-    (M, 39) f32, kinds (M,) i32, textured [(material id, slot)]), tpurt's
-    constant-table layout."""
+def build_material_table(materials: List[Optional[MaterialRecord]]
+                         ) -> MaterialTable:
+    """Deduplicated material list (index == material id) -> MaterialTable
+    (tpurt's build_material_table, materials_build.py:141-261, :378-383).
+    A mix pulls its resolved sub-records into rows appended after the
+    list (appended records may be mixes too); its row keeps their ids
+    (mix) and its "amount" in the C_TR columns."""
+    materials = list(materials)
+    mix_pairs = {}
+    i = 0
+    while i < len(materials):
+        rec = materials[i]
+        if rec is not None and rec.name == "mix" and i not in mix_pairs:
+            subs = []
+            for slot in ("submaterial1", "submaterial2"):
+                sub = rec.slots.get(slot, (None, None))[1]
+                if sub is None:
+                    subs.append(-1)
+                    continue
+                for j, e in enumerate(materials):
+                    if e is sub:
+                        subs.append(j)
+                        break
+                else:
+                    materials.append(sub)
+                    subs.append(len(materials) - 1)
+            mix_pairs[i] = tuple(subs)
+        i += 1
+
     m = len(materials)
     table = np.zeros((max(m, 1), _N_COLS), np.float32)
+    k3 = np.zeros((max(m, 1), 3), np.float32)
     kinds = np.zeros(max(m, 1), np.int32)
+    mix = np.full((max(m, 1), 2), -1, np.int32)
+    for i, pair in mix_pairs.items():
+        mix[i] = pair
     textured: List[Tuple[int, str]] = []
     for i, rec in enumerate(materials):
         if rec is None:
@@ -77,11 +137,8 @@ def build_material_table(materials: List[Optional[MaterialRecord]]):
         s = rec.slots
 
         def value(slot_name, default):
-            v = _const(s[slot_name]) if slot_name in s else None
+            v = _const(s.get(slot_name))
             if v is None and slot_name in s:
-                if slot_name not in TEXTURABLE:
-                    raise NotImplementedError(
-                        f'textured "{slot_name}" on Material "{rec.name}"')
                 textured.append((i, slot_name))
             return np.asarray(default, dtype=np.float64) if v is None else v
 
@@ -105,6 +162,7 @@ def build_material_table(materials: List[Optional[MaterialRecord]]):
         put1("eta", C_ETA, 1.5)
         put3("reflect", (C_TR0, C_TR1, C_TR2), 0.5)
         put3("transmit", (C_TT0, C_TT1, C_TT2), 0.5)
+        # disney extras (disney.cpp:589-643 defaults)
         put1("metallic", C_METALLIC, 0.0)
         put1("spectrans", C_SPECTRANS, 0.0)
         put1("anisotropic", C_ANISO, 0.0)
@@ -116,56 +174,149 @@ def build_material_table(materials: List[Optional[MaterialRecord]]):
         put1("flatness", C_FLAT, 0.0)
         put1("difftrans", C_DIFFTRANS, 1.0)
         # an absent flag slot reads as off, as in tpurt
-        table[i, C_THIN] = float("thin" in s and _const(s["thin"]) in (True, 1.0))
-        table[i, C_REMAP] = float("remaproughness" in s and
-                                  _const(s["remaproughness"]) in (True, 1.0))
-        table[i, C_FRESNEL] = (FRESNEL_NOOP if kind == MAT_MIRROR
-                               else FRESNEL_DIELECTRIC)
-    return table, kinds, textured
+        table[i, C_THIN] = float(_const(s.get("thin")) in (True, 1.0))
+        table[i, C_REMAP] = float(_const(s.get("remaproughness"))
+                                  in (True, 1.0))
+        if kind == MAT_MIX:
+            # mix "amount" rides the (otherwise translucent-only) C_TR cols
+            put3("amount", (C_TR0, C_TR1, C_TR2), 0.5)
+        if kind == MAT_METAL:
+            eta3 = _const(s.get("eta"))
+            kk = _const(s.get("k"))
+            table[i, C_ETA30:C_ETA30 + 3] = (
+                COPPER_ETA_RGB if eta3 is None else eta3 * np.ones(3))
+            k3[i] = COPPER_K_RGB if kk is None else kk * np.ones(3)
+        table[i, C_FRESNEL] = {MAT_METAL: FRESNEL_CONDUCTOR,
+                               MAT_SUBSTRATE: FRESNEL_SCHLICK,
+                               MAT_MIRROR: FRESNEL_NOOP,
+                               MAT_DISNEY: FRESNEL_DISNEY}.get(
+                                   kind, FRESNEL_DIELECTRIC)
+    return MaterialTable(table=table, kinds=kinds, textured=textured, k3=k3,
+                         mix=mix, records=materials)
 
 
-def fuse_material_rows(table: np.ndarray, kinds: np.ndarray) -> np.ndarray:
+def fuse_material_rows(mt: MaterialTable) -> np.ndarray:
     """Append tpurt's side-table columns (kind, conductor k, mix ids, hair,
     fourier index) so rows match tpurt's fused layout."""
-    m = table.shape[0]
+    m = mt.table.shape[0]
     return np.concatenate([
-        table, kinds.astype(np.float32)[:, None],
-        np.zeros((m, 3), np.float32), np.full((m, 2), -1.0, np.float32),
+        mt.table, mt.kinds.astype(np.float32)[:, None],
+        mt.k3.astype(np.float32), mt.mix.astype(np.float32),
         np.zeros((m, 7), np.float32), np.full((m, 1), -1.0, np.float32),
     ], axis=1)
 
 
-def lobe_slots(mt_table: np.ndarray) -> Tuple[int, ...]:
-    """The lobe slots that some row of the fused material table can
-    activate, by its kind (and, for glass, by its u/v roughness, which no
-    texture drives): what fetch_lobes maps each kind to."""
-    slots = set()
-    for row in np.asarray(mt_table):
+def _row_slots(row: np.ndarray) -> set:
+    """The slots that fetch_lobes can activate on lanes of one non-mix
+    row, by its kind: a superset where the values come from a texture."""
+    kind = int(row[C_KIND])
+    if kind in (MAT_MATTE, MAT_PLASTIC, MAT_UBER, MAT_SUBSTRATE,
+                MAT_TRANSLUCENT, MAT_DISNEY):
+        slots = {SLOT_DIFFUSE}
+    else:
+        slots = set()
+    if kind in (MAT_PLASTIC, MAT_METAL, MAT_UBER, MAT_SUBSTRATE,
+                MAT_TRANSLUCENT, MAT_DISNEY):
+        slots.add(SLOT_GLOSSY)
+    if kind in (MAT_MIRROR, MAT_UBER):
+        slots.add(SLOT_MIRROR)
+    if kind == MAT_UBER:
+        slots.add(SLOT_FS)
+    if kind == MAT_TRANSLUCENT:
+        slots.update((SLOT_GTRANS, SLOT_DTRANS))
+    if kind == MAT_GLASS:
+        rough = row[C_UROUGH] > 0 or row[C_VROUGH] > 0
+        slots.update((SLOT_GLOSSY, SLOT_GTRANS) if rough else (SLOT_FS,))
+    if kind == MAT_DISNEY:
+        # spectrans, clearcoat, thin and difftrans are never textured
+        # (tpurt reads their table values)
+        if row[C_SPECTRANS] > 0:
+            slots.add(SLOT_GTRANS)
+        if row[C_CC] > 0:
+            slots.add(SLOT_CLEARCOAT)
+        if row[C_THIN] > 0 and row[C_DIFFTRANS] > 0:
+            slots.add(SLOT_DTRANS)
+    return slots
+
+
+def lobe_slots(mt_table: np.ndarray) -> LobeSet:
+    """What the rows of the fused material table can activate: the lobe
+    slots (a mix row adds the union of its two sub-rows'), the glossy
+    slot's Fresnel kinds and whether any row is Disney.  fetch_lobes and
+    the BSDF compute nothing else."""
+    mt_table = np.asarray(mt_table)
+    slots, fresnel, disney, mix = set(), set(), False, False
+    for row in mt_table:
         kind = int(row[C_KIND])
-        if kind in (MAT_MATTE, MAT_PLASTIC):
-            slots.add(SLOT_DIFFUSE)
-        if kind == MAT_PLASTIC:
-            slots.add(SLOT_GLOSSY)
-        if kind == MAT_MIRROR:
-            slots.add(SLOT_MIRROR)
-        if kind == MAT_GLASS:
-            rough = row[C_UROUGH] > 0 or row[C_VROUGH] > 0
-            slots.update((SLOT_GLOSSY, SLOT_GTRANS) if rough else (SLOT_FS,))
-    return tuple(sorted(slots))
+        if kind == MAT_MIX:
+            mix = True
+            for sub in row[C_MIX0:C_MIX0 + 2].astype(int):
+                slots |= _row_slots(mt_table[max(sub, 0)])
+        else:
+            slots |= _row_slots(row)
+        fresnel.add(int(row[C_FRESNEL]))
+        disney |= kind == MAT_DISNEY
+    return LobeSet(slots, fresnel, disney, mix)
 
 
 def fetch_lobes(mt_table: torch.Tensor, mat_id: torch.Tensor,
                 texture_overrides: Optional[Dict[str, torch.Tensor]] = None,
-                slots: Tuple[int, ...] = ALL_SLOTS) -> LobeParams:
-    """Per-lane lobe parameters from the fused material table: matte ->
-    diffuse (Oren-Nayar), plastic -> diffuse + GGX glossy, mirror ->
-    specular reflection, glass -> fresnel-specular when smooth, GGX
-    reflection + microfacet transmission when u/v roughness is given.
-    mat_id (N,) i32, -1 = no material -> all lobes inactive.
-    texture_overrides: {slot: per-lane values} from the texture evaluator.
-    slots: lobe_slots of the table (the slots worth looking at)."""
-    row = mt_table[mat_id.clamp(min=0).long()]
+                slots=ALL_SLOTS) -> LobeParams:
+    """Per-lane lobe parameters from the fused material table (tpurt's
+    fetch_lobes, materials_build.py:435-491).  mat_id (N,) i32, -1 = no
+    material -> all lobes inactive.  texture_overrides: {slot: per-lane
+    values} from the texture evaluator.  slots: lobe_slots of the table
+    (a plain tuple computes every Fresnel kind and the Disney terms, and
+    looks for mix rows in the table).
+
+    Mix lanes blend their two sub-rows' parameters by "amount" as tpurt
+    does: exact for the linear scale fields, the dominant side's value
+    for the distribution shapes and flags (tpurt's documented
+    approximation); the sub-rows take no texture overrides."""
+    idx = mat_id.clamp(min=0).long()
+    row = mt_table[idx]
     kind = torch.where(mat_id >= 0, row[:, C_KIND].to(torch.int32), MAT_NONE)
+    lp = _fetch_lobes_one(row, kind, texture_overrides, slots)
+    has_mix = getattr(slots, "mix", None)
+    if has_mix is None:
+        has_mix = bool((mt_table[:, C_KIND] == MAT_MIX).any())
+    if has_mix:
+        is_mix = kind == MAT_MIX
+        sub = row[:, C_MIX0:C_MIX0 + 2].to(torch.int64)
+        id1 = torch.where(is_mix, sub[:, 0].clamp(min=0), idx)
+        id2 = torch.where(is_mix, sub[:, 1].clamp(min=0), idx)
+        r1, r2 = mt_table[id1], mt_table[id2]
+        lp1 = _fetch_lobes_one(r1, r1[:, C_KIND].to(torch.int32), None, slots)
+        lp2 = _fetch_lobes_one(r2, r2[:, C_KIND].to(torch.int32), None, slots)
+        amt3 = torch.clamp(row[:, C_TR0:C_TR0 + 3], 0.0, 1.0)
+        amt1 = amt3.mean(dim=-1)
+        take1 = amt1 >= 0.5
+        linear = ("kd", "ks", "kr", "kt", "fs_kr", "kt_g", "kd_t",
+                  "sheen", "retro", "kd_ss", "r0")
+        for f, b in lp.items():
+            if b is None:
+                continue
+            p, q = lp1[f], lp2[f]
+            if f in linear:
+                mixed = amt3 * p + (1.0 - amt3) * q
+            elif f == "cc":
+                mixed = amt1 * p + (1.0 - amt1) * q
+            else:
+                mixed = torch.where(take1[:, None] if p.dim() == 2 else take1,
+                                    p, q)
+            lp[f] = torch.where(is_mix[:, None] if b.dim() == 2 else is_mix,
+                                mixed, b)
+    act = lobe_activity(slots=slots, **{
+        k: lp.get(k) for k in ("kd", "ks", "kr", "fs_kr", "kt", "kt_g", "cc",
+                               "kd_t", "retro", "sheen", "kd_ss")})
+    return LobeParams(active=act, **lp)
+
+
+def _fetch_lobes_one(row, kind, texture_overrides, slots) -> dict:
+    """The LobeParams fields of one gathered fused row per lane (tpurt's
+    _fetch_lobes_one, materials_build.py:494-652): every kind mapped onto
+    the slots.  Fields that no material of ``slots`` needs are None."""
+    n = row.shape[0]
     ov = texture_overrides or {}
     kd = ov.get("Kd", row[:, C_KD0:C_KD0 + 3])
     ks = ov.get("Ks", row[:, C_KS0:C_KS0 + 3])
@@ -175,7 +326,11 @@ def fetch_lobes(mt_table: torch.Tensor, mat_id: torch.Tensor,
     sigma = ov.get("sigma", row[:, C_SIGMA])
     urough = row[:, C_UROUGH]
     vrough = row[:, C_VROUGH]
+    eta = row[:, C_ETA]
     remap = row[:, C_REMAP] > 0
+    fresnel_kind = row[:, C_FRESNEL].to(torch.int32)
+    fresnel = getattr(slots, "fresnel", None)
+    disney = getattr(slots, "disney", True)
 
     # roughness -> alpha (per-axis when u/v given)
     ur = torch.where(urough >= 0, urough, rough)
@@ -189,24 +344,122 @@ def fetch_lobes(mt_table: torch.Tensor, mat_id: torch.Tensor,
     oren_a = 1.0 - s2 / (2.0 * (s2 + 0.33))
     oren_b = 0.45 * s2 / (s2 + 0.09)
 
+    def is_(*codes):
+        m = kind == codes[0]
+        for c in codes[1:]:
+            m = m | (kind == c)
+        return m
+
+    def by(mask, val, other):
+        return torch.where(mask[:, None], val, other)
+
+    z3 = torch.zeros_like(kd)
     is_matte = kind == MAT_MATTE
-    is_plastic = kind == MAT_PLASTIC
-    # glass.cpp: specular unless a u/v roughness is given
+    lobe_kd = by(is_(MAT_MATTE, MAT_PLASTIC, MAT_UBER, MAT_SUBSTRATE), kd, z3)
+    lobe_ks = by(is_(MAT_PLASTIC, MAT_UBER, MAT_SUBSTRATE), ks, z3)
+    # metal's glossy slot carries ks=1 with conductor fresnel
+    lobe_ks = by(kind == MAT_METAL, torch.ones_like(ks), lobe_ks)
+    lobe_kt = by(kind == MAT_UBER, kt, z3)
+    lobe_kr = by(is_(MAT_MIRROR, MAT_UBER), kr, z3)
+    # glass: smooth -> fresnel-specular; rough -> GGX reflection +
+    # microfacet transmission (glass.cpp: specular when u/v rough == 0)
     glass_rough = (kind == MAT_GLASS) & ((urough > 0) | (vrough > 0))
     glass_smooth = (kind == MAT_GLASS) & ~glass_rough
-    z3 = torch.zeros_like(kd)
-    lobe_ks = torch.where(is_plastic[:, None], ks, z3)
-    lobes = dict(
-        kd=torch.where((is_matte | is_plastic)[:, None], kd, z3),
-        ks=torch.where(glass_rough[:, None], kr, lobe_ks),
-        kr=torch.where((kind == MAT_MIRROR)[:, None], kr, z3),
-        kt=torch.where(glass_smooth[:, None], kt, z3),
-        fs_kr=torch.where(glass_smooth[:, None], kr, z3),
-        kt_g=torch.where(glass_rough[:, None], kt, z3))
-    return LobeParams(
-        oren_a=torch.where(is_matte, oren_a, 1.0),
-        oren_b=torch.where(is_matte, oren_b, 0.0),
-        alpha_x=ax, alpha_y=ay,
-        fresnel_kind=row[:, C_FRESNEL].to(torch.int32),
-        eta=row[:, C_ETA], t_alpha_x=ax, t_alpha_y=ay,
-        active=lobe_activity(slots=slots, **lobes), **lobes)
+    lobe_fs_kr = by(glass_smooth, kr, z3)
+    lobe_kt = by(glass_smooth, kt, lobe_kt)
+    lobe_ks = by(glass_rough, kr, lobe_ks)
+    lobe_kt_g = by(glass_rough, kt, z3)
+    t_ax, t_ay = ax, ay
+    out = dict(fresnel_kind=fresnel_kind, eta=eta)
+    if SLOT_DTRANS in slots:
+        out["kd_t"] = z3
+    if SLOT_CLEARCOAT in slots:
+        out["cc"] = torch.zeros_like(eta)
+        out["cc_gloss"] = torch.zeros_like(eta)
+
+    if SLOT_DTRANS in slots or SLOT_GTRANS in slots:
+        # translucent (translucent.cpp): reflect/transmit split both the
+        # diffuse and glossy components
+        is_tl = (kind == MAT_TRANSLUCENT)[:, None]
+        trefl = row[:, C_TR0:C_TR0 + 3]
+        ttrans = row[:, C_TT0:C_TT0 + 3]
+        lobe_kd = torch.where(is_tl, trefl * kd, lobe_kd)
+        lobe_ks = torch.where(is_tl, trefl * ks, lobe_ks)
+        lobe_kt_g = torch.where(is_tl, ttrans * ks, lobe_kt_g)
+        if SLOT_DTRANS in slots:
+            out["kd_t"] = torch.where(is_tl, ttrans * kd, out["kd_t"])
+    if fresnel is None or FRESNEL_CONDUCTOR in fresnel:
+        out["eta3"] = row[:, C_ETA30:C_ETA30 + 3]
+        out["k3"] = row[:, C_FK30:C_FK30 + 3]
+
+    if disney:
+        # disney.cpp ComputeScatteringFunctions (:474-587)
+        is_dis = kind == MAT_DISNEY
+        metallic = torch.where(is_dis, row[:, C_METALLIC], 0.0)
+        strans = row[:, C_SPECTRANS]
+        thin = row[:, C_THIN] > 0
+        dw = (1.0 - metallic) * (1.0 - strans)  # diffuseWeight
+        dt = row[:, C_DIFFTRANS] / 2.0
+        lum = (0.212671 * kd[:, 0] + 0.715160 * kd[:, 1]
+               + 0.072169 * kd[:, 2])
+        ctint = torch.where(lum[:, None] > 0,
+                            kd / torch.clamp(lum, min=1e-9)[:, None], 1.0)
+        sheen_w = row[:, C_SHEEN]
+        tint = row[:, C_SHEENTINT]
+        csheen = (1.0 - tint)[:, None] + tint[:, None] * ctint
+        flat = row[:, C_FLAT]
+        d_kd_w = torch.where(thin, (1.0 - flat) * (1.0 - dt), 1.0)
+        lobe_kd = by(is_dis, (dw * d_kd_w)[:, None] * kd, lobe_kd)
+        out["kd_ss"] = by(is_dis & thin, (dw * flat * (1.0 - dt))[:, None] * kd,
+                          z3)
+        out["retro"] = by(is_dis, dw[:, None] * kd, z3)
+        out["sheen"] = by(is_dis, (dw * sheen_w)[:, None] * csheen, z3)
+        if SLOT_DTRANS in slots:
+            out["kd_t"] = by(is_dis & thin, dt[:, None] * kd, out["kd_t"])
+        # specular: white scale, disney fresnel (R0 tinted), disney alphas
+        lobe_ks = by(is_dis, torch.ones_like(ks), lobe_ks)
+        spec_tint = row[:, C_SPECTINT]
+        em1, ep1 = eta - 1.0, eta + 1.0
+        r0_eta = (em1 * em1) / torch.clamp(ep1 * ep1, min=1e-9)
+        out["r0"] = ((1.0 - metallic)[:, None] * r0_eta[:, None]
+                     * ((1.0 - spec_tint)[:, None]
+                        + spec_tint[:, None] * ctint)
+                     + metallic[:, None] * kd)
+        aspect = torch.sqrt(torch.clamp(1.0 - row[:, C_ANISO] * 0.9,
+                                        min=1e-6))
+        d_ax = torch.clamp(rough * rough / aspect, min=0.001)
+        d_ay = torch.clamp(rough * rough * aspect, min=0.001)
+        ax = torch.where(is_dis, d_ax, ax)
+        ay = torch.where(is_dis, d_ay, ay)
+        # transmission: strans*sqrt(c); thin scales roughness by IOR
+        lobe_kt_g = by(is_dis, strans[:, None]
+                       * torch.sqrt(torch.clamp(kd, min=0.0)), lobe_kt_g)
+        rscaled = (0.65 * eta - 0.35) * rough
+        t_ax = torch.where(is_dis, torch.where(
+            thin, torch.clamp(rscaled * rscaled / aspect, min=0.001), d_ax),
+            t_ax)
+        t_ay = torch.where(is_dis, torch.where(
+            thin, torch.clamp(rscaled * rscaled * aspect, min=0.001), d_ay),
+            t_ay)
+        if SLOT_CLEARCOAT in slots:
+            ccg = row[:, C_CCGLOSS]
+            out["cc"] = torch.where(is_dis, row[:, C_CC], 0.0)
+            out["cc_gloss"] = torch.clamp(0.1 * (1.0 - ccg) + 0.001 * ccg,
+                                          min=1e-4)
+        out["disney"] = is_dis
+        out["metallic"] = metallic
+        out["d_rough"] = torch.where(is_dis, rough, 0.5)
+    elif SLOT_CLEARCOAT in slots:
+        ccg = row[:, C_CCGLOSS]
+        out["cc_gloss"] = torch.clamp(0.1 * (1.0 - ccg) + 0.001 * ccg,
+                                      min=1e-4)
+
+    out.update(kd=lobe_kd, ks=lobe_ks, kr=lobe_kr, kt=lobe_kt,
+               fs_kr=lobe_fs_kr, kt_g=lobe_kt_g, alpha_x=ax, alpha_y=ay,
+               t_alpha_x=t_ax, t_alpha_y=t_ay,
+               oren_a=torch.where(is_matte, oren_a, 1.0),
+               oren_b=torch.where(is_matte, oren_b, 0.0))
+    for f in LobeParams._fields:
+        out.setdefault(f, None)
+    del out["active"]
+    return out

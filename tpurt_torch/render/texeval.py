@@ -720,14 +720,33 @@ def make_texture_eval(records, textured, mt_table) -> Optional[TexEval]:
     records (index == material id); textured: build_material_table's
     [(material id, slot)]; mt_table: the fused table on the device (the
     untextured lanes keep its values).  Returns None when no material has
-    a textured slot or a bump map."""
+    a textured slot or a bump map.
+
+    Only the slots fetch_lobes reads are evaluated.  tpurt's slot maps
+    (texeval.py:1136-1158) also evaluate "reflect" and "transmit" into
+    overrides fetch_lobes never reads, and skip "eta", "k", "opacity", a
+    mix's "amount", "uroughness", "vroughness" and the Disney parameters:
+    either way the table's default renders.  The port renders the same
+    default and logs a warning naming the slot."""
     from tpurt_torch.render.materials_build import (C_KD0, C_KR0, C_KS0,
                                                     C_KT0, C_ROUGH, C_SIGMA)
 
-    col = {"Kd": C_KD0, "Ks": C_KS0, "Kr": C_KR0, "Kt": C_KT0,
-           "roughness": C_ROUGH, "sigma": C_SIGMA}
-    slots = [(i, name, records[i].slots[name][1]) for i, name in textured]
-    for _i, _name, rec in slots + _textured_records(records, ("bumpmap",)):
+    cols = {"Kd": C_KD0, "Ks": C_KS0, "Kr": C_KR0, "Kt": C_KT0,
+            "roughness": C_ROUGH, "sigma": C_SIGMA}
+    slots = []
+    for i, name in textured:
+        rec = records[i].slots[name] if records[i] is not None else None
+        if not (isinstance(rec, tuple) and rec[0] == "texture"):
+            continue  # a slot held as None (metal's unset u/v roughness)
+        check_texture(rec[1])
+        col = cols.get(name)
+        if col is None:
+            log.warning('textured "%s" on Material "%s" is not read by the '
+                        'renderer (as in tpurt); using its default', name,
+                        records[i].name)
+            continue
+        slots.append((i, name, rec[1], col))
+    for _i, _name, rec in _textured_records(records, ("bumpmap",)):
         check_texture(rec)
     bump = make_bump_eval(records)
     if not slots:
@@ -736,12 +755,11 @@ def make_texture_eval(records, textured, mt_table) -> Optional[TexEval]:
     def evaluate(si):
         overrides = {}
         row = None
-        for mat_idx, slot, rec in slots:
+        for mat_idx, slot, rec, c in slots:
             want3 = slot in _COL3
             if slot not in overrides:
                 if row is None:
                     row = mt_table[si.material_id.clamp(min=0).long()]
-                c = col[slot]
                 overrides[slot] = (row[:, c:c + 3] if want3
                                    else row[:, c]).clone()
             m = si.material_id == mat_idx

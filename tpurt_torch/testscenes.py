@@ -255,3 +255,285 @@ def write_textured(path: str, size: str = "full", **kw) -> str:
         f.write(textured_scene(size, tex, kw.pop("filename", base + ".exr"),
                                **kw))
     return path
+
+
+# ---------------------------------------------------------------------------
+# scene D: pbrt-v3's other materials, quadrics, lights and cameras
+# ---------------------------------------------------------------------------
+
+D_SIZES = {
+    "full": dict(res=700, spp=8, mesh_n=128),
+    "medium": dict(res=64, spp=2, mesh_n=12),
+    "small": dict(res=32, spp=2, mesh_n=12),
+}
+# the sun of the sky map: world direction (toward the sun) and radius
+SUN_DIR = np.array([0.5, 0.77, -0.4]) / np.linalg.norm([0.5, 0.77, -0.4])
+SUN_RADIUS_DEG = 8.0
+SKY_WARM = (0.9, 0.55, 0.25)  # the sky where world x > 0 (image right)
+SKY_COOL = (0.25, 0.45, 0.9)  # the sky where world x < 0 (image left)
+# where the projector and the goniometric light stand and aim
+PROJ_FROM, PROJ_TO = (4.5, 6.0, 6.0), (2.8, 0.0, -7.0)
+GONIO_AT = (-1.0, 1.0, -8.5)
+
+
+def write_sky_map(path: str, width: int = 512, height: int = 256) -> str:
+    """A lat-long sky (infinite.cpp's parameterization in light space,
+    +z up): a cool half and a warm half split by the sign of light-space
+    x, a dim lower hemisphere and a sun spot of SUN_RADIUS_DEG around
+    SUN_DIR (the light is rotated by ``Rotate -90 1 0 0``, so light-space
+    (x, y, z) is world (x, -z, y))."""
+    from tpurt_torch.io.image import write_image
+
+    v = (np.arange(height) + 0.5) / height
+    u = (np.arange(width) + 0.5) / width
+    theta = np.pi * v[:, None] * np.ones((1, width))
+    phi = 2 * np.pi * u[None, :] * np.ones((height, 1))
+    warm = np.cos(phi) >= 0
+    sky = np.where(warm[..., None], SKY_WARM, SKY_COOL)
+    sky = sky * (0.6 + 0.6 * np.sin(theta)[..., None])  # brighter horizon
+    sky = np.where((theta > np.pi / 2)[..., None], 0.12, sky)
+    d = np.stack([np.sin(theta) * np.cos(phi), np.sin(theta) * np.sin(phi),
+                  np.cos(theta)], -1)
+    sun_l = np.array([SUN_DIR[0], -SUN_DIR[2], SUN_DIR[1]])
+    sun = d @ sun_l > np.cos(np.deg2rad(SUN_RADIUS_DEG))
+    sky = np.where(sun[..., None], (30.0, 28.0, 25.0), sky)
+    write_image(path, sky.astype(np.float32))
+    return path
+
+
+def write_slide_map(path: str, size: int = 128, period: int = 32) -> str:
+    """The projection light's slide: vertical stripes, bright and nearly
+    black, ``period`` pixels a pair."""
+    from tpurt_torch.io.image import write_image
+
+    col = (np.arange(size) // (period // 2)) % 2 == 0
+    img = np.where(col[None, :, None], 1.0, 0.03) * np.ones((size, size, 3))
+    write_image(path, img.astype(np.float32))
+    return path
+
+
+def write_gonio_map(path: str, width: int = 64, height: int = 32) -> str:
+    """The goniometric light's map: bright for phi in [0, pi) (light-space
+    z > 0 after the reference's y/z swap; scene D turns the light's z to
+    world +x, so it lights the ground right of it), nearly dark for the
+    rest, with a gentle falloff away from the light's horizontal."""
+    from tpurt_torch.io.image import write_image
+
+    u = (np.arange(width) + 0.5) / width
+    v = (np.arange(height) + 0.5) / height
+    lit = np.where(u < 0.5, 1.0, 0.02)[None, :]
+    ramp = (0.5 + 0.5 * np.sin(np.pi * v))[:, None]
+    img = (lit * ramp)[..., None] * np.array([1.0, 0.9, 0.7])
+    write_image(path, img.astype(np.float32))
+    return path
+
+
+def _aim(frm, to) -> str:
+    """Translate + Rotate directives that put the light's origin at
+    ``frm`` with its +z axis toward ``to``."""
+    d = np.subtract(to, frm, dtype=np.float64)
+    d /= np.linalg.norm(d)
+    ax = np.degrees(np.arcsin(-d[1]))
+    ay = np.degrees(np.arctan2(d[0], d[2]))
+    return (f"Translate {frm[0]} {frm[1]} {frm[2]}\n"
+            f"  Rotate {ay:.6f} 0 1 0\n  Rotate {ax:.6f} 1 0 0")
+
+
+def _d_maps(base: str) -> dict:
+    return dict(sky=write_sky_map(base + "_sky.exr"),
+                slide=write_slide_map(base + "_slide.exr"),
+                gonio=write_gonio_map(base + "_gonio.exr"))
+
+
+def materials_scene(size: str, maps: dict, filename: str = "materials.exr",
+                    integrator: str = "path", res: int = None) -> str:
+    """Scene D as .pbrt text: two instances of the stand-in mesh (one
+    Disney with metallic, clearcoat and sheen, one copper metal at
+    roughness 0.05), a substrate ground with anisotropic roughness, an
+    uber cylinder, a translucent disk lit from behind by the projection
+    light, a cone of mix (metal and matte, amount 0.3), a paraboloid of
+    thin Disney (spectrans and difftrans), a hyperboloid of plastic with a
+    checkerboard Kd, and four lights: a sphere area light, the infinite
+    light with the sky map, the projection light and the goniometric
+    light.  ``maps`` holds the paths of the three maps (write_materials
+    writes them)."""
+    if integrator not in ("path", "rpf"):
+        raise ValueError(f"integrator {integrator!r}")
+    cfg = D_SIZES[size]
+    res = res or cfg["res"]
+    v, idx = blob_mesh(cfg["mesh_n"], seed=0)
+    mesh = _mesh_text(v * 1.6, idx)
+    return f"""# tpurt_torch scene D ({size}): materials, quadrics, lights
+LookAt 0 4.5 -15  0 1.5 0  0 1 0
+Camera "perspective" "float fov" [50]
+Sampler "halton" "integer pixelsamples" [{cfg["spp"]}]
+Integrator "{integrator}" "integer maxdepth" [5]
+PixelFilter "box"
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]
+  "string filename" "{filename}"
+WorldBegin
+AttributeBegin
+  Rotate -90 1 0 0
+  LightSource "infinite" "string mapname" "{maps['sky']}"
+AttributeEnd
+AttributeBegin
+  {_aim(PROJ_FROM, PROJ_TO)}
+  LightSource "projection" "color I" [1500 1500 1500] "float fov" [30]
+    "string mapname" "{maps['slide']}"
+AttributeEnd
+AttributeBegin
+  Translate {GONIO_AT[0]} {GONIO_AT[1]} {GONIO_AT[2]}
+  Rotate 90 0 1 0
+  LightSource "goniometric" "color I" [30 30 30]
+    "string mapname" "{maps['gonio']}"
+AttributeEnd
+AttributeBegin
+  AreaLightSource "area" "color L" [14 14 14]
+  Translate -3 8 -4
+  Shape "sphere" "float radius" [0.8]
+AttributeEnd
+AttributeBegin
+  Material "substrate" "color Kd" [.35 .32 .28] "color Ks" [.1 .1 .1]
+    "float uroughness" [.04] "float vroughness" [.35]
+  Shape "trianglemesh" "point P" [-14 0 -14  14 0 -14  14 0 16  -14 0 16]
+    "float uv" [0 0 1 0 1 1 0 1] "integer indices" [0 2 1  0 3 2]
+AttributeEnd
+AttributeBegin
+  Material "disney" "color color" [.75 .35 .2] "float metallic" [.4]
+    "float roughness" [.35] "float clearcoat" [.8]
+    "float clearcoatgloss" [.7] "float sheen" [.6] "float sheentint" [.5]
+    "float speculartint" [.2] "float anisotropic" [.3]
+  AttributeBegin
+    Translate -2.4 0 2
+    {mesh}  AttributeEnd
+AttributeEnd
+AttributeBegin
+  Material "metal" "float roughness" [.05]
+  AttributeBegin
+    Translate 1.8 0 3.5
+    Rotate 40 0 1 0
+    {mesh}  AttributeEnd
+AttributeEnd
+AttributeBegin
+  Material "uber" "color Kd" [.15 .3 .5] "color Ks" [.3 .3 .3]
+    "color Kr" [.15 .15 .15] "float roughness" [.05]
+  Translate -4.6 0 -1.5
+  Rotate -90 1 0 0
+  Shape "cylinder" "float radius" [.6] "float zmin" [0] "float zmax" [2.2]
+AttributeEnd
+AttributeBegin
+  Material "translucent" "color Kd" [.7 .7 .6] "color Ks" [.1 .1 .1]
+    "color reflect" [.4 .4 .4] "color transmit" [.6 .6 .6]
+    "float roughness" [.2]
+  Translate 3.6 1.5 -2.5
+  Shape "disk" "float radius" [1]
+AttributeEnd
+MakeNamedMaterial "mixmetal" "string type" "metal" "float roughness" [.1]
+MakeNamedMaterial "mixmatte" "string type" "matte"
+  "color Kd" [.2 .5 .2]
+AttributeBegin
+  Material "mix" "string namedmaterial1" "mixmetal"
+    "string namedmaterial2" "mixmatte" "color amount" [.3 .3 .3]
+  Translate -3.4 0 -6
+  Rotate -90 1 0 0
+  Shape "cone" "float radius" [.8] "float height" [1.8]
+AttributeEnd
+AttributeBegin
+  Material "disney" "color color" [.6 .8 .9] "bool thin" "true"
+    "float spectrans" [.6] "float difftrans" [.8] "float flatness" [.4]
+    "float roughness" [.3] "float eta" [1.4]
+  Translate 0 0 -6.5
+  Rotate -90 1 0 0
+  Shape "paraboloid" "float radius" [.9] "float zmin" [0] "float zmax" [1.4]
+AttributeEnd
+AttributeBegin
+  Texture "hypchecks" "spectrum" "checkerboard"
+    "float uscale" [8] "float vscale" [4]
+    "color tex1" [.85 .85 .8] "color tex2" [.6 .15 .1]
+  Material "plastic" "texture Kd" "hypchecks" "color Ks" [.3 .3 .3]
+    "float roughness" [.08]
+  Translate 4.8 0 2.5
+  Rotate -90 1 0 0
+  Shape "hyperboloid" "point p1" [1 0 0] "point p2" [.5 .8 2.4]
+AttributeEnd
+WorldEnd
+"""
+
+
+def write_materials(path: str, size: str = "full", **kw) -> str:
+    """Write scene D to ``path`` and its three maps beside it; returns
+    ``path``.  kw: ``integrator`` ("path" or "rpf"), ``res``,
+    ``filename``."""
+    base = path.rsplit(".", 1)[0]
+    with open(path, "w") as f:
+        f.write(materials_scene(size, _d_maps(base),
+                                kw.pop("filename", base + ".exr"), **kw))
+    return path
+
+
+def camera_scene(kind: str, maps: dict, filename: str = "camera.exr",
+                 res: int = 64) -> str:
+    """A small scene for the orthographic or the environment camera.
+    "environment" sees the sky map alone (no geometry but one hidden
+    triangle), so its image is the map's lookup; "orthographic" looks
+    down at quadrics under a constant infinite light and a distant
+    light."""
+    head = (f'Film "image" "integer xresolution" [{res}] '
+            f'"integer yresolution" [{res // 2 if kind == "environment" else res}]\n'
+            f'  "string filename" "{filename}"\n'
+            'Sampler "halton" "integer pixelsamples" [2]\n'
+            'Integrator "path" "integer maxdepth" [3]\n')
+    if kind == "environment":
+        return head + f"""LookAt 0 1 0  0 1 1  0 1 0
+Camera "environment"
+WorldBegin
+AttributeBegin
+  Rotate -90 1 0 0
+  LightSource "infinite" "string mapname" "{maps['sky']}"
+AttributeEnd
+Material "matte"
+Shape "trianglemesh" "point P" [0 -50 0  0.01 -50 0  0 -50 0.01]
+  "integer indices" [0 1 2]
+WorldEnd
+"""
+    if kind != "orthographic":
+        raise ValueError(f"camera {kind!r}")
+    return head + """LookAt 0 8 -6  0 0 0  0 1 0
+Camera "orthographic" "float screenwindow" [-4 4 -4 4]
+WorldBegin
+LightSource "infinite" "color L" [.4 .45 .5]
+LightSource "distant" "point from" [2 5 -3] "color L" [2 2 1.8]
+Material "matte" "color Kd" [.5 .5 .5]
+Shape "trianglemesh" "point P" [-9 0 -9  9 0 -9  9 0 9  -9 0 9]
+  "integer indices" [0 2 1  0 3 2]
+AttributeBegin
+  Material "plastic" "color Kd" [.6 .2 .2] "color Ks" [.3 .3 .3]
+  Translate -1.5 1 0
+  Shape "sphere" "float radius" [1]
+AttributeEnd
+AttributeBegin
+  Material "metal" "float roughness" [.2]
+  Translate 1.5 0 0.5
+  Rotate -90 1 0 0
+  Shape "cylinder" "float radius" [.8] "float zmin" [0] "float zmax" [1.5]
+AttributeEnd
+AttributeBegin
+  Material "matte" "color Kd" [.2 .3 .7]
+  Translate 0 0.01 -2.2
+  Rotate -90 1 0 0
+  Shape "disk" "float radius" [1] "float innerradius" [.4]
+AttributeEnd
+WorldEnd
+"""
+
+
+def write_camera_scene(path: str, kind: str, **kw) -> str:
+    """Write a camera scene to ``path`` (with the sky map beside it for
+    "environment"); returns ``path``."""
+    base = path.rsplit(".", 1)[0]
+    maps = dict(sky=write_sky_map(base + "_sky.exr")) if (
+        kind == "environment") else {}
+    with open(path, "w") as f:
+        f.write(camera_scene(kind, maps, kw.pop("filename", base + ".exr"),
+                             **kw))
+    return path
