@@ -3,8 +3,8 @@
     python3 chip_smoke.py             # needs one CUDA card
     python3 chip_smoke.py --profile   # also prints a torch.profiler
                                       # breakdown of one path frame, one
-                                      # RPF frame and one direct-lighting
-                                      # textured frame
+                                      # RPF frame, one direct-lighting
+                                      # textured frame and one frame D
 
 Phases (any failure exits non-zero; none is caught):
   1. environment: versions, the card's name and power limit
@@ -69,6 +69,25 @@ Phases (any failure exits non-zero; none is caught):
  13. cross-checks of the new paths: the small textured and whitted scenes
      on the card against the CPU (the bounds of phase 9), and 2^20 lanes of
      every sampler's ``dim`` on the card bit-equal to the CPU's
+ 14. main path D: the CLI renders scene D (700x700, 8 spp, path, maxdepth
+     5: two ~33k-triangle meshes of Disney and copper metal, a substrate
+     ground, an uber cylinder, a translucent disk, a cone of mix, a
+     paraboloid of thin Disney, a hyperboloid of checkered plastic, a
+     sphere area light, an environment-mapped infinite light, a
+     projection light and a goniometric light) on the card and writes the
+     EXR; K1 must have launched and the plain traversal must not have
+     run; the image is finite with mean > 0 and each new light shows in
+     it as a broken one would not (d_light_checks: the sky's two colours
+     in the background, the slide's stripes on the ground where the
+     scene's own model of the projector puts them, the goniometric map's
+     lit side); the environment map's sampling on 2^20 lanes on the card
+     against the CPU (same texel on every lane, ties on the CDF included)
+     and against the map's distribution; K1 against its plain version on
+     D's rays, every bounce step; one warm-up and 3 timed renders
+     (materials_lights_render_s, peak memory); D under Integrator "rpf"
+     at 256x256 through the CLI, untimed, with the counter and image
+     checks; the 64x64 D and the orthographic and environment camera
+     scenes on the card against the CPU (phase 9's bounds)
 K1 on every path: phase 4 holds the kernel to its plain version on path
 A's rays; paths B, C1, C2 and the whitted variant walk other scenes or
 other rays, so each records the calls K1's wrapper receives while 2^20
@@ -81,8 +100,8 @@ both times (k1_on_path; "vs_plain_by_path" in the kernels line).  These
 launches are made outside the counted runs.
 
 Paths A and B are timed over one frame each (three until the script grew
-paths C1 and C2), which keeps the whole run near two minutes; C1 keeps
-its three.
+paths C1 and C2), which keeps the whole run near two minutes; C1 and D
+keep their three.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
@@ -818,6 +837,211 @@ def phase_cross_new():
         assert equal, name
 
 
+def _ground_view(job):
+    """Per pixel of the frame (pixel centres, pinhole): the world point
+    where the primary ray meets the ground plane y = 0, a mask of the
+    pixels whose first hit is that plane (the ground quad), a mask of the
+    pixels whose ray escapes, and the ray directions.  Numpy arrays."""
+    from tpurt_torch.kernels.traverse import traverse_wide
+    from tpurt_torch.render.intersect import intersect_closest
+
+    film = job.film
+    dev = job.scene.geo.device
+    ys, xs = torch.meshgrid(torch.arange(film.height, device=dev) + 0.5,
+                            torch.arange(film.width, device=dev) + 0.5,
+                            indexing="ij")
+    p = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1)
+    o, d, _ = job.camera.generate_rays(p, torch.zeros_like(p))
+    hit = intersect_closest(job.scene.geo, o, d, float("inf"), traverse_wide)
+    o, d = o.double().cpu().numpy(), d.double().cpu().numpy()
+    t, prim = hit.t.double().cpu().numpy(), hit.prim.cpu().numpy()
+    t_plane = -o[:, 1] / np.minimum(d[:, 1], -1e-6)
+    ground = ((prim >= 0) & (d[:, 1] < -1e-6)
+              & (np.abs(t - t_plane) <= 1e-3 * t_plane))
+    shape = (film.height, film.width)
+    return ((o + t_plane[:, None] * d).reshape(shape + (3,)),
+            ground.reshape(shape), (prim < 0).reshape(shape),
+            d.reshape(shape + (3,)))
+
+
+def d_light_checks(job, img):
+    """Each new light of scene D shows in the frame the way a broken one
+    would not (the numbers come from the scene's own description in
+    tpurt_torch.testscenes, not from the renderer):
+      sky: escaped upward rays toward world x > 0 see the map's warm half
+        (red > 1.5 blue), toward x < 0 its cool half (blue > 1.5 red);
+        an unread map renders a constant L = 1;
+      projection: on open ground inside the projector's frustum, pixels
+        the slide's model puts in a bright stripe are > 1.5 times those it
+        puts in a dark one (medians); a dead or inverted slide lookup
+        gives about 1 or less;
+      goniometric: ground within 2.5 of the light's foot is > 1.5 times
+        brighter on its lit side (world x > its x) than on its dark side;
+        a lookup that ignores the map gives about 1 (1.3 with the
+        projector's cone uniform too).
+    Returns the measured numbers."""
+    from tpurt_torch import testscenes as ts
+
+    pw, ground, escaped, d = _ground_view(job)
+    lum = img.mean(-1)
+    up = escaped & (d[..., 1] > 0.05)
+    warm = np.median(img[up & (d[..., 0] > 0.2)], 0)
+    cool = np.median(img[up & (d[..., 0] < -0.2)], 0)
+    # projector: light space of Translate PROJ_FROM, Rotate ay y, ax x
+    frm = np.asarray(ts.PROJ_FROM, np.float64)
+    a = np.subtract(ts.PROJ_TO, frm)
+    a /= np.linalg.norm(a)
+    ax, ay = np.arcsin(-a[1]), np.arctan2(a[0], a[2])
+    rx = np.array([[1, 0, 0], [0, np.cos(ax), -np.sin(ax)],
+                   [0, np.sin(ax), np.cos(ax)]])
+    ry = np.array([[np.cos(ay), 0, np.sin(ay)], [0, 1, 0],
+                   [-np.sin(ay), 0, np.cos(ay)]])
+    q = (pw - frm) @ (ry @ rx)  # R^T (p - from), row vectors
+    inv_tan = 1.0 / np.tan(np.deg2rad(30.0) / 2)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        sx = q[..., 0] * inv_tan / q[..., 2]
+        sy = q[..., 1] * inv_tan / q[..., 2]
+    inside = ground & (q[..., 2] > 0) & (np.abs(sx) < 0.95) & (
+        np.abs(sy) < 0.95)
+    col = (sx + 1) / 2 * 127  # the slide's column (128 wide, 16 a stripe)
+    phase = np.mod(col, 32)
+    bright = inside & (phase > 3) & (phase < 13)
+    dark = inside & (phase > 19) & (phase < 29)
+    stripes = np.median(lum[bright]) / max(np.median(lum[dark]), 1e-6)
+    # goniometric light: lit toward world +x of its foot
+    gx, _, gz = ts.GONIO_AT
+    r = np.hypot(pw[..., 0] - gx, pw[..., 2] - gz)
+    near = ground & (r > 0.3) & (r < 2.5)
+    lit, unlit = near & (pw[..., 0] > gx + 0.2), near & (pw[..., 0] < gx - 0.2)
+    gonio = np.median(lum[lit]) / max(np.median(lum[unlit]), 1e-6)
+    out = dict(sky_warm=warm.round(4).tolist(), sky_cool=cool.round(4).tolist(),
+               stripes_ratio=float(stripes), gonio_ratio=float(gonio),
+               pixels=dict(sky=int(up.sum()), stripes=int(bright.sum()
+                                                          + dark.sum()),
+                           gonio=int(lit.sum() + unlit.sum())))
+    print(f"D lights: {out}")
+    assert up.sum() > 100 and bright.sum() > 100 and dark.sum() > 100
+    assert lit.sum() > 100 and unlit.sum() > 100, out
+    assert warm[0] > 1.5 * warm[2] and cool[2] > 1.5 * cool[0], out
+    assert stripes > 1.5, out
+    assert gonio > 1.5, out
+    return out
+
+
+def env_sampling_check(job):
+    """The environment map's importance sampling on the card against the
+    CPU on 2^20 uniforms: the same texel on every lane (ties on the CDF
+    break to the same side), directions and pdfs within 1e-5; and the
+    texels the card picks follow the map's distribution (each texel's
+    count within 6 sigma of its expected count, sigma = sqrt(expected +
+    1), from the host's CDF tables in float64), which a wrong inversion
+    does not."""
+    import dataclasses
+
+    from tpurt_torch.render.lights import env_sample
+
+    lt = job.scene.lights
+    lt_cpu = dataclasses.replace(lt, **{
+        f.name: getattr(lt, f.name).cpu() for f in dataclasses.fields(lt)
+        if torch.is_tensor(getattr(lt, f.name))})
+    gen = torch.Generator().manual_seed(9)
+    u1, u2 = torch.rand(LANES, generator=gen), torch.rand(LANES, generator=gen)
+    # a quarter of the lanes exactly on CDF entries
+    cond, marg = lt_cpu.env_cond_cdf, lt_cpu.env_marg_cdf
+    k = LANES // 4
+    u2[:k] = marg[:-1][torch.randint(0, marg.shape[0] - 1, (k,),
+                                     generator=gen)]
+    u1[:k] = cond[:, :-1].reshape(-1)[torch.randint(
+        0, cond[:, :-1].numel(), (k,), generator=gen)]
+    wi_c, li_c, pdf_c = env_sample(lt_cpu, u1, u2)
+    wi_g, li_g, pdf_g = env_sample(lt, u1.cuda(), u2.cuda())
+    same_texel = torch.equal(li_g.cpu(), li_c)
+    d_err = (wi_g.cpu() - wi_c).abs().max().item()
+    p_err = ((pdf_g.cpu() - pdf_c).abs() / pdf_c.abs().clamp(min=1e-6)
+             ).max().item()
+    # distribution of the card's texels (a texel's radiance names it only
+    # up to equal texels: count (row, column) from the direction instead)
+    he, we = lt.env_map.shape[:2]
+    m = lt.env_w2l.cpu().double()[:3, :3]
+    wl = wi_g.cpu().double() @ m.T
+    theta = torch.acos(wl[:, 2].clamp(-1, 1))
+    phi = torch.remainder(torch.atan2(wl[:, 1], wl[:, 0]), 2 * np.pi)
+    vi = (theta / np.pi * he).long().clamp(0, he - 1)
+    ui = (phi / (2 * np.pi) * we).long().clamp(0, we - 1)
+    counts = torch.bincount(vi * we + ui, minlength=he * we).double()
+    n_rand = LANES - k
+    c = cond.double().numpy()
+    mg = marg.double().numpy()
+    p = (np.diff(mg)[:, None] * np.diff(c, axis=1)).reshape(-1)
+    sub = torch.bincount((vi * we + ui)[k:], minlength=he * we).double()
+    dev = (sub.numpy() - n_rand * p) / np.sqrt(n_rand * p + 1.0)
+    worst = float(np.abs(dev).max())
+    print(f"env sampling @ {LANES} lanes ({k} on CDF entries): card texels "
+          f"equal to the CPU's {same_texel}, max |dwi| {d_err:.3e}, max pdf "
+          f"rel err {p_err:.3e}; random lanes' texel counts against the "
+          f"map's distribution: worst {worst:.2f} sigma over {he}x{we} "
+          f"texels ({int((counts > 0).sum())} hit)")
+    assert same_texel and d_err <= 1e-5 and p_err <= 1e-5
+    assert worst <= 6.0, worst
+    return dict(same_texel=same_texel, max_abs_dwi=d_err,
+                max_pdf_rel_err=p_err, worst_sigma=worst)
+
+
+def phase_materials(gpu: str):
+    """Main path D: scene D (every other material, quadric, light) through
+    the CLI at 700x700, 8 spp, then its checks, K1 on its rays, 3 timed
+    renders; D under rpf at 256x256; small scenes on the card against the
+    CPU."""
+    from tpurt_torch.render.driver import (build_job, load_scene, render,
+                                           render_job)
+    from tpurt_torch.testscenes import write_camera_scene, write_materials
+
+    scene = write_materials(str(WORK / "materials_full.pbrt"), "full")
+    img, launches, _ = cli_counted(scene, WORK / "materials_full_out.exr",
+                                   "main path D (materials, quadrics, lights)")
+    assert img.shape == (700, 700, 3)
+    job = build_job(load_scene(scene), "cuda")
+    g = job.scene.geo
+    print(f"scene D: {g.n_tris} triangles, quadrics {g.quads}, lights "
+          f"{job.scene.lights.n_lights}, lobe set {job.scene.lobe_slots}")
+    checks = d_light_checks(job, img)
+    checks["env_sampling"] = env_sampling_check(job)
+    k1_paths = {"materials": k1_on_path("D materials", job,
+                                        job.cfg.max_depth + 1)}
+    render_job(job)  # warm-up
+    runs, peak = [], 0
+    for _ in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img = render_job(job)
+        torch.cuda.synchronize()
+        runs.append(time.time() - t0)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+    assert np.isfinite(img).all() and img.mean() > 0
+    render_s = statistics.median(runs)
+    print(f"materials_lights_render_s {render_s:.4f} (runs "
+          f"{['%.4f' % r for r in runs]}) peak mem {peak / 2**30:.3f} GiB, "
+          f"image mean {img.mean():.5f} on {gpu}")
+
+    rpf = write_materials(str(WORK / "materials_rpf_256.pbrt"), "full",
+                          integrator="rpf", res=256)
+    img_r, launches_rpf, _ = cli_counted(rpf, WORK / "materials_rpf_out.exr",
+                                         "scene D under rpf, 256x256")
+    assert img_r.shape == (256, 256, 3)
+
+    small = [("D 64x64", write_materials(str(WORK / "materials_64.pbrt"),
+                                         "medium"))]
+    for kind in ("orthographic", "environment"):
+        small.append((f"{kind} camera", write_camera_scene(
+            str(WORK / f"camera_{kind}.pbrt"), kind)))
+    for what, path in small:
+        gimg, _ = render(load_scene(path), "cuda")
+        himg, _ = render(load_scene(path), "cpu")
+        _close(gimg, himg, what)
+    return job, launches, launches_rpf, render_s, k1_paths, checks
+
+
 def phase_profile(label: str, frame, wall_s: float):
     """Device time by kernel over one full frame (``frame()``).  The idle
     share is 1 - kernel time / the unprofiled wall time ``wall_s``
@@ -880,6 +1104,9 @@ def main(argv=None) -> int:
     launches_w, k1_w = phase_whitted()
     k1_paths.update(k1_c2, rpf=k1_b, whitted=k1_w)
     phase_cross_new()
+    (d_job, launches_d, launches_d_rpf, d_s, k1_d,
+     d_checks) = phase_materials(gpu)
+    k1_paths.update(k1_d)
     if "--profile" in argv:
         from tpurt_torch.render.driver import render_job
         from tpurt_torch.rpf.driver import render_rpf_job
@@ -889,19 +1116,23 @@ def main(argv=None) -> int:
             rpf_job, write_feature_exrs=False), rpf_total_s)
         phase_profile("direct-lighting textured frame",
                       lambda: render_job(direct_job), direct_s)
+        phase_profile("materials frame D", lambda: render_job(d_job), d_s)
     assert "jax" not in sys.modules and "tpurt" not in sys.modules
     print(json.dumps({"kernels": [
         dict(name="traverse_wide", route="cuda",
              source="tpurt_torch/csrc/traverse.cu",
              replaces="tpurt/kernels/traverse.py:54",
              launches=(launches_a + launches_b + launches_c1 + launches_w
-                       + sum(launches_c2.values())),
+                       + sum(launches_c2.values()) + launches_d
+                       + launches_d_rpf),
              launches_by_path={
                  "path": launches_a, "rpf": launches_b,
                  "direct_textured": launches_c1,
                  "rpf_random": launches_c2["random"],
                  "rpf_stratified": launches_c2["stratified"],
-                 "whitted": launches_w},
+                 "whitted": launches_w, "materials": launches_d,
+                 "materials_rpf": launches_d_rpf},
+             materials_checks=d_checks,
              vs_plain_by_path=k1_paths, **k1),
         dict(name="gather_rows_sum", route="cuda",
              source="tpurt_torch/csrc/gather_bench.cu",

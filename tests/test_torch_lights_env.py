@@ -282,8 +282,8 @@ def test_sample_li_matches_tpurt(all_lights, kind):
 
 def _wall_scene(light_lines):
     return f"""
-    Film "image" "integer xresolution" [24] "integer yresolution" [24]
-    Sampler "random" "integer pixelsamples" [8]
+    Film "image" "integer xresolution" [16] "integer yresolution" [16]
+    Sampler "random" "integer pixelsamples" [4]
     Integrator "path" "integer maxdepth" [2]
     Camera "perspective" "float fov" [70]
     WorldBegin
@@ -308,7 +308,7 @@ def test_projection_light_projects_image(tmp_path):
             'LightSource "projection" "color I" [60 60 60] "float fov" [40] '
             f'"string mapname" "{p}"')), "cpu")
         lum = out.mean(-1)
-        sides.append((lum[:, :12].mean(), lum[:, 12:].mean()))
+        sides.append((lum[:, :8].mean(), lum[:, 8:].mean()))
     (l0, r0), (l1, r1) = sides
     assert abs(l0 - r0) > 0.2 * max(l0, r0)
     assert (l0 > r0) != (l1 > r1)  # flipping the slide flips the side

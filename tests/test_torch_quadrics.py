@@ -6,11 +6,10 @@ test_hyperboloid_renders_and_matches_implicit and
 test_all_quadrics_reintersection (tests/test_intersect.py:172, :239,
 :285).
 
-Bounds: hit masks equal; against tpurt's ray_quadric op by op, t within
-rtol 1e-6 and u / v within 1e-5; against tpurt's jitted quadric pass,
-prims equal and t within rtol 1e-4; points, normals, uv and dpdu / dpdv
-of the same hits within 1e-5 (abs + rel).  Inputs come from numpy with
-fixed seeds.
+Bounds: against tpurt's ray_quadric op by op, hit masks and the port's
+closest prims equal, t within rtol 1e-6 and u / v within 1e-5; points,
+normals, uv and dpdu / dpdv of the same hits within 1e-5 (abs + rel).
+Inputs come from numpy with fixed seeds.
 """
 
 import jax
@@ -120,27 +119,30 @@ def test_ray_quadric_matches_tpurt(quadric):
 
 @pytest.mark.parametrize("dpduv", [False, True])
 def test_interaction_matches_tpurt(quadric, dpduv):
-    """The closest hit through each package's own intersect_closest (prims
-    equal; t within rtol 1e-4, as for spheres in test_torch_intersect:
-    tpurt's jitted quadric pass rounds with FMA contraction), then
-    compute_interaction of tpurt's hits in both: normals, uv and points
-    (dpdu / dpdv too)."""
+    """compute_interaction of the same hits in both (tpurt's ray_quadric,
+    op by op, on the scene's one quadric): points, normals, uv and dpdu /
+    dpdv; and the port's intersect_closest finds those hits."""
     _, tjob, pjob, (o, d) = quadric
-    th = tisect.intersect_closest(tjob.scene.geo, jnp.asarray(o),
-                                  jnp.asarray(d), np.inf)
-    ph = pisect.intersect_closest(pjob.scene.geo, torch.as_tensor(o),
-                                  torch.as_tensor(d), np.inf, traverse_wide)
-    hit = np.asarray(th.prim) >= 0
-    np.testing.assert_array_equal(ph.prim.numpy(), np.asarray(th.prim))
-    np.testing.assert_allclose(ph.t.numpy()[hit], np.asarray(th.t)[hit],
-                               rtol=1e-4)
-    want = tinter.compute_interaction(tjob.scene.geo, th, jnp.asarray(o),
-                                      jnp.asarray(d), dpduv=dpduv)
+    tg, pg = tjob.scene.geo, pjob.scene.geo
+    kind, qi = pg.quads[0]
+    with jax.disable_jit():
+        h, t, u, v = jax.vmap(lambda oo, dd: tisect.ray_quadric(
+            oo, dd, jnp.float32(np.inf), jnp.int32(kind), tg.quad_w2o[qi],
+            tg.quad_params[qi]))(jnp.asarray(o), jnp.asarray(d))
+    hit = np.asarray(h)
+    prim = np.where(hit, pg.n_tris, -1).astype(np.int32)
+    th = tisect.Hit(t=t, prim=jnp.asarray(prim), b0=u, b1=v)
+    ph = pisect.intersect_closest(pg, torch.as_tensor(o), torch.as_tensor(d),
+                                  np.inf, traverse_wide)
+    np.testing.assert_array_equal(ph.prim.numpy(), prim)
+    np.testing.assert_allclose(ph.t.numpy()[hit], np.asarray(t)[hit],
+                               rtol=1e-6)
+    want = tinter.compute_interaction(tg, th, jnp.asarray(o), jnp.asarray(d),
+                                      dpduv=dpduv)
     same = pisect.Hit(*[torch.as_tensor(np.array(x)) for x in (
-        th.t, th.prim, th.b0, th.b1)])
-    got = pinter.compute_interaction(pjob.scene.geo, same,
-                                     torch.as_tensor(o), torch.as_tensor(d),
-                                     dpduv=dpduv)
+        t, prim, u, v)])
+    got = pinter.compute_interaction(pg, same, torch.as_tensor(o),
+                                     torch.as_tensor(d), dpduv=dpduv)
     fields = ("p", "ng", "ns", "uv") + (("dpdu", "dpdv") if dpduv else ())
     for f in fields:
         np.testing.assert_allclose(getattr(got, f).numpy()[hit],

@@ -62,9 +62,6 @@ _KIND_CODES = {"matte": MAT_MATTE, "plastic": MAT_PLASTIC,
                "uber": MAT_UBER, "substrate": MAT_SUBSTRATE,
                "translucent": MAT_TRANSLUCENT, "disney": MAT_DISNEY,
                "mix": MAT_MIX, "metal_": MAT_METAL}
-# the slots fetch_lobes reads per lane, so the slots a texture drives
-# (tpurt's make_texture_eval col3/col1 with a table column)
-TEXTURABLE = ("Kd", "Ks", "Kr", "Kt", "roughness", "sigma")
 
 
 class MaterialTable(NamedTuple):

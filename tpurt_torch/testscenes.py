@@ -378,7 +378,7 @@ AttributeBegin
 AttributeEnd
 AttributeBegin
   {_aim(PROJ_FROM, PROJ_TO)}
-  LightSource "projection" "color I" [1500 1500 1500] "float fov" [30]
+  LightSource "projection" "color I" [6000 6000 6000] "float fov" [30]
     "string mapname" "{maps['slide']}"
 AttributeEnd
 AttributeBegin
