@@ -318,9 +318,9 @@ def test_ray_sphere_matches_tpurt_ray_quadric():
                 oo, dd, tt, jnp.int32(PT_SPHERE), jnp.asarray(m),
                 jnp.asarray(params))
         )(jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max))]
-    got = [x.numpy() for x in pix.ray_sphere(
+    got = [x.numpy() for x in pix.ray_quadric(
         torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(t_max),
-        torch.as_tensor(m), torch.as_tensor(params))]
+        PT_SPHERE, torch.as_tensor(m), torch.as_tensor(params))]
     h = want[0]
     assert h.mean() > 0.3
     np.testing.assert_array_equal(got[0], h)

@@ -57,25 +57,22 @@ ALL_FRESNEL = (FRESNEL_DIELECTRIC, FRESNEL_CONDUCTOR, FRESNEL_SCHLICK,
 
 class LobeSet(tuple):
     """The lobe slots some material of a scene can activate (a tuple of
-    slot numbers), with the glossy slot's Fresnel kinds (``fresnel``),
-    whether any material is Disney (``disney``) and whether any is a mix
-    (``mix``)."""
+    slot numbers), with the glossy slot's Fresnel kinds (``fresnel``), the
+    material kinds of the table's rows (``kinds``; None: any) and whether
+    any material is Disney (``disney``) or a mix (``mix``)."""
 
     def __new__(cls, slots=ALL_SLOTS, fresnel=ALL_FRESNEL, disney=True,
-                mix=True):
+                mix=True, kinds=None):
         self = super().__new__(cls, sorted(slots))
         self.fresnel = tuple(sorted(fresnel))
         self.disney = bool(disney)
         self.mix = bool(mix)
+        self.kinds = None if kinds is None else tuple(sorted(kinds))
         return self
 
     def __repr__(self):
         return (f"LobeSet({tuple(self)}, fresnel={self.fresnel}, "
-                f"disney={self.disney}, mix={self.mix})")
-
-
-def _fresnel_kinds(slots):
-    return getattr(slots, "fresnel", ALL_FRESNEL)
+                f"disney={self.disney}, mix={self.mix}, kinds={self.kinds})")
 
 
 class LobeParams(NamedTuple):
@@ -203,7 +200,10 @@ def _schlick(rs, cos_i):
 
 def _fresnel(lp: LobeParams, cos_i, kinds=ALL_FRESNEL):
     """Glossy-slot Fresnel (tpurt's _fresnel): the kinds in ``kinds``
-    computed, each lane taking its own; any other lane gets 1 (noop)."""
+    computed, each lane taking its own; any other lane gets 1 (noop).
+    (N,3), or (N,1) where every lane is dielectric."""
+    if tuple(kinds) == (FRESNEL_DIELECTRIC,):
+        return fr_dielectric(cos_i, torch.ones_like(cos_i), lp.eta)[:, None]
     f = torch.ones_like(lp.ks)
     k = lp.fresnel_kind[:, None]
     fd = None
@@ -556,7 +556,9 @@ def bsdf_f(lp: LobeParams, wo, wi, slots=ALL_SLOTS):
                             _diffuse_f(lp, wo, wi), 0.0)
     if SLOT_GLOSSY in slots:
         f = f + torch.where((act[:, SLOT_GLOSSY] & refl)[:, None],
-                            _glossy_f(lp, wo, wi, _fresnel_kinds(slots)), 0.0)
+                            _glossy_f(lp, wo, wi,
+                                      getattr(slots, "fresnel", ALL_FRESNEL)),
+                            0.0)
     if SLOT_GTRANS in slots:
         f = f + torch.where(act[:, SLOT_GTRANS][:, None],
                             _gtrans_f(lp, wo, wi), 0.0)

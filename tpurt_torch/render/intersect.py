@@ -548,11 +548,6 @@ def ray_quadric(o, d, t_max, kind: int, w2o, params):
     return hit, torch.where(hit, t, INF), u, v
 
 
-def ray_sphere(o, d, t_max, w2o, params):
-    """The sphere case of ray_quadric."""
-    return ray_quadric(o, d, t_max, PT_SPHERE, w2o, params)
-
-
 def _quadric_pass(geo: DeviceGeometry, o, d, t, prim, b0, b1):
     """Test every quadric against the whole wavefront (tpurt's
     _quadric_pass, intersect.py:1342-1381): one vectorized pass per

@@ -243,6 +243,7 @@ def lobe_slots(mt_table: np.ndarray) -> LobeSet:
     the BSDF compute nothing else."""
     mt_table = np.asarray(mt_table)
     slots, fresnel, disney, mix = set(), set(), False, False
+    kinds = set(mt_table[:, C_KIND].astype(int).tolist())
     for row in mt_table:
         kind = int(row[C_KIND])
         if kind == MAT_MIX:
@@ -253,7 +254,7 @@ def lobe_slots(mt_table: np.ndarray) -> LobeSet:
             slots |= _row_slots(row)
         fresnel.add(int(row[C_FRESNEL]))
         disney |= kind == MAT_DISNEY
-    return LobeSet(slots, fresnel, disney, mix)
+    return LobeSet(slots, fresnel, disney, mix, kinds)
 
 
 def fetch_lobes(mt_table: torch.Tensor, mat_id: torch.Tensor,
@@ -341,31 +342,40 @@ def _fetch_lobes_one(row, kind, texture_overrides, slots) -> dict:
     oren_a = 1.0 - s2 / (2.0 * (s2 + 0.33))
     oren_b = 0.45 * s2 / (s2 + 0.09)
 
+    present = getattr(slots, "kinds", None)
+
     def is_(*codes):
-        m = kind == codes[0]
-        for c in codes[1:]:
-            m = m | (kind == c)
+        """The lanes of any of the kinds ``codes``; None where the table
+        holds none of them (the select that would use it is skipped)."""
+        m = None
+        for c in codes:
+            if present is None or c in present:
+                m = (kind == c) if m is None else m | (kind == c)
         return m
 
     def by(mask, val, other):
-        return torch.where(mask[:, None], val, other)
+        return other if mask is None else torch.where(mask[:, None], val,
+                                                      other)
 
     z3 = torch.zeros_like(kd)
-    is_matte = kind == MAT_MATTE
+    is_matte = is_(MAT_MATTE)
     lobe_kd = by(is_(MAT_MATTE, MAT_PLASTIC, MAT_UBER, MAT_SUBSTRATE), kd, z3)
     lobe_ks = by(is_(MAT_PLASTIC, MAT_UBER, MAT_SUBSTRATE), ks, z3)
     # metal's glossy slot carries ks=1 with conductor fresnel
-    lobe_ks = by(kind == MAT_METAL, torch.ones_like(ks), lobe_ks)
-    lobe_kt = by(kind == MAT_UBER, kt, z3)
+    lobe_ks = by(is_(MAT_METAL), torch.ones_like(ks), lobe_ks)
+    lobe_kt = by(is_(MAT_UBER), kt, z3)
     lobe_kr = by(is_(MAT_MIRROR, MAT_UBER), kr, z3)
     # glass: smooth -> fresnel-specular; rough -> GGX reflection +
     # microfacet transmission (glass.cpp: specular when u/v rough == 0)
-    glass_rough = (kind == MAT_GLASS) & ((urough > 0) | (vrough > 0))
-    glass_smooth = (kind == MAT_GLASS) & ~glass_rough
-    lobe_fs_kr = by(glass_smooth, kr, z3)
-    lobe_kt = by(glass_smooth, kt, lobe_kt)
-    lobe_ks = by(glass_rough, kr, lobe_ks)
-    lobe_kt_g = by(glass_rough, kt, z3)
+    lobe_fs_kr, lobe_kt_g = z3, z3
+    is_glass = is_(MAT_GLASS)
+    if is_glass is not None:
+        glass_rough = is_glass & ((urough > 0) | (vrough > 0))
+        glass_smooth = is_glass & ~glass_rough
+        lobe_fs_kr = by(glass_smooth, kr, z3)
+        lobe_kt = by(glass_smooth, kt, lobe_kt)
+        lobe_ks = by(glass_rough, kr, lobe_ks)
+        lobe_kt_g = by(glass_rough, kt, z3)
     t_ax, t_ay = ax, ay
     out = dict(fresnel_kind=fresnel_kind, eta=eta)
     if SLOT_DTRANS in slots:
@@ -454,8 +464,10 @@ def _fetch_lobes_one(row, kind, texture_overrides, slots) -> dict:
     out.update(kd=lobe_kd, ks=lobe_ks, kr=lobe_kr, kt=lobe_kt,
                fs_kr=lobe_fs_kr, kt_g=lobe_kt_g, alpha_x=ax, alpha_y=ay,
                t_alpha_x=t_ax, t_alpha_y=t_ay,
-               oren_a=torch.where(is_matte, oren_a, 1.0),
-               oren_b=torch.where(is_matte, oren_b, 0.0))
+               oren_a=(torch.ones_like(eta) if is_matte is None
+                       else torch.where(is_matte, oren_a, 1.0)),
+               oren_b=(torch.zeros_like(eta) if is_matte is None
+                       else torch.where(is_matte, oren_b, 0.0)))
     for f in LobeParams._fields:
         out.setdefault(f, None)
     del out["active"]
