@@ -273,7 +273,7 @@ SKY_WARM = (0.9, 0.55, 0.25)  # the sky where world x > 0 (image right)
 SKY_COOL = (0.25, 0.45, 0.9)  # the sky where world x < 0 (image left)
 # where the projector and the goniometric light stand and aim
 PROJ_FROM, PROJ_TO = (4.5, 6.0, 6.0), (2.8, 0.0, -7.0)
-GONIO_AT = (-1.0, 1.0, -8.5)
+GONIO_AT = (-1.0, 3.0, -8.5)
 
 
 def write_sky_map(path: str, width: int = 512, height: int = 256) -> str:
@@ -384,7 +384,7 @@ AttributeEnd
 AttributeBegin
   Translate {GONIO_AT[0]} {GONIO_AT[1]} {GONIO_AT[2]}
   Rotate 90 0 1 0
-  LightSource "goniometric" "color I" [30 30 30]
+  LightSource "goniometric" "color I" [250 250 250]
     "string mapname" "{maps['gonio']}"
 AttributeEnd
 AttributeBegin
