@@ -1068,6 +1068,11 @@ def phase_profile(label: str, frame, wall_s: float):
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    t_start = time.time()
+
+    def stamp(what: str):
+        print(f"[{time.time() - t_start:7.1f}s] {what} done")
+
     phase_env()
     gpu = gpu_line()
     phase_build()
@@ -1094,19 +1099,25 @@ def main(argv=None) -> int:
           f"{(kids <= 4).float().mean().item():.3f}), triangles a leaf "
           f"{fill.float().mean().item():.2f} of 12")
     k1 = phase_kernel(job)
+    stamp("phase 4 (K1)")
     k2 = phase_gather(gpu)
     job, launches_a, render_s = phase_main(full, gpu)
+    stamp("phases 5-6 (K2, path A)")
     launches_b, rpf_job, rpf_total_s, k1_b = phase_rpf(full_rpf, gpu)
+    stamp("phase 7 (RPF B)")
     launches_probe, k2_l2 = phase_probe()
     phase_cross(full, small, small_rpf)
+    stamp("phases 8-9 (probe, cross-checks)")
     direct_job, launches_c1, direct_s, k1_paths = phase_direct(gpu)
     launches_c2, k1_c2 = phase_rpf_samplers(gpu)
     launches_w, k1_w = phase_whitted()
     k1_paths.update(k1_c2, rpf=k1_b, whitted=k1_w)
     phase_cross_new()
+    stamp("phases 10-13 (C1, C2, whitted, cross-checks)")
     (d_job, launches_d, launches_d_rpf, d_s, k1_d,
      d_checks) = phase_materials(gpu)
     k1_paths.update(k1_d)
+    stamp("phase 14 (D)")
     if "--profile" in argv:
         from tpurt_torch.render.driver import render_job
         from tpurt_torch.rpf.driver import render_rpf_job
@@ -1117,6 +1128,7 @@ def main(argv=None) -> int:
         phase_profile("direct-lighting textured frame",
                       lambda: render_job(direct_job), direct_s)
         phase_profile("materials frame D", lambda: render_job(d_job), d_s)
+        stamp("profiles")
     assert "jax" not in sys.modules and "tpurt" not in sys.modules
     print(json.dumps({"kernels": [
         dict(name="traverse_wide", route="cuda",
