@@ -3,10 +3,11 @@ tpurt/render/integrator.py: path_bounce_init / path_bounce_step with
 their helpers _camera_setup, _emitted, _escape_radiance, _escape_pdf,
 _nee_prepare, _nee_resolve, the texture footprints and camera ray
 differentials, Russian roulette and the RPF feature capture; the
-non-fused trace branch).  directlighting and
-whitted are the same bounce step with ``specular_only=True``: emitted
-light and next-event estimation at every vertex, continued only through
-specular lobes.
+non-fused trace branch).  directlighting and whitted are the same bounce
+step with ``specular_only=True``: emitted light and next-event
+estimation at every vertex, continued only through specular lobes.
+Escaped rays take the infinite lights' radiance with its MIS weight
+(only in scenes that hold an infinite light).
 
 Per bounce: shade the hit carried from the previous bounce (emitted light
 with the folded MIS weight, next-event estimation, BSDF sampling, Russian
