@@ -1,6 +1,6 @@
-"""The orthographic camera's 64x64 scene (quadrics under a constant
-infinite light and a distant light) against tpurt on the CPU, through the
-port's CLI and through tpurt's own tables.  Bounds in
+"""The orthographic camera's 64x64 scene (a sphere and a box on a ground
+under a constant infinite light and a distant light) against tpurt on the
+CPU, through the port's CLI and through tpurt's own tables.  Bounds in
 torch_material_scenes.
 """
 

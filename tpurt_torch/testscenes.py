@@ -476,8 +476,9 @@ def camera_scene(kind: str, maps: dict, filename: str = "camera.exr",
     """A small scene for the orthographic or the environment camera.
     "environment" sees the sky map alone (no geometry but one hidden
     triangle), so its image is the map's lookup; "orthographic" looks
-    down at quadrics under a constant infinite light and a distant
-    light."""
+    down at a plastic sphere and a copper box on a matte ground under a
+    constant infinite light and a distant light (one quadric: the
+    reference's compile grows with the quadrics)."""
     head = (f'Film "image" "integer xresolution" [{res}] '
             f'"integer yresolution" [{res // 2 if kind == "environment" else res}]\n'
             f'  "string filename" "{filename}"\n'
@@ -513,15 +514,10 @@ AttributeBegin
 AttributeEnd
 AttributeBegin
   Material "metal" "float roughness" [.2]
-  Translate 1.5 0 0.5
-  Rotate -90 1 0 0
-  Shape "cylinder" "float radius" [.8] "float zmin" [0] "float zmax" [1.5]
-AttributeEnd
-AttributeBegin
-  Material "matte" "color Kd" [.2 .3 .7]
-  Translate 0 0.01 -2.2
-  Rotate -90 1 0 0
-  Shape "disk" "float radius" [1] "float innerradius" [.4]
+  Shape "trianglemesh" "point P" [1 0 -.5  2.5 0 -.5  2.5 0 1  1 0 1
+      1 1.2 -.5  2.5 1.2 -.5  2.5 1.2 1  1 1.2 1]
+    "integer indices" [4 5 6  4 6 7  0 1 5  0 5 4  1 2 6  1 6 5
+      2 3 7  2 7 6  3 0 4  3 4 7]
 AttributeEnd
 WorldEnd
 """
