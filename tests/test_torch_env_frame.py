@@ -1,4 +1,4 @@
-"""The environment camera's 64x32 scene, which sees scene D's sky map
+"""The environment camera's 64x64 scene, which sees scene D's sky map
 alone (its image is the map's lookup), against tpurt on the CPU through
 the port's CLI and tpurt's own tables; and against the map's halves.
 Bounds in torch_material_scenes.

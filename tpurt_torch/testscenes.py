@@ -480,7 +480,7 @@ def camera_scene(kind: str, maps: dict, filename: str = "camera.exr",
     constant infinite light and a distant light (one quadric: the
     reference's compile grows with the quadrics)."""
     head = (f'Film "image" "integer xresolution" [{res}] '
-            f'"integer yresolution" [{res // 2 if kind == "environment" else res}]\n'
+            f'"integer yresolution" [{res}]\n'
             f'  "string filename" "{filename}"\n'
             'Sampler "halton" "integer pixelsamples" [2]\n'
             'Integrator "path" "integer maxdepth" [3]\n')
