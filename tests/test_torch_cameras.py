@@ -23,6 +23,10 @@ from tpurt_torch.render.camera import camera_from_tables, camera_tables
 from tpurt_torch.render.integrator import camera_ray_differentials
 from tpurt_torch.scene.paramset import ParamSet
 
+# one torch thread: the suite runs in parallel processes, and torch's
+# default of a thread per core only spins on these small tensors
+torch.set_num_threads(1)
+
 CASES = {
     "orthographic": [("float", "screenwindow", [-3, 3, -2, 2])],
     "orthographic_lens": [("float", "lensradius", [0.2]),

@@ -8,6 +8,7 @@ the two camera scenes.  No render runs.
 
 import numpy as np
 import pytest
+import torch
 
 from tpurt import native as tpurt_native
 from tpurt.render.driver import build_job as tpurt_build_job
@@ -19,6 +20,10 @@ from tpurt_torch.scene import load_scene_string
 from tpurt_torch.testscenes import (camera_scene, materials_scene,
                                     write_gonio_map, write_sky_map,
                                     write_slide_map)
+
+# one torch thread: the suite runs in parallel processes, and torch's
+# default of a thread per core only spins on these small tensors
+torch.set_num_threads(1)
 
 
 def _same(a, b, path="tables"):

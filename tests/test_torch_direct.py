@@ -36,6 +36,10 @@ from tpurt_torch.render.intersect import Hit
 from tpurt_torch.scene.paramset import ParamSet
 from tpurt_torch.testscenes import textured_scene, write_grid_texture
 
+# one torch thread: the suite runs in parallel processes, and torch's
+# default of a thread per core only spins on these small tensors
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.as_tensor(np.asarray(a))

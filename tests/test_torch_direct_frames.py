@@ -3,8 +3,13 @@ against tpurt (scene, bounds and checks in torch_frame_scenes.py).  The
 test ids keep the frame's name."""
 
 import pytest
+import torch
 
 import torch_frame_scenes as frames
+
+# one torch thread: the suite runs in parallel processes, and torch's
+# default of a thread per core only spins on these small tensors
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module", params=["directlighting"])

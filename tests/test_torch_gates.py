@@ -2,8 +2,13 @@
 closed forms (scenes, bounds and checks in torch_gate_scenes.py)."""
 
 import pytest
+import torch
 
 import torch_gate_scenes as gates
+
+# one torch thread: the suite runs in parallel processes, and torch's
+# default of a thread per core only spins on these small tensors
+torch.set_num_threads(1)
 
 NAMES = [n for n in sorted(gates.CASES) if n.split("-")[0] in ("furnace", "plastic")]
 

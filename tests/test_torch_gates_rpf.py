@@ -5,6 +5,7 @@ blend has neighbors to admit).  Bounds in the test's docstring.
 
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from tpurt.config import set_config
 from tpurt.render.driver import build_job as tpurt_build_job
@@ -15,6 +16,10 @@ from tpurt.scene import load_scene_string as tpurt_load_scene_string
 from tpurt_torch.rpf import filter as PF
 from tpurt_torch.rpf.driver import splat_buffer
 from tpurt_torch.scene import load_scene_string
+
+# one torch thread: the suite runs in parallel processes, and torch's
+# default of a thread per core only spins on these small tensors
+torch.set_num_threads(1)
 
 
 def _tpurt_filter(buf, box, sigma):

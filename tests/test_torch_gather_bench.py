@@ -12,6 +12,10 @@ import torch
 
 from tpurt_torch.kernels import gather_bench as gb
 
+# one torch thread: the suite runs in parallel processes, and torch's
+# default of a thread per core only spins on these small tensors
+torch.set_num_threads(1)
+
 
 def test_plain_gather_rows_sum_matches_tpurt_run_xla():
     """At the probe's sizes (M=16384 x 128 f32, B=8192, R=128) and inputs.

@@ -49,7 +49,8 @@ print("OK", job.sampler.spp, float(img.mean()))
 
 
 def test_tpurt_torch_imports_and_renders_without_jax(tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # one torch thread, as in the port's other tests
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT, str(tmp_path / "s.pbrt"),
          str(tmp_path / "r.pbrt")],

@@ -42,6 +42,10 @@ from tpurt_torch.render.driver import host_tables, job_from_tables
 from tpurt_torch.scene import load_scene_string
 from tpurt_torch.testscenes import mixed_scene, standin_scene
 
+# one torch thread: the suite runs in parallel processes, and torch's
+# default of a thread per core only spins on these small tensors
+torch.set_num_threads(1)
+
 T_ATOL = 4 * float(np.spacing(np.float32(10.0)))
 
 KERNELS_SCENE = """

@@ -26,6 +26,10 @@ from tpurt_torch.render import lights as pl
 from tpurt_torch.render.driver import build_job, host_tables, render
 from tpurt_torch.scene import load_scene_string
 
+# one torch thread: the suite runs in parallel processes, and torch's
+# default of a thread per core only spins on these small tensors
+torch.set_num_threads(1)
+
 N = 4096
 
 

@@ -29,6 +29,10 @@ from tpurt_torch.render import materials_build as pmat
 from tpurt_torch.render.driver import host_tables
 from tpurt_torch.scene import load_scene_string
 
+# one torch thread: the suite runs in parallel processes, and torch's
+# default of a thread per core only spins on these small tensors
+torch.set_num_threads(1)
+
 N = 8192
 M = 640  # lanes of one kind compared
 

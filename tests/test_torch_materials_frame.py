@@ -5,10 +5,15 @@ Bounds in torch_material_scenes.
 """
 
 import pytest
+import torch
 
 from torch_material_scenes import (check_close, check_from_tpurt_tables,
                                    render_both, write_maps)
 from tpurt_torch.testscenes import materials_scene
+
+# one torch thread: the suite runs in parallel processes, and torch's
+# default of a thread per core only spins on these small tensors
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

@@ -12,6 +12,7 @@ the path slice's (torch_material_scenes.check_close).
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from torch_material_scenes import check_close, write_maps
 from tpurt.render.driver import build_job as tpurt_build_job
@@ -22,6 +23,10 @@ from tpurt.scene import load_scene_string as tpurt_load_scene_string
 from tpurt_torch.rpf.driver import render_rpf
 from tpurt_torch.scene import load_scene_string
 from tpurt_torch.testscenes import materials_scene
+
+# one torch thread: the suite runs in parallel processes, and torch's
+# default of a thread per core only spins on these small tensors
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

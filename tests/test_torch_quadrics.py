@@ -29,6 +29,10 @@ from tpurt_torch.render.driver import build_job, host_tables
 from tpurt_torch.render.sampling_warps import build_onb, to_world
 from tpurt_torch.scene import load_scene_string
 
+# one torch thread: the suite runs in parallel processes, and torch's
+# default of a thread per core only spins on these small tensors
+torch.set_num_threads(1)
+
 SHAPES = {
     "sphere": 'Shape "sphere" "float radius" [1] "float zmin" [-.6] '
               '"float phimax" [300]',

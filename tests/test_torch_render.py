@@ -23,6 +23,10 @@ from tpurt_torch.render.driver import job_from_tables, render, render_job
 from tpurt_torch.scene import load_scene_string
 from tpurt_torch.testscenes import mixed_scene, standin_scene
 
+# one torch thread: the suite runs in parallel processes, and torch's
+# default of a thread per core only spins on these small tensors
+torch.set_num_threads(1)
+
 SCENES = {"standin": lambda: standin_scene("small"),
           "mixed": lambda: mixed_scene()}
 

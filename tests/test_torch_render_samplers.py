@@ -5,11 +5,16 @@ here the whole frame runs and is sane: no bound against tpurt)."""
 
 import numpy as np
 import pytest
+import torch
 
 from tpurt_torch import cli
 from tpurt_torch.io.image import read_image
 from tpurt_torch.rpf.driver import feature_exr_paths
 from tpurt_torch.testscenes import standin_scene
+
+# one torch thread: the suite runs in parallel processes, and torch's
+# default of a thread per core only spins on these small tensors
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("sampler,scramble,pixel_filter", [

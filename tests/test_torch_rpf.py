@@ -38,6 +38,10 @@ from tpurt_torch.rpf.driver import render_rpf, splat_buffer
 from tpurt_torch.scene import load_scene_string
 from tpurt_torch.testscenes import standin_scene
 
+# one torch thread: the suite runs in parallel processes, and torch's
+# default of a thread per core only spins on these small tensors
+torch.set_num_threads(1)
+
 
 def _mi_inputs(seed, n=60):
     """Correlated and independent columns, and three pixels' masks (all

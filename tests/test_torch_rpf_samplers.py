@@ -10,6 +10,7 @@ is float rounding in the bounce step.
 
 import numpy as np
 import pytest
+import torch
 
 from tpurt.render.driver import build_job as tpurt_build_job
 from tpurt.rpf.driver import fill_sample_buffer as tpurt_fill_sample_buffer
@@ -17,6 +18,10 @@ from tpurt.scene import load_scene_string as tpurt_load_scene_string
 from tpurt_torch.rpf.driver import render_rpf
 from tpurt_torch.scene import load_scene_string
 from tpurt_torch.testscenes import standin_scene
+
+# one torch thread: the suite runs in parallel processes, and torch's
+# default of a thread per core only spins on these small tensors
+torch.set_num_threads(1)
 
 
 def _sampler_text(sampler):

@@ -20,6 +20,10 @@ from tpurt.sampling import lowdiscrepancy as ld
 from tpurt.sampling.samplers import HaltonSampler as TpurtHalton
 from tpurt_torch.sampling.samplers import halton_from_tables, halton_tables
 
+# one torch thread: the suite runs in parallel processes, and torch's
+# default of a thread per core only spins on these small tensors
+torch.set_num_threads(1)
+
 RES_X, RES_Y, SPP = 37, 29, 3
 DIMS = range(41)
 

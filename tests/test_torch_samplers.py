@@ -22,6 +22,10 @@ from tpurt.scene.paramset import ParamSet
 from tpurt_torch.sampling import samplers as ps
 from tpurt_torch.scene.paramset import ParamSet as PortParamSet
 
+# one torch thread: the suite runs in parallel processes, and torch's
+# default of a thread per core only spins on these small tensors
+torch.set_num_threads(1)
+
 RES = 700
 N = 1500
 DIMS = [0, 1, 2, 3, 4, 5, 6, 7, 11, 12, 18, 19, 25, 33, 40, 46]

@@ -33,6 +33,10 @@ from tpurt_torch.render.driver import job_from_tables
 from tpurt_torch.render.intersect import Hit
 from tpurt_torch.testscenes import mixed_scene
 
+# one torch thread: the suite runs in parallel processes, and torch's
+# default of a thread per core only spins on these small tensors
+torch.set_num_threads(1)
+
 RTOL, ATOL = 2e-5, 2e-6  # transcendental ulps (module docstring)
 
 

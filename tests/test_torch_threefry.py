@@ -14,6 +14,10 @@ import torch
 
 from tpurt_torch.sampling import threefry as tf
 
+# one torch thread: the suite runs in parallel processes, and torch's
+# default of a thread per core only spins on these small tensors
+torch.set_num_threads(1)
+
 RNG = np.random.default_rng(20)
 COUNTERS = np.concatenate([
     np.array([0, 1, 2, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF],
