@@ -275,7 +275,7 @@ def test_bsdf_with_skipped_slots_equals_all_slots(spec_lobes):
     n = lp.kd.shape[0]
     wo, wi = _t(_unit(rng, n)), _t(_unit(rng, n))
     u = [_t(x) for x in rng.uniform(size=(3, n)).astype(np.float32)]
-    for slots in ((0, 1), (2,), (3,), (1, 4), (0, 1, 2)):
+    for slots in map(pbsdf.LobeSet, ((0, 1), (2,), (3,), (1, 4), (0, 1, 2))):
         outside = [k for k in pbsdf.ALL_SLOTS if k not in slots]
         keep = ~lp.active[:, outside].any(dim=-1)
         assert keep.sum() > 500

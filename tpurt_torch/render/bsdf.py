@@ -22,9 +22,9 @@ order, so the same u picks the same lobe.
 tpurt computes every slot and every Fresnel kind for every lane and
 masks, which XLA fuses; in eager PyTorch every masked term is a run of
 kernel launches.  So the functions take ``slots``, what some material of
-the scene can activate (materials_build.lobe_slots: a LobeSet, or a plain
-tuple of slot numbers meaning every Fresnel kind and the Disney terms),
-and skip the rest: a frame of matte and plastic surfaces pays nothing for
+the scene can activate (materials_build.lobe_slots' LobeSet; ALL_SLOTS,
+the default, holds every slot, Fresnel kind and material kind), and skip
+the rest: a frame of matte and plastic surfaces pays nothing for
 mirror, glass, conductors or Disney.  LobeParams fields that no material
 of the scene needs are None.  The values are the same either way, since a
 skipped term is masked out on every lane.
@@ -44,8 +44,6 @@ F32_EPS = float(np.float32(1e-9))
 N_SLOTS = 7
 (SLOT_DIFFUSE, SLOT_GLOSSY, SLOT_MIRROR, SLOT_FS, SLOT_GTRANS,
  SLOT_CLEARCOAT, SLOT_DTRANS) = range(N_SLOTS)
-ALL_SLOTS = tuple(range(N_SLOTS))
-
 FRESNEL_DIELECTRIC = 0
 FRESNEL_CONDUCTOR = 1
 FRESNEL_SCHLICK = 2
@@ -61,7 +59,7 @@ class LobeSet(tuple):
     material kinds of the table's rows (``kinds``; None: any) and whether
     any material is Disney (``disney``) or a mix (``mix``)."""
 
-    def __new__(cls, slots=ALL_SLOTS, fresnel=ALL_FRESNEL, disney=True,
+    def __new__(cls, slots=range(N_SLOTS), fresnel=ALL_FRESNEL, disney=True,
                 mix=True, kinds=None):
         self = super().__new__(cls, sorted(slots))
         self.fresnel = tuple(sorted(fresnel))
@@ -73,6 +71,9 @@ class LobeSet(tuple):
     def __repr__(self):
         return (f"LobeSet({tuple(self)}, fresnel={self.fresnel}, "
                 f"disney={self.disney}, mix={self.mix}, kinds={self.kinds})")
+
+
+ALL_SLOTS = LobeSet()
 
 
 class LobeParams(NamedTuple):
@@ -556,9 +557,7 @@ def bsdf_f(lp: LobeParams, wo, wi, slots=ALL_SLOTS):
                             _diffuse_f(lp, wo, wi), 0.0)
     if SLOT_GLOSSY in slots:
         f = f + torch.where((act[:, SLOT_GLOSSY] & refl)[:, None],
-                            _glossy_f(lp, wo, wi,
-                                      getattr(slots, "fresnel", ALL_FRESNEL)),
-                            0.0)
+                            _glossy_f(lp, wo, wi, slots.fresnel), 0.0)
     if SLOT_GTRANS in slots:
         f = f + torch.where(act[:, SLOT_GTRANS][:, None],
                             _gtrans_f(lp, wo, wi), 0.0)

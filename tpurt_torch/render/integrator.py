@@ -25,13 +25,13 @@ hit; deeper bounces use the isotropic footprint ``fp_base + t*fp_slope``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
-from tpurt_torch.render.bsdf import (ALL_SLOTS, SLOT_FS, SLOT_MIRROR, bsdf_f,
-                                     bsdf_pdf, bsdf_sample)
+from tpurt_torch.render.bsdf import (ALL_SLOTS, SLOT_FS, SLOT_MIRROR, LobeSet,
+                                     bsdf_f, bsdf_pdf, bsdf_sample)
 from tpurt_torch.render.interaction import (SurfaceInteraction,
                                             compute_interaction,
                                             offset_ray_origin)
@@ -72,7 +72,7 @@ class SceneData:
     has_texfilter: bool = False
     # the lobe slots the scene's materials can activate
     # (materials_build.lobe_slots); the BSDF skips the others
-    lobe_slots: Tuple[int, ...] = ALL_SLOTS
+    lobe_slots: LobeSet = ALL_SLOTS
 
 
 def _emitted(scene: SceneData, si: SurfaceInteraction):

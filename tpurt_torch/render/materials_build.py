@@ -264,8 +264,7 @@ def fetch_lobes(mt_table: torch.Tensor, mat_id: torch.Tensor,
     fetch_lobes, materials_build.py:435-491).  mat_id (N,) i32, -1 = no
     material -> all lobes inactive.  texture_overrides: {slot: per-lane
     values} from the texture evaluator.  slots: lobe_slots of the table
-    (a plain tuple computes every Fresnel kind and the Disney terms, and
-    looks for mix rows in the table).
+    (ALL_SLOTS computes every slot, Fresnel kind and material kind).
 
     Mix lanes blend their two sub-rows' parameters by "amount" as tpurt
     does: exact for the linear scale fields, the dominant side's value
@@ -275,10 +274,7 @@ def fetch_lobes(mt_table: torch.Tensor, mat_id: torch.Tensor,
     row = mt_table[idx]
     kind = torch.where(mat_id >= 0, row[:, C_KIND].to(torch.int32), MAT_NONE)
     lp = _fetch_lobes_one(row, kind, texture_overrides, slots)
-    has_mix = getattr(slots, "mix", None)
-    if has_mix is None:
-        has_mix = bool((mt_table[:, C_KIND] == MAT_MIX).any())
-    if has_mix:
+    if slots.mix:
         is_mix = kind == MAT_MIX
         sub = row[:, C_MIX0:C_MIX0 + 2].to(torch.int64)
         id1 = torch.where(is_mix, sub[:, 0].clamp(min=0), idx)
@@ -327,8 +323,6 @@ def _fetch_lobes_one(row, kind, texture_overrides, slots) -> dict:
     eta = row[:, C_ETA]
     remap = row[:, C_REMAP] > 0
     fresnel_kind = row[:, C_FRESNEL].to(torch.int32)
-    fresnel = getattr(slots, "fresnel", None)
-    disney = getattr(slots, "disney", True)
 
     # roughness -> alpha (per-axis when u/v given)
     ur = torch.where(urough >= 0, urough, rough)
@@ -342,7 +336,7 @@ def _fetch_lobes_one(row, kind, texture_overrides, slots) -> dict:
     oren_a = 1.0 - s2 / (2.0 * (s2 + 0.33))
     oren_b = 0.45 * s2 / (s2 + 0.09)
 
-    present = getattr(slots, "kinds", None)
+    present = slots.kinds
 
     def is_(*codes):
         """The lanes of any of the kinds ``codes``; None where the table
@@ -395,11 +389,11 @@ def _fetch_lobes_one(row, kind, texture_overrides, slots) -> dict:
         lobe_kt_g = torch.where(is_tl, ttrans * ks, lobe_kt_g)
         if SLOT_DTRANS in slots:
             out["kd_t"] = torch.where(is_tl, ttrans * kd, out["kd_t"])
-    if fresnel is None or FRESNEL_CONDUCTOR in fresnel:
+    if FRESNEL_CONDUCTOR in slots.fresnel:
         out["eta3"] = row[:, C_ETA30:C_ETA30 + 3]
         out["k3"] = row[:, C_FK30:C_FK30 + 3]
 
-    if disney:
+    if slots.disney:
         # disney.cpp ComputeScatteringFunctions (:474-587)
         is_dis = kind == MAT_DISNEY
         metallic = torch.where(is_dis, row[:, C_METALLIC], 0.0)
