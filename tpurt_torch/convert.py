@@ -131,8 +131,7 @@ def scene_from_tpurt(job) -> dict:
                     img_off=a(lt.img_off), img_wh=a(lt.img_wh),
                     w2l=a(lt.w2l), proj=a(lt.proj),
                     has_infinite=bool(lt.has_infinite),
-                    env_light_row=int(lt.env_light_row),
-                    has_lightmaps=bool(lt.has_lightmaps)),
+                    env_light_row=int(lt.env_light_row)),
         mt_table=a(job.scene.mt_table),
         camera=dict(kind=cam.kind, camera_to_world=a(cam.camera_to_world),
                     raster_to_camera=a(cam.raster_to_camera),

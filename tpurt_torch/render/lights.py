@@ -16,7 +16,7 @@ lights keep their position in p0, their world-to-light matrix in ``w2l``
 and their image in the flat ``img_pool``.  As in tpurt, one infinite light
 with a map is importance-sampled (the first); a second map is rendered as
 its mean radiance.  The terms of a light kind the scene lacks are not
-computed (``has_infinite``, ``has_lightmaps``).  Emission sampling
+computed (``has_infinite``, ``has_projection``, ``has_gonio``).  Emission sampling
 (sample_le / pdf_le) belongs to bdpt and sppm and is not ported.
 """
 
@@ -79,8 +79,9 @@ class LightTable:
     proj: torch.Tensor  # (L,8) x0,y0,x1,y1,invTanAng,hither,cosTotal,_
     has_infinite: bool = False
     env_light_row: int = -1  # row of the importance-sampled infinite light
-    has_lightmaps: bool = False
     # derived at upload (light_table_from_tables):
+    has_projection: bool = False  # some light is a projection light
+    has_gonio: bool = False  # some light is a goniometric light
     # the conditional CDFs as one sorted int64 key (_row_search): one
     # searchsorted over it inverts every lane's own row
     env_cdf_key: torch.Tensor = None  # (He * (We+1),) i64
@@ -290,16 +291,15 @@ def light_tables(scene_lights: List[LightRecord], geo: GeometryArrays,
                 env_w2l=env_w2l, env_l2w=env_l2w,
                 img_pool=img_pool, img_off=img_off, img_wh=img_wh,
                 w2l=np.stack(w2l_rows), proj=np.stack(proj_rows),
-                has_infinite=has_infinite, env_light_row=env_row,
-                has_lightmaps=bool(((kind_a == LIGHT_PROJECTION)
-                                    | (kind_a == LIGHT_GONIO)).any()))
+                has_infinite=has_infinite, env_light_row=env_row)
 
 
 def light_table_from_tables(tab: dict, device) -> LightTable:
     """Upload the host tables, with what the device side derives from
     them: the environment CDF search key, the infinite lights' constant
     radiance (tpurt's _infinite_L, integrator.py:204-211, without the
-    mapped light) and their summed power pmf (the escaped-ray MIS pmf)."""
+    mapped light), their summed power pmf (the escaped-ray MIS pmf) and
+    which image-lit kinds the table holds."""
     he = tab["env_cond_cdf"].shape[0]
     key = (np.arange(he, dtype=np.int64)[:, None] * (1 << 32)
            + _f32_key(tab["env_cond_cdf"])).reshape(-1)
@@ -311,7 +311,9 @@ def light_table_from_tables(tab: dict, device) -> LightTable:
                      np.float32(0)).sum(axis=0, dtype=np.float32)
     inf_pmf = np.where(kind == LIGHT_INFINITE, tab["power_pmf"],
                        np.float32(0)).sum(dtype=np.float32)
-    extra = dict(env_cdf_key=key, inf_L=inf_L, inf_power_pmf=float(inf_pmf))
+    extra = dict(env_cdf_key=key, inf_L=inf_L, inf_power_pmf=float(inf_pmf),
+                 has_projection=bool((kind == LIGHT_PROJECTION).any()),
+                 has_gonio=bool((kind == LIGHT_GONIO).any()))
     return LightTable(**{k: (torch.tensor(v, device=device)
                              if isinstance(v, np.ndarray) else v)
                          for k, v in dict(tab, **extra).items()})
@@ -451,12 +453,23 @@ def _pool_lookup(lt: LightTable, idx, s, t, valid):
 def _lightmap_factor(lt: LightTable, idx, kind, wi_point):
     """Direction-dependent intensity scale of projection and goniometric
     lights toward -wi_point (projection.cpp Projection, goniometric.h
-    Scale; lights.py:498-555)."""
+    Scale; lights.py:498-555); only the kinds the table holds."""
     w2l = lt.w2l[idx]
-    pr = lt.proj[idx]
     w = -wi_point  # direction FROM the light
     wl = torch.einsum("nij,nj->ni", w2l[:, :3, :3], w)
-    # projection: perspective-project wl onto the screen window
+    if not lt.has_gonio:
+        return _projection_factor(lt, idx, wl)
+    if not lt.has_projection:
+        return _gonio_factor(lt, idx, wl)
+    return torch.where((kind == LIGHT_PROJECTION)[:, None],
+                       _projection_factor(lt, idx, wl),
+                       _gonio_factor(lt, idx, wl))
+
+
+def _projection_factor(lt: LightTable, idx, wl):
+    """Projection light: perspective-project the light-space direction wl
+    onto the screen window and look up the slide (projection.cpp)."""
+    pr = lt.proj[idx]
     zc = torch.clamp(wl[:, 2], min=1e-12)
     sx = wl[:, 0] * pr[:, 4] / zc
     sy = wl[:, 1] * pr[:, 4] / zc
@@ -465,16 +478,19 @@ def _lightmap_factor(lt: LightTable, idx, kind, wi_point):
               & (sy >= pr[:, 1]) & (sy <= pr[:, 3]))
     s_p = (sx - pr[:, 0]) / torch.clamp(pr[:, 2] - pr[:, 0], min=1e-9)
     t_p = (sy - pr[:, 1]) / torch.clamp(pr[:, 3] - pr[:, 1], min=1e-9)
-    f_proj = _pool_lookup(lt, idx, s_p, t_p, in_front & inside)
-    # goniometric: spherical lookup with the reference's y/z swap
+    return _pool_lookup(lt, idx, s_p, t_p, in_front & inside)
+
+
+def _gonio_factor(lt: LightTable, idx, wl):
+    """Goniometric light: spherical lookup of the light-space direction wl
+    with the reference's y/z swap (goniometric.h Scale)."""
     wn = wl / torch.clamp(norm(wl, keepdim=True), min=1e-12)
     wx, wy, wz = wn[:, 0], wn[:, 2], wn[:, 1]
     theta = torch.acos(torch.clamp(wz, -1.0, 1.0))
     phi = torch.atan2(wy, wx)
     phi = torch.where(phi < 0, phi + 2 * np.pi, phi)
-    f_gonio = _pool_lookup(lt, idx, phi / (2 * np.pi), theta / np.pi,
-                           torch.ones_like(in_front))
-    return torch.where((kind == LIGHT_PROJECTION)[:, None], f_proj, f_gonio)
+    return _pool_lookup(lt, idx, phi / (2 * np.pi), theta / np.pi,
+                        torch.ones_like(phi, dtype=torch.bool))
 
 
 def sample_li(lt: LightTable, idx, ref_p, u2) -> LightSample:
@@ -505,7 +521,7 @@ def sample_li(lt: LightTable, idx, ref_p, u2) -> LightSample:
     li_spot = li_point * falloff[:, None]
     is_spot = (kind == LIGHT_SPOT)[:, None]
     is_pt = (kind == LIGHT_POINT)[:, None] | is_spot
-    if lt.has_lightmaps:
+    if lt.has_projection or lt.has_gonio:
         # projection / goniometric: a delta position whose intensity
         # depends on the direction
         pg = (kind == LIGHT_PROJECTION)[:, None] | (kind == LIGHT_GONIO)[:, None]
