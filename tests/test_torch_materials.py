@@ -10,7 +10,8 @@ Bounds: bsdf_f and bsdf_pdf at random directions and at tpurt's sampled
 ones, and bsdf_sample's wi (where both sides sampled one), f and pdf,
 within rtol 1e-5 / atol 1e-6 on >= 99% of a kind's lanes and within
 rtol 1e-4 / atol 1e-6 on all, 2.5 times the worst lane measured (the test
-names those lanes and why they differ); is_spec / is_trans equal.  Inputs come from numpy with fixed seeds.
+names those lanes and why they differ); is_spec / is_trans equal.
+Inputs come from numpy with fixed seeds.
 """
 
 import jax.numpy as jnp

@@ -16,8 +16,8 @@ lights keep their position in p0, their world-to-light matrix in ``w2l``
 and their image in the flat ``img_pool``.  As in tpurt, one infinite light
 with a map is importance-sampled (the first); a second map is rendered as
 its mean radiance.  The terms of a light kind the scene lacks are not
-computed (``has_infinite``, ``has_projection``, ``has_gonio``).  Emission sampling
-(sample_le / pdf_le) belongs to bdpt and sppm and is not ported.
+computed (``has_infinite``, ``has_projection``, ``has_gonio``).  Emission
+sampling (sample_le / pdf_le) belongs to bdpt and sppm and is not ported.
 """
 
 from __future__ import annotations
