@@ -4,12 +4,14 @@
     python3 chip_smoke.py --profile   # also prints a torch.profiler
                                       # breakdown of one path frame, one
                                       # RPF frame, one direct-lighting
-                                      # textured frame and one frame D
+                                      # textured frame, one frame D and
+                                      # one frame E
 
 Phases (any failure exits non-zero; none is caught):
   1. environment: versions, the card's name and power limit
-  2. build: every kernel library (traversal K1, gather probe K2) from the
-     sources in this checkout, one nvcc each, started together
+  2. build: every kernel library (traversal K1 with its motion and curve
+     leaf bodies K1m and K1c, gather probe K2) from the sources in this
+     checkout, one nvcc each, started together
   3. scenes: the 700x700, 8 spp, ~66k-triangle stand-in for
      killeroo-simple, as a path scene and as an RPF scene, and their
      32x32 small versions
@@ -88,6 +90,20 @@ Phases (any failure exits non-zero; none is caught):
      at 256x256 through the CLI, untimed, with the counter and image
      checks; the 64x64 D and the orthographic and environment camera
      scenes on the card against the CPU (phase 9's bounds)
+ 15. main path E: the CLI renders frame E (700x700, 8 spp, path, maxdepth
+     5: a dollying camera, the two stand-in meshes translating over the
+     shutter, a partial sphere rotating and rising, 8,192 cylinder hair
+     fibers under Material "hair", ribbons with normals, flat curves, a
+     metal quad with "vector S", a sphere area light and a distant light)
+     on the card; the traversal's motion and curve leaf bodies (K1m, K1c)
+     must have launched, its static body and the plain traversal not; the
+     motion and the hair show against renders with each switched off
+     (e_checks); K1m and K1c against their plain versions on every call
+     of E's camera rays and first two bounce steps; one warm-up and 3
+     timed renders (motion_hair_render_s, peak memory); E under
+     Integrator "rpf" at 256x256 through the CLI; E at 64x64 on the card
+     against the CPU (phase 9's bounds).  Frames A-D must launch only the
+     static body (cli_counted)
 K1 on every path: phase 4 holds the kernel to its plain version on path
 A's rays; paths B, C1, C2 and the whitted variant walk other scenes or
 other rays, so each records the calls K1's wrapper receives while 2^20
@@ -138,6 +154,19 @@ K1_OPS_SORT = 19 * 3
 K1_BYTES_INTERIOR = 56 * 4
 K1_BYTES_LEAF = 108 * 4
 K1_BYTES_PRIMS = 12 * 4
+# K1m: the 9 lerps (a product and a sum each) of a triangle's vertex
+# coordinates; its leaf's delta rows are as many bytes again as the leaf's
+K1M_OPS_LERP = 9 * 2
+# K1c: a curve leaf's 8 spans of 12 control-point coordinates and 2
+# widths, its ribbon aux row and its 8 prim rows; a span's arithmetic in
+# the twin's _curve_bundle_test: its ray frame and projection (~90), then
+# per sub-segment the blossom (3 x 4 x 7), the culling, chord and width
+# terms (~30), the de Casteljau evaluation (3 x 18), the distance, t and v
+# tests (~20): ~190 a sub-segment, 8 sub-segments
+K1C_BYTES_LEAF = 112 * 4
+K1C_BYTES_AUX = 64 * 4
+K1C_BYTES_PRIMS = 8 * 4
+K1C_OPS_SPAN = 90 + 8 * 190
 
 
 def bound(nbytes: float, ops: float):
@@ -218,8 +247,8 @@ def frame_ray_calls(job, bounces: int, cfg=None):
     takes them: path_bounce_init, then up to ``bounces`` path_bounce_step
     calls with the alive lanes kept by a boolean index between them, until
     none is alive.  ``cfg`` defaults to the job's (the RPF sampling pass
-    has its own).  Each call is (o, d, t_max, any_hit) as the wrapper got
-    it, on the card."""
+    has its own).  Each call is (o, d, t_max, any_hit, time, tree) as the
+    wrapper got it, on the card."""
     from tpurt_torch.kernels.traverse import traverse_wide
     from tpurt_torch.render.integrator import (path_bounce_init,
                                                path_bounce_step)
@@ -236,9 +265,9 @@ def frame_ray_calls(job, bounces: int, cfg=None):
     py = (y0 + pid // film.width).to(torch.int64)
     calls = []
 
-    def recording(geo, o, d, t_max, any_hit):
-        calls.append((o, d, t_max, any_hit))
-        return traverse_wide(geo, o, d, t_max, any_hit)
+    def recording(geo, o, d, t_max, any_hit, time=None, tree="tri"):
+        calls.append((o, d, t_max, any_hit, time, tree))
+        return traverse_wide(geo, o, d, t_max, any_hit, time=time, tree=tree)
 
     st = path_bounce_init(job.scene, job.sampler, job.camera, px, py,
                           ids % spp, cfg, recording, crop_xy=(x0, y0))
@@ -269,19 +298,33 @@ def k1_work(geo, rays):
     """(bound_ms, bound_by, text): the least time for these rays.  The
     work is counted by the twin from what this run's rays need: each
     distinct record's live bytes read once (prim rows only of leaves in
-    which a hit was found), the rays in and the hits out once; the twin's
-    arithmetic on the present children and non-pad triangles of every
-    record read, and a sort only where two or more children were hit."""
-    from tpurt_torch.kernels.traverse import traverse_wide_reference
+    which a hit was found; a motion leaf's delta rows and a ribbon leaf's
+    aux row beside it), the rays in (with their times, K1m) and the hits
+    out once; the twin's arithmetic on the present children and non-pad
+    triangles or curve spans of every record read, and a sort only where
+    two or more children were hit."""
+    from tpurt_torch.kernels.traverse import (leaf_kind,
+                                              traverse_wide_reference)
 
-    o, d, tm, any_hit = rays
+    o, d, tm, any_hit, time_, tree = rays
+    kind = leaf_kind(geo, time_, tree)
     w = {}
-    traverse_wide_reference(geo, o, d, tm, any_hit=any_hit, stats=w)
+    traverse_wide_reference(geo, o, d, tm, any_hit=any_hit, time=time_,
+                            tree=tree, stats=w)
     n = o.shape[0]
+    if kind == "curve":
+        leaf_b = K1C_BYTES_LEAF + (0 if geo.cleaves_aux is None
+                                   else K1C_BYTES_AUX)
+        prim_b, prim_ops = K1C_BYTES_PRIMS, K1C_OPS_SPAN
+    else:
+        leaf_b = K1_BYTES_LEAF * (2 if kind == "motion" else 1)
+        prim_b = K1_BYTES_PRIMS
+        prim_ops = K1_OPS_TRIANGLE + (K1M_OPS_LERP if kind == "motion"
+                                      else 0)
     nbytes = (w["interior_records"] * K1_BYTES_INTERIOR
-              + w["leaf_records"] * K1_BYTES_LEAF
-              + w["hit_leaves"] * K1_BYTES_PRIMS + n * (7 * 4 + 4 * 4))
-    ops = (w["children"] * K1_OPS_CHILD + w["triangles"] * K1_OPS_TRIANGLE
+              + w["leaf_records"] * leaf_b + w["hit_leaves"] * prim_b
+              + n * (7 * 4 + 4 * 4 + (4 if kind == "motion" else 0)))
+    ops = (w["children"] * K1_OPS_CHILD + w["triangles"] * prim_ops
            + w["sorts"] * K1_OPS_SORT)
     b_ms, o_ms = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
     bound_ms, bound_by = bound(nbytes, ops)
@@ -292,7 +335,8 @@ def k1_work(geo, rays):
         f"{w['leaf_records']} distinct records ({w['hit_leaves']} leaves "
         f"with a hit); {w['children']} children "
         f"({w['children'] / max(w['interior_steps'], 1):.2f} a record), "
-        f"{w['sorts']} sorts, {w['triangles']} triangles "
+        f"{w['sorts']} sorts, {w['triangles']} "
+        f"{'spans' if kind == 'curve' else 'triangles'} "
         f"({w['triangles'] / max(w['leaf_steps'], 1):.2f} a leaf); "
         f"{nbytes / 1e6:.2f} MB ({b_ms:.4f} ms), {ops / 1e9:.3f} Gop "
         f"({o_ms:.4f} ms); bound {bound_ms:.4f} ms ({bound_by})")
@@ -321,7 +365,7 @@ def phase_kernel(job):
 
     geo = job.scene.geo
     sets = frame_ray_sets(job)
-    o, d, tm, _ = sets["primary"]
+    o, d, tm = sets["primary"][:3]
 
     ref = traverse_wide_reference(geo, o, d, tm, any_hit=False)
     ker = traverse_wide(geo, o, d, tm, any_hit=False)
@@ -374,7 +418,7 @@ def phase_kernel(job):
 
     # the frame's incoherent rays: bounce 2 (closest) and its shadow rays
     for name in ("bounce", "shadow"):
-        o_i, d_i, t_i, any_hit = sets[name]
+        o_i, d_i, t_i, any_hit = sets[name][:4]
         ref_i = traverse_wide_reference(geo, o_i, d_i, t_i, any_hit=any_hit)
         ker_i = traverse_wide(geo, o_i, d_i, t_i, any_hit=any_hit)
         torch.cuda.synchronize()
@@ -409,36 +453,41 @@ def k1_on_path(label: str, job, bounces: int, cfg=None):
     the bound from it, the kernel's time per launch in bursts of 10 and
     the plain version's.  Returns one record a call for the kernels line;
     these launches are made outside the counted runs."""
-    from tpurt_torch.kernels.traverse import (traverse_wide,
+    from tpurt_torch.kernels.traverse import (LEAF_KINDS, leaf_kind,
+                                              traverse_wide,
                                               traverse_wide_reference)
 
+    names = {k: v[1] for k, v in LEAF_KINDS.items()}
     geo = job.scene.geo
     calls = frame_ray_calls(job, bounces, cfg)
     assert calls and not calls[0][3], label
     out = []
     for i, rays in enumerate(calls):
-        o, d, tm, any_hit = rays
-        ref = traverse_wide_reference(geo, o, d, tm, any_hit=any_hit)
-        ker = traverse_wide(geo, o, d, tm, any_hit=any_hit)
+        o, d, tm, any_hit, time_, tree = rays
+        body = names[leaf_kind(geo, time_, tree)]
+        kw = dict(any_hit=any_hit, time=time_, tree=tree)
+        ref = traverse_wide_reference(geo, o, d, tm, **kw)
+        ker = traverse_wide(geo, o, d, tm, **kw)
         torch.cuda.synchronize()
         agree, t_ok, t_err = k1_agreement(ref, ker, any_hit)
         b_ms, b_by, text = k1_work(geo, rays)
-        ms = cuda_ms(lambda: traverse_wide(geo, o, d, tm, any_hit=any_hit),
-                     burst=10)
-        plain = cuda_ms(lambda: traverse_wide_reference(
-            geo, o, d, tm, any_hit=any_hit), reps=1)
+        ms_one = cuda_ms(lambda: traverse_wide(geo, o, d, tm, **kw))
+        ms = cuda_ms(lambda: traverse_wide(geo, o, d, tm, **kw), burst=10)
+        plain = cuda_ms(lambda: traverse_wide_reference(geo, o, d, tm, **kw),
+                        reps=1)
         kind = "any-hit" if any_hit else "closest"
-        print(f"K1 work @ {label} call {i} {text}")
-        print(f"kernel vs plain @ {label} call {i} ({kind}, live rays "
+        print(f"{body} work @ {label} call {i} {text}")
+        print(f"{body} vs plain @ {label} call {i} ({kind}, live rays "
               f"{(tm > 0).float().mean().item():.3f}, hits "
               f"{(ker[1] >= 0).float().mean().item():.3f}): agree "
               f"{agree:.6f}, t within rtol 1e-5 {t_ok:.6f}, max |dt| "
-              f"{t_err:.3e}; kernel {ms:.4f} ms in bursts, plain "
-              f"{plain:.3f} ms")
+              f"{t_err:.3e}; kernel {ms_one:.4f} ms one launch, {ms:.4f} ms "
+              f"in bursts, plain {plain:.3f} ms")
         assert agree >= 0.9999 and t_ok >= 0.9999, (label, i, agree, t_ok)
-        out.append(dict(rays=o.shape[0], any_hit=any_hit, agree=agree,
-                        max_abs_err=t_err, ms_burst=ms, plain_ms=plain,
-                        bound_ms=b_ms, bound_by=b_by))
+        out.append(dict(body=body, rays=o.shape[0], any_hit=any_hit,
+                        agree=agree, max_abs_err=t_err, ms=ms_one,
+                        ms_burst=ms, plain_ms=plain, bound_ms=b_ms,
+                        bound_by=b_by))
     return out
 
 
@@ -503,12 +552,12 @@ def phase_gather(gpu: str):
 
 def phase_main(scene_path: str, gpu: str):
     from tpurt_torch import cli
-    from tpurt_torch.kernels.traverse import (traverse_wide,
+    from tpurt_torch.kernels.traverse import (reset_launches, traverse_wide,
                                               traverse_wide_reference)
     from tpurt_torch.render.driver import build_job, load_scene, render_job
 
     exr = WORK / "standin_full.exr"
-    traverse_wide.launches = 0
+    reset_launches()
     traverse_wide_reference.calls = 0
     t0 = time.time()
     rc = cli.main([scene_path, "--device", "cuda", "--outfile", str(exr),
@@ -521,6 +570,7 @@ def phase_main(scene_path: str, gpu: str):
     print(f"main path (CLI, first run incl. scene build): {cli_s:.2f}s, "
           f"traversal kernel launches {launches}, plain calls {plain_calls}")
     assert launches > 0 and plain_calls == 0
+    assert traverse_wide.kernel_launches["K1"] == launches
 
     t0 = time.time()
     job = build_job(load_scene(scene_path), "cuda")
@@ -547,7 +597,7 @@ def phase_main(scene_path: str, gpu: str):
 def phase_rpf(scene_path: str, gpu: str):
     from tpurt_torch import cli
     from tpurt_torch.io.image import read_image
-    from tpurt_torch.kernels.traverse import (traverse_wide,
+    from tpurt_torch.kernels.traverse import (reset_launches, traverse_wide,
                                               traverse_wide_reference)
     from tpurt_torch.render.driver import build_job, load_scene
     from tpurt_torch.rpf.driver import (feature_exr_paths, render_rpf_job,
@@ -559,7 +609,7 @@ def phase_rpf(scene_path: str, gpu: str):
         "filename", ""))]
     for p in exrs + [out]:
         p.unlink(missing_ok=True)
-    traverse_wide.launches = 0
+    reset_launches()
     traverse_wide_reference.calls = 0
     t0 = time.time()
     rc = cli.main([scene_path, "--device", "cuda", "--outfile", str(out),
@@ -574,6 +624,7 @@ def phase_rpf(scene_path: str, gpu: str):
           f"{plain_calls}, image mean {img.mean():.5f}, feature EXRs "
           f"{sum(p.exists() for p in exrs)}/6")
     assert rc == 0 and launches > 0 and plain_calls == 0
+    assert traverse_wide.kernel_launches["K1"] == launches
     res = (sd.film_params.find_one_int("yresolution", 0),
            sd.film_params.find_one_int("xresolution", 0), 3)
     assert img.shape == res and np.isfinite(img).all() and img.mean() > 0
@@ -650,18 +701,20 @@ def phase_cross(scene_path: str, small_path: str, small_rpf: str):
     _close(g, h, "small RPF stand-in")
 
 
-def cli_counted(scene_path: str, out: Path, what: str):
+def cli_counted(scene_path: str, out: Path, what: str, bodies=("K1",)):
     """Render a scene through the CLI on the card with the traversal
     counters set to 0 just before: returns (image read back from ``out``,
-    K1 launches, seconds).  Fails if K1 did not launch, if the plain
-    traversal ran, or if the image is not finite with mean > 0."""
+    traversal launches, seconds).  Fails if a leaf body of ``bodies`` did
+    not launch or another one did (a frame without motion or curves runs
+    only K1's static body), if the plain traversal ran, or if the image is
+    not finite with mean > 0."""
     from tpurt_torch import cli
     from tpurt_torch.io.image import read_image
-    from tpurt_torch.kernels.traverse import (traverse_wide,
+    from tpurt_torch.kernels.traverse import (reset_launches, traverse_wide,
                                               traverse_wide_reference)
 
     out.unlink(missing_ok=True)
-    traverse_wide.launches = 0
+    reset_launches()
     traverse_wide_reference.calls = 0
     t0 = time.time()
     rc = cli.main([scene_path, "--device", "cuda", "--outfile", str(out),
@@ -671,10 +724,13 @@ def cli_counted(scene_path: str, out: Path, what: str):
     launches = traverse_wide.launches
     plain_calls = traverse_wide_reference.calls
     img = read_image(str(out))
+    by_body = dict(traverse_wide.kernel_launches)
     print(f"{what} (CLI, first run incl. scene build): {cli_s:.2f}s, "
-          f"traversal kernel launches {launches}, plain calls {plain_calls}, "
-          f"image {img.shape[1]}x{img.shape[0]} mean {img.mean():.5f}")
+          f"traversal kernel launches {launches} {by_body}, plain calls "
+          f"{plain_calls}, image {img.shape[1]}x{img.shape[0]} mean "
+          f"{img.mean():.5f}")
     assert rc == 0 and launches > 0 and plain_calls == 0
+    assert all((n > 0) == (b in bodies) for b, n in by_body.items()), by_body
     assert np.isfinite(img).all() and img.mean() > 0
     return img, launches, cli_s
 
@@ -1042,6 +1098,160 @@ def phase_materials(gpu: str):
     return job, launches, launches_rpf, render_s, k1_paths, checks
 
 
+def _primary_prims(job, time_value: float):
+    """The prim each pixel centre's pinhole ray hits at shutter time
+    ``time_value`` (-1 where it escapes), as a long tensor on the card."""
+    from tpurt_torch.kernels.traverse import traverse_wide
+    from tpurt_torch.render.intersect import intersect_closest
+
+    film = job.film
+    dev = job.scene.geo.device
+    ys, xs = torch.meshgrid(torch.arange(film.height, device=dev) + 0.5,
+                            torch.arange(film.width, device=dev) + 0.5,
+                            indexing="ij")
+    p = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1)
+    tt = torch.full((p.shape[0],), time_value, device=dev)
+    o, d, _ = job.camera.generate_rays(p, torch.zeros_like(p), tt)
+    return intersect_closest(job.scene.geo, o, d, float("inf"),
+                             traverse_wide, time=tt).prim.long()
+
+
+def e_checks(job, img):
+    """The motion and the hair show in frame E the way a dead lerp or a
+    dead hair BSDF would not.  Each is measured against a render of the
+    same job with the feature switched off, on the same samples:
+      motion: over the pixels a moving mesh covers at shutter close but
+        not at shutter open (pixel-centre rays, camera and meshes at each
+        time), the mean |luminance - the dead-lerp render's| over that
+        render's mean; the dead-lerp render zeroes the delta tables, so a
+        kernel or shading lerp that ignored the ray's time gives 0 (0.0000
+        by construction; ~2.07 measured at 128x128 on the CPU);
+      hair: the median red / blue over the pixels whose ray meets a hair
+        fiber at both shutter times; eumelanin 1.3 makes it reddish, while
+        the frame with the hair BSDF dead (the hair rows shaded by tpurt's
+        gray diffuse stand-in) keeps the lights' colour, ~1.01 (~1.37 live
+        at 128x128 on the CPU).
+    Returns the measured numbers."""
+    import dataclasses
+
+    from tpurt_torch.render.bsdf import LobeSet
+    from tpurt_torch.render.driver import render_job
+    from tpurt_torch.render.materials_build import C_KIND, MAT_HAIR
+
+    geo = job.scene.geo
+    film = job.film
+    shape = (film.height, film.width)
+    h0, h1 = _primary_prims(job, 0.0), _primary_prims(job, 1.0)
+    p = geo.shade_rows.shape[0]
+    mover = torch.zeros(p + 1, dtype=torch.bool, device=geo.device)
+    mover[:p] = geo.shade_delta[:, :9].abs().sum(1) > 0
+    swept = (~mover[h0] & mover[h1]).reshape(shape).cpu().numpy()
+    mat = geo.shade_rows[:, 2].contiguous().view(torch.int32).long()
+    is_hair = torch.zeros(p + 1, dtype=torch.bool, device=geo.device)
+    is_hair[:p] = (job.scene.mt_table[mat.clamp(min=0), C_KIND].long()
+                   == MAT_HAIR) & (mat >= 0)
+    hair = (is_hair[h0] & is_hair[h1]).reshape(shape).cpu().numpy()
+
+    dead_geo = dataclasses.replace(
+        geo, wnodes_delta=torch.zeros_like(geo.wnodes_delta),
+        leaves_delta=torch.zeros_like(geo.leaves_delta),
+        shade_delta=torch.zeros_like(geo.shade_delta))
+    img_dm = render_job(dataclasses.replace(
+        job, scene=dataclasses.replace(job.scene, geo=dead_geo)))
+    ls = job.scene.lobe_slots
+    dead_ls = LobeSet(tuple(ls), ls.fresnel, ls.disney, ls.mix, ls.kinds,
+                      hair=False)
+    img_dh = render_job(dataclasses.replace(
+        job, scene=dataclasses.replace(job.scene, lobe_slots=dead_ls)))
+    lum, lum_dm = img.mean(-1), img_dm.mean(-1)
+    motion = float(np.abs(lum[swept] - lum_dm[swept]).mean()
+                   / max(lum_dm[swept].mean(), 1e-6))
+
+    def red_blue(a):
+        x = a[hair]
+        return float(np.median(x[:, 0]) / max(np.median(x[:, 2]), 1e-6))
+
+    out = dict(motion_swept_rel_diff=motion, hair_red_blue=red_blue(img),
+               hair_red_blue_dead=red_blue(img_dh),
+               pixels=dict(swept=int(swept.sum()), hair=int(hair.sum())))
+    print(f"E checks: {out}")
+    assert swept.sum() > 100 and hair.sum() > 100, out
+    assert motion > 0.2, out
+    assert out["hair_red_blue"] > 1.15, out
+    assert out["hair_red_blue"] > 1.1 * out["hair_red_blue_dead"], out
+    return out
+
+
+def phase_motion_hair(gpu: str):
+    """Main path E: frame E (motion blur, ray-traced curves and hair)
+    through the CLI at 700x700, 8 spp, with K1m and K1c launched and K1's
+    static body not; its checks; K1m and K1c against their plain versions
+    on E's rays (camera paths and the first two bounce steps); 3 timed
+    renders; E under rpf at 256x256; E at 64x64 on the card against the
+    CPU."""
+    from tpurt_torch.render.driver import (build_job, load_scene, render,
+                                           render_job)
+    from tpurt_torch.testscenes import E_SIZES, write_motion_hair
+
+    scene = write_motion_hair(str(WORK / "motion_hair_full.pbrt"), "full")
+    img, launches, cli_s = cli_counted(
+        scene, WORK / "motion_hair_full_out.exr",
+        "main path E (motion blur, curves, hair)", bodies=("K1m", "K1c"))
+    from tpurt_torch.kernels.traverse import traverse_wide
+    by_body = dict(traverse_wide.kernel_launches)
+    assert img.shape == (700, 700, 3)
+    t0 = time.time()
+    job = build_job(load_scene(scene), "cuda")
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    g = job.scene.geo
+    fibers = E_SIZES["full"]["fibers"]
+    print(f"scene E: {g.n_tris} triangles (delta table "
+          f"{g.leaves_delta.shape[0]} leaf rows), quadrics {g.quads} (animated "
+          f"{g.quad_animated_host}), {g.n_curves} curve spans ({fibers} "
+          f"hair fibers x 4 segments x 2^3 = {fibers * 32} before tpurt's "
+          f"pre-split), curve tables {g.cinodes.shape[0]} interior + "
+          f"{g.cleaves.shape[0]} leaf rows "
+          f"({(g.cinodes.numel() + g.cleaves.numel()) * 4 / 1e6:.1f} MB, "
+          f"ribbon aux {g.cleaves_aux.numel() * 4 / 1e6:.1f} MB), stacks "
+          f"{g.wstack_depth} / {g.cstack_depth}, lobe set "
+          f"{job.scene.lobe_slots}, tangents {g.has_tangents}; scene build "
+          f"{build_s:.2f}s")
+    checks = e_checks(job, img)
+    k1_e = k1_on_path("E motion hair", job, 2)
+    assert {r["body"] for r in k1_e} == {"K1m", "K1c"}, k1_e
+    render_job(job)  # warm-up
+    runs, peak = [], 0
+    for _ in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img = render_job(job)
+        torch.cuda.synchronize()
+        runs.append(time.time() - t0)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+    assert np.isfinite(img).all() and img.mean() > 0
+    render_s = statistics.median(runs)
+    print(f"motion_hair_render_s {render_s:.4f} (runs "
+          f"{['%.4f' % r for r in runs]}) peak mem {peak / 2**30:.3f} GiB, "
+          f"image mean {img.mean():.5f}, CLI first run {cli_s:.2f}s on {gpu}")
+
+    rpf = write_motion_hair(str(WORK / "motion_hair_rpf_256.pbrt"), "full",
+                            integrator="rpf", res=256)
+    img_r, launches_rpf, _ = cli_counted(
+        rpf, WORK / "motion_hair_rpf_out.exr", "frame E under rpf, 256x256",
+        bodies=("K1m", "K1c"))
+    rpf_by_body = dict(traverse_wide.kernel_launches)
+    assert img_r.shape == (256, 256, 3)
+
+    small = write_motion_hair(str(WORK / "motion_hair_64.pbrt"), "medium")
+    gimg, _ = render(load_scene(small), "cuda")
+    himg, _ = render(load_scene(small), "cpu")
+    _close(gimg, himg, "E 64x64")
+    return (job, launches, by_body, launches_rpf, rpf_by_body, render_s,
+            k1_e, checks)
+
+
 def phase_profile(label: str, frame, wall_s: float):
     """Device time by kernel over one full frame (``frame()``).  The idle
     share is 1 - kernel time / the unprofiled wall time ``wall_s``
@@ -1064,6 +1274,35 @@ def phase_profile(label: str, frame, wall_s: float):
     for e in kernels[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
               f"{e.key[:100]}")
+
+
+# the jnp code of tpurt's _traverse_wide that each leaf body replaces
+LEAF_BODIES = {
+    "K1m": ("traverse_wide_motion",
+            "tpurt/render/intersect.py:669 (_tri_bundle_test, drec/time)"),
+    "K1c": ("traverse_wide_curve",
+            "tpurt/render/intersect.py:751 (_curve_bundle_test)"),
+}
+
+
+def leaf_body_entry(body: str, records, launches_by_path, checks):
+    """The kernels line's entry of one leaf body of K1 (an instantiation of
+    the same kernel, so it replaces K1's TPU kernel; ``body`` names the jnp
+    code it carries): the main path's launches, the numbers of its first
+    call on E's rays (the 2^20 camera rays) and every recorded call."""
+    name, jnp_code = LEAF_BODIES[body]
+    mine = [r for r in records if r["body"] == body]
+    first = mine[0]
+    return dict(name=name, route="cuda",
+                source="tpurt_torch/csrc/traverse.cu",
+                replaces="tpurt/kernels/traverse.py:54", body=jnp_code,
+                launches=sum(launches_by_path.values()),
+                launches_by_path=launches_by_path,
+                max_abs_err=max(r["max_abs_err"] for r in mine),
+                ms=first["ms"], ms_burst=first["ms_burst"],
+                plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+                bound_by=first["bound_by"], library_ms=None,
+                checks=checks, vs_plain_on_path=mine)
 
 
 def main(argv=None) -> int:
@@ -1118,6 +1357,9 @@ def main(argv=None) -> int:
      d_checks) = phase_materials(gpu)
     k1_paths.update(k1_d)
     stamp("phase 14 (D)")
+    (e_job, launches_e, e_bodies, launches_e_rpf, e_rpf_bodies, e_s, k1_e,
+     e_checks_out) = phase_motion_hair(gpu)
+    stamp("phase 15 (E)")
     if "--profile" in argv:
         from tpurt_torch.render.driver import render_job
         from tpurt_torch.rpf.driver import render_rpf_job
@@ -1128,6 +1370,8 @@ def main(argv=None) -> int:
         phase_profile("direct-lighting textured frame",
                       lambda: render_job(direct_job), direct_s)
         phase_profile("materials frame D", lambda: render_job(d_job), d_s)
+        phase_profile("motion and hair frame E", lambda: render_job(e_job),
+                      e_s)
         stamp("profiles")
     assert "jax" not in sys.modules and "tpurt" not in sys.modules
     print(json.dumps({"kernels": [
@@ -1146,6 +1390,10 @@ def main(argv=None) -> int:
                  "materials_rpf": launches_d_rpf},
              materials_checks=d_checks,
              vs_plain_by_path=k1_paths, **k1),
+        *(leaf_body_entry(body, k1_e, {
+            "motion_hair": e_bodies[body],
+            "motion_hair_rpf": e_rpf_bodies[body]}, e_checks_out)
+          for body in ("K1m", "K1c")),
         dict(name="gather_rows_sum", route="cuda",
              source="tpurt_torch/csrc/gather_bench.cu",
              replaces="tpurt/kernels/gather_bench.py:24",

@@ -15,11 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpurt.render import bsdf as tbsdf
 from tpurt.render import filters as tfilters
-from tpurt.render import interaction as tint
-from tpurt.render import intersect as tix
-from tpurt.render import lights as tlights
 from tpurt.render import materials_build as tmat
 from tpurt.render.driver import build_job as tpurt_build_job
 from tpurt.scene import load_scene_string as tpurt_load_scene_string
@@ -27,14 +23,11 @@ from tpurt.scene.paramset import ParamSet as TParamSet
 from tpurt_torch.convert import scene_from_tpurt
 from tpurt_torch.render import bsdf as pbsdf
 from tpurt_torch.render import filters as pfilters
-from tpurt_torch.render import interaction as pint
 from tpurt_torch.render import lights as plights
 from tpurt_torch.render import materials_build as pmat
 from tpurt_torch.render.driver import job_from_tables
 from tpurt_torch.render.film import Film
-from tpurt_torch.render.intersect import Hit
 from tpurt_torch.scene.paramset import ParamSet
-from tpurt_torch.testscenes import textured_scene, write_grid_texture
 
 # one torch thread: the suite runs in parallel processes, and torch's
 # default of a thread per core only spins on these small tensors
@@ -157,34 +150,6 @@ def test_distant_and_spot_rows_equal_tpurt_build(light_jobs):
     assert tab["spat_res"] > 1  # the distant light is not positional
 
 
-@pytest.mark.parametrize("strategy", ["spatial", "power"])
-def test_sample_li_distant_spot_match_tpurt(light_jobs, strategy):
-    job, pjob = light_jobs
-    lt, plt = job.scene.lights, pjob.scene.lights
-    rng = np.random.default_rng(4)
-    n = 4096
-    p = rng.uniform([-4, 0, -4], [4, 3, 4], (n, 3)).astype(np.float32)
-    u = rng.uniform(size=n).astype(np.float32)
-    u2 = rng.uniform(size=(n, 2)).astype(np.float32)
-    idx, pmf = tlights.choose_light(lt, jnp.asarray(u), strategy,
-                                    p=jnp.asarray(p))
-    pidx, ppmf = plights.choose_light(plt, _t(u), strategy, p=_t(p))
-    np.testing.assert_array_equal(pidx.numpy(), np.asarray(idx))
-    _close(ppmf, pmf, rtol=0, atol=0)
-    assert len(np.unique(np.asarray(idx))) == 4
-    want = tlights.sample_li(lt, idx, jnp.asarray(p), jnp.asarray(u2))
-    got = plights.sample_li(plt, pidx, _t(p), _t(u2))
-    delta = np.asarray(want.is_delta)
-    np.testing.assert_array_equal(got.is_delta.numpy(), delta)
-    for f in ("wi", "li", "p_light"):
-        _close(getattr(got, f).numpy()[delta], np.asarray(getattr(want, f))[delta])
-    _close(got.pdf.numpy()[delta], np.asarray(want.pdf)[delta])
-    spot = np.asarray(idx) == 1
-    li = np.asarray(want.li)[spot]
-    # lanes inside the cone, in its falloff band and outside it
-    assert (li.max(-1) == 0).any() and (li.max(-1) > 0).any()
-
-
 # ------------------------------------------------------------- bsdf slots
 
 def _unit(rng, n):
@@ -233,113 +198,4 @@ def spec_lobes():
     return rng, want, got
 
 
-def test_lobe_slots_follow_the_material_kinds():
-    """The slots the BSDF may skip: by kind, and for glass by roughness."""
-    from tpurt_torch.render.driver import host_tables
-    from tpurt_torch.scene import load_scene_string
-
-    def slots(materials):
-        text = SPEC_SCENE[:SPEC_SCENE.index('Material "mirror"')] + "".join(
-            f'Material {m}\nShape "sphere"\n' for m in materials) + "WorldEnd"
-        return pmat.lobe_slots(host_tables(load_scene_string(text))["mt_table"])
-
-    assert slots(['"matte"']) == (pbsdf.SLOT_DIFFUSE,)
-    assert slots(['"matte"', '"plastic"']) == (pbsdf.SLOT_DIFFUSE,
-                                               pbsdf.SLOT_GLOSSY)
-    assert slots(['"mirror"']) == (pbsdf.SLOT_MIRROR,)
-    assert slots(['"glass"']) == (pbsdf.SLOT_FS,)
-    assert slots(['"glass" "float uroughness" [.1]']) == (pbsdf.SLOT_GLOSSY,
-                                                          pbsdf.SLOT_GTRANS)
-
-
-def test_fetch_lobes_mirror_glass_match_tpurt(spec_lobes):
-    _, want, got = spec_lobes
-    for f in pbsdf.LobeParams._fields:
-        g, w = getattr(got, f), getattr(want, f)
-        if f == "active" or g is None:  # None: a field no material needs
-            continue
-        if g.dtype == torch.int32:
-            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-        else:
-            _close(g, w, rtol=1e-6, atol=0)
-    act = np.asarray(want.active)
-    np.testing.assert_array_equal(got.active.numpy(), act)
-    assert not act[:, 5:].any() and act[:, :5].any(axis=0).all()
-
-
-def test_bsdf_with_skipped_slots_equals_all_slots(spec_lobes):
-    """On lanes whose lobes lie within a subset of the slots, the BSDF
-    told to skip the others returns exactly what it returns when it
-    computes them all and masks."""
-    rng, _, lp = spec_lobes
-    n = lp.kd.shape[0]
-    wo, wi = _t(_unit(rng, n)), _t(_unit(rng, n))
-    u = [_t(x) for x in rng.uniform(size=(3, n)).astype(np.float32)]
-    for slots in map(pbsdf.LobeSet, ((0, 1), (2,), (3,), (1, 4), (0, 1, 2))):
-        outside = [k for k in pbsdf.ALL_SLOTS if k not in slots]
-        keep = ~lp.active[:, outside].any(dim=-1)
-        assert keep.sum() > 500
-        sub = pbsdf.LobeParams(*[None if f is None else f[keep] for f in lp])
-        w, i = wo[keep], wi[keep]
-        assert torch.equal(pbsdf.bsdf_f(sub, w, i, slots),
-                           pbsdf.bsdf_f(sub, w, i))
-        assert torch.equal(pbsdf.bsdf_pdf(sub, w, i, slots),
-                           pbsdf.bsdf_pdf(sub, w, i))
-        uk = [x[keep] for x in u]
-        for a, b in zip(pbsdf.bsdf_sample(sub, w, *uk, slots),
-                        pbsdf.bsdf_sample(sub, w, *uk)):
-            assert torch.equal(a, b)
-
-
-def test_bsdf_sample_mirror_glass_match_tpurt(spec_lobes):
-    """f, pdf and the specular / transmission flags of every lobe, for wo
-    on both sides of the surface (glass is entered and left)."""
-    rng, want_lp, got_lp = spec_lobes
-    n = want_lp.kd.shape[0]
-    wo, wi = _unit(rng, n), _unit(rng, n)
-    _close(pbsdf.bsdf_f(got_lp, _t(wo), _t(wi)),
-           tbsdf.bsdf_f(want_lp, jnp.asarray(wo), jnp.asarray(wi)))
-    _close(pbsdf.bsdf_pdf(got_lp, _t(wo), _t(wi)),
-           tbsdf.bsdf_pdf(want_lp, jnp.asarray(wo), jnp.asarray(wi)))
-    u = rng.uniform(size=(3, n)).astype(np.float32)
-    want = tbsdf.bsdf_sample(want_lp, jnp.asarray(wo), *map(jnp.asarray, u))
-    got = pbsdf.bsdf_sample(got_lp, _t(wo), *map(_t, u))
-    ok = np.asarray(want[2]) > 0
-    assert ok.mean() > 0.4
-    _close(got[0].numpy()[ok], np.asarray(want[0])[ok], atol=2e-6)  # wi
-    _close(got[1], want[1], rtol=1e-4)  # f: 1/|cos| near grazing
-    _close(got[2], want[2])  # pdf
-    for g, w in zip(got[3:], want[3:]):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    spec, trans = np.asarray(want[3]), np.asarray(want[4])
-    assert (spec & ok).any() and (trans & ok & spec).any()
-    assert (trans & ok & ~spec).any()  # rough glass transmission
-
-
 # ------------------------------------------------------------ interaction
-
-def test_interaction_uv_derivatives_match_tpurt(tmp_path):
-    """uv, dpdu and dpdv on triangles with and without uvs and on a
-    sphere."""
-    text = textured_scene("small", write_grid_texture(
-        str(tmp_path / "grid_i.png")))
-    job = tpurt_build_job(tpurt_load_scene_string(text))
-    pjob = job_from_tables(scene_from_tpurt(job), "cpu")
-    assert job.scene.has_texfilter and pjob.scene.has_texfilter
-    rng = np.random.default_rng(2)
-    n = 3000
-    p_film = (rng.uniform(size=(n, 2)) * 32).astype(np.float32)
-    p_lens = rng.uniform(size=(n, 2)).astype(np.float32)
-    o, d, _ = job.camera.generate_rays(jnp.asarray(p_film),
-                                       jnp.asarray(p_lens), None)
-    hit = tix.intersect_closest(job.scene.geo, o, d, jnp.inf)
-    want = tint.compute_interaction(job.scene.geo, hit, o, d, dpduv=True)
-    got = pint.compute_interaction(
-        pjob.scene.geo, Hit(_t(hit.t), _t(hit.prim), _t(hit.b0), _t(hit.b1)),
-        _t(o), _t(d), dpduv=True)
-    valid = np.asarray(want.valid)
-    assert 0.3 < valid.mean() < 1.0
-    for f in ("uv", "dpdu", "dpdv"):
-        _close(getattr(got, f).numpy()[valid],
-               np.asarray(getattr(want, f))[valid], atol=1e-5)
-    assert abs(pjob.camera.fp_slope - job.camera.fp_slope) < 1e-9

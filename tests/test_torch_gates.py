@@ -1,5 +1,6 @@
-"""Gate scenes, diffuse and glossy (the furnace and the plastic highlight): the port against tpurt and against the
-closed forms (scenes, bounds and checks in torch_gate_scenes.py)."""
+"""Gate scene, the diffuse furnace under the path integrator: the port against
+tpurt and against the closed forms (scenes, bounds and checks in
+torch_gate_scenes.py).  One scene a file, since each is a cold tpurt jit."""
 
 import pytest
 import torch
@@ -10,7 +11,7 @@ import torch_gate_scenes as gates
 # default of a thread per core only spins on these small tensors
 torch.set_num_threads(1)
 
-NAMES = [n for n in sorted(gates.CASES) if n.split("-")[0] in ("furnace", "plastic")]
+NAMES = ["furnace-path"]
 
 
 @pytest.fixture(scope="module", params=NAMES)

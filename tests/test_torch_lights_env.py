@@ -12,8 +12,6 @@ pdf_li_from_hit on >= 99.5% of lanes and within rtol 1e-4 on all, see
 _close_most).  Inputs come from numpy with fixed seeds.
 """
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,7 +23,7 @@ from tpurt.render.driver import build_job as tpurt_build_job
 from tpurt.scene import load_scene_string as tpurt_load_scene_string
 from tpurt_torch.io.image import write_image
 from tpurt_torch.render import lights as pl
-from tpurt_torch.render.driver import build_job, host_tables, render
+from tpurt_torch.render.driver import build_job, host_tables
 from tpurt_torch.scene import load_scene_string
 
 # one torch thread: the suite runs in parallel processes, and torch's
@@ -133,50 +131,7 @@ def test_row_search_is_searchsorted(env):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_env_pdf_and_le_match_tpurt(env):
-    tlt, plt, _ = env
-    rng = np.random.default_rng(2)
-    d = rng.normal(size=(N, 3))
-    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
-    _close(pl.env_pdf(plt, _t(d)), tl.env_pdf(tlt, jnp.asarray(d)))
-    _close_most(pl.env_le(plt, _t(d)), tl.env_le(tlt, jnp.asarray(d)))
-
-
 # -- tpurt's test_lights.py checks, for the port -------------------------------
-
-def test_env_mc_integral_matches_direct_sum(env):
-    _, plt, img = env
-    rng = np.random.default_rng(1)
-    n = 20000
-    wi, li, pdf = pl.env_sample(plt, _t(rng.uniform(size=n).astype(
-        np.float32)), _t(rng.uniform(size=n).astype(np.float32)))
-    est = torch.where(pdf[:, None] > 0, li / pdf[:, None], 0.0).mean(0)
-    he, we = img.shape[:2]
-    theta = np.pi * (np.arange(he) + 0.5) / he
-    dw = (np.pi / he) * (2 * np.pi / we)
-    direct = (img * np.sin(theta)[:, None, None] * dw).sum((0, 1))
-    np.testing.assert_allclose(est.numpy(), direct, rtol=0.05)
-
-
-def test_env_pdf_matches_sample_pdf(env):
-    _, plt, _ = env
-    rng = np.random.default_rng(2)
-    u = [_t(rng.uniform(size=512).astype(np.float32)) for _ in range(2)]
-    wi, _, pdf = pl.env_sample(plt, *u)
-    _close(pl.env_pdf(plt, wi), pdf, rtol=1e-3, atol=1e-5)
-
-
-def test_env_le_lookup(env):
-    """Escaped radiance through the centre of texel (8, 12) is that texel
-    (the light is turned 30 degrees: the lookup goes through w2l)."""
-    _, plt, img = env
-    theta, phi = np.pi * 8.5 / 16, 2 * np.pi * 12.5 / 32
-    wl = np.array([np.sin(theta) * np.cos(phi), np.sin(theta) * np.sin(phi),
-                   np.cos(theta)])
-    d = plt.env_l2w.numpy()[:3, :3].astype(np.float64) @ wl
-    got = pl.env_le(plt, _t(d[None].astype(np.float32)))[0]
-    np.testing.assert_allclose(got.numpy(), img[8, 12], rtol=1e-3)
-
 
 # -- sample_li and pdf_li_from_hit of every kind -------------------------------
 
@@ -242,77 +197,6 @@ def all_lights(tmp_path_factory):
     return tlt, plt, tab
 
 
-def test_light_tables_match_tpurt(all_lights):
-    tlt, _, tab = all_lights
-    for k, v in tab.items():
-        if isinstance(v, np.ndarray):
-            assert v.tobytes() == np.asarray(getattr(tlt, k)).tobytes(), k
-        else:
-            assert v == getattr(tlt, k), k
-
-
-@pytest.mark.parametrize("kind", sorted(KIND_NAMES),
-                         ids=lambda k: KIND_NAMES[k])
-def test_sample_li_matches_tpurt(all_lights, kind):
-    tlt, plt, _ = all_lights
-    row = plt.rows[:, 0].tolist().index(kind)
-    rng = np.random.default_rng(kind)
-    ref = np.stack([rng.uniform(-4, 4, N), rng.uniform(-1, 2, N),
-                    rng.uniform(-1, 8, N)], -1).astype(np.float32)
-    u2 = rng.uniform(size=(N, 2)).astype(np.float32)
-    idx = np.full(N, row, np.int32)
-    want = tl.sample_li(tlt, jnp.asarray(idx), jnp.asarray(ref),
-                        jnp.asarray(u2))
-    got = pl.sample_li(plt, _t(idx).long(), _t(ref), _t(u2))
-    for f in ("wi", "li", "pdf", "p_light"):
-        _close_most(getattr(got, f), getattr(want, f))
-    np.testing.assert_array_equal(got.is_delta.numpy(),
-                                  np.asarray(want.is_delta))
-    if kind in (pl.LIGHT_PROJECTION, pl.LIGHT_GONIO):
-        li = got.li.numpy()
-        assert (li == 0).all(-1).mean() > 0.05 or kind == pl.LIGHT_GONIO
-        assert np.ptp(li[:, 0] * np.sum((ref - got.p_light.numpy()) ** 2,
-                                        -1)) > 1.0  # direction-dependent
-    # the MIS pdf of a BSDF-sampled direction toward the light
-    wi = got.wi.numpy()
-    p_hit = got.p_light.numpy()
-    ng = -wi
-    want_pdf = tl.pdf_li_from_hit(tlt, jnp.asarray(idx), jnp.asarray(ref),
-                                  jnp.asarray(wi), jnp.asarray(p_hit),
-                                  jnp.asarray(ng))
-    got_pdf = pl.pdf_li_from_hit(plt, _t(idx).long(), _t(ref), _t(wi),
-                                 _t(p_hit), _t(ng))
-    _close_most(got_pdf, want_pdf)
-
-
-@pytest.mark.parametrize("kind", [pl.LIGHT_PROJECTION, pl.LIGHT_GONIO],
-                         ids=lambda k: KIND_NAMES[k])
-def test_table_of_one_image_kind_computes_only_it(all_lights, kind):
-    """A table that holds one of the two image-lit kinds computes only its
-    lookup, and gives exactly what the table holding both gives."""
-    _, plt, _ = all_lights
-    one = dataclasses.replace(plt, has_projection=kind == pl.LIGHT_PROJECTION,
-                              has_gonio=kind == pl.LIGHT_GONIO)
-    row = plt.rows[:, 0].tolist().index(kind)
-    rng = np.random.default_rng(kind)
-    ref = _t(rng.uniform(-2, 4, (N, 3)).astype(np.float32))
-    u2 = _t(rng.uniform(size=(N, 2)).astype(np.float32))
-    idx = torch.full((N,), row, dtype=torch.int64)
-    other = {pl.LIGHT_PROJECTION: pl._gonio_factor,
-             pl.LIGHT_GONIO: pl._projection_factor}[kind]
-    calls = []
-    orig = getattr(pl, other.__name__)
-    setattr(pl, other.__name__, lambda *a: calls.append(1) or orig(*a))
-    try:
-        got = pl.sample_li(one, idx, ref, u2)
-    finally:
-        setattr(pl, other.__name__, orig)
-    assert not calls
-    want = pl.sample_li(plt, idx, ref, u2)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-
-
 # -- tpurt's test_projection_lights.py checks, for the port --------------------
 
 def _wall_scene(light_lines):
@@ -328,35 +212,3 @@ def _wall_scene(light_lines):
       "point P" [-6 -6 4  6 -6 4  6 6 4  -6 6 4]
     WorldEnd
     """
-
-
-def test_projection_light_projects_image(tmp_path):
-    """A half-bright slide lights one side of the wall; flipping the slide
-    flips the lit side."""
-    img = np.zeros((8, 8, 3), np.float32)
-    img[:, 4:] = 1.0
-    sides = []
-    for name, im in (("right", img), ("left", img[:, ::-1].copy())):
-        p = str(tmp_path / f"slide_{name}.exr")
-        write_image(p, im)
-        out, _ = render(load_scene_string(_wall_scene(
-            'LightSource "projection" "color I" [60 60 60] "float fov" [40] '
-            f'"string mapname" "{p}"')), "cpu")
-        lum = out.mean(-1)
-        sides.append((lum[:, :8].mean(), lum[:, 8:].mean()))
-    (l0, r0), (l1, r1) = sides
-    assert abs(l0 - r0) > 0.2 * max(l0, r0)
-    assert (l0 > r0) != (l1 > r1)  # flipping the slide flips the side
-
-
-def test_goniometric_constant_map_matches_point(tmp_path):
-    """A goniometric light with a constant map is a point light of the
-    same intensity (goniometric.h Scale == 1)."""
-    p = str(tmp_path / "flat.exr")
-    write_image(p, np.ones((4, 8, 3), np.float32))
-    img_g, _ = render(load_scene_string(_wall_scene(
-        f'LightSource "goniometric" "color I" [5 5 5] "string mapname" '
-        f'"{p}"')), "cpu")
-    img_p, _ = render(load_scene_string(_wall_scene(
-        'LightSource "point" "color I" [5 5 5]')), "cpu")
-    np.testing.assert_allclose(img_g, img_p, rtol=1e-4, atol=1e-6)

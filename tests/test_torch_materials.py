@@ -152,81 +152,6 @@ def test_bsdf_matches_tpurt(lobes, kind):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-6)
 
 
-@pytest.mark.parametrize("kind", KINDS)
-def test_gated_bsdf_equals_all_slots(kind):
-    """A table of one kind: fetch_lobes and the BSDF told what the table
-    can activate (its LobeSet: slots, Fresnel kinds, Disney, mix) return
-    exactly what they return computing every slot and term."""
-    text = kinds_scene((kind,))
-    table = host_tables(load_scene_string(text))["mt_table"]
-    slots = pmat.lobe_slots(table)
-    assert len(slots) < len(pbsdf.ALL_SLOTS)
-    rng = np.random.default_rng(4)
-    n = 2048
-    mat = _t(np.zeros(n, np.int32))
-    gated = pmat.fetch_lobes(_t(table), mat, None, slots)
-    full = pmat.fetch_lobes(_t(table), mat, None, pbsdf.ALL_SLOTS)
-    wo, wi = _t(unit(rng, n)), _t(unit(rng, n))
-    u = [_t(x) for x in rng.uniform(size=(3, n)).astype(np.float32)]
-    assert torch.equal(pbsdf.bsdf_f(gated, wo, wi, slots),
-                       pbsdf.bsdf_f(full, wo, wi))
-    assert torch.equal(pbsdf.bsdf_pdf(gated, wo, wi, slots),
-                       pbsdf.bsdf_pdf(full, wo, wi))
-    for a, b in zip(pbsdf.bsdf_sample(gated, wo, *u, slots),
-                    pbsdf.bsdf_sample(full, wo, *u)):
-        assert torch.equal(a, b)
-
-
-def test_lobe_sets_follow_the_kinds():
-    def lobe_set(kind):
-        text = kinds_scene((kind,))
-        return pmat.lobe_slots(host_tables(load_scene_string(text))[
-            "mt_table"])
-
-    S = pbsdf
-    metal = lobe_set("metal")
-    assert metal == (S.SLOT_GLOSSY,) and not metal.disney and not metal.mix
-    assert S.FRESNEL_CONDUCTOR in metal.fresnel
-    assert lobe_set("substrate").fresnel == (S.FRESNEL_SCHLICK,)
-    assert lobe_set("uber") == (S.SLOT_DIFFUSE, S.SLOT_GLOSSY, S.SLOT_MIRROR,
-                                S.SLOT_FS)
-    assert lobe_set("translucent") == (S.SLOT_DIFFUSE, S.SLOT_GLOSSY,
-                                       S.SLOT_GTRANS, S.SLOT_DTRANS)
-    thick = lobe_set("disney")
-    assert thick.disney and S.SLOT_CLEARCOAT in thick
-    assert S.SLOT_DTRANS not in thick  # not thin
-    assert S.SLOT_DTRANS in lobe_set("disney_thin")
-    mix = lobe_set("mix")  # the union of metal's and matte's
-    assert mix == (S.SLOT_DIFFUSE, S.SLOT_GLOSSY) and mix.mix
-
-
-def test_mix_blends_submaterials_in_closed_form():
-    """tpurt's test_mix_material_blends_submaterials (test_render.py:223)
-    for the port: a mix of two mattes is the amount-weighted blend of
-    their Kd, and the blended lobe is the matte of that Kd."""
-    text = """Film "image" "integer xresolution" [4] "integer yresolution" [4]
-Camera "perspective"
-WorldBegin
-MakeNamedMaterial "a" "string type" "matte" "color Kd" [.8 .2 .1]
-MakeNamedMaterial "b" "string type" "matte" "color Kd" [.1 .3 .9]
-Material "mix" "string namedmaterial1" "a" "string namedmaterial2" "b"
-  "color amount" [.25 .5 .75]
-Translate 0 0 4
-Shape "sphere"
-WorldEnd
-"""
-    table = host_tables(load_scene_string(text))["mt_table"]
-    lp = pmat.fetch_lobes(_t(table), _t(np.zeros(4, np.int32)), None,
-                          pmat.lobe_slots(table))
-    amt = np.array([.25, .5, .75], np.float32)
-    want = amt * np.array([.8, .2, .1], np.float32) + (1 - amt) * np.array(
-        [.1, .3, .9], np.float32)
-    np.testing.assert_allclose(lp.kd.numpy(), np.tile(want, (4, 1)),
-                               rtol=1e-6)
-    assert lp.active[:, pbsdf.SLOT_DIFFUSE].all()
-    assert not lp.active[:, 1:].any()
-
-
 # -- tpurt's test_bsdf.py checks, for the port ---------------------------------
 
 def _lobes(n, **kw):
@@ -287,32 +212,3 @@ CONSISTENCY = {
     "substrate": dict(kd=[.4, .3, .2], ks=[.2, .2, .2], alpha_x=.1,
                       alpha_y=.3, fresnel_kind=pbsdf.FRESNEL_SCHLICK),
 }
-
-
-@pytest.mark.parametrize("name", sorted(CONSISTENCY))
-def test_sampling_consistency(name):
-    """Importance-sampled and uniform-sphere albedo estimates agree
-    (tpurt's test_bsdf.py, bsdfs.cpp:484-556)."""
-    imp, uni = _albedo_pair(CONSISTENCY[name])
-    assert np.all(imp > 0.02) and np.all(imp < 1.0), imp
-    np.testing.assert_allclose(imp, uni, rtol=0.08)
-
-
-def test_disney_metallic_energy():
-    imp, uni = _albedo_pair(dict(
-        disney=True, metallic=1.0, r0=[.9, .6, .3], ks=[1., 1., 1.],
-        alpha_x=.1, alpha_y=.1, fresnel_kind=pbsdf.FRESNEL_DISNEY, eta=1.5))
-    np.testing.assert_allclose(imp, uni, rtol=0.08)
-    assert imp[0] > imp[1] > imp[2] and np.all(imp < 1.0), imp
-
-
-def test_lambertian_transmission_flips_hemisphere():
-    n = 1 << 13
-    lp = _lobes(n, kd_t=[.5, .5, .5])
-    rng = np.random.default_rng(0)
-    wo = torch.tensor([0.0, 0.0, 1.0]).expand(n, 3)
-    u = [_t(rng.uniform(size=n).astype(np.float32)) for _ in range(3)]
-    wi, f, pdf, _, is_trans = pbsdf.bsdf_sample(lp, wo, *u)
-    assert bool((wi[:, 2] < 0).all()) and bool(is_trans.all())
-    est = float((f[:, 0] * wi[:, 2].abs() / pdf).mean())
-    np.testing.assert_allclose(est, 0.5, rtol=0.02)

@@ -26,7 +26,6 @@ from tpurt_torch.kernels.traverse import traverse_wide
 from tpurt_torch.render import interaction as pinter
 from tpurt_torch.render import intersect as pisect
 from tpurt_torch.render.driver import build_job, host_tables
-from tpurt_torch.render.sampling_warps import build_onb, to_world
 from tpurt_torch.scene import load_scene_string
 
 # one torch thread: the suite runs in parallel processes, and torch's
@@ -156,83 +155,4 @@ def test_interaction_matches_tpurt(quadric, dpduv):
                                   np.asarray(want.material_id))
 
 
-def test_any_hit_sees_every_quadric(quadric):
-    """intersect_any: occluded exactly where the closest hit lies before
-    t_max."""
-    _, _, pjob, (o, d) = quadric
-    geo = pjob.scene.geo
-    ot, dt = torch.as_tensor(o), torch.as_tensor(d)
-    closest = pisect.intersect_closest(geo, ot, dt, np.inf, traverse_wide)
-    t_max = torch.full((len(o),), 4.5)
-    occ = pisect.intersect_any(geo, ot, dt, t_max, traverse_wide)
-    assert torch.equal(occ, (closest.prim >= 0) & (closest.t < t_max))
-
-
 # -- tpurt's quadric tests, for the port ---------------------------------------
-
-def test_cylinder_disk_quadrics():
-    text = """Film "image" "integer xresolution" [4] "integer yresolution" [4]
-Camera "perspective"
-WorldBegin
-Shape "cylinder" "float radius" [1] "float zmin" [-1] "float zmax" [1]
-Translate 4 0 0
-Shape "disk" "float radius" [1] "float height" [0]
-WorldEnd
-"""
-    geo = build_job(load_scene_string(text), "cpu").scene.geo
-    o = torch.tensor([[-5, 0, 0], [-5, 0, 2], [4, 0.5, -5], [4, 1.5, -5]],
-                     dtype=torch.float32)
-    d = torch.tensor([[1, 0, 0], [1, 0, 0], [0, 0, 1], [0, 0, 1]],
-                     dtype=torch.float32)
-    hit = pisect.intersect_closest(geo, o, d, 1e8, traverse_wide)
-    assert (hit.prim >= 0).tolist() == [True, False, True, False]
-    np.testing.assert_allclose(hit.t[[0, 2]].numpy(), [4.0, 5.0], rtol=1e-4)
-
-
-def test_hyperboloid_matches_implicit():
-    text = """Film "image" "integer xresolution" [8] "integer yresolution" [8]
-Camera "perspective" "float fov" [45]
-WorldBegin
-Material "matte" "color Kd" [.5 .5 .5]
-Translate 0 0 4
-Rotate 90 1 0 0
-Shape "hyperboloid" "point p1" [1 0 -1] "point p2" [1.5 0 1]
-WorldEnd
-"""
-    geo = build_job(load_scene_string(text), "cpu").scene.geo
-    o, d = _rays(np.random.default_rng(8), 256, 0.5)
-    hit = pisect.intersect_closest(geo, torch.as_tensor(o),
-                                   torch.as_tensor(d), np.inf, traverse_wide)
-    got = hit.prim.numpy() >= 0
-    assert got.sum() > 20, got.sum()
-    kind, qi = geo.quads[0]
-    w2o = geo.quad_w2o[qi].numpy()
-    ah, ch = geo.quad_params[qi][6:8].tolist()
-    p_w = o[got] + hit.t.numpy()[got][:, None] * d[got]
-    p_o = (w2o[:3, :3] @ p_w.T).T + w2o[:3, 3]
-    f = ah * (p_o[:, 0] ** 2 + p_o[:, 1] ** 2) - ch * p_o[:, 2] ** 2
-    np.testing.assert_allclose(f, 1.0, atol=5e-3)
-
-
-@pytest.mark.parametrize("name", sorted(SHAPES))
-def test_quadric_reintersection(name):
-    """Rays re-spawned from offset hit points do not re-hit the same
-    surface at tiny t (shapes.cpp:154-544)."""
-    rng = np.random.default_rng(12)
-    geo = build_job(load_scene_string(_scene(SHAPES[name])), "cpu").scene.geo
-    o, d = (torch.as_tensor(a) for a in _rays(rng, 512))
-    hit = pisect.intersect_closest(geo, o, d, np.inf, traverse_wide)
-    got = hit.prim >= 0
-    assert got.sum() > 50, (name, int(got.sum()))
-    si = pinter.compute_interaction(geo, hit, o, d)
-    t_, b_ = build_onb(si.ng)
-    u1 = torch.as_tensor(rng.uniform(0.05, 0.95, 512).astype(np.float32))
-    u2 = torch.as_tensor(rng.uniform(0, 1, 512).astype(np.float32))
-    local = torch.stack([torch.sqrt(1 - u1) * torch.cos(2 * np.pi * u2),
-                         torch.sqrt(1 - u1) * torch.sin(2 * np.pi * u2),
-                         torch.sqrt(u1)], -1)
-    w = to_world(t_, b_, si.ng, local)
-    o2 = pinter.offset_ray_origin(si.p, si.ng, w)
-    hit2 = pisect.intersect_closest(geo, o2, w, np.inf, traverse_wide)
-    self_hit = got & torch.isfinite(hit2.t) & (hit2.t < 1e-3)
-    assert int(self_hit.sum()) == 0, (name, int(self_hit.sum()))

@@ -17,8 +17,6 @@ and the port (torch).  Tolerances and why:
 - The whole slice (16x16, 2 spp stand-in): see the docstrings there.
 """
 
-from types import SimpleNamespace
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,12 +27,9 @@ from tpurt.config import set_config
 from tpurt.rpf import filter as TF
 from tpurt.render.driver import build_job as tpurt_build_job
 from tpurt.rpf.driver import fill_sample_buffer as tpurt_fill_sample_buffer
-from tpurt.rpf.driver import splat_buffer as tpurt_splat_buffer
 from tpurt.scene import load_scene_string as tpurt_load_scene_string
-from tpurt_torch.render.film import Film
-from tpurt_torch.render.filters import Filter
 from tpurt_torch.rpf import filter as PF
-from tpurt_torch.rpf.driver import render_rpf, splat_buffer
+from tpurt_torch.rpf.driver import render_rpf
 from tpurt_torch.scene import load_scene_string
 from tpurt_torch.testscenes import standin_scene
 
@@ -152,51 +147,6 @@ def test_apply_rpf_filter_matches_tpurt(box, sigma):
     assert moved == 0.0 if box == 3 else moved > (0.1 if sigma > 1 else 1e-3)
 
 
-def test_mi_subset_path_matches_tpurt(monkeypatch):
-    """A 64-row MI cap makes box 7 (4 + 196 neighborhood rows) take the
-    strided-subset path in both packages."""
-    monkeypatch.setattr(TF, "MI_MAX_SAMPLES", 64)
-    monkeypatch.setattr(PF, "MI_MAX_SAMPLES", 64)
-    TF._filter_run_call.cache_clear()
-    buf = _filter_buffer(6)
-    try:
-        want = _tpurt_filter(buf, 7, 5.0)
-    finally:
-        TF._filter_run_call.cache_clear()  # drop the capped build
-    assert PF.filter_plan(7, 4)[0] is not None
-    got = PF.apply_rpf_filter(torch.as_tensor(buf), 7, sigma_seed=5.0).numpy()
-    np.testing.assert_allclose(got[..., 2:5], want[..., 2:5], atol=2e-5)
-
-
-@pytest.mark.parametrize("radius", [0.5, 1.5])
-def test_splat_buffer_matches_tpurt(radius):
-    """Same tap set, bounds drops, NaN/inf scrub and luminance clamp."""
-    from tpurt.render.film import Film as TFilm
-    from tpurt.render.filters import Filter as TFilter
-
-    rng = np.random.default_rng(11)
-    h, w, s = 9, 13, 4
-    buf = np.zeros((h, w, s, 19), np.float32)
-    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
-    buf[..., 0] = xx[..., None] + rng.uniform(0, 1, (h, w, s))
-    buf[..., 1] = yy[..., None] + rng.uniform(0, 1, (h, w, s))
-    buf[..., 2:5] = rng.uniform(0, 2, (h, w, s, 3))
-    buf[0, 0, 0, 2] = np.nan
-    buf[1, 2, 1, 3] = np.inf
-    buf[2, 3, 2, 2:5] = 50.0
-    tfilm = TFilm(full_x=w, full_y=h, crop=(0, w, 0, h),
-                  filter=TFilter("box", (radius, radius), ()),
-                  filename="t.exr", scale=1.0, diagonal_m=0.035,
-                  max_sample_luminance=3.0)
-    want = np.asarray(tpurt_splat_buffer(SimpleNamespace(film=tfilm),
-                                         jnp.asarray(buf)))
-    film = Film(full_x=w, full_y=h, crop=(0, w, 0, h),
-                filter=Filter("box", (radius, radius)), filename="t.exr",
-                scale=1.0, max_sample_luminance=3.0)
-    got = splat_buffer(film, torch.as_tensor(buf))
-    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
-
-
 RPF_TEXT = standin_scene("small", integrator="rpf").replace("[32]", "[16]")
 
 
@@ -217,68 +167,3 @@ def port_render():
                                   return_buffers=True)
     assert (job.film.width, job.film.height, job.sampler.spp) == (16, 16, 2)
     return img, job, extras
-
-
-def test_rpf_sample_buffer_matches_tpurt(tpurt_buffer, port_render):
-    """The raw (16, 16, 2, 19) buffers row for row.  The first measured
-    run gave: film positions equal, lens positions within 3.0e-8 (one
-    ulp), colors within 4.4e-6, normals and positions within 1.9e-5.
-    Frozen bounds: positions within 1e-6; colors within 1e-3 abs + 1e-3
-    rel on >= 99% of rows; normals and positions within 1e-4 abs + 1e-4
-    rel on >= 99% of rows.  (Float rounding of the same Halton samples,
-    tpurt's lax.scan step against the port's compacted bounce loop, as in
-    test_torch_render.)"""
-    want, got = tpurt_buffer[1], port_render[2]["raw_buffer"]
-    assert got.shape == want.shape == (16, 16, 2, 19)
-    np.testing.assert_allclose(got[..., 0:2], want[..., 0:2], rtol=0,
-                               atol=1e-6)
-    np.testing.assert_allclose(got[..., 5:7], want[..., 5:7], rtol=0,
-                               atol=1e-6)
-    col = np.abs(got[..., 2:5] - want[..., 2:5]) <= 1e-3 + 1e-3 * np.abs(
-        want[..., 2:5])
-    assert col.all(axis=-1).mean() >= 0.99
-    feat = np.abs(got[..., 7:] - want[..., 7:]) <= 1e-4 + 1e-4 * np.abs(
-        want[..., 7:])
-    assert feat.all(axis=-1).mean() >= 0.99
-    assert np.abs(got[..., 7:]).max() > 0.1  # features were captured
-
-
-@pytest.mark.parametrize("sigma", [0.002, 5.0])
-def test_port_filter_and_splat_of_tpurt_buffer_match_tpurt(
-        tpurt_buffer, port_render, sigma):
-    """tpurt's raw buffer through tpurt's filter (box 7) and splat, and
-    through the port's, at the reference seed and the strong seed 5.0.
-    The first measured run gave filtered colors within 2.0e-6 (seed
-    0.002, which moves no color of this frame) and 1.5e-5 (seed 5.0,
-    which moves colors by up to 8.2e-3), images within 1.5e-7, and the
-    port's own render within 1.5e-6 of tpurt's image (means 8.4e-8
-    relative apart).  Frozen bounds: filtered colors within 1e-4 abs +
-    1e-4 rel on >= 99% of samples, images within 1e-4 abs + 1e-4 rel on
-    >= 99% of pixels and means within 1e-4 relative; the port's own
-    render as the path slice (mean within 1e-3 relative, >= 99% of
-    pixels within 1e-3 abs + 1e-3 rel)."""
-    tjob, raw = tpurt_buffer
-    set_config(rpf_sigma_seed=sigma)
-    try:
-        want_f = np.asarray(TF.apply_rpf_filter(jnp.asarray(raw), 7,
-                                                pixel_chunk=16,
-                                                chunks_per_call=16))
-    finally:
-        set_config(rpf_sigma_seed=TF.SIGMA_FC_SEED)
-    want_img = np.asarray(tpurt_splat_buffer(tjob, jnp.asarray(want_f)))
-    got_img, job, _ = port_render
-    filt = PF.apply_rpf_filter(torch.as_tensor(raw.copy()), 7,
-                               sigma_seed=sigma)
-    ok = np.abs(filt.numpy()[..., 2:5] - want_f[..., 2:5]) <= (
-        1e-4 + 1e-4 * np.abs(want_f[..., 2:5]))
-    assert ok.all(axis=-1).mean() >= 0.99
-    img = splat_buffer(job.film, filt)
-    ok = np.abs(img - want_img) <= 1e-4 + 1e-4 * np.abs(want_img)
-    assert ok.all(axis=-1).mean() >= 0.99
-    assert abs(img.mean() - want_img.mean()) <= 1e-4 * want_img.mean()
-    assert want_img.mean() > 0.01 and np.isfinite(got_img).all()
-    if sigma == TF.SIGMA_FC_SEED:  # the port's render_rpf uses this seed
-        assert abs(got_img.mean() - want_img.mean()) <= (
-            1e-3 * want_img.mean())
-        ok = np.abs(got_img - want_img) <= 1e-3 + 1e-3 * np.abs(want_img)
-        assert ok.all(axis=-1).mean() >= 0.99

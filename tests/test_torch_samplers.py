@@ -117,24 +117,3 @@ def test_dim_equal(pair, d):
         assert got.dtype == np.float32
         assert (got >= 0).all() and (got < 1).all()
         np.testing.assert_array_equal(got, want)
-
-
-def test_film_offset_equal(pair):
-    tp, port, lanes = pair
-    j, t = _both(lanes)
-    want = tp.film_offset(*j, tp.lane_ctx(*j))
-    got = port.film_offset(*t, port.lane_ctx(*t))
-    for w, g in zip(want, got):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-
-
-def test_sampler_tables_defaults_and_unknown_name():
-    tab = ps.sampler_tables("stratified", PortParamSet(), 8, 8)
-    assert (tab["nx"], tab["ny"], tab["spp"], tab["jitter"]) == (4, 4, 16, True)
-    assert ps.sampler_tables("random", PortParamSet(), 8, 8)["spp"] == 4
-    assert ps.sampler_tables("sobol", _params(PortParamSet, pixelsamples=5),
-                             8, 8)["spp"] == 8
-    assert ps.sampler_tables("random", PortParamSet(), 8, 8,
-                             quick=True)["spp"] == 1
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        ps.sampler_tables("adaptive", PortParamSet(), 8, 8)

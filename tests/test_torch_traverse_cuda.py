@@ -111,7 +111,7 @@ def test_kernel_on_standin_incoherent_rays(standin_job, any_hit):
     geo_ = standin_job.scene.geo
     ids = torch.arange(n, device="cuda") * (700 * 700 * 8) // n
     pid = ids // 8
-    _, _, _, o, d, _, _ = _camera_setup(
+    _, _, _, o, d, _, _, _ = _camera_setup(
         standin_job.sampler, standin_job.camera, pid % 700, pid // 700,
         ids % 8, (0, 0))
     inf = torch.full((n,), float("inf"), device="cuda")
@@ -144,8 +144,9 @@ def test_kernel_on_standin_primary_rays(standin_job):
     n = 1 << 18
     ids = torch.arange(n, device="cuda") * (700 * 700 * 8) // n
     pid = ids // 8
-    _, _, _, o, d, _, _ = _camera_setup(job.sampler, job.camera, pid % 700,
-                                        pid // 700, ids % 8, (0, 0))
+    _, _, _, o, d, _, _, _ = _camera_setup(job.sampler, job.camera,
+                                           pid % 700, pid // 700, ids % 8,
+                                           (0, 0))
     tm = torch.full((n,), float("inf"), device="cuda")
     geo_ = job.scene.geo
     got = ktr.traverse_wide(geo_, o.contiguous(), d.contiguous(), tm, False)

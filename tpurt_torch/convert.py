@@ -1,8 +1,9 @@
 """Carry a tpurt render job across to the port.
 
 ``scene_from_tpurt(job)`` reads every table of a tpurt ``RenderJob``
-(geometry, lights, materials with their texture records, camera, sampler,
-film, integrator config) with ``np.asarray`` and returns the host-table
+(geometry with its motion deltas, animated quadrics, tangents and curve
+tree; lights; materials with their texture records and hair columns; the
+camera, animated or not; sampler, film, integrator config) with ``np.asarray`` and returns the host-table
 dict that ``tpurt_torch.render.driver.host_tables`` builds from a scene
 description, so tests can feed both packages identical state and compare
 the two builds bit for bit.  Upload it with ``driver.job_from_tables``.
@@ -101,22 +102,36 @@ def scene_from_tpurt(job) -> dict:
     if cfg.name not in INTEGRATORS or cfg.spectral:
         raise NotImplementedError(f'tpurt job integrator "{cfg.name}"')
     g = job.scene.geo
-    if (g.accel != "bvh" or g.n_curves or g.wnodes_delta is not None
-            or g.quad_trs is not None):
+    if g.accel != "bvh":
         raise NotImplementedError("tpurt geometry outside the ported slices")
     lt = job.scene.lights
     cam = job.camera
-    if cam.kind not in ("perspective", "orthographic", "environment") or (
-            cam.animated):
+    if cam.kind not in ("perspective", "orthographic", "environment"):
         raise NotImplementedError(f'tpurt camera "{cam.kind}"')
     f = job.film
     a = np.asarray
+
+    def opt(v):
+        return None if v is None else a(v)
+
+    geo = dict(wnodes=a(g.wnodes), shade_rows=a(g.shade_rows),
+               prim_type=a(g.prim_type), quad_id=a(g.quad_id),
+               quad_w2o=a(g.quad_w2o), quad_params=a(g.quad_params),
+               n_tris=int(g.n_tris), n_quads=int(g.n_quads),
+               wstack_depth=int(g.wstack_depth),
+               has_tangents=bool(job.scene.has_tangents),
+               wnodes_delta=opt(g.wnodes_delta),
+               shade_delta=opt(g.shade_delta), quad_trs=opt(g.quad_trs),
+               quad_animated=opt(g.quad_animated), shade_s=opt(g.shade_s))
+    if g.n_curves:
+        geo.update(n_curves=int(g.n_curves), cnodes=a(g.cnodes),
+                   cnodes_aux=opt(g.cnodes_aux),
+                   cstack_depth=int(g.cstack_depth))
+    anim = dict(animated=bool(cam.animated), time0=float(cam.time0),
+                time1=float(cam.time1), anim_t=opt(cam.anim_t),
+                anim_q=opt(cam.anim_q), anim_s=opt(cam.anim_s))
     return dict(
-        geo=dict(wnodes=a(g.wnodes), shade_rows=a(g.shade_rows),
-                 prim_type=a(g.prim_type), quad_id=a(g.quad_id),
-                 quad_w2o=a(g.quad_w2o), quad_params=a(g.quad_params),
-                 n_tris=int(g.n_tris), n_quads=int(g.n_quads),
-                 wstack_depth=int(g.wstack_depth)),
+        geo={k: v for k, v in geo.items() if v is not None},
         lights=dict(rows=a(lt.rows), prim_to_light=a(lt.prim_to_light),
                     power_pmf=a(lt.power_pmf), power_cdf=a(lt.power_cdf),
                     spat_cdf=a(lt.spat_cdf), spat_pmf=a(lt.spat_pmf),
@@ -140,7 +155,8 @@ def scene_from_tpurt(job) -> dict:
                     shutter_open=cam.shutter_open,
                     shutter_close=cam.shutter_close,
                     res_x=cam.res_x, res_y=cam.res_y,
-                    fp_base=float(cam.fp_base), fp_slope=float(cam.fp_slope)),
+                    fp_base=float(cam.fp_base), fp_slope=float(cam.fp_slope),
+                    **anim),
         materials=_materials(job),
         sampler=_sampler(job.sampler),
         film=Film(full_x=f.full_x, full_y=f.full_y, crop=tuple(f.crop),

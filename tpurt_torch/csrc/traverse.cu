@@ -9,6 +9,20 @@
 // wrapper) instead of 1 + 6e-7.  any_hit adds the shadow-ray mode: a lane
 // stops at the first leaf that yields a hit.
 //
+// Three leaf bodies, each its own instantiation of the walk (template
+// parameter LEAF), so that a frame without motion or curves runs exactly
+// the static body and pays nothing for the others in registers:
+//   K1  (TPURT_LEAF_TRI): 12 static triangles a leaf;
+//   K1m (TPURT_LEAF_MOTION): the same triangles lerped to the ray's time,
+//     v + time * dv, by the per-leaf delta rows that mirror the leaf table
+//     (tpurt's _tri_bundle_test(drec, time), intersect.py:669-725);
+//   K1c (TPURT_LEAF_CURVE): 8 cubic Bezier spans a leaf of the curve tree,
+//     each split into 8 sub-segments by constant blossom weights and run
+//     through pbrt's depth-0 width test (tpurt's _curve_bundle_test,
+//     intersect.py:751-897), ribbons scaled by the aux rows.
+// The interior records, the stack, the schedule and the body choice are
+// the same for all three.
+//
 // Tables (derived at upload from the host record table of
 // tpurt/geom/wbvh.py by render/intersect.py:derive_traversal_tables):
 //   interior table, 64 f32 a row (256 B, 56 live):
@@ -16,6 +30,13 @@
 //     children are NaN boxes), [48:56] child references (i32)
 //   leaf table, 128 f32 a row: [0:108] 12 triangles' v0.x..v2.z (12 each,
 //     pads NaN), [108:120] prim rows (i32, pads -1)
+//   motion delta table (K1m), 128 f32 a row beside each leaf row: the
+//     vertex deltas (end - start) in the same slots, pads 0
+//   curve leaf table (K1c), 128 f32 a row: [0:96] 8 spans' 12 control-point
+//     coordinates, coordinate-major (slot 8c + k), pads NaN; [96:104]
+//     span-start widths, [104:112] span-end widths, [112:120] prim rows;
+//     ribbon aux table, 64 f32 a row beside it: n0 (3 x 8), n1 (3 x 8),
+//     angle (8), 1/sin(angle) (8)
 //   a reference is 2 * row + (1 if the row is in the leaf table), so a
 //   lane knows a record's kind before it reads it; root_ref is the root's.
 //
@@ -75,6 +96,15 @@
 // blocks per SM the register budget is set for: 80 registers, no spills
 // (4 gives 96 registers and the same times, 8 spills)
 #define K1_MINBLOCKS 6
+// the motion body holds a leaf group's delta rows beside its vertices, the
+// curve body a span's ray frame and projected control points
+#define K1M_MINBLOCKS 5
+#define K1C_MINBLOCKS 4
+
+#define TPURT_LEAF_TRI 0     // LEAF_KINDS in kernels/traverse.py
+#define TPURT_LEAF_MOTION 1
+#define TPURT_LEAF_CURVE 2
+#define TPURT_CURVE_SUB 8    // 2^CURVE_LEAF_SUBDIV sub-segments a span
 
 #define TPURT_WIDTH 8
 #define TPURT_LEAF_K 12
@@ -82,6 +112,7 @@
 #define TPURT_BLOCK 128
 #define TPURT_INT_ROW4 16      // float4 per interior-table row (256 B)
 #define TPURT_LEAF_ROW4 32     // float4 per leaf-table row (512 B)
+#define TPURT_AUX_ROW4 16      // float4 per ribbon aux row (256 B)
 #define FULL 0xffffffffu
 
 // jnp.minimum / torch.minimum: NaN if either operand is NaN
@@ -106,14 +137,21 @@ __device__ __forceinline__ float max_nan(float a, float b) {
     }                                                      \
   }
 
-// what a lane keeps of its ray
+// what a lane keeps of its ray (a body's unused fields are dead code)
 struct Ray {
   float ox, oy, oz;     // origin
   float ix, iy, iz;     // 1/d with signed infinities on zero components
   float opx, opy, opz;  // origin, permuted for the watertight test
   float sx, sy, sz;     // its shear
   int kx, ky, kz;       // float4 offset of the permuted x, y, z vertex rows
+  float time;           // shutter time (K1m)
+  float dx, dy, dz;     // direction as given (K1c)
+  float dl, hx, hy, hz; // |d| and d / |d| (K1c)
 };
+
+__device__ __forceinline__ float comp(const float4& v, int j) {
+  return reinterpret_cast<const float*>(&v)[j];
+}
 
 // 8 slab tests of an interior record, then the
 // near-first order: key/val sorted, returns the number of children hit
@@ -187,8 +225,12 @@ __device__ __forceinline__ int interior_test(const float4* __restrict__ rec,
 
 // 12 fused watertight triangle tests of a leaf record, 4 per float4 group;
 // the closest hit below t_best, the lowest slot winning a tie as
-// jnp.argmin does
+// jnp.argmin does.  MOTION lerps every loaded vertex row to the ray's time
+// first (v + time * dv, two roundings, the twin's order); the lerp is per
+// component, so lerping the permuted rows equals permuting the lerped ones.
+template <bool MOTION>
 __device__ __forceinline__ void leaf_test(const float4* __restrict__ rec,
+                                          const float4* __restrict__ drec,
                                           const Ray& r, float t_best,
                                           float& t_min, int& k_best,
                                           float& bb0, float& bb1) {
@@ -206,6 +248,22 @@ __device__ __forceinline__ void leaf_test(const float4* __restrict__ rec,
       v[3 * i + 0] = rec[9 * i + r.kx + g];
       v[3 * i + 1] = rec[9 * i + r.ky + g];
       v[3 * i + 2] = rec[9 * i + r.kz + g];
+    }
+    if (MOTION) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const int at[3] = {9 * i + r.kx + g, 9 * i + r.ky + g,
+                           9 * i + r.kz + g};
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float4 dv = drec[at[c]];
+          float4& w = v[3 * i + c];
+          w.x = w.x + r.time * dv.x;
+          w.y = w.y + r.time * dv.y;
+          w.z = w.z + r.time * dv.z;
+          w.w = w.w + r.time * dv.w;
+        }
+      }
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -246,19 +304,195 @@ __device__ __forceinline__ void leaf_test(const float4* __restrict__ rec,
   }
 }
 
-__global__ void __launch_bounds__(TPURT_BLOCK, K1_MINBLOCKS)
+// 8 fused curve spans of a curve leaf record, each tested as 8 blossomed
+// sub-segments in the ray's frame (curve.cpp:162-174, :289-373), op for op
+// as the twin's _curve_bundle_test: within a span the closest sub-segment
+// wins (tpurt's documented deviation), across spans the lowest slot wins a
+// tie.  cw holds the (8, 4, 4) blossom weights.  aux is the leaf's ribbon
+// row, or null.  bb0 / bb1 return the span-local s and the width v.
+__device__ __forceinline__ void curve_leaf_test(
+    const float4* __restrict__ rec, const float4* __restrict__ aux,
+    const float* __restrict__ cw, const Ray& r, float t_best, float& t_min,
+    int& k_best, float& bb0, float& bb1) {
+  const float inf = __int_as_float(0x7f800000);
+  const float z_lim = r.dl * t_best;
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {  // spans 4h .. 4h+3
+    if (h == 1) {
+      const float4 x = rec[1];  // cp0.x of spans 4 .. 7: pads are NaN
+      if (x.x != x.x && x.y != x.y && x.z != x.z && x.w != x.w) break;
+    }
+#pragma unroll 1
+    for (int j = 0; j < 4; ++j) {
+      float c[12];
+#pragma unroll
+      for (int i = 0; i < 12; ++i) c[i] = comp(rec[2 * i + h], j);
+      const float w0 = comp(rec[24 + h], j), w1 = comp(rec[26 + h], j);
+      // "up" = cross(d, cp3 - cp0); degenerate -> CoordinateSystem(d)
+      const float v30x = c[9] - c[0], v30y = c[10] - c[1],
+                  v30z = c[11] - c[2];
+      float ux = r.dy * v30z - r.dz * v30y;
+      float uy = r.dz * v30x - r.dx * v30z;
+      float uz = r.dx * v30y - r.dy * v30x;
+      if (ux * ux + uy * uy + uz * uz < 1e-18f) {
+        const bool pick = fabsf(r.dx) > fabsf(r.dy);
+        ux = pick ? -r.dz : 0.f;
+        uy = pick ? 0.f : r.dz;
+        uz = pick ? r.dx : -r.dy;
+      }
+      // x = normalize(cross(up, dhat)); y = cross(dhat, x)
+      float xx = uy * r.hz - uz * r.hy;
+      float xy = uz * r.hx - ux * r.hz;
+      float xz = ux * r.hy - uy * r.hx;
+      const float xl = max_nan(sqrtf(xx * xx + xy * xy + xz * xz), 1e-20f);
+      xx = xx / xl;
+      xy = xy / xl;
+      xz = xz / xl;
+      const float yx = r.hy * xz - r.hz * xy;
+      const float yy = r.hz * xx - r.hx * xz;
+      const float yz = r.hx * xy - r.hy * xx;
+      float rx[4], ry[4], rz[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float qx = c[3 * i] - r.ox, qy = c[3 * i + 1] - r.oy,
+                    qz = c[3 * i + 2] - r.oz;
+        rx[i] = qx * xx + qy * xy + qz * xz;
+        ry[i] = qx * yx + qy * yy + qz * yz;
+        rz[i] = qx * r.hx + qy * r.hy + qz * r.hz;
+      }
+      bool has_n = false;
+      float n0x = 0.f, n0y = 0.f, n0z = 0.f, n1x = 0.f, n1y = 0.f, n1z = 0.f,
+            ang = 0.f, inv_sin = 0.f;
+      if (aux != nullptr) {
+        n0x = comp(aux[0 + h], j);
+        n0y = comp(aux[2 + h], j);
+        n0z = comp(aux[4 + h], j);
+        n1x = comp(aux[6 + h], j);
+        n1y = comp(aux[8 + h], j);
+        n1z = comp(aux[10 + h], j);
+        ang = comp(aux[12 + h], j);
+        inv_sin = comp(aux[14 + h], j);
+        has_n = n0x * n0x + n0y * n0y + n0z * n0z > 0.5f;
+      }
+      float t_span = inf, s_span = 0.f, v_span = 0.f;
+#pragma unroll 1
+      for (int q = 0; q < TPURT_CURVE_SUB; ++q) {
+        const float* wq = cw + 16 * q;
+        float sx[4], sy[4], sz[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          // sum(w[k][m] * r[m]) from the left, as the twin's sum()
+          float ax = wq[4 * k] * rx[0], ay = wq[4 * k] * ry[0],
+                az = wq[4 * k] * rz[0];
+#pragma unroll
+          for (int m = 1; m < 4; ++m) {
+            ax = ax + wq[4 * k + m] * rx[m];
+            ay = ay + wq[4 * k + m] * ry[m];
+            az = az + wq[4 * k + m] * rz[m];
+          }
+          sx[k] = ax;
+          sy[k] = ay;
+          sz[k] = az;
+        }
+        // endpoint tangent-perpendicular culling (curve.cpp:294-301)
+        const bool e_ok0 =
+            (sy[1] - sy[0]) * (-sy[0]) + sx[0] * (sx[0] - sx[1]) >= 0.f;
+        const bool e_ok1 =
+            (sy[2] - sy[3]) * (-sy[3]) + sx[3] * (sx[3] - sx[2]) >= 0.f;
+        // closest-point parameter on the chord (curve.cpp:303-307)
+        const float cdx = sx[3] - sx[0], cdy = sy[3] - sy[0];
+        const float denom = cdx * cdx + cdy * cdy;
+        const bool den_ok = denom > 0.f;
+        const float wp = -(sx[0] * cdx + sy[0] * cdy) / (den_ok ? denom : 1.f);
+        const float a = q * (1.f / TPURT_CURVE_SUB);
+        const float b = (q + 1) * (1.f / TPURT_CURVE_SUB);
+        const float s =
+            min_nan(max_nan(a + (1.f / TPURT_CURVE_SUB) * wp, a), b);
+        float hw = w0 + (w1 - w0) * s;
+        if (has_n) {
+          // ribbon: the slerped normal's projection on the ray
+          // (curve.cpp:313-321)
+          const bool small = ang < 1e-4f;
+          const float s0 = small ? 1.f - s : sinf((1.f - s) * ang) * inv_sin;
+          const float s1 = small ? s : sinf(s * ang) * inv_sin;
+          const float nhx = s0 * n0x + s1 * n1x;
+          const float nhy = s0 * n0y + s1 * n1y;
+          const float nhz = s0 * n0z + s1 * n1z;
+          hw = hw * (fabsf(nhx * r.dx + nhy * r.dy + nhz * r.dz) / r.dl);
+        }
+        // the sub-segment at clamp(wp, 0, 1), with its derivative
+        const float ww = min_nan(max_nan(wp, 0.f), 1.f);
+        float c1x[3], c1y[3], c1z[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          c1x[i] = sx[i] + ww * (sx[i + 1] - sx[i]);
+          c1y[i] = sy[i] + ww * (sy[i + 1] - sy[i]);
+          c1z[i] = sz[i] + ww * (sz[i + 1] - sz[i]);
+        }
+        const float c2x0 = c1x[0] + ww * (c1x[1] - c1x[0]);
+        const float c2x1 = c1x[1] + ww * (c1x[2] - c1x[1]);
+        const float c2y0 = c1y[0] + ww * (c1y[1] - c1y[0]);
+        const float c2y1 = c1y[1] + ww * (c1y[2] - c1y[1]);
+        const float c2z0 = c1z[0] + ww * (c1z[1] - c1z[0]);
+        const float c2z1 = c1z[1] + ww * (c1z[2] - c1z[1]);
+        const float pcx = c2x0 + ww * (c2x1 - c2x0);
+        const float pcy = c2y0 + ww * (c2y1 - c2y0);
+        const float pcz = c2z0 + ww * (c2z1 - c2z0);
+        float dvx = c2x1 - c2x0, dvy = c2y1 - c2y0;
+        if (dvx * dvx + dvy * dvy == 0.f) {  // EvalBezier fallback
+          dvx = sx[3] - sx[0];
+          dvy = sy[3] - sy[0];
+        }
+        const float dist2 = pcx * pcx + pcy * pcy;
+        const bool ok = e_ok0 && e_ok1 && den_ok &&
+                        dist2 <= hw * hw * 0.25f && pcz > 0.f && pcz < z_lim;
+        const float t_q = pcz / r.dl;
+        if (ok && t_q < t_span) {
+          const float dist = sqrtf(dist2);
+          const float hwc = max_nan(hw, 1e-20f);
+          const float edge_f = dvx * (-pcy) + pcx * dvy;
+          t_span = t_q;
+          s_span = s;
+          v_span = edge_f > 0.f ? 0.5f + dist / hwc : 0.5f - dist / hwc;
+        }
+      }
+      if (t_span < t_min) {  // strict: the lowest slot wins a tie
+        t_min = t_span;
+        k_best = 4 * h + j;
+        bb0 = s_span;
+        bb1 = v_span;
+      }
+    }
+  }
+}
+
+template <int LEAF>
+__global__ void __launch_bounds__(
+    TPURT_BLOCK, LEAF == TPURT_LEAF_CURVE    ? K1C_MINBLOCKS
+                 : LEAF == TPURT_LEAF_MOTION ? K1M_MINBLOCKS
+                                             : K1_MINBLOCKS)
 traverse_wide_kernel(const float4* __restrict__ inodes, int n_inodes,
                      const float4* __restrict__ leaves,
-                     int n_leaves, int root_ref, int step_limit,
+                     int n_leaves, const float4* __restrict__ side,
+                     const float* __restrict__ time_in, int root_ref,
+                     int step_limit,
                      const float* __restrict__ o_in,
                      const float* __restrict__ d_in,
-                     const float* __restrict__ t_max_in, int n,
+                     const float* __restrict__ t_max_in,
+                     const float* __restrict__ curve_w, int n,
                      int stack_depth, int any_hit, float box_scale,
                      float* __restrict__ t_out, int* __restrict__ prim_out,
                      float* __restrict__ b0_out, float* __restrict__ b1_out,
                      int* __restrict__ counter) {
   int stack[TPURT_STACK_MAX];  // local memory; only touched slots cost
   const int lane = threadIdx.x & 31;
+  // the curve body's blossom weights, read by every lane: one copy a block
+  __shared__ float cw[LEAF == TPURT_LEAF_CURVE ? 16 * TPURT_CURVE_SUB : 1];
+  if (LEAF == TPURT_LEAF_CURVE) {
+    for (int i = threadIdx.x; i < 16 * TPURT_CURVE_SUB; i += blockDim.x)
+      cw[i] = curve_w[i];
+    __syncthreads();
+  }
   const float inf = __int_as_float(0x7f800000);
 
   Ray r;
@@ -326,6 +560,16 @@ traverse_wide_kernel(const float4* __restrict__ inodes, int n_inodes,
         r.sx = -dpx / dpz;
         r.sy = -dpy / dpz;
         r.sz = 1.f / dpz;
+        if (LEAF == TPURT_LEAF_MOTION) r.time = time_in[ray];
+        if (LEAF == TPURT_LEAF_CURVE) {
+          r.dx = dx;
+          r.dy = dy;
+          r.dz = dz;
+          r.dl = sqrtf(dx * dx + dy * dy + dz * dz);
+          r.hx = dx / r.dl;
+          r.hy = dy / r.dl;
+          r.hz = dz / r.dl;
+        }
         t_best = t_max_in[ray];
         prim_best = -1;
         b0_best = 0.f;
@@ -385,17 +629,28 @@ traverse_wide_kernel(const float4* __restrict__ inodes, int n_inodes,
         }
       }
     } else if (cur >= 0 && (cur & 1)) {
-      // leaf records: the 12-triangle test
+      // leaf records: the 12-triangle test, or the 8-span curve test
       if ((cur >> 1) >= n_leaves) {  // malformed table
         cur = -1;
       } else {
-        const float4* rec = leaves + (size_t)(cur >> 1) * TPURT_LEAF_ROW4;
+        const size_t row = (size_t)(cur >> 1);
+        const float4* rec = leaves + row * TPURT_LEAF_ROW4;
         float t_min = inf, bb0 = 0.f, bb1 = 0.f;
         int k_best = 0;
-        leaf_test(rec, r, t_best, t_min, k_best, bb0, bb1);
+        if (LEAF == TPURT_LEAF_CURVE) {
+          curve_leaf_test(rec, side ? side + row * TPURT_AUX_ROW4 : nullptr,
+                          cw, r, t_best, t_min, k_best, bb0, bb1);
+        } else {
+          leaf_test<LEAF == TPURT_LEAF_MOTION>(
+              rec,
+              LEAF == TPURT_LEAF_MOTION ? side + row * TPURT_LEAF_ROW4
+                                        : nullptr,
+              r, t_best, t_min, k_best, bb0, bb1);
+        }
         if (t_min < t_best) {
           t_best = t_min;
-          prim_best = reinterpret_cast<const int*>(rec)[108 + k_best];
+          prim_best = reinterpret_cast<const int*>(rec)[
+              (LEAF == TPURT_LEAF_CURVE ? 112 : 108) + k_best];
           b0_best = bb0;
           b1_best = bb1;
         }
@@ -414,28 +669,18 @@ traverse_wide_kernel(const float4* __restrict__ inodes, int n_inodes,
   }
 }
 
-// C entry point for ctypes.  Launches on `stream`, does not synchronise,
-// allocates nothing (`counter` is one int of scratch, zeroed here on the
-// stream); returns cudaGetLastError() (0 = launched).  step_limit is the
-// host table's row count, the bound the plain twin uses.
-extern "C" int tpurt_traverse_wide(const float* inodes, int n_inodes,
-                                   const float* leaves,
-                                   int n_leaves, int root_ref,
-                                   int step_limit, const float* o,
-                                   const float* d, const float* t_max, int n,
-                                   int stack_depth, int any_hit,
-                                   float box_scale, float* t_out,
-                                   int* prim_out, float* b0_out,
-                                   float* b1_out, int* counter,
-                                   void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  if (stack_depth > TPURT_STACK_MAX || stack_depth < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
+template <int LEAF>
+static int launch(const float* inodes, int n_inodes, const float* leaves,
+                  int n_leaves, const float* side, const float* time,
+                  int root_ref, int step_limit, const float* o,
+                  const float* d, const float* t_max, const float* curve_w,
+                  int n, int stack_depth, int any_hit, float box_scale,
+                  float* t_out, int* prim_out, float* b0_out, float* b1_out,
+                  int* counter, cudaStream_t s) {
   int blocks = (n + TPURT_BLOCK - 1) / TPURT_BLOCK;
   // as many blocks as the card holds at once; they share the ray counter.
-  // The count is asked once per device (a benign race: every thread
-  // writes the same value).
+  // The count is asked once per device and body (a benign race: every
+  // thread writes the same value).
   static int resident[64] = {0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -446,17 +691,68 @@ extern "C" int tpurt_traverse_wide(const float* inodes, int n_inodes,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, traverse_wide_kernel, TPURT_BLOCK, 0);
+          &per_sm, traverse_wide_kernel<LEAF>, TPURT_BLOCK, 0);
     if (err != cudaSuccess) return (int)err;
     resident[dev] = sms * (per_sm < 1 ? 1 : per_sm);
   }
   if (blocks > resident[dev]) blocks = resident[dev];
   err = cudaMemsetAsync(counter, 0, sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
-  traverse_wide_kernel<<<blocks, TPURT_BLOCK, 0, s>>>(
+  traverse_wide_kernel<LEAF><<<blocks, TPURT_BLOCK, 0, s>>>(
       reinterpret_cast<const float4*>(inodes), n_inodes,
-      reinterpret_cast<const float4*>(leaves), n_leaves, root_ref,
-      step_limit, o, d, t_max, n, stack_depth, any_hit, box_scale, t_out,
+      reinterpret_cast<const float4*>(leaves), n_leaves,
+      reinterpret_cast<const float4*>(side), time, root_ref, step_limit, o,
+      d, t_max, curve_w, n, stack_depth, any_hit, box_scale, t_out,
       prim_out, b0_out, b1_out, counter);
   return (int)cudaGetLastError();
+}
+
+// C entry point for ctypes.  leaf_kind picks the body (TPURT_LEAF_*):
+// side is the delta table (K1m, required, with time) or the ribbon aux
+// table (K1c, null without ribbons); curve_w is K1c's (8, 4, 4) blossom
+// weights.  Launches on `stream`, does not synchronise, allocates nothing
+// (`counter` is one int of scratch, zeroed here on the stream); returns
+// cudaGetLastError() (0 = launched).  step_limit is the host table's row
+// count, the bound the plain twin uses.
+extern "C" int tpurt_traverse_wide(int leaf_kind, const float* inodes,
+                                   int n_inodes, const float* leaves,
+                                   int n_leaves, const float* side,
+                                   const float* time, int root_ref,
+                                   int step_limit, const float* o,
+                                   const float* d, const float* t_max,
+                                   const float* curve_w, int n,
+                                   int stack_depth, int any_hit,
+                                   float box_scale, float* t_out,
+                                   int* prim_out, float* b0_out,
+                                   float* b1_out, int* counter,
+                                   void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (stack_depth > TPURT_STACK_MAX || stack_depth < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (leaf_kind) {
+    case TPURT_LEAF_TRI:
+      return launch<TPURT_LEAF_TRI>(inodes, n_inodes, leaves, n_leaves,
+                                    nullptr, nullptr, root_ref, step_limit,
+                                    o, d, t_max, curve_w, n, stack_depth,
+                                    any_hit, box_scale, t_out, prim_out,
+                                    b0_out, b1_out, counter, s);
+    case TPURT_LEAF_MOTION:
+      if (side == nullptr || time == nullptr)
+        return (int)cudaErrorInvalidValue;
+      return launch<TPURT_LEAF_MOTION>(inodes, n_inodes, leaves, n_leaves,
+                                       side, time, root_ref, step_limit, o,
+                                       d, t_max, curve_w, n, stack_depth,
+                                       any_hit, box_scale, t_out, prim_out,
+                                       b0_out, b1_out, counter, s);
+    case TPURT_LEAF_CURVE:
+      if (curve_w == nullptr) return (int)cudaErrorInvalidValue;
+      return launch<TPURT_LEAF_CURVE>(inodes, n_inodes, leaves, n_leaves,
+                                      side, nullptr, root_ref, step_limit,
+                                      o, d, t_max, curve_w, n, stack_depth,
+                                      any_hit, box_scale, t_out, prim_out,
+                                      b0_out, b1_out, counter, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

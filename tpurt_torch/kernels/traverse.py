@@ -16,6 +16,14 @@ use, into ``build/tpurt_torch/``) and bound with ctypes.  The twin reads
 the host record table ``geo.wnodes``; the kernel reads the tables derived
 from it at upload (``geo.inodes``, ``geo.leaves``, ``geo.root_ref``:
 ``render.intersect.derive_traversal_tables``).
+
+The walk has three leaf bodies, each its own instantiation of the kernel
+(``LEAF_KINDS``): K1, static triangles; K1m, triangles lerped to each
+ray's time by the per-leaf delta rows (``time`` and ``geo.leaves_delta``;
+tpurt's ``_tri_bundle_test(drec, time)``); K1c, the curve-span tree
+(``tree="curve"``: ``geo.cinodes``, ``geo.cleaves``, ribbons from
+``geo.cleaves_aux``; tpurt's ``_curve_bundle_test``).  A frame without
+motion or curves launches only K1.
 """
 
 from __future__ import annotations
@@ -25,10 +33,11 @@ import functools
 
 import torch
 
-from tpurt_torch.geom.wbvh import REC, SLOT_KIND, WIDTH
+from tpurt_torch.geom.wbvh import LEAF_K, REC, SLOT_KIND, WIDTH
 from tpurt_torch.kernels import build
 from tpurt_torch.render.intersect import (
-    _BOX_T_SCALE, CHILD_LO, INF, INTERIOR_REC, PRIM_LO, SORT8, _box8_test,
+    _BOX_T_SCALE, CHILD_LO, CURVE_AUX, CURVE_PRIM_LO, CURVE_W, INF,
+    INTERIOR_REC, PRIM_LO, SORT8, _box8_test, _curve_bundle_test,
     _tri_bundle_test, safe_inv_dir)
 
 SOURCE = "traverse.cu"
@@ -38,6 +47,9 @@ EXTRA_FLAGS = ("-fmad=false",)
 # DeviceGeometry.host_tables produces (the 192 cap rounded up to a power
 # of two)
 STACK_MAX = 256
+# the leaf bodies, by the code the C entry takes (TPURT_LEAF_* in
+# traverse.cu) and the name chip_smoke.py reports
+LEAF_KINDS = {"tri": (0, "K1"), "motion": (1, "K1m"), "curve": (2, "K1c")}
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,26 +63,51 @@ def load_library() -> build.KernelLibrary:
 def _bind(cdll) -> None:
     fn = cdll.tpurt_traverse_wide
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci, vp, ci, ci, ci, vp, vp, vp, ci, ci, ci,
-                   ctypes.c_float, vp, vp, vp, vp, vp, vp]
+    fn.argtypes = [ci, vp, ci, vp, ci, vp, vp, ci, ci, vp, vp, vp, vp,
+                   ci, ci, ci, ctypes.c_float, vp, vp, vp, vp, vp, vp]
     fn.restype = ci
 
 
-def _launch(geo, o, d, t_max, any_hit: bool):
-    """Check the inputs and launch the traversal kernel on the current
-    stream; returns (t, prim, b0, b1)."""
+def leaf_kind(geo, time, tree: str) -> str:
+    """The leaf body a walk runs: "curve" for the curve tree, "motion"
+    for the triangle tree of an animated mesh with ray times, else
+    "tri"."""
+    if tree == "curve":
+        return "curve"
+    if tree != "tri":
+        raise ValueError(f"tree {tree!r}")
+    return "tri" if time is None or geo.wnodes_delta is None else "motion"
+
+
+def _launch(geo, o, d, t_max, any_hit: bool, time, kind: str):
+    """Check the inputs and launch the traversal kernel with the leaf
+    body ``kind`` on the current stream; returns (t, prim, b0, b1)."""
     n = o.shape[0]
     dev = o.device
-    mi, ml = geo.inodes.shape[0], geo.leaves.shape[0]
-    build.check_tensor("inodes", geo.inodes, torch.float32,
-                       (mi, INTERIOR_REC), dev)
-    build.check_tensor("leaves", geo.leaves, torch.float32, (ml, REC), dev)
+    curve = kind == "curve"
+    inodes = geo.cinodes if curve else geo.inodes
+    leaves = geo.cleaves if curve else geo.leaves
+    depth = geo.cstack_depth if curve else geo.wstack_depth
+    mi, ml = inodes.shape[0], leaves.shape[0]
+    build.check_tensor("inodes", inodes, torch.float32, (mi, INTERIOR_REC),
+                       dev)
+    build.check_tensor("leaves", leaves, torch.float32, (ml, REC), dev)
+    side = None  # per-leaf rows beside `leaves`: deltas or ribbons
+    if kind == "motion":
+        side = geo.leaves_delta
+        build.check_tensor("leaves_delta", side, torch.float32, (ml, REC),
+                           dev)
+        build.check_tensor("time", time, torch.float32, (n,), dev)
+    elif curve and geo.cleaves_aux is not None:
+        side = geo.cleaves_aux
+        build.check_tensor("cleaves_aux", side, torch.float32,
+                           (ml, CURVE_AUX), dev)
     build.check_tensor("o", o, torch.float32, (n, 3), dev)
     build.check_tensor("d", d, torch.float32, (n, 3), dev)
     build.check_tensor("t_max", t_max, torch.float32, (n,), dev)
-    if not 1 <= geo.wstack_depth <= STACK_MAX:
-        raise ValueError(f"wstack_depth {geo.wstack_depth} outside the "
-                         f"kernel's compiled range 1..{STACK_MAX}")
+    if not 1 <= depth <= STACK_MAX:
+        raise ValueError(f"stack depth {depth} outside the kernel's "
+                         f"compiled range 1..{STACK_MAX}")
     t = torch.empty(n, dtype=torch.float32, device=dev)
     prim = torch.empty(n, dtype=torch.int32, device=dev)
     b0 = torch.empty(n, dtype=torch.float32, device=dev)
@@ -78,38 +115,71 @@ def _launch(geo, o, d, t_max, any_hit: bool):
     if n == 0:
         return t, prim, b0, b1
     counter = torch.empty(1, dtype=torch.int32, device=dev)  # ray fetch
+    nodes = geo.cnodes if curve else geo.wnodes
     with torch.cuda.device(dev):
         err = load_library().cdll.tpurt_traverse_wide(
-            geo.inodes.data_ptr(), mi, geo.leaves.data_ptr(), ml,
-            geo.root_ref, geo.wnodes.shape[0], o.data_ptr(), d.data_ptr(),
-            t_max.data_ptr(), n, geo.wstack_depth, int(bool(any_hit)),
-            _BOX_T_SCALE, t.data_ptr(), prim.data_ptr(), b0.data_ptr(),
-            b1.data_ptr(), counter.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.raise_on_error("traverse_wide_kernel", err)
+            LEAF_KINDS[kind][0], inodes.data_ptr(), mi, leaves.data_ptr(),
+            ml, 0 if side is None else side.data_ptr(),
+            time.data_ptr() if kind == "motion" else 0,
+            geo.croot_ref if curve else geo.root_ref, nodes.shape[0],
+            o.data_ptr(), d.data_ptr(), t_max.data_ptr(), _curve_w(dev),
+            n, depth, int(bool(any_hit)), _BOX_T_SCALE, t.data_ptr(),
+            prim.data_ptr(), b0.data_ptr(), b1.data_ptr(),
+            counter.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    build.raise_on_error(f"traverse_wide_kernel ({LEAF_KINDS[kind][1]})",
+                         err)
     return t, prim, b0, b1
 
 
-def traverse_wide(geo, o, d, t_max, any_hit: bool):
+@functools.lru_cache(maxsize=None)
+def _curve_w_tensor(dev: str) -> torch.Tensor:
+    return torch.tensor(CURVE_W, dtype=torch.float32, device=dev)
+
+
+def _curve_w(dev) -> int:
+    """Device pointer to the (8, 4, 4) f32 blossom weights the curve body
+    reads (the twin's CURVE_W, each rounded to f32 once)."""
+    return _curve_w_tensor(str(dev)).data_ptr()
+
+
+def traverse_wide(geo, o, d, t_max, any_hit: bool, time=None,
+                  tree: str = "tri"):
     """Wide-BVH traversal of (N,) rays: returns (t, prim, b0, b1) like
-    tpurt's ``_traverse_wide(..., tree="tri")`` for static geometry.
-    o, d: (N, 3) f32; t_max: (N,) f32; lanes with t_max <= 0 start dead.
-    any_hit stops a lane at its first hit (shadow rays)."""
+    tpurt's ``_traverse_wide(..., time, tree)``.  o, d: (N, 3) f32;
+    t_max: (N,) f32; lanes with t_max <= 0 start dead.  any_hit stops a
+    lane at its first hit (shadow rays).  time (N,) f32: each ray's
+    shutter time, read by the motion body when the mesh is animated.
+    tree "curve" walks the curve-span tree (b0, b1 = span-local s, width
+    v)."""
+    kind = leaf_kind(geo, time, tree)
     if o.device.type == "cpu":
-        return traverse_wide_reference(geo, o, d, t_max, any_hit)
+        return traverse_wide_reference(geo, o, d, t_max, any_hit, time=time,
+                                       tree=tree)
     if o.device.type != "cuda":
         raise NotImplementedError(f"traversal on {o.device}")
-    out = _launch(geo, o, d, t_max, any_hit)
+    out = _launch(geo, o, d, t_max, any_hit, time, kind)
     if o.shape[0]:
         traverse_wide.launches += 1
+        traverse_wide.kernel_launches[LEAF_KINDS[kind][1]] += 1
     return out
 
 
-traverse_wide.launches = 0
+def reset_launches() -> None:
+    """Zero the wrapper's launch counts (the total and by body)."""
+    traverse_wide.launches = 0
+    traverse_wide.kernel_launches = {name: 0 for _c, name in
+                                     LEAF_KINDS.values()}
 
 
-def traverse_wide_reference(geo, o, d, t_max, any_hit: bool, stats=None):
-    """Plain PyTorch twin of tpurt's ``_wide_step_fns`` traversal.
+reset_launches()
+
+
+def traverse_wide_reference(geo, o, d, t_max, any_hit: bool, time=None,
+                            tree: str = "tri", stats=None):
+    """Plain PyTorch twin of tpurt's ``_wide_step_fns`` traversal, for
+    each leaf body: the watertight triangle bundle, lerped to ``time``
+    when the mesh moves (K1m's plain version), or the curve bundle of
+    the curve-span tree (``tree="curve"``, K1c's).
 
     Lockstep over the live lanes: each step gathers one record per lane,
     runs the leaf test on leaf lanes and the 8-box test + ``SORT8``
@@ -125,16 +195,22 @@ def traverse_wide_reference(geo, o, d, t_max, any_hit: bool, stats=None):
 
     ``stats``, a dict, receives the work a traversal of these rays has to
     do: "interior_steps" and "leaf_steps" (records read, by kind),
-    "children" and "triangles" (present child boxes and non-pad triangles
-    tested in them), "sorts" (interior reads with two or more children
-    hit, where an order is needed), and the distinct records read:
-    "interior_records", "leaf_records", and "hit_leaves", the leaves in
-    which some lane found a closer hit (whose prim rows are then read)."""
+    "children" and "triangles" (present child boxes and non-pad triangles,
+    or curve spans, tested in them), "sorts" (interior reads with two or
+    more children hit, where an order is needed), and the distinct records
+    read: "interior_records", "leaf_records", and "hit_leaves", the leaves
+    in which some lane found a closer hit (whose prim rows are then
+    read)."""
     traverse_wide_reference.calls += 1
+    kind = leaf_kind(geo, time, tree)
+    curve = kind == "curve"
     dev = o.device
     n = o.shape[0]
-    S = geo.wstack_depth
-    nodes = geo.wnodes
+    S = geo.cstack_depth if curve else geo.wstack_depth
+    nodes = geo.cnodes if curve else geo.wnodes
+    aux = geo.cnodes_aux if curve else None
+    delta = geo.wnodes_delta if kind == "motion" else None
+    leaf_k, prim_lo = (WIDTH, CURVE_PRIM_LO) if curve else (LEAF_K, PRIM_LO)
     inv_d = safe_inv_dir(d)
     t_best = t_max.to(torch.float32).clone()
     prim_best = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -163,25 +239,35 @@ def traverse_wide_reference(geo, o, d, t_max, any_hit: bool, stats=None):
         descend = torch.zeros(m, dtype=torch.bool, device=dev)
         first = torch.zeros(m, dtype=torch.int64, device=dev)
 
-        # --- leaf lanes: 12 fused triangles, keep the closest ---
+        # --- leaf lanes: the fused bundle, keep the closest ---
         lpos = torch.nonzero(is_leaf).squeeze(1)
         if lpos.numel():
             lanes = live[lpos]
             lrec = rec[lpos]
-            h, t, b0, b1 = _tri_bundle_test(o[lanes], d[lanes],
-                                            t_best[lanes], lrec)
+            rows = cur[lanes]
+            if curve:
+                h, t, b0, b1 = _curve_bundle_test(
+                    o[lanes], d[lanes], t_best[lanes], lrec,
+                    None if aux is None else aux[rows])
+            elif delta is not None:
+                h, t, b0, b1 = _tri_bundle_test(
+                    o[lanes], d[lanes], t_best[lanes], lrec, delta[rows],
+                    time[lanes])
+            else:
+                h, t, b0, b1 = _tri_bundle_test(o[lanes], d[lanes],
+                                                t_best[lanes], lrec)
             tk = torch.where(h, t, INF)
             kbest = torch.argmin(tk, dim=1, keepdim=True)  # first minimum
             t_min = tk.gather(1, kbest)[:, 0]
             better = t_min < t_best[lanes]
             if stats is not None:
                 stats["triangles"] += int(
-                    (~torch.isnan(lrec[:, :12])).sum())
+                    (~torch.isnan(lrec[:, :leaf_k])).sum())
                 seen_hit[cur[lanes[better]]] = True
             bl = lanes[better]
             kb = kbest[better]
             t_best[bl] = t_min[better]
-            prim_rows = lrec[better][:, PRIM_LO:PRIM_LO + 12].contiguous()
+            prim_rows = lrec[better][:, prim_lo:prim_lo + leaf_k].contiguous()
             prim_best[bl] = prim_rows.view(torch.int32).gather(1, kb)[:, 0]
             b0_best[bl] = b0[better].gather(1, kb)[:, 0]
             b1_best[bl] = b1[better].gather(1, kb)[:, 0]

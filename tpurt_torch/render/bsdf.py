@@ -57,20 +57,23 @@ class LobeSet(tuple):
     """The lobe slots some material of a scene can activate (a tuple of
     slot numbers), with the glossy slot's Fresnel kinds (``fresnel``), the
     material kinds of the table's rows (``kinds``; None: any) and whether
-    any material is Disney (``disney``) or a mix (``mix``)."""
+    any material is Disney (``disney``), a mix (``mix``) or hair
+    (``hair``: the integrator computes the hair BSDF only then)."""
 
     def __new__(cls, slots=range(N_SLOTS), fresnel=ALL_FRESNEL, disney=True,
-                mix=True, kinds=None):
+                mix=True, kinds=None, hair=True):
         self = super().__new__(cls, sorted(slots))
         self.fresnel = tuple(sorted(fresnel))
         self.disney = bool(disney)
         self.mix = bool(mix)
         self.kinds = None if kinds is None else tuple(sorted(kinds))
+        self.hair = bool(hair)
         return self
 
     def __repr__(self):
         return (f"LobeSet({tuple(self)}, fresnel={self.fresnel}, "
-                f"disney={self.disney}, mix={self.mix}, kinds={self.kinds})")
+                f"disney={self.disney}, mix={self.mix}, kinds={self.kinds}, "
+                f"hair={self.hair})")
 
 
 ALL_SLOTS = LobeSet()

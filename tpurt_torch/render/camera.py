@@ -8,8 +8,10 @@ narrower image axis, scaled by the aspect in the wider one.  Ray
 differentials are taken by the integrator, which calls generate_rays at
 the film point shifted one pixel in x and in y; ``fp_slope`` is the
 isotropic footprint model of the deeper bounces (``fp_base`` its width at
-the camera, the orthographic camera's).  Animated cameras and the
-realistic camera are outside the port.
+the camera, the orthographic camera's).  An animated camera (a transform
+given for the end time with ``ActiveTransform EndTime``) interpolates
+its camera-to-world per lane at the ray's shutter time (``_interp_c2w``).
+The realistic camera is outside the port.
 """
 
 from __future__ import annotations
@@ -21,7 +23,9 @@ import torch
 
 from tpurt_torch.geom import transform as xf
 from tpurt_torch.scene.paramset import ParamSet
-from tpurt_torch.render.sampling_warps import concentric_sample_disk, norm
+from tpurt_torch.render.sampling_warps import (concentric_sample_disk,
+                                               matvec_lanes, norm,
+                                               slerp_rotation)
 
 
 def _xform_point_batch(m, p):
@@ -58,9 +62,37 @@ class Camera:
     fp_base: float = 0.0
     fp_slope: float = 0.0
     kind: str = "perspective"  # perspective | orthographic | environment
+    # animated camera-to-world (AnimatedTransform, transform.h:412): the
+    # decomposed endpoint pair; a static camera leaves animated False
+    anim_t: torch.Tensor = None  # (2, 3) translations
+    anim_q: torch.Tensor = None  # (2, 4) rotations (w, x, y, z)
+    anim_s: torch.Tensor = None  # (2, 3, 3) scale factors
+    time0: float = 0.0
+    time1: float = 1.0
+    animated: bool = False
 
-    def generate_rays(self, p_film, p_lens):
-        """p_film: (N,2) raster points; p_lens: (N,2) in [0,1)^2.
+    def _interp_c2w(self, time):
+        """Per-lane T-lerp, quaternion slerp and S-lerp, composed
+        (tpurt's _interp_c2w, camera.py:94-121;
+        AnimatedTransform::Interpolate, transform.cpp:467-500).  Returns
+        (rs (N, 3, 3), trans (N, 3)); time (N,) is mapped through the
+        TransformTimes interval."""
+        dt = torch.clamp((time - self.time0)
+                         / max(self.time1 - self.time0, 1e-9), 0.0, 1.0)
+        trans = ((1 - dt)[:, None] * self.anim_t[0]
+                 + dt[:, None] * self.anim_t[1])
+        s = ((1 - dt)[:, None, None] * self.anim_s[0]
+             + dt[:, None, None] * self.anim_s[1])
+        q0, q1 = self.anim_q[0], self.anim_q[1]
+        cos_t = (q0 * q1).sum()
+        q1 = torch.where(cos_t < 0, -q1, q1)
+        cos_t = cos_t.abs()
+        r = slerp_rotation(q0, q1, cos_t, dt)
+        return torch.einsum("nij,njk->nik", r, s), trans
+
+    def generate_rays(self, p_film, p_lens, time=None):
+        """p_film: (N,2) raster points; p_lens: (N,2) in [0,1)^2; time
+        (N,) the shutter time, read only by an animated camera.
         Returns (o, d, weight); d normalized (tpurt's generate_rays,
         camera.py:129-173: perspective.cpp:79-93, orthographic.cpp,
         environment.cpp)."""
@@ -93,8 +125,13 @@ class Camera:
                                                device=p_disk.device)], -1)
             d = p_focus - o
             d = d / norm(d, keepdim=True)
-        o_w = _xform_point_batch(self.camera_to_world, o)
-        d_w = _xform_vector_batch(self.camera_to_world, d)
+        if self.animated and time is not None:
+            rs, trans = self._interp_c2w(time)
+            o_w = matvec_lanes(rs, o) + trans
+            d_w = matvec_lanes(rs, d)
+        else:
+            o_w = _xform_point_batch(self.camera_to_world, o)
+            d_w = _xform_vector_batch(self.camera_to_world, d)
         d_w = d_w / norm(d_w, keepdim=True)
         return o_w, d_w, torch.ones(n, dtype=p_film.dtype,
                                     device=p_film.device)
@@ -127,13 +164,22 @@ def _raster_to_screen_to_camera(camera_to_screen: xf.Transform, sw,
 
 def camera_tables(name: str, ps: ParamSet, camera_to_world: xf.Transform,
                   res_x: int, res_y: int,
-                  camera_to_world_end: xf.Transform = None) -> dict:
+                  camera_to_world_end: xf.Transform = None,
+                  transform_times=(0.0, 1.0)) -> dict:
     """Host-side camera constants (MakeCamera, api.cpp:786-815; tpurt's
-    make_camera, camera.py:308-424)."""
+    make_camera, camera.py:308-424).  With ``camera_to_world_end`` the
+    camera is animated over ``transform_times``: both endpoints are
+    decomposed into translation, rotation and scale."""
     if name not in ("perspective", "orthographic", "environment"):
         raise NotImplementedError(f'Camera "{name}"')
+    anim = dict(anim_t=None, anim_q=None, anim_s=None, animated=False)
     if camera_to_world_end is not None:
-        raise NotImplementedError("animated camera (motion blur)")
+        t0, q0, s0 = xf.decompose_trs(camera_to_world.m)
+        t1, q1, s1 = xf.decompose_trs(camera_to_world_end.m)
+        anim = dict(anim_t=np.stack([t0, t1]).astype(np.float32),
+                    anim_q=np.stack([q0, q1]).astype(np.float32),
+                    anim_s=np.stack([s0, s1]).astype(np.float32),
+                    animated=True)
     if name == "perspective":
         fov = ps.find_one_float("fov", 90.0)
         half_fov = ps.find_one_float("halffov", -1.0)
@@ -171,7 +217,8 @@ def camera_tables(name: str, ps: ParamSet, camera_to_world: xf.Transform,
         focal_distance=ps.find_one_float("focaldistance", 1e6),
         shutter_open=ps.find_one_float("shutteropen", 0.0),
         shutter_close=ps.find_one_float("shutterclose", 1.0),
-        res_x=res_x, res_y=res_y)
+        res_x=res_x, res_y=res_y, time0=float(transform_times[0]),
+        time1=float(transform_times[1]), **anim)
 
 
 def camera_from_tables(tab: dict, device) -> Camera:

@@ -87,19 +87,15 @@ def _check_slice(sd: SceneDescription) -> None:
         kind = getattr(sh, "kind", type(sh).__name__)
         if kind not in SHAPES:
             raise NotImplementedError(f'Shape "{kind}"')
-        if pr.shape_end is not None:
-            raise NotImplementedError("motion blur (animated shapes)")
         if kind == "trianglemesh" and sh.alpha_texture is not None:
             raise NotImplementedError("alpha textures")
-        if kind == "trianglemesh" and sh.tangents is not None:
-            raise NotImplementedError("mesh shading tangents")
         if pr.medium_inside or pr.medium_outside:
             raise NotImplementedError("MediumInterface (participating media)")
 
 
 INTEGRATORS = ("path", "rpf", "directlighting", "whitted")
 SHAPES = ("trianglemesh", "sphere", "cylinder", "disk", "cone", "paraboloid",
-          "hyperboloid")
+          "hyperboloid", "curve")
 
 
 def make_integrator_config(sd: SceneDescription) -> IntegratorConfig:
@@ -188,7 +184,8 @@ def host_tables(sd: SceneDescription, quick: bool = False,
                        has_texfilter=any_imagemap(records)),
         camera=camera_tables(sd.camera_name, sd.camera_params,
                              sd.camera_to_world, film.full_x, film.full_y,
-                             camera_to_world_end=sd.camera_to_world_end),
+                             camera_to_world_end=sd.camera_to_world_end,
+                             transform_times=sd.transform_times),
         sampler=sampler_tables(sd.sampler_name, sd.sampler_params,
                                film.full_x, film.full_y, quick=quick,
                                sample_bounds=film.sample_bounds()),

@@ -9,6 +9,13 @@ estimation at every vertex, continued only through specular lobes.
 Escaped rays take the infinite lights' radiance with its MIS weight
 (only in scenes that hold an infinite light).
 
+A frame with motion (an animated camera, mesh or quadric) draws dim 2
+as each lane's shutter time and carries it in the lane state to every
+ray query and interaction; a static frame draws none and passes None.
+Hair lanes replace the lobe mixture's f, pdf and sample by the hair
+BSDF (render/hair.py), in the frame of the fiber's tangent; meshes with
+``"vector S"`` and curves align the BSDF frame to their tangent.
+
 Per bounce: shade the hit carried from the previous bounce (emitted light
 with the folded MIS weight, next-event estimation, BSDF sampling, Russian
 roulette), then trace this bounce's shadow ray (any-hit) and the next
@@ -32,6 +39,7 @@ import torch
 
 from tpurt_torch.render.bsdf import (ALL_SLOTS, SLOT_FS, SLOT_MIRROR, LobeSet,
                                      bsdf_f, bsdf_pdf, bsdf_sample)
+from tpurt_torch.render.hair import HairParams, hair_f, hair_pdf, hair_sample
 from tpurt_torch.render.interaction import (SurfaceInteraction,
                                             compute_interaction,
                                             offset_ray_origin)
@@ -40,8 +48,9 @@ from tpurt_torch.render.intersect import (DeviceGeometry, Hit, intersect_any,
 from tpurt_torch.render.lights import (LightTable, choice_pmf_at,
                                        choose_light, env_le, env_pdf,
                                        pdf_li_from_hit, sample_li)
-from tpurt_torch.render.materials_build import fetch_lobes
-from tpurt_torch.render.sampling_warps import (build_onb, dot, norm,
+from tpurt_torch.render.materials_build import (C_HAIR0, C_KIND, MAT_HAIR,
+                                                fetch_lobes)
+from tpurt_torch.render.sampling_warps import (build_onb, cross, dot, norm,
                                                power_heuristic, to_local,
                                                to_world)
 
@@ -73,6 +82,44 @@ class SceneData:
     # the lobe slots the scene's materials can activate
     # (materials_build.lobe_slots); the BSDF skips the others
     lobe_slots: LobeSet = ALL_SLOTS
+
+    @property
+    def has_tangents(self) -> bool:
+        """A mesh carries shading tangents or the scene holds curves: the
+        BSDF frame aligns to the tangent (tpurt's has_tangents)."""
+        return self.geo.has_tangents
+
+    @property
+    def has_motion(self) -> bool:
+        """An animated mesh or quadric: rays carry their shutter time."""
+        return (self.geo.wnodes_delta is not None
+                or self.geo.quad_trs is not None)
+
+
+def _shading_frame(si: SurfaceInteraction):
+    """The BSDF's local frame (t, b): the shading tangent when the scene
+    carries one, else the branchless ONB (integrator.py:247-254)."""
+    if si.ss is not None:
+        return si.ss, cross(si.ns, si.ss)
+    return build_onb(si.ns)
+
+
+def _hair_ctx(scene: SceneData, si: SurfaceInteraction):
+    """(is_hair, HairParams) of the hair lanes, or None when the scene has
+    no hair, so a frame without hair computes none of it (tpurt's
+    _hair_ctx, integrator.py:257-277)."""
+    if not scene.lobe_slots.hair:
+        return None
+    mrow = scene.mt_table[si.material_id.clamp(min=0).long()]
+    kind = torch.where(si.material_id >= 0, mrow[:, C_KIND].to(torch.int32),
+                       0)
+    is_hair = (kind == MAT_HAIR) & si.valid
+    row = mrow[:, C_HAIR0:C_HAIR0 + 7]
+    # offset across the fiber width from the curve's v (hair.cpp:165)
+    h = torch.clamp(-1.0 + 2.0 * si.uv[:, 1], -1.0, 1.0)
+    return is_hair, HairParams(h=h, eta=row[:, 3], sigma_a=row[:, 0:3],
+                               beta_m=row[:, 4], beta_n=row[:, 5],
+                               alpha=row[:, 6])
 
 
 def _emitted(scene: SceneData, si: SurfaceInteraction):
@@ -106,22 +153,27 @@ def _escape_pdf(lights: LightTable, d):
 
 
 def _nee_prepare(scene: SceneData, si: SurfaceInteraction, lobes, u_choice,
-                 u_light, strategy: str, alive):
+                 u_light, strategy: str, alive, hair_ctx=None):
     """Light-sampling half of next-event estimation: everything except
     the occlusion trace.  Returns (contrib, o_sh, wi_sh, t_sh, usable)."""
     lt = scene.lights
     lidx, pmf = choose_light(lt, u_choice, strategy, p=si.p)
     ls = sample_li(lt, lidx, si.p, u_light)
-    t, b = build_onb(si.ns)
+    t, b = _shading_frame(si)
     wo_l = to_local(t, b, si.ns, si.wo)
     wi_l = to_local(t, b, si.ns, ls.wi)
-    f = (bsdf_f(lobes, wo_l, wi_l, scene.lobe_slots)
-         * dot(ls.wi, si.ns).abs()[:, None])
+    cos_i = dot(ls.wi, si.ns).abs()[:, None]
+    f = bsdf_f(lobes, wo_l, wi_l, scene.lobe_slots) * cos_i
     scatter_pdf = bsdf_pdf(lobes, wo_l, wi_l, scene.lobe_slots)
+    if hair_ctx is not None:
+        is_hair, hp = hair_ctx
+        f = torch.where(is_hair[:, None], hair_f(hp, wo_l, wi_l) * cos_i, f)
+        scatter_pdf = torch.where(is_hair, hair_pdf(hp, wo_l, wi_l),
+                                  scatter_pdf)
     usable = (alive & si.valid & (ls.pdf > 0)
               & (ls.li > 0).any(dim=-1) & (f > 0).any(dim=-1))
     # shadow ray: offset endpoints, shortened by ShadowEpsilon
-    o_sh = offset_ray_origin(si.p, si.ng, ls.wi)
+    o_sh = offset_ray_origin(si.p, si.ng, ls.wi, si.p_eps)
     dist = norm(ls.p_light - o_sh)
     t_max = torch.where(
         usable, dist * (1.0 - SHADOW_EPS) - 2e-3
@@ -147,15 +199,16 @@ def _tex_footprint(si: SurfaceInteraction, hit_t, camera):
         tex_wv=w_world / torch.clamp(norm(si.dpdv), min=1e-9))
 
 
-def camera_ray_differentials(camera, p_film, p_lens, o, d, spp: int):
+def camera_ray_differentials(camera, p_film, p_lens, o, d, spp: int,
+                             time=None):
     """Camera rays offset one pixel in x and in y from the ray (o, d) of
     p_film (Camera::GenerateRayDifferential's default, camera.cpp:46-66),
     scaled by SamplerIntegrator's ScaleDifferentials(1/sqrt(spp))
     (integrator.cpp:285)."""
     dx = torch.tensor([1.0, 0.0], dtype=torch.float32, device=p_film.device)
     dy = torch.tensor([0.0, 1.0], dtype=torch.float32, device=p_film.device)
-    rx_o, rx_d, _ = camera.generate_rays(p_film + dx, p_lens)
-    ry_o, ry_d, _ = camera.generate_rays(p_film + dy, p_lens)
+    rx_o, rx_d, _ = camera.generate_rays(p_film + dx, p_lens, time)
+    ry_o, ry_d, _ = camera.generate_rays(p_film + dy, p_lens, time)
     s = float(1.0 / np.sqrt(max(spp, 1)))
     return (o + (rx_o - o) * s, d + (rx_d - d) * s,
             o + (ry_o - o) * s, d + (ry_d - d) * s)
@@ -193,18 +246,27 @@ def _tex_differentials(si: SurfaceInteraction, rx_o, rx_d, ry_o, ry_d):
     return solve(px - si.p), solve(py - si.p), ok
 
 
-def _camera_setup(sampler, camera, px, py, sidx, crop_xy):
+def _camera_setup(sampler, camera, px, py, sidx, crop_xy,
+                  draw_time: bool = False):
+    """Film and lens samples and the camera rays (integrator.py:824-841).
+    With ``draw_time`` dim 2 becomes each lane's shutter time (camera.h:72
+    CameraSample); a static frame draws none (time None).  The samplers
+    are stateless per dimension, so drawing it moves no other one."""
     sctx = sampler.lane_ctx(px, py, sidx)
     fx, fy = sampler.film_offset(px, py, sidx, sctx)
     p_film = torch.stack([px.to(torch.float32) + fx,
                           py.to(torch.float32) + fy], dim=-1)
-    # dim 2 is the shutter time, which a static camera does not read
+    time = None
+    if draw_time:
+        u_time = sampler.dim(px, py, sidx, 2, sctx)
+        time = (camera.shutter_open
+                + u_time * (camera.shutter_close - camera.shutter_open))
     p_lens = torch.stack([sampler.dim(px, py, sidx, 3, sctx),
                           sampler.dim(px, py, sidx, 4, sctx)], dim=-1)
-    o, d, ray_w = camera.generate_rays(p_film, p_lens)
+    o, d, ray_w = camera.generate_rays(p_film, p_lens, time)
     p_film_crop = p_film - torch.tensor(crop_xy, dtype=torch.float32,
                                         device=p_film.device)
-    return p_film, p_film_crop, p_lens, o, d, ray_w, sctx
+    return p_film, p_film_crop, p_lens, o, d, ray_w, sctx, time
 
 
 def path_bounce_init(scene: SceneData, sampler, camera, px, py, sidx,
@@ -213,14 +275,16 @@ def path_bounce_init(scene: SceneData, sampler, camera, px, py, sidx,
     """Per-lane wavefront state: camera setup + the bounce-0 closest hit.
     Every value has leading axis N, so a driver may compact the wavefront
     between bounces with a boolean index."""
-    p_film, p_film_crop, p_lens, o, d, ray_w, sctx = _camera_setup(
-        sampler, camera, px, py, sidx, crop_xy)
+    p_film, p_film_crop, p_lens, o, d, ray_w, sctx, time = _camera_setup(
+        sampler, camera, px, py, sidx, crop_xy,
+        draw_time=camera.animated or scene.has_motion)
     n = px.shape[0]
-    hit0 = intersect_closest(scene.geo, o, d, INF, traverse)
+    hit0 = intersect_closest(scene.geo, o, d, INF, traverse, time=time)
     z1 = torch.zeros(n, dtype=torch.float32, device=o.device)
     z3 = torch.zeros((n, 3), dtype=torch.float32, device=o.device)
     st = dict(
-        px=px, py=py, sidx=sidx, sctx=sctx, p_film_crop=p_film_crop,
+        px=px, py=py, sidx=sidx, sctx=sctx, time=time,
+        p_film_crop=p_film_crop,
         p_lens=p_lens, ray_w=ray_w, o=o, d=d, hit_t=hit0.t,
         hit_prim=hit0.prim, hit_b0=hit0.b0, hit_b1=hit0.b1,
         beta=z3 + 1.0, L=z3.clone(), alive=torch.ones_like(px, dtype=torch.bool),
@@ -229,7 +293,7 @@ def path_bounce_init(scene: SceneData, sampler, camera, px, py, sidx,
     if scene.has_texfilter:
         st["rx_o"], st["rx_d"], st["ry_o"], st["ry_d"] = (
             camera_ray_differentials(camera, p_film, p_lens, o, d,
-                                     sampler.spp))
+                                     sampler.spp, time))
     if cfg.capture_features:
         st.update(n0=z3.clone(), p0=z3.clone(), n1=z3.clone(), p1=z3.clone())
     return st
@@ -247,12 +311,15 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
     o, d = state["o"], state["d"]
     beta, L, alive = state["beta"], state["L"], state["alive"]
     prev_pdf, prev_p = state["prev_pdf"], state["prev_p"]
+    time = state.get("time")
     out = dict(state)
 
     hit = Hit(t=state["hit_t"], prim=state["hit_prim"], b0=state["hit_b0"],
               b1=state["hit_b1"])
     si = compute_interaction(scene.geo, hit, o, d,
-                             dpduv=scene.has_bump or scene.has_texfilter)
+                             tangents=scene.has_tangents,
+                             dpduv=scene.has_bump or scene.has_texfilter,
+                             time=time)
     if scene.has_texfilter:
         si = _tex_footprint(si, hit.t, camera)
         # camera hits: ray differentials -> anisotropic EWA derivative
@@ -316,8 +383,13 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
     overrides = texture_eval(si) if texture_eval is not None else None
     lobes = fetch_lobes(scene.mt_table, si.material_id, overrides,
                         scene.lobe_slots)
-    alive = alive & lobes.active.any(dim=-1)
+    hair_ctx = _hair_ctx(scene, si)
+    any_lobe = lobes.active.any(dim=-1)
     has_smooth = lobes.active[:, 0] | lobes.active[:, 1]
+    if hair_ctx is not None:
+        any_lobe = any_lobe | hair_ctx[0]
+        has_smooth = has_smooth | hair_ctx[0]
+    alive = alive & any_lobe
 
     # ---- NEE ----
     d0 = CAMERA_DIMS + bounce * DIMS_PER_BOUNCE
@@ -326,17 +398,25 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
                            sampler.dim(px, py, sidx, d0 + 2, sctx)], dim=-1)
     nee_c, o_sh, wi_sh, t_sh, nee_ok = _nee_prepare(
         scene, si, lobes, u_choice, u_light, cfg.light_strategy,
-        alive & has_smooth)
+        alive & has_smooth, hair_ctx)
     beta_nee = beta  # pre-continuation throughput scales the NEE term
 
     # ---- BSDF sampling ----
     u_lobe = sampler.dim(px, py, sidx, d0 + 3, sctx)
     u1 = sampler.dim(px, py, sidx, d0 + 4, sctx)
     u2 = sampler.dim(px, py, sidx, d0 + 5, sctx)
-    t, b = build_onb(si.ns)
+    t, b = _shading_frame(si)
     wo_l = to_local(t, b, si.ns, si.wo)
     wi_l, f, pdf, is_spec, is_trans = bsdf_sample(lobes, wo_l, u_lobe, u1, u2,
                                                   scene.lobe_slots)
+    if hair_ctx is not None:
+        is_hair, hp = hair_ctx
+        wi_h, f_h, pdf_h = hair_sample(hp, wo_l, u1, u2)
+        wi_l = torch.where(is_hair[:, None], wi_h, wi_l)
+        f = torch.where(is_hair[:, None], f_h, f)
+        pdf = torch.where(is_hair, pdf_h, pdf)
+        is_spec = is_spec & ~is_hair
+        is_trans = is_trans & ~is_hair
     wi = to_world(t, b, si.ns, wi_l)
     ok = alive & (pdf > 0) & (f > 0).any(dim=-1)
     if cfg.specular_only:
@@ -357,7 +437,7 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
     alive = ok
     prev_pdf = torch.clamp(pdf, min=1e-20)
     prev_p = si.p
-    o = offset_ray_origin(si.p, si.ng, wi)
+    o = offset_ray_origin(si.p, si.ng, wi, si.p_eps)
     d = wi
 
     # ---- Russian roulette (path.cpp: bounces > 3) ----
@@ -373,9 +453,10 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
                            beta)
 
     # ---- trace: this bounce's shadow ray + the next bounce's closest ----
-    occluded = intersect_any(scene.geo, o_sh, wi_sh, t_sh, traverse)
+    occluded = intersect_any(scene.geo, o_sh, wi_sh, t_sh, traverse, time)
     hit_next = intersect_closest(scene.geo, o, d,
-                                 torch.where(alive, INF, 0.0), traverse)
+                                 torch.where(alive, INF, 0.0), traverse,
+                                 time)
     L = L + beta_nee * _nee_resolve(nee_c, nee_ok, occluded)
     out.update(o=o, d=d, hit_t=hit_next.t, hit_prim=hit_next.prim,
                hit_b0=hit_next.b0, hit_b1=hit_next.b1, beta=beta, L=L,

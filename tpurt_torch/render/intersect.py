@@ -1,15 +1,19 @@
-"""Geometry upload and ray queries (port of tpurt/render/intersect.py,
-restricted to static scenes of triangles and the six quadrics).
+"""Geometry upload and ray queries (port of tpurt/render/intersect.py:
+triangles, the six quadrics and ray-traced curves, static or moving over
+the shutter).
 
 The wide-BVH record table, the fused shading rows and the quadric tables
-are built on the host exactly as tpurt builds them (the unchanged
-``tpurt.geom.wbvh.build_wide_table`` over the unchanged
-``tpurt.render.geometry_build`` flattening), then uploaded.  Triangles
-are found by BVH traversal (``tpurt_torch.kernels.traverse``: a CUDA
-kernel on CUDA tensors, its plain twin on CPU tensors); quadrics (sphere,
-cylinder, disk, cone, paraboloid, hyperboloid) are tested outside the
-tree in one vectorized pass per quadric, as in tpurt, each by the test of
-its kind, which the host knows.
+are built on the host exactly as tpurt builds them (the port's copies of
+``build_wide_table`` and ``build_curve_table`` over the copied
+``geometry_build`` flattening), then uploaded.  Triangles are found by
+BVH traversal (``tpurt_torch.kernels.traverse``: a CUDA kernel on CUDA
+tensors, its plain twin on CPU tensors); an animated mesh adds the
+per-leaf vertex deltas, which the walk lerps to each ray's time.  Curve
+spans have a second wide tree, walked by the same traversal with the
+curve leaf test.  Quadrics (sphere, cylinder, disk, cone, paraboloid,
+hyperboloid) are tested outside the tree in one vectorized pass per
+quadric, as in tpurt, each by the test of its kind, which the host knows;
+an animated quadric interpolates its transform per lane.
 
 The traversal is an explicit argument of ``intersect_closest`` and
 ``intersect_any`` so a caller can run the whole renderer through either
@@ -24,11 +28,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpurt_torch.geom.wbvh import LEAF_K, SLOT_KIND, WIDTH, build_wide_table
-from tpurt_torch.render.geometry_build import (PT_CONE, PT_CYLINDER, PT_DISK,
+from tpurt_torch.geom.wbvh import (LEAF_K, SLOT_KIND, WIDTH,
+                                   build_curve_table, build_wide_table)
+from tpurt_torch.render.geometry_build import (CURVE_LEAF_SUBDIV,
+                                              FLAG_HAS_TANGENTS, PT_CONE,
+                                              PT_CURVE, PT_CYLINDER, PT_DISK,
                                               PT_HYPERBOLOID, PT_PARABOLOID,
                                               PT_SPHERE, PT_TRIANGLE,
                                               GeometryArrays)
+from tpurt_torch.render.sampling_warps import matvec_lanes, slerp_rotation
 
 INF = float("inf")
 
@@ -36,18 +44,28 @@ INF = float("inf")
 _GAMMA3 = 3.0 * np.finfo(np.float32).eps * 0.5 / (1 - 3 * np.finfo(np.float32).eps * 0.5)
 _BOX_T_SCALE = float(np.float32(1.0 + 2.0 * _GAMMA3))
 
-# interior-record child slots and leaf-record prim slots (wbvh.py layout)
+# interior-record child slots and leaf-record prim slots (wbvh.py layout);
+# a curve leaf holds WIDTH spans, its prim rows after 12 control-point
+# coordinates and 2 widths of each
 CHILD_LO = 6 * WIDTH
 PRIM_LO = 9 * LEAF_K
+CURVE_PRIM_LO = 14 * WIDTH
+# floats per row of the ribbon aux table: [n0 (3W) n1 (3W) angle (W)
+# invSin (W)]
+CURVE_AUX = 8 * WIDTH
 # floats per row of the traversal kernel's packed interior table: the 56
 # live slots of an interior record (48 bounds + 8 child references),
 # padded to 256 B
 INTERIOR_REC = 64
 
 
-def derive_traversal_tables(wnodes: np.ndarray) -> dict:
+def derive_traversal_tables(wnodes: np.ndarray, leaf_side=()) -> dict:
     """The tables the CUDA traversal kernel reads, from the host record
     table ``wnodes`` (M, 128), which stays what the plain twin reads.
+    ``leaf_side`` lists tables that mirror ``wnodes`` row for row (the
+    motion delta table, the ribbon aux table); each comes back in ``side``
+    restricted to the leaves, in ``lrow`` order, so that a leaf's side row
+    is its row in ``leaves``.
 
     The rows reachable from row 0 are split by kind, in row order:
       inodes (Mi, 64) f32: an interior record's 48 child bounds and its
@@ -86,13 +104,28 @@ def derive_traversal_tables(wnodes: np.ndarray) -> dict:
     leaves = np.zeros((max(len(lrow), 1), wnodes.shape[1]), np.float32)
     leaves[:, 0:PRIM_LO] = np.nan
     leaves[:len(lrow)] = wnodes[lrow]
+    side = []
+    for tab in leaf_side:
+        t = np.zeros((len(leaves),) + tab.shape[1:], np.float32)
+        t[:len(lrow)] = tab[lrow]
+        side.append(t)
     return dict(inodes=inodes, leaves=leaves, root_ref=int(ref[0]),
-                irow=irow, lrow=lrow)
+                irow=irow, lrow=lrow, side=side)
+
+
+def _stack_depth(depth: int) -> int:
+    """tpurt's power-of-two stack sizing for a wide tree of ``depth``
+    levels: worst-case residency is (W-1) pushes per interior level."""
+    need = max(8, (depth - 1) * (WIDTH - 1) + 2)
+    sdepth = 8
+    while sdepth < min(need, 192):
+        sdepth *= 2
+    return sdepth
 
 
 @dataclasses.dataclass
 class DeviceGeometry:
-    """Device tables of a static scene of triangles and quadrics.
+    """Device tables of a scene of triangles, quadrics and curves.
 
     wnodes (M, 128) f32: the wide-BVH record table (tpurt.geom.wbvh
         layout; slot 126 is the kind flag: 0 interior, 1 leaf).
@@ -101,7 +134,9 @@ class DeviceGeometry:
         [5] medium_inside [6] medium_outside (bitcast i32);
         triangles [7:16] v0,v1,v2 [16:25] n0,n1,n2 [25:31] uv0,uv1,uv2
         [31] face id (bitcast i32); quadrics [7:19] w2o rows 0..2,
-        [19:27] params[0:8].
+        [19:27] params[0:8]; curves [7:19] span control points,
+        [19:21] w0,w1 [21:23] u0,u1 [23] subtype (bitcast i32)
+        [24:30] ribbon n0,n1 [30] normal angle [31] 1/sin(angle).
     prim_type, quad_id (P,) i32; quad_w2o (Q, 4, 4), quad_params (Q, 16)
         f32: the quadric tables (padding rows when the scene has none).
     wstack_depth: traversal stack slots (tpurt's power-of-two sizing).
@@ -109,6 +144,25 @@ class DeviceGeometry:
         from wnodes at upload (``derive_traversal_tables``).
     quads: (prim type, quad_id) of each quadric prim in prim order, read
         on the host at upload, so each quadric's pass runs its own test.
+
+    Motion blur (None on a static scene, as in tpurt):
+    wnodes_delta (M, 128): per-leaf vertex deltas (end - start) in the
+        leaf layout of wnodes, pads 0; leaves_delta (Ml, 128) the same
+        rows in ``leaves`` order, for the kernel.
+    shade_delta (P, 18): dv0, dv1, dv2, dn0, dn1, dn2 per prim.
+    quad_trs (Q, 2, 16): each quadric's endpoint [t (3), quat wxyz (4),
+        S (9)]; quad_animated (Q,) bool.
+    shade_s (P, 9): per-prim vertex shading tangents, when a mesh carries
+        ``"vector S"`` (None otherwise).
+
+    has_tangents: a mesh carries ``"vector S"`` or the scene holds
+    curves (the BSDF frame then aligns to the shading tangent).
+
+    Ray-traced curves (None / 0 without them): cnodes (Mc, 128) the
+    curve-span tree (wbvh.build_curve_table: interior records as wnodes',
+    leaves of WIDTH spans), cnodes_aux (Mc, 64) its ribbon table (None
+    without ribbons); cinodes, cleaves, cleaves_aux, croot_ref its kernel
+    tables; cstack_depth its stack slots.
     """
 
     wnodes: torch.Tensor
@@ -124,6 +178,23 @@ class DeviceGeometry:
     leaves: torch.Tensor = None
     root_ref: int = 0
     quads: tuple = ()
+    wnodes_delta: torch.Tensor = None
+    leaves_delta: torch.Tensor = None
+    shade_delta: torch.Tensor = None
+    quad_trs: torch.Tensor = None
+    quad_animated: torch.Tensor = None
+    shade_s: torch.Tensor = None
+    n_curves: int = 0
+    cnodes: torch.Tensor = None
+    cnodes_aux: torch.Tensor = None
+    cstack_depth: int = 64
+    cinodes: torch.Tensor = None
+    cleaves: torch.Tensor = None
+    cleaves_aux: torch.Tensor = None
+    croot_ref: int = 0
+    quad_animated_host: tuple = ()
+    # a mesh carries shading tangents or the scene holds curves
+    has_tangents: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -134,12 +205,8 @@ class DeviceGeometry:
         """numpy tables of the geometry (the host half of tpurt's
         DeviceGeometry.from_host, intersect.py:141-287); from_tables
         uploads them."""
-        if g.has_motion or g.has_quad_motion:
-            raise NotImplementedError("motion blur (animated shapes)")
-        if g.n_curves:
-            raise NotImplementedError('Shape "curve"')
-        bad = set(np.unique(g.prim_type).tolist()) - {PT_TRIANGLE,
-                                                      *_QUADRIC_TESTS}
+        bad = set(np.unique(g.prim_type).tolist()) - {
+            PT_TRIANGLE, PT_CURVE, *_QUADRIC_TESTS}
         if bad:
             raise NotImplementedError(f"prim types {sorted(bad)}")
         if (g.medium_inside is not None and (g.medium_inside >= 0).any()) or (
@@ -147,13 +214,9 @@ class DeviceGeometry:
             raise NotImplementedError("MediumInterface (participating media)")
         if not (g.bvh.n_prims <= 1).all():
             raise ValueError("collapse expects 1-prim leaves")
-        wnodes, _, wdepth = build_wide_table(g.bvh, g.tri_v0, g.tri_v1,
-                                             g.tri_v2)
-        # worst-case stack residency: (W-1) pushes per interior level
-        need = max(8, (wdepth - 1) * (WIDTH - 1) + 2)
-        sdepth = 8
-        while sdepth < min(need, 192):
-            sdepth *= 2
+        ends = ((g.tri_e0, g.tri_e1, g.tri_e2) if g.has_motion else ())
+        wnodes, wdelta, wdepth = build_wide_table(g.bvh, g.tri_v0, g.tri_v1,
+                                                  g.tri_v2, *ends)
 
         p = len(g.prim_type)
         med = np.full(p, -1, np.int32)
@@ -179,22 +242,70 @@ class DeviceGeometry:
             qi = np.maximum(g.quad_id[nt:nq], 0)
             rows[nt:nq, 7:19] = g.quad_w2o[qi][:, :3, :].reshape(-1, 12)
             rows[nt:nq, 19:27] = g.quad_params[qi][:, :8]
-        return dict(wnodes=wnodes, shade_rows=rows,
-                    prim_type=g.prim_type.astype(np.int32),
-                    quad_id=g.quad_id.astype(np.int32),
-                    quad_w2o=g.quad_w2o.astype(np.float32),
-                    quad_params=g.quad_params.astype(np.float32),
-                    n_tris=int(g.n_tris), n_quads=int(g.n_quads),
-                    wstack_depth=sdepth)
+        out = dict(wnodes=wnodes, shade_rows=rows,
+                   prim_type=g.prim_type.astype(np.int32),
+                   quad_id=g.quad_id.astype(np.int32),
+                   quad_w2o=g.quad_w2o.astype(np.float32),
+                   quad_params=g.quad_params.astype(np.float32),
+                   n_tris=int(g.n_tris), n_quads=int(g.n_quads),
+                   wstack_depth=_stack_depth(wdepth),
+                   has_tangents=bool((g.flags & FLAG_HAS_TANGENTS).any()
+                                     or g.n_curves))
+        if g.n_curves:
+            base = g.n_tris + g.n_quads
+            cnodes, caux, cdepth = build_curve_table(
+                g.curve_bvh, g.curve_cp, g.curve_w, g.curve_aux, base,
+                g.has_ribbons)
+            ce = base + g.n_curves
+            rows[base:ce, 7:19] = g.curve_cp
+            rows[base:ce, 19:21] = g.curve_w
+            rows[base:ce, 21:23] = g.curve_u
+            rows[base:ce, 23] = g.curve_subtype.astype(np.int32).view(
+                np.float32)
+            rows[base:ce, 24:32] = g.curve_aux
+            out.update(n_curves=int(g.n_curves), cnodes=cnodes,
+                       cnodes_aux=caux, cstack_depth=_stack_depth(cdepth))
+        if g.has_motion:
+            sd = np.zeros((p, 18), np.float32)
+            sd[:, 0:3] = g.tri_e0 - g.tri_v0
+            sd[:, 3:6] = g.tri_e1 - g.tri_v1
+            sd[:, 6:9] = g.tri_e2 - g.tri_v2
+            if nt and len(g.vert_n):
+                sd[:nt, 9:18] = (
+                    (g.vert_ne - g.vert_n)[g.tri_vi[:nt]].reshape(nt, 9))
+            out.update(wnodes_delta=wdelta, shade_delta=sd)
+        if g.has_quad_motion:
+            out.update(quad_trs=g.quad_trs.astype(np.float32),
+                       quad_animated=g.quad_animated.astype(bool))
+        if nt and len(g.vert_s) and (g.flags & FLAG_HAS_TANGENTS).any():
+            ss = np.zeros((p, 9), np.float32)
+            ss[:nt] = g.vert_s[g.tri_vi[:nt]].reshape(nt, 9)
+            out.update(shade_s=ss)
+        return out
 
     @staticmethod
     def from_tables(tables: dict, device) -> "DeviceGeometry":
-        trav = derive_traversal_tables(tables["wnodes"])
+        delta = tables.get("wnodes_delta")
+        trav = derive_traversal_tables(
+            tables["wnodes"], () if delta is None else (delta,))
         nt, nq = tables["n_tris"], tables["n_quads"]
         quads = tuple((int(k), int(q)) for k, q in zip(
             tables["prim_type"][nt:nt + nq], tables["quad_id"][nt:nt + nq]))
         tables = dict(tables, inodes=trav["inodes"], leaves=trav["leaves"],
                       root_ref=trav["root_ref"], quads=quads)
+        if tables.get("quad_animated") is not None:
+            tables["quad_animated_host"] = tuple(
+                bool(a) for a in tables["quad_animated"])
+        if delta is not None:
+            tables["leaves_delta"] = trav["side"][0]
+        if tables.get("cnodes") is not None:
+            aux = tables.get("cnodes_aux")
+            ctrav = derive_traversal_tables(
+                tables["cnodes"], () if aux is None else (aux,))
+            tables.update(cinodes=ctrav["inodes"], cleaves=ctrav["leaves"],
+                          croot_ref=ctrav["root_ref"],
+                          cleaves_aux=ctrav["side"][0] if aux is not None
+                          else None)
         kw = {k: (torch.tensor(v, device=device)
                   if isinstance(v, np.ndarray) else v)
               for k, v in tables.items()}
@@ -234,12 +345,17 @@ def _batcher_network(n: int):
 SORT8 = _batcher_network(WIDTH)
 
 
-def _tri_bundle_test(o, d, t_max, rec):
+def _tri_bundle_test(o, d, t_max, rec, drec=None, time=None):
     """Watertight test of the LEAF_K triangles fused in a leaf record.
     o, d: (N, 3); t_max: (N,); rec: (N, 128).  Returns (hit, t, b0, b1)
-    each (N, LEAF_K); NaN vertex pads never hit."""
+    each (N, LEAF_K); NaN vertex pads never hit.  With drec (the leaf's
+    delta rows) and time (N,), motion blur: the vertices are lerped to the
+    ray's time first (tpurt's intersect.py:669-725)."""
     K = LEAF_K
     v = [rec[:, i * K:(i + 1) * K] for i in range(9)]  # v0x..v2z, (N, K)
+    if drec is not None:
+        v = [vi + time[:, None] * drec[:, i * K:(i + 1) * K]
+             for i, vi in enumerate(v)]
     ax, ay, az = d[:, 0].abs(), d[:, 1].abs(), d[:, 2].abs()
     use2 = ((az >= ax) & (az >= ay))[:, None]  # kz=2 -> (x,y,z)
     use1 = (~use2) & (ay >= ax)[:, None]       # kz=1 -> (z,x,y)
@@ -282,6 +398,169 @@ def _tri_bundle_test(o, d, t_max, rec):
     inv_det = torch.where(det != 0, 1.0 / det, 0.0)
     return (hit, torch.where(hit, t_scaled * inv_det, INF),
             e0 * inv_det, e1 * inv_det)
+
+
+def _curve_blossom_weights() -> np.ndarray:
+    """Constant (2^CURVE_LEAF_SUBDIV, 4, 4) blossom weights turning a
+    span's 4 control points into each uniform sub-segment's 4 control
+    points (BlossomBezier over [j/K, (j+1)/K]; curve.cpp:43-53; tpurt's
+    intersect.py:727-749)."""
+    k = 1 << CURVE_LEAF_SUBDIV
+
+    def bw(u1, u2, u3):
+        e1 = u1 + u2 + u3
+        e2 = u1 * u2 + u1 * u3 + u2 * u3
+        e3 = u1 * u2 * u3
+        return [1 - e1 + e2 - e3, e1 - 2 * e2 + 3 * e3, e2 - 3 * e3, e3]
+
+    out = np.zeros((k, 4, 4), np.float64)
+    for j in range(k):
+        a, b = j / k, (j + 1) / k
+        out[j] = [bw(a, a, a), bw(a, a, b), bw(a, b, b), bw(b, b, b)]
+    return out
+
+
+CURVE_W = _curve_blossom_weights()
+
+
+def _sqrt_ieee(x):
+    """The correctly rounded float32 square root, on every device: torch's
+    CPU sqrt is not (it differs from IEEE on ~0.7% of random inputs, while
+    XLA's and CUDA's sqrtf are exact); the float64 root rounded once to
+    float32 is."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def _curve_bundle_test(o, d, t_max, rec, aux=None):
+    """Test the WIDTH curve spans fused in a curve leaf record (tpurt's
+    _curve_bundle_test, intersect.py:751-897; curve.cpp:139-374).
+
+    Each span's 4 control points are projected into the per-(lane, span)
+    ray frame (LookAt basis, curve.cpp:162-174), split into
+    2^CURVE_LEAF_SUBDIV sub-segments by constant blossom weights, and
+    each sub-segment runs the depth-0 width test (curve.cpp:289-373).
+    o, d: (N, 3); t_max: (N,); rec: (N, 128); aux: (N, 64) ribbon rows or
+    None.  Returns (hit, t, s, v) each (N, WIDTH): s is the span-local
+    curve parameter, v the width coordinate.  NaN control-point pads
+    never pass a comparison.  tpurt's documented deviation is kept:
+    within one span the closest sub-segment hit wins (the reference keeps
+    the last in u order)."""
+    W_ = WIDTH
+    c = [rec[:, i * W_:(i + 1) * W_] for i in range(12)]  # (N, W) each
+    w0 = rec[:, 12 * W_:13 * W_]
+    w1 = rec[:, 13 * W_:14 * W_]
+
+    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    dxx, dyy, dzz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    dl = _sqrt_ieee(dxx * dxx + dyy * dyy + dzz * dzz)
+    hx, hy, hz = dxx / dl, dyy / dl, dzz / dl
+
+    # "up" = cross(d, cp3 - cp0); degenerate -> CoordinateSystem(d)
+    v30x = c[9] - c[0]
+    v30y = c[10] - c[1]
+    v30z = c[11] - c[2]
+    ux = dyy * v30z - dzz * v30y
+    uy = dzz * v30x - dxx * v30z
+    uz = dxx * v30y - dyy * v30x
+    deg = (ux * ux + uy * uy + uz * uz) < 1e-18
+    pick = dxx.abs() > dyy.abs()
+    zero = torch.zeros_like(dzz)
+    ux = torch.where(deg, torch.where(pick, -dzz, zero), ux)
+    uy = torch.where(deg, torch.where(pick, zero, dzz), uy)
+    uz = torch.where(deg, torch.where(pick, dxx, -dyy), uz)
+    # x = normalize(cross(up, dhat)); y = cross(dhat, x)
+    xx = uy * hz - uz * hy
+    xy = uz * hx - ux * hz
+    xz = ux * hy - uy * hx
+    xl = torch.clamp(_sqrt_ieee(xx * xx + xy * xy + xz * xz), min=1e-20)
+    xx, xy, xz = xx / xl, xy / xl, xz / xl
+    yx = hy * xz - hz * xy
+    yy = hz * xx - hx * xz
+    yz = hx * xy - hy * xx
+
+    rx, ry, rz = [], [], []
+    for i in range(4):
+        qx = c[3 * i] - ox
+        qy = c[3 * i + 1] - oy
+        qz = c[3 * i + 2] - oz
+        rx.append(qx * xx + qy * xy + qz * xz)
+        ry.append(qx * yx + qy * yy + qz * yz)
+        rz.append(qx * hx + qy * hy + qz * hz)
+
+    z_lim = dl * t_max[:, None]
+    if aux is not None:
+        n0x, n0y, n0z = aux[:, 0:W_], aux[:, W_:2 * W_], aux[:, 2 * W_:3 * W_]
+        n1x, n1y, n1z = (aux[:, 3 * W_:4 * W_], aux[:, 4 * W_:5 * W_],
+                         aux[:, 5 * W_:6 * W_])
+        ang = aux[:, 6 * W_:7 * W_]
+        inv_sin = aux[:, 7 * W_:8 * W_]
+        has_n = (n0x * n0x + n0y * n0y + n0z * n0z) > 0.5
+
+    t_best = torch.full_like(w0, INF)
+    s_best = torch.zeros_like(w0)
+    v_best = torch.zeros_like(w0)
+    n_sub = CURVE_W.shape[0]
+    for j in range(n_sub):
+        wj = CURVE_W[j]
+        a, b = j / n_sub, (j + 1) / n_sub
+        sx = [sum(float(wj[k, m]) * rx[m] for m in range(4)) for k in range(4)]
+        sy = [sum(float(wj[k, m]) * ry[m] for m in range(4)) for k in range(4)]
+        sz = [sum(float(wj[k, m]) * rz[m] for m in range(4)) for k in range(4)]
+
+        # endpoint tangent-perpendicular culling (curve.cpp:294-301)
+        e_ok0 = (sy[1] - sy[0]) * (-sy[0]) + sx[0] * (sx[0] - sx[1]) >= 0
+        e_ok1 = (sy[2] - sy[3]) * (-sy[3]) + sx[3] * (sx[3] - sx[2]) >= 0
+        # closest-point parameter on the chord (curve.cpp:303-307)
+        cdx = sx[3] - sx[0]
+        cdy = sy[3] - sy[0]
+        denom = cdx * cdx + cdy * cdy
+        den_ok = denom > 0
+        wp = -(sx[0] * cdx + sy[0] * cdy) / torch.where(den_ok, denom, 1.0)
+        s = torch.clamp(a + (b - a) * wp, a, b)  # span-local u (clamped)
+        hw = w0 + (w1 - w0) * s
+        if aux is not None:
+            # ribbon: width scaled by the slerped normal's projection on
+            # the ray (curve.cpp:313-321)
+            small = ang < 1e-4
+            s0 = torch.where(small, 1.0 - s,
+                             torch.sin((1.0 - s) * ang) * inv_sin)
+            s1 = torch.where(small, s, torch.sin(s * ang) * inv_sin)
+            nhx = s0 * n0x + s1 * n1x
+            nhy = s0 * n0y + s1 * n1y
+            nhz = s0 * n0z + s1 * n1z
+            proj = (nhx * dxx + nhy * dyy + nhz * dzz).abs() / dl
+            hw = torch.where(has_n, hw * proj, hw)
+
+        # the sub-segment at clamp(wp, 0, 1), with its derivative
+        ww = torch.clamp(wp, 0.0, 1.0)
+        c1x = [sx[i] + ww * (sx[i + 1] - sx[i]) for i in range(3)]
+        c1y = [sy[i] + ww * (sy[i + 1] - sy[i]) for i in range(3)]
+        c1z = [sz[i] + ww * (sz[i + 1] - sz[i]) for i in range(3)]
+        c2x = [c1x[i] + ww * (c1x[i + 1] - c1x[i]) for i in range(2)]
+        c2y = [c1y[i] + ww * (c1y[i + 1] - c1y[i]) for i in range(2)]
+        c2z = [c1z[i] + ww * (c1z[i + 1] - c1z[i]) for i in range(2)]
+        pcx = c2x[0] + ww * (c2x[1] - c2x[0])
+        pcy = c2y[0] + ww * (c2y[1] - c2y[0])
+        pcz = c2z[0] + ww * (c2z[1] - c2z[0])
+        dvx = c2x[1] - c2x[0]
+        dvy = c2y[1] - c2y[0]
+        dv0 = (dvx * dvx + dvy * dvy) == 0  # EvalBezier fallback (:71-77)
+        dvx = torch.where(dv0, sx[3] - sx[0], dvx)
+        dvy = torch.where(dv0, sy[3] - sy[0], dvy)
+
+        dist2 = pcx * pcx + pcy * pcy
+        ok = (e_ok0 & e_ok1 & den_ok & (dist2 <= hw * hw * 0.25)
+              & (pcz > 0) & (pcz < z_lim))
+        t_j = pcz / dl
+        dist = _sqrt_ieee(dist2)
+        edge_f = dvx * (-pcy) + pcx * dvy
+        hwc = torch.clamp(hw, min=1e-20)
+        v_j = torch.where(edge_f > 0, 0.5 + dist / hwc, 0.5 - dist / hwc)
+        better = ok & (t_j < t_best)
+        t_best = torch.where(better, t_j, t_best)
+        s_best = torch.where(better, s, s_best)
+        v_best = torch.where(better, v_j, v_best)
+    return torch.isfinite(t_best), t_best, s_best, v_best
 
 
 def _box8_test(rec, o, inv_d, t_max):
@@ -548,13 +827,58 @@ def ray_quadric(o, d, t_max, kind: int, w2o, params):
     return hit, torch.where(hit, t, INF), u, v
 
 
-def _quadric_pass(geo: DeviceGeometry, o, d, t, prim, b0, b1):
+def interp_quad_transform(trs_pair, dt):
+    """A decomposed TRS endpoint pair interpolated at per-lane dt
+    (tpurt's interp_quad_transform, intersect.py:1293-1340;
+    AnimatedTransform::Interpolate, transform.cpp:467-500).  trs_pair
+    (2, 16) shared or (N, 2, 16) per-lane rows of [t (3), quat wxyz (4),
+    S (9)]; dt (N,), the shutter time itself (tpurt's mesh-motion
+    convention: TransformTimes is not applied).  Returns (o2w, w2o),
+    each (N, 4, 4)."""
+    dt = torch.clamp(dt, 0.0, 1.0)
+    n = dt.shape[0]
+    if trs_pair.dim() == 2:
+        trs_pair = trs_pair.expand((n,) + tuple(trs_pair.shape))
+    t0, t1 = trs_pair[:, 0, 0:3], trs_pair[:, 1, 0:3]
+    q0, q1 = trs_pair[:, 0, 3:7], trs_pair[:, 1, 3:7]
+    s0 = trs_pair[:, 0, 7:16].reshape(-1, 3, 3)
+    s1 = trs_pair[:, 1, 7:16].reshape(-1, 3, 3)
+    trans = (1 - dt)[:, None] * t0 + dt[:, None] * t1
+    smat = (1 - dt)[:, None, None] * s0 + dt[:, None, None] * s1
+    cos_t = (q0 * q1).sum(dim=-1)
+    q1 = torch.where(cos_t[:, None] < 0, -q1, q1)
+    r = slerp_rotation(q0, q1, cos_t.abs(), dt)
+    rs = torch.einsum("nij,njk->nik", r, smat)
+    o2w = torch.cat([rs, trans[:, :, None]], dim=-1)  # (N, 3, 4)
+    # inverse: x_obj = S^-1 R^T (x - T)
+    inv_rs = torch.einsum("nij,njk->nik", torch.linalg.inv(smat),
+                          r.transpose(-1, -2))
+    inv_t = -torch.einsum("nij,nj->ni", inv_rs, trans)
+    w2o = torch.cat([inv_rs, inv_t[:, :, None]], dim=-1)
+    pad = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=o2w.dtype,
+                       device=o2w.device).expand(n, 1, 4)
+    return torch.cat([o2w, pad], dim=1), torch.cat([w2o, pad], dim=1)
+
+
+def _quadric_pass(geo: DeviceGeometry, o, d, t, prim, b0, b1, time=None):
     """Test every quadric against the whole wavefront (tpurt's
     _quadric_pass, intersect.py:1342-1381): one vectorized pass per
-    quadric, outside the tree, by its kind."""
+    quadric, outside the tree, by its kind.  An animated quadric
+    (``geo.quad_animated``) is tested in its transform at each lane's
+    ``time``; the host knows which quadrics move, so a static one pays
+    nothing."""
     for q, (kind, qi) in enumerate(geo.quads):
-        h, tq, u, v = ray_quadric(o, d, t, kind, geo.quad_w2o[qi],
-                                  geo.quad_params[qi])
+        params = geo.quad_params[qi]
+        if time is not None and geo.quad_trs is not None and (
+                geo.quad_animated_host[qi]):
+            _, w2o_t = interp_quad_transform(geo.quad_trs[qi], time)
+            oo = matvec_lanes(w2o_t, o) + w2o_t[:, :3, 3]
+            od = matvec_lanes(w2o_t, d)
+            h, tq, u, v = _QUADRIC_TESTS[kind](oo, od, t, params)
+            tq = torch.where(h, tq, INF)
+        else:
+            h, tq, u, v = ray_quadric(o, d, t, kind, geo.quad_w2o[qi],
+                                      params)
         better = h & (tq < t)
         t = torch.where(better, tq, t)
         prim = torch.where(better, geo.n_tris + q, prim)
@@ -563,25 +887,41 @@ def _quadric_pass(geo: DeviceGeometry, o, d, t, prim, b0, b1):
     return t, prim, b0, b1
 
 
+def _curve_pass(geo: DeviceGeometry, o, d, t, prim, b0, b1, traverse):
+    """The walk of the curve-span tree (tpurt's _curve_pass,
+    intersect.py:1400-1408): the best t so far is its entry t_max, so
+    farther subtrees are culled.  A curve hit's b0/b1 are (span-local s,
+    width v)."""
+    tc, pc, sc, vc = traverse(geo, o, d, t, any_hit=False, tree="curve")
+    better = (pc >= 0) & (tc < t)
+    return (torch.where(better, tc, t), torch.where(better, pc, prim),
+            torch.where(better, sc, b0), torch.where(better, vc, b1))
+
+
 def _lanes(t_max, o):
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
     return t_max.expand(o.shape[0]).contiguous()
 
 
-def intersect_closest(geo: DeviceGeometry, o, d, t_max, traverse) -> Hit:
+def intersect_closest(geo: DeviceGeometry, o, d, t_max, traverse,
+                      time=None) -> Hit:
     """Closest hit for a wavefront: o, d (N, 3); t_max scalar or (N,).
     traverse is the BVH traversal (kernels.traverse.traverse_wide or its
-    plain twin)."""
+    plain twin).  time (N,): each ray's shutter time, on scenes with
+    motion (None on a static frame)."""
     o, d, t_max = o.contiguous(), d.contiguous(), _lanes(t_max, o)
-    t, prim, b0, b1 = traverse(geo, o, d, t_max, any_hit=False)
+    t, prim, b0, b1 = traverse(geo, o, d, t_max, any_hit=False, time=time)
     if geo.n_quads:
-        t, prim, b0, b1 = _quadric_pass(geo, o, d, t, prim, b0, b1)
+        t, prim, b0, b1 = _quadric_pass(geo, o, d, t, prim, b0, b1, time)
+    if geo.n_curves:
+        t, prim, b0, b1 = _curve_pass(geo, o, d, t, prim, b0, b1, traverse)
     return Hit(t=t, prim=torch.where(torch.isfinite(t), prim, -1), b0=b0,
                b1=b1)
 
 
-def intersect_any(geo: DeviceGeometry, o, d, t_max, traverse):
-    """Shadow-ray predicate: does anything lie along the ray before t_max?"""
+def intersect_any(geo: DeviceGeometry, o, d, t_max, traverse, time=None):
+    """Shadow-ray predicate: does anything lie along the ray before
+    t_max?  (tpurt's intersect_any, intersect.py:1432-1450)"""
     o, d, t_max = o.contiguous(), d.contiguous(), _lanes(t_max, o)
     n = o.shape[0]
     occ = torch.zeros(n, dtype=torch.bool, device=o.device)
@@ -591,9 +931,15 @@ def intersect_any(geo: DeviceGeometry, o, d, t_max, traverse):
         tq, pq, _, _ = _quadric_pass(
             geo, o, d, inf,
             torch.full((n,), -1, dtype=torch.int32, device=o.device),
-            zero, zero)
+            zero, zero, time)
         occ = (pq >= 0) & (tq < t_max)
         # already-occluded lanes skip the tree walk (t_max = 0)
         t_max = torch.where(occ, 0.0, t_max)
-    _, prim, _, _ = traverse(geo, o, d, t_max, any_hit=True)
-    return occ | (prim >= 0)
+    _, prim, _, _ = traverse(geo, o, d, t_max, any_hit=True, time=time)
+    occ = occ | (prim >= 0)
+    if geo.n_curves:
+        t_max = torch.where(occ, 0.0, t_max)
+        _, primc, _, _ = traverse(geo, o, d, t_max, any_hit=True,
+                                  tree="curve")
+        occ = occ | (primc >= 0)
+    return occ

@@ -7,13 +7,16 @@ The table keeps tpurt's fused 53-column row layout, so a tpurt table and
 this one can be compared bit for bit (tpurt_torch.convert).  A textured
 slot keeps its default in the table and is listed in ``textured``; the
 texture evaluator (render/texeval.py) overrides the slots fetch_lobes
-reads per lane.  Hair, fourier, subsurface and kdsubsurface, and any
-material name tpurt does not know, raise NotImplementedError (tpurt maps
-the last to matte with a warning).
+reads per lane.  A hair row carries its Marschner parameters in the
+``C_HAIR0`` columns, which the integrator reads (render/hair.py), and
+tpurt's gray diffuse stand-in in its lobe columns.  Fourier, subsurface
+and kdsubsurface, and any material name tpurt does not know, raise
+NotImplementedError (tpurt maps the last to matte with a warning).
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -26,8 +29,12 @@ from tpurt_torch.render.bsdf import (ALL_SLOTS, FRESNEL_CONDUCTOR,
                                      SLOT_FS, SLOT_GLOSSY, SLOT_GTRANS,
                                      SLOT_MIRROR, LobeParams, LobeSet,
                                      lobe_activity, roughness_to_alpha)
+from tpurt_torch.render.hair import (sigma_a_from_concentration,
+                                     sigma_a_from_reflectance)
 from tpurt_torch.render.materials import COPPER_ETA_RGB, COPPER_K_RGB
 from tpurt_torch.scene.records import MaterialRecord
+
+log = logging.getLogger("tpurt_torch.render")
 
 # columns of the constant-parameter table (tpurt's layout)
 _N_COLS = 39
@@ -57,11 +64,12 @@ MAT_SUBSTRATE = 7
 MAT_TRANSLUCENT = 8
 MAT_DISNEY = 9
 MAT_MIX = 10
+MAT_HAIR = 11
 _KIND_CODES = {"matte": MAT_MATTE, "plastic": MAT_PLASTIC,
                "mirror": MAT_MIRROR, "glass": MAT_GLASS, "metal": MAT_METAL,
                "uber": MAT_UBER, "substrate": MAT_SUBSTRATE,
                "translucent": MAT_TRANSLUCENT, "disney": MAT_DISNEY,
-               "mix": MAT_MIX, "metal_": MAT_METAL}
+               "mix": MAT_MIX, "hair": MAT_HAIR, "metal_": MAT_METAL}
 
 
 class MaterialTable(NamedTuple):
@@ -73,6 +81,9 @@ class MaterialTable(NamedTuple):
     k3: np.ndarray  # (M, 3) f32 conductor k
     mix: np.ndarray  # (M, 2) i32 mix sub-material rows (-1 = none)
     records: List[Optional[MaterialRecord]]  # index == row, mix subs appended
+    # hair columns [sigma_a rgb, eta, beta_m, beta_n, alpha]; zero rows
+    # for other kinds
+    hair: np.ndarray  # (M, 7) f32
 
 
 def _const(slot):
@@ -121,6 +132,7 @@ def build_material_table(materials: List[Optional[MaterialRecord]]
     k3 = np.zeros((max(m, 1), 3), np.float32)
     kinds = np.zeros(max(m, 1), np.int32)
     mix = np.full((max(m, 1), 2), -1, np.int32)
+    hair = np.zeros((max(m, 1), 7), np.float32)
     for i, pair in mix_pairs.items():
         mix[i] = pair
     textured: List[Tuple[int, str]] = []
@@ -188,8 +200,52 @@ def build_material_table(materials: List[Optional[MaterialRecord]]
                                MAT_MIRROR: FRESNEL_NOOP,
                                MAT_DISNEY: FRESNEL_DISNEY}.get(
                                    kind, FRESNEL_DIELECTRIC)
+        if kind == MAT_HAIR:
+            # tpurt's gray diffuse stand-in for integrators without the
+            # hair path; path and direct lighting replace it per lane
+            table[i, C_KD0:C_KD0 + 3] = 0.5
+            hair[i] = _hair_columns(s)
     return MaterialTable(table=table, kinds=kinds, textured=textured, k3=k3,
-                         mix=mix, records=materials)
+                         mix=mix, records=materials, hair=hair)
+
+
+def _hair_columns(s) -> np.ndarray:
+    """[sigma_a rgb, eta, beta_m, beta_n, alpha] of a hair record, sigma_a
+    by CreateHairMaterial's precedence (hair.cpp:151-166; tpurt's
+    materials_build.py:270-309).  A textured hair parameter warns and
+    takes its default, as in tpurt."""
+
+    def hconst(key):
+        v = _const(s.get(key))
+        if v is None and key in s:
+            log.warning('hair: textured "%s" not supported; using its '
+                        'default', key)
+        return v
+
+    out = np.zeros(7, np.float32)
+    bn = hconst("beta_n")
+    bn = 0.3 if bn is None else float(bn.reshape(-1)[0])
+    sa = hconst("sigma_a")
+    if sa is not None:
+        sa = np.clip(sa * np.ones(3), 0.0, None)
+    elif hconst("color") is not None:
+        sa = sigma_a_from_reflectance(
+            np.clip(hconst("color") * np.ones(3), 0.0, 1.0), bn)
+    elif "eumelanin" in s or "pheomelanin" in s:
+        ce = hconst("eumelanin")
+        cp = hconst("pheomelanin")
+        sa = sigma_a_from_concentration(
+            max(0.0, 0.0 if ce is None else float(ce)),
+            max(0.0, 0.0 if cp is None else float(cp)))
+    else:
+        sa = sigma_a_from_concentration(1.3, 0.0)
+    for key, col, default in (("eta", 3, 1.55), ("beta_m", 4, 0.3),
+                              ("alpha", 6, 2.0)):
+        v = hconst(key)
+        out[col] = default if v is None else float(v.reshape(-1)[0])
+    out[0:3] = sa
+    out[5] = bn
+    return out
 
 
 def fuse_material_rows(mt: MaterialTable) -> np.ndarray:
@@ -199,7 +255,7 @@ def fuse_material_rows(mt: MaterialTable) -> np.ndarray:
     return np.concatenate([
         mt.table, mt.kinds.astype(np.float32)[:, None],
         mt.k3.astype(np.float32), mt.mix.astype(np.float32),
-        np.zeros((m, 7), np.float32), np.full((m, 1), -1.0, np.float32),
+        mt.hair.astype(np.float32), np.full((m, 1), -1.0, np.float32),
     ], axis=1)
 
 
@@ -208,7 +264,7 @@ def _row_slots(row: np.ndarray) -> set:
     row, by its kind: a superset where the values come from a texture."""
     kind = int(row[C_KIND])
     if kind in (MAT_MATTE, MAT_PLASTIC, MAT_UBER, MAT_SUBSTRATE,
-                MAT_TRANSLUCENT, MAT_DISNEY):
+                MAT_TRANSLUCENT, MAT_DISNEY, MAT_HAIR):
         slots = {SLOT_DIFFUSE}
     else:
         slots = set()
@@ -239,8 +295,9 @@ def _row_slots(row: np.ndarray) -> set:
 def lobe_slots(mt_table: np.ndarray) -> LobeSet:
     """What the rows of the fused material table can activate: the lobe
     slots (a mix row adds the union of its two sub-rows'), the glossy
-    slot's Fresnel kinds and whether any row is Disney.  fetch_lobes and
-    the BSDF compute nothing else."""
+    slot's Fresnel kinds, the material kinds and whether any row is
+    Disney, a mix or hair.  fetch_lobes, the BSDF and the integrator's hair
+    terms compute nothing else."""
     mt_table = np.asarray(mt_table)
     slots, fresnel, disney, mix = set(), set(), False, False
     kinds = set(mt_table[:, C_KIND].astype(int).tolist())
@@ -254,7 +311,8 @@ def lobe_slots(mt_table: np.ndarray) -> LobeSet:
             slots |= _row_slots(row)
         fresnel.add(int(row[C_FRESNEL]))
         disney |= kind == MAT_DISNEY
-    return LobeSet(slots, fresnel, disney, mix, kinds)
+    return LobeSet(slots, fresnel, disney, mix, kinds,
+                   hair=MAT_HAIR in kinds)
 
 
 def fetch_lobes(mt_table: torch.Tensor, mat_id: torch.Tensor,
@@ -353,7 +411,10 @@ def _fetch_lobes_one(row, kind, texture_overrides, slots) -> dict:
 
     z3 = torch.zeros_like(kd)
     is_matte = is_(MAT_MATTE)
-    lobe_kd = by(is_(MAT_MATTE, MAT_PLASTIC, MAT_UBER, MAT_SUBSTRATE), kd, z3)
+    # hair exposes tpurt's gray diffuse stand-in (path and direct
+    # lighting replace it on hair lanes)
+    lobe_kd = by(is_(MAT_MATTE, MAT_PLASTIC, MAT_UBER, MAT_SUBSTRATE,
+                     MAT_HAIR), kd, z3)
     lobe_ks = by(is_(MAT_PLASTIC, MAT_UBER, MAT_SUBSTRATE), ks, z3)
     # metal's glossy slot carries ks=1 with conductor fresnel
     lobe_ks = by(is_(MAT_METAL), torch.ones_like(ks), lobe_ks)

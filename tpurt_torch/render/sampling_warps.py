@@ -122,3 +122,35 @@ def reflect(wo, n):
 
 def face_forward(n, v):
     return torch.where(dot(n, v)[:, None] < 0, -n, n)
+
+
+def matvec_lanes(m, v):
+    """Per-lane matrices' upper-left 3x3 blocks times vectors: m (N, 3|4,
+    3|4), v (N, 3) -> (N, 3), each row's products summed from the left."""
+    return (m[:, :3, 0] * v[:, 0:1] + m[:, :3, 1] * v[:, 1:2]
+            + m[:, :3, 2] * v[:, 2:3])
+
+
+def slerp_rotation(q0, q1, cos_t, dt):
+    """The rotation matrix of slerp(q0, q1, dt) per lane, as tpurt's
+    animated transforms build it (camera.py:_interp_c2w,
+    intersect.py:interp_quad_transform; Quaternion Slerp,
+    quaternion.cpp:20-30): q0, q1 (4,) or (N, 4) in wxyz with q1 already
+    on q0's hemisphere, cos_t = |q0 . q1|, dt (N,).  Returns (N, 3, 3)."""
+    theta = torch.arccos(torch.clamp(cos_t, -1.0, 1.0))
+    sin_t = torch.clamp(torch.sin(theta), min=1e-9)
+    near = cos_t > 0.9995
+    w0 = torch.where(near, 1 - dt, torch.sin((1 - dt) * theta) / sin_t)
+    w1 = torch.where(near, dt, torch.sin(dt * theta) / sin_t)
+    q = w0[:, None] * q0 + w1[:, None] * q1
+    q = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True),
+                        min=1e-12)
+    w, x, y, z = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+                     2 * (x * z + y * w)], -1),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - x * w)], -1),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w),
+                     1 - 2 * (x * x + y * y)], -1),
+    ], dim=-2)

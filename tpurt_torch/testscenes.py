@@ -533,3 +533,169 @@ def write_camera_scene(path: str, kind: str, **kw) -> str:
         f.write(camera_scene(kind, maps, kw.pop("filename", base + ".exr"),
                              **kw))
     return path
+
+
+# frame E: motion blur, ray-traced curves and hair
+E_SIZES = {
+    "full": dict(res=700, spp=8, mesh_n=128, fibers=8192, ribbons=256,
+                 flats=256),
+    "medium": dict(res=64, spp=2, mesh_n=24, fibers=128, ribbons=32,
+                   flats=32),
+    "small": dict(res=24, spp=2, mesh_n=8, fibers=24, ribbons=4, flats=4),
+}
+HAIR_PATCH = ((-1.6, 1.6), (-5.2, -3.6))  # x and z extent of the roots
+HAIR_HEIGHT = 1.6
+
+
+def hair_fibers(n: int, seed: int = 1, segments: int = 4):
+    """``n`` cubic Bezier fibers of ``segments`` segments each, rooted on
+    the HAIR_PATCH rectangle of the ground and swaying in x and z as they
+    rise: (n, 3 * segments + 1, 3) control points."""
+    rng = np.random.default_rng(seed)
+    (x0, x1), (z0, z1) = HAIR_PATCH
+    root = np.stack([rng.uniform(x0, x1, n), np.zeros(n),
+                     rng.uniform(z0, z1, n)], -1)
+    t = np.linspace(0.0, 1.0, 3 * segments + 1)
+    sway = rng.normal(0.0, 0.35, (n, 2))
+    curl = rng.uniform(0.0, 2 * np.pi, n)
+    h = HAIR_HEIGHT * rng.uniform(0.75, 1.0, n)
+    x = (root[:, 0:1] + sway[:, 0:1] * t ** 2
+         + 0.06 * np.sin(6 * t + curl[:, None]))
+    y = h[:, None] * t
+    z = (root[:, 2:3] + sway[:, 1:2] * t ** 2
+         + 0.06 * np.cos(6 * t + curl[:, None]))
+    return np.stack([x, y, z], -1)
+
+
+def _curves_text(cps, ctype: str, w0: float, w1: float,
+                 normals=None) -> str:
+    out = []
+    for i, cp in enumerate(cps):
+        pts = " ".join(f"{v:.4f}" for v in cp.reshape(-1))
+        line = (f'Shape "curve" "string type" "{ctype}" "point P" [{pts}] '
+                f'"float width0" [{w0}] "float width1" [{w1}]')
+        if normals is not None:
+            nn = " ".join(f"{v:.4f}" for v in normals[i].reshape(-1))
+            line += f' "normal N" [{nn}]'
+        out.append(line)
+    return "\n".join(out) + "\n"
+
+
+def motion_hair_scene(size: str, filename: str = "motion_hair.exr",
+                      integrator: str = "path", res: int = None) -> str:
+    """Frame E as .pbrt text: a camera dollying over the shutter
+    (``TransformTimes 0 1``, shutter 0..1, an ``ActiveTransform EndTime``
+    translate), the two stand-in meshes translating over the shutter (frame
+    A's triangles: K1's motion leaves), a partial sphere with an animated
+    rotate and translate (the quaternion slerp), a patch of cubic-Bezier
+    cylinder fibers under ``Material "hair"`` (eumelanin 1.3, the default
+    beta_m, beta_n and alpha; 4 segments each at the default splitdepth 3),
+    a patch of ribbons with ``"normal N"`` under a lighter hair, one of
+    flat curves under matte, a quad carrying ``"vector S"`` under a metal
+    whose u and v roughness differ, a matte ground, a sphere area light
+    and a distant light."""
+    if integrator not in ("path", "rpf"):
+        raise ValueError(f"integrator {integrator!r}")
+    cfg = E_SIZES[size]
+    res = res or cfg["res"]
+    v, idx = blob_mesh(cfg["mesh_n"], seed=0)
+    mesh = _mesh_text(v * 1.6, idx)
+    fibers = _curves_text(hair_fibers(cfg["fibers"]), "cylinder", 0.018,
+                          0.008)
+    rng = np.random.default_rng(2)
+    nr = cfg["ribbons"]
+    rx = rng.uniform(2.2, 4.2, nr)
+    rz = rng.uniform(-6.5, -5.5, nr)
+    rib = np.stack([np.stack([rx + 0.15 * k, 0.4 * k + 0.05 + 0 * rx,
+                              rz - 0.1 * k * k], -1) for k in range(4)], 1)
+    rib_n = np.zeros((nr, 2, 3))
+    rib_n[:, 0] = [0.0, 0.0, -1.0]
+    rib_n[:, 1] = [-0.6, 0.0, -0.8]
+    ribbons = _curves_text(rib, "ribbon", 0.06, 0.03, rib_n)
+    nf = cfg["flats"]
+    fx = rng.uniform(-4.4, -2.6, nf)
+    fz = rng.uniform(-6.4, -5.4, nf)
+    flat = np.stack([np.stack([fx + 0.2 * np.sin(k + fx), 0.35 * k + 0 * fx,
+                               fz], -1) for k in range(4)], 1)
+    flats = _curves_text(flat, "flat", 0.05, 0.02)
+    return f"""# tpurt_torch frame E ({size}): motion blur, curves and hair
+TransformTimes 0 1
+LookAt 0 4.5 -15  0 1.6 0  0 1 0
+ActiveTransform EndTime
+Translate 0 0 -0.4
+ActiveTransform All
+Camera "perspective" "float fov" [39] "float shutteropen" [0]
+  "float shutterclose" [1]
+Sampler "halton" "integer pixelsamples" [{cfg["spp"]}]
+Integrator "{integrator}" "integer maxdepth" [5]
+PixelFilter "box"
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]
+  "string filename" "{filename}"
+WorldBegin
+LightSource "distant" "point from" [-2 6 -5] "point to" [0 0 0]
+  "color L" [1.2 1.15 1.05]
+AttributeBegin
+  AreaLightSource "area" "color L" [30 30 30]
+  Translate 3 9 -5
+  Shape "sphere" "float radius" [1.2]
+AttributeEnd
+AttributeBegin
+  Material "matte" "color Kd" [0.5 0.5 0.5]
+  Shape "trianglemesh" "point P" [-30 0 -30  30 0 -30  30 0 30  -30 0 30]
+    "integer indices" [0 2 1  0 3 2]
+AttributeEnd
+AttributeBegin
+  Material "plastic" "color Kd" [0.4 0.2 0.2] "color Ks" [0.5 0.5 0.5]
+    "float roughness" [0.025]
+  AttributeBegin
+    Translate -2.6 0 1
+    ActiveTransform EndTime
+    Translate 0.8 0 0
+    ActiveTransform All
+    {mesh}  AttributeEnd
+  AttributeBegin
+    Translate 2.4 0 3
+    Rotate 40 0 1 0
+    ActiveTransform EndTime
+    Translate 0 0.5 0
+    ActiveTransform All
+    {mesh}  AttributeEnd
+AttributeEnd
+AttributeBegin
+  Material "matte" "color Kd" [0.2 0.45 0.3]
+  Translate 4.4 1.0 -2.5
+  ActiveTransform EndTime
+  Translate 0 0.4 0
+  Rotate 35 0 1 0
+  ActiveTransform All
+  Rotate -90 1 0 0
+  Shape "sphere" "float radius" [0.8] "float phimax" [250]
+AttributeEnd
+AttributeBegin
+  Material "metal" "float uroughness" [0.02] "float vroughness" [0.3]
+  Shape "trianglemesh" "point P" [-4.8 0.2 -3  -3.4 0.2 -2  -3.4 2.4 -2
+    -4.8 2.4 -3]
+    "integer indices" [0 1 2  0 2 3]
+    "vector S" [0.81 0 0.58  0.81 0 0.58  0.81 0 0.58  0.81 0 0.58]
+AttributeEnd
+AttributeBegin
+  Material "hair" "float eumelanin" [1.3]
+{fibers}AttributeEnd
+AttributeBegin
+  Material "hair" "float eumelanin" [0.3]
+{ribbons}AttributeEnd
+AttributeBegin
+  Material "matte" "color Kd" [0.7 0.6 0.2]
+{flats}AttributeEnd
+WorldEnd
+"""
+
+
+def write_motion_hair(path: str, size: str = "full", **kw) -> str:
+    """Write frame E to ``path``; returns ``path``.  kw: ``integrator``
+    ("path" or "rpf"), ``res``, ``filename``."""
+    base = path.rsplit(".", 1)[0]
+    with open(path, "w") as f:
+        f.write(motion_hair_scene(size, kw.pop("filename", base + ".exr"),
+                                  **kw))
+    return path
