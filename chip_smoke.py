@@ -5,7 +5,8 @@
                                       # breakdown of one path frame, one
                                       # RPF frame, one direct-lighting
                                       # textured frame, one frame D and
-                                      # one frame E
+                                      # one frame E, and traces the host
+                                      # too in F's and AO's profiles
 
 Phases (any failure exits non-zero; none is caught):
   1. environment: versions, the card's name and power limit
@@ -104,6 +105,25 @@ Phases (any failure exits non-zero; none is caught):
      Integrator "rpf" at 256x256 through the CLI; E at 64x64 on the card
      against the CPU (phase 9's bounds).  Frames A-D must launch only the
      static body (cli_counted)
+ 16. main path F: the CLI renders frame F (700x700, 8 spp, volpath,
+     maxdepth 5: the camera in a homogeneous fog, the stand-in meshes, a
+     Material "none" sphere holding a 64^3 grid medium, a glass sphere
+     holding a scattering medium, a spot light and a sphere area light)
+     on the card, its grid text's parse time printed; K1's static body
+     launches, nothing else; the media show against renders with the
+     media, the spot's in-scattering and the shadow walk switched off
+     (f_checks); K1 against its plain version on F's camera rays and its
+     first two bounce steps, the shadow walks' crossing calls included;
+     3 timed renders after a warm-up (media_render_s, peak memory, the
+     tracking loops' steps and both overflow counts, which must be 0); one
+     profiled frame (launches, idle share; under --profile the tracking
+     loops' and the walk's share of the device time); F at 64x64 on the
+     card against the CPU (phase 9's bounds)
+ 17. main path AO: the CLI renders the stand-in under Integrator "ao"
+     (700x700, 8 spp, 64 occlusion rays a hit) on the card; K1 against its
+     plain version on the camera rays and two samples' occlusion rays; 3
+     timed renders (ao_render_s); one profiled frame (launches, K1's
+     share of the device time); AO at 64x64 on the card against the CPU
 K1 on every path: phase 4 holds the kernel to its plain version on path
 A's rays; paths B, C1, C2 and the whitted variant walk other scenes or
 other rays, so each records the calls K1's wrapper receives while 2^20
@@ -246,12 +266,17 @@ def frame_ray_calls(job, bounces: int, cfg=None):
     whole frame, go through the integrator as render.driver.trace_lanes
     takes them: path_bounce_init, then up to ``bounces`` path_bounce_step
     calls with the alive lanes kept by a boolean index between them, until
-    none is alive.  ``cfg`` defaults to the job's (the RPF sampling pass
-    has its own).  Each call is (o, d, t_max, any_hit, time, tree) as the
-    wrapper got it, on the card."""
-    from tpurt_torch.kernels.traverse import traverse_wide
-    from tpurt_torch.render.integrator import (path_bounce_init,
+    none is alive (volpath's init and step on a scene with media, their
+    shadow walks' crossing calls included; ao's camera hits and occlusion
+    rays).  ``cfg`` defaults to the job's (the RPF sampling pass has its
+    own).  Each call is (o, d, t_max, any_hit, time, tree) as the wrapper
+    got it, on the card."""
+    from tpurt_torch.config import tpurt_chunk
+    from tpurt_torch.render.integrator import (ao_radiance,
+                                               path_bounce_init,
                                                path_bounce_step)
+    from tpurt_torch.render.volpath import (volpath_bounce_init,
+                                            volpath_bounce_step)
 
     cfg = cfg or job.cfg
     dev = job.scene.geo.device
@@ -263,25 +288,43 @@ def frame_ray_calls(job, bounces: int, cfg=None):
     x0, _, y0, _ = film.crop
     px = (x0 + pid % film.width).to(torch.int64)
     py = (y0 + pid // film.width).to(torch.int64)
-    calls = []
-
-    def recording(geo, o, d, t_max, any_hit, time=None, tree="tri"):
-        calls.append((o, d, t_max, any_hit, time, tree))
-        return traverse_wide(geo, o, d, t_max, any_hit, time=time, tree=tree)
-
-    st = path_bounce_init(job.scene, job.sampler, job.camera, px, py,
-                          ids % spp, cfg, recording, crop_xy=(x0, y0))
+    calls, recording = recorder()
+    if cfg.name == "ao":
+        ao_radiance(job.scene, job.sampler, job.camera, px, py, ids % spp,
+                    cfg, recording, crop_xy=(x0, y0))
+        torch.cuda.synchronize()
+        return calls
+    # volpath's own step on a scene with media, as trace_lanes runs it
+    init, step, extra = path_bounce_init, path_bounce_step, {}
+    if cfg.name == "volpath" and job.scene.has_media:
+        init, step = volpath_bounce_init, volpath_bounce_step
+        extra = dict(track_lane=ids % tpurt_chunk(total))
+    st = init(job.scene, job.sampler, job.camera, px, py, ids % spp, cfg,
+              recording, crop_xy=(x0, y0), **extra)
     for bounce in range(bounces):
         alive = st["alive"]
         if not bool(alive.any()):
             break
         # (a sampler without a lane context carries None)
         st = {k: None if v is None else v[alive] for k, v in st.items()}
-        st = path_bounce_step(job.scene, job.sampler, cfg, st, bounce,
-                              recording, camera=job.camera,
-                              texture_eval=job.texture_eval)
+        st = step(job.scene, job.sampler, cfg, st, bounce, recording,
+                  camera=job.camera, texture_eval=job.texture_eval)
     torch.cuda.synchronize()
     return calls
+
+
+def recorder():
+    """(calls, traverse): a traversal that launches K1's wrapper and
+    records each call's (o, d, t_max, any_hit, time, tree) in calls."""
+    from tpurt_torch.kernels.traverse import traverse_wide
+
+    calls = []
+
+    def recording(geo, o, d, t_max, any_hit, time=None, tree="tri"):
+        calls.append((o, d, t_max, any_hit, time, tree))
+        return traverse_wide(geo, o, d, t_max, any_hit, time=time, tree=tree)
+
+    return calls, recording
 
 
 def frame_ray_sets(job):
@@ -893,11 +936,9 @@ def phase_cross_new():
         assert equal, name
 
 
-def _ground_view(job):
-    """Per pixel of the frame (pixel centres, pinhole): the world point
-    where the primary ray meets the ground plane y = 0, a mask of the
-    pixels whose first hit is that plane (the ground quad), a mask of the
-    pixels whose ray escapes, and the ray directions.  Numpy arrays."""
+def _pixel_rays(job):
+    """Pixel-centre pinhole rays of the frame and their first hits through
+    K1: (o, d, t, prim) as float64 / int numpy arrays."""
     from tpurt_torch.kernels.traverse import traverse_wide
     from tpurt_torch.render.intersect import intersect_closest
 
@@ -909,8 +950,17 @@ def _ground_view(job):
     p = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1)
     o, d, _ = job.camera.generate_rays(p, torch.zeros_like(p))
     hit = intersect_closest(job.scene.geo, o, d, float("inf"), traverse_wide)
-    o, d = o.double().cpu().numpy(), d.double().cpu().numpy()
-    t, prim = hit.t.double().cpu().numpy(), hit.prim.cpu().numpy()
+    return (o.double().cpu().numpy(), d.double().cpu().numpy(),
+            hit.t.double().cpu().numpy(), hit.prim.cpu().numpy())
+
+
+def _ground_view(job):
+    """Per pixel of the frame (pixel centres, pinhole): the world point
+    where the primary ray meets the ground plane y = 0, a mask of the
+    pixels whose first hit is that plane (the ground quad), a mask of the
+    pixels whose ray escapes, and the ray directions.  Numpy arrays."""
+    film = job.film
+    o, d, t, prim = _pixel_rays(job)
     t_plane = -o[:, 1] / np.minimum(d[:, 1], -1e-6)
     ground = ((prim >= 0) & (d[:, 1] < -1e-6)
               & (np.abs(t - t_plane) <= 1e-3 * t_plane))
@@ -1252,28 +1302,281 @@ def phase_motion_hair(gpu: str):
             k1_e, checks)
 
 
-def phase_profile(label: str, frame, wall_s: float):
+def phase_profile(label: str, frame, wall_s: float, ranges=(),
+                  top: int = 12, host: bool = True):
     """Device time by kernel over one full frame (``frame()``).  The idle
     share is 1 - kernel time / the unprofiled wall time ``wall_s``
-    (tracing inflates the profiled wall clock)."""
+    (tracing inflates the profiled wall clock).  ``ranges``: names of
+    profiler ranges in the port (render/volpath.py's) whose kernels'
+    device time is reported beside the total; they need the host's
+    activity traced too, which on a frame of ~500,000 launches costs
+    minutes: with ``host=False`` only the device is traced and no range
+    is reported.  Returns the launches, the busy seconds, the idle share,
+    K1's kernel seconds and each range's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    if not host:
+        ranges = ()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if host else [])) as prof:
         frame()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.key not in ranges]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     launches = sum(e.count for e in kernels)
+    k1 = sum(e.self_device_time_total for e in kernels
+             if "traverse" in e.key) / 1e6
+    out = dict(launches=launches, busy_s=busy, idle=1 - busy / wall_s,
+               k1_s=k1, k1_share=k1 / max(busy, 1e-12))
     print(f"profile {label}: {launches} kernel launches, device busy "
-          f"{busy:.4f}s of {wall_s:.4f}s (idle share {1 - busy / wall_s:.3f})")
-    for e in kernels[:12]:
+          f"{busy:.4f}s of {wall_s:.4f}s (idle share {1 - busy / wall_s:.3f});"
+          f" K1 kernels {k1:.4f}s ({k1 / max(busy, 1e-12):.3f} of busy)")
+    for name in ranges:
+        cpu = [e for e in events if e.key == name
+               and e.device_type != DeviceType.CUDA]
+        dev_s = sum(e.device_time_total for e in cpu) / 1e6
+        calls = sum(e.count for e in cpu)
+        out[name] = dev_s
+        print(f"  range {name}: {calls} calls, device time of its kernels "
+              f"{dev_s:.4f}s ({dev_s / max(busy, 1e-12):.3f} of busy)"
+              + (" (the profiler gave the range no device time: not "
+                 "measured)" if calls and not dev_s else ""))
+    for e in kernels[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
               f"{e.key[:100]}")
+    return out
+
+
+def _sphere_chord(c, r, a, u, t_max):
+    """Length of the segments a + s u (u unit, s in [0, t_max]) inside the
+    sphere (c, r)."""
+    oc = a - np.asarray(c)
+    b = (oc * u).sum(-1)
+    disc = b * b - ((oc * oc).sum(-1) - r * r)
+    sq = np.sqrt(np.maximum(disc, 0.0))
+    s0 = np.clip(-b - sq, 0.0, t_max)
+    s1 = np.clip(-b + sq, 0.0, t_max)
+    return np.where(disc > 0, s1 - s0, 0.0)
+
+
+def f_checks(job, img):
+    """The media show in frame F the way dead media code would not.  Each
+    is measured against a render of the same job with one part switched
+    off, on the same samples (pixel sets from the scene's own description
+    in tpurt_torch.testscenes and pixel-centre pinhole rays):
+      media: mean |frame - the frame with every sigma zeroed| over the
+        latter's mean; dead media code gives 0;
+      shaft: over back-wall pixels outside the spot's footprint whose
+        camera ray runs > 2 units inside the spot's cone, the median of
+        frame / media-removed frame, over the same median where the ray
+        misses the cone; in-scattering from the spot makes it > 1, a dead
+        medium vertex NEE gives ~1;
+      smoke shadow: over back-wall pixels inside the spot's inner cone
+        whose segment to the spot crosses the smoke sphere (chord > r/2),
+        the median luminance over that of the footprint's unshadowed
+        pixels (attenuated: < 1; the smoke's transmittance) and over the
+        same pixels' median when the shadow walk is off (shadow rays
+        occluded by the null sphere: the walk's dead value, 1).
+    Returns the measured numbers."""
+    import dataclasses
+
+    from tpurt_torch import testscenes as ts
+    from tpurt_torch.kernels.traverse import traverse_wide
+    from tpurt_torch.render.driver import render_job
+    from tpurt_torch.render.intersect import intersect_any
+
+    sc = job.scene
+    o, d, t, prim = _pixel_rays(job)
+    pw = o + t[:, None] * d
+    c, r = np.asarray(ts.SMOKE_CENTER), ts.SMOKE_RADIUS
+    wall = (prim >= 0) & (np.abs(pw[:, 2] - ts.WALL_Z) < 1e-3)
+    clear = wall & (_sphere_chord(c, r, o, d, t) == 0)
+    removed = render_job(dataclasses.replace(job, scene=dataclasses.replace(
+        sc, med_sigma_t=torch.zeros_like(sc.med_sigma_t),
+        med_sigma_s=torch.zeros_like(sc.med_sigma_s))))
+    lum, lum_rm = img.mean(-1).reshape(-1), removed.mean(-1).reshape(-1)
+    media = float(np.abs(img - removed).mean() / removed.mean())
+
+    sf = np.asarray(ts.SPOT_FROM)
+    axis = (c - sf) / np.linalg.norm(c - sf)
+
+    def cone_cos(q):
+        v = q - sf
+        return (v @ axis) / np.linalg.norm(v, axis=-1)
+
+    cos_out = np.cos(np.deg2rad(ts.SPOT_CONE))
+    cos_in = np.cos(np.deg2rad(ts.SPOT_CONE - ts.SPOT_DELTA))
+    steps = np.linspace(0.0, 1.0, 66)[1:-1]
+    inside = sum((cone_cos(o + (s * t)[:, None] * d) > cos_out)
+                 for s in steps)
+    ell = inside / len(steps) * t
+    off_foot = clear & (cone_cos(pw) <= cos_out)
+    shaft_px, calm_px = off_foot & (ell > 2.0), off_foot & (ell == 0)
+    ratio = lum / np.maximum(lum_rm, 1e-6)
+    shaft = float(np.median(ratio[shaft_px]) / np.median(ratio[calm_px]))
+
+    to_l = sf - pw
+    dist = np.linalg.norm(to_l, axis=-1)
+    u = to_l / np.maximum(dist, 1e-9)[:, None]
+    chord = _sphere_chord(c, r, pw, u, dist)
+    foot = clear & (cone_cos(pw) > cos_in)
+    dev = sc.geo.device
+    occ = intersect_any(
+        sc.geo, torch.tensor(pw + 1e-3 * u, dtype=torch.float32, device=dev),
+        torch.tensor(u, dtype=torch.float32, device=dev),
+        torch.tensor(dist * 0.999, dtype=torch.float32, device=dev),
+        traverse_wide).cpu().numpy()
+    shadow_px, lit_px = foot & (chord > 0.5 * r), foot & (chord == 0) & ~occ
+    no_walk = render_job(dataclasses.replace(job, scene=dataclasses.replace(
+        sc, has_null_boundaries=False)))
+    lum_nw = no_walk.mean(-1).reshape(-1)
+    out = dict(media_removed_rel_diff=media, shaft_ratio=shaft,
+               smoke_shadow_over_lit=float(np.median(lum[shadow_px])
+                                           / np.median(lum[lit_px])),
+               smoke_shadow_over_no_walk=float(np.median(lum[shadow_px])
+                                               / np.median(lum_nw[shadow_px])),
+               pixels=dict(wall=int(wall.sum()), shaft=int(shaft_px.sum()),
+                           calm=int(calm_px.sum()),
+                           shadow=int(shadow_px.sum()),
+                           lit=int(lit_px.sum())))
+    print(f"F checks: {out}")
+    assert min(out["pixels"].values()) > 100, out
+    assert media > 0.1, out
+    assert shaft > 1.3, out
+    assert out["smoke_shadow_over_lit"] < 0.8, out
+    assert out["smoke_shadow_over_no_walk"] > 1.25, out
+    return out
+
+
+def render_timed(job, runs: int = 3):
+    """(median seconds, the runs, peak memory in bytes, the last image) of
+    ``runs`` renders of a built job after one warm-up."""
+    from tpurt_torch.render.driver import render_job
+
+    render_job(job)  # warm-up
+    times, peak = [], 0
+    for _ in range(runs):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img = render_job(job)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+    assert np.isfinite(img).all() and img.mean() > 0
+    return statistics.median(times), times, peak, img
+
+
+def phase_media(gpu: str, profile_all: bool):
+    """Main path F: frame F (participating media through volpath) through
+    the CLI at 700x700, 8 spp: its parse time, the traversal counters (K1
+    only, no plain traversal), the media checks, K1 against its plain
+    version on F's own rays (the camera rays, the first two bounce steps
+    with their shadow walks' crossing calls), 3 timed renders
+    (media_render_s) with the media loops' counters, one profiled frame
+    (launches, idle share, the tracking loops' and the walk's share), and
+    F at 64x64 on the card against the CPU."""
+    from tpurt_torch.render.driver import (build_job, load_scene, render,
+                                           render_job)
+    from tpurt_torch.render.volpath import (GRID_OVERFLOW, TRACK_STATS,
+                                            TRACKING_RANGE, WALK_OVERFLOW,
+                                            WALK_RANGE)
+    from tpurt_torch.testscenes import write_media
+
+    t_phase = time.time()
+    scene = write_media(str(WORK / "media_full.pbrt"), "full")
+    t0 = time.time()
+    sd = load_scene(scene)
+    parse_s = time.time() - t0
+    grid = sd.media["smoke"].density
+    print(f"scene F: {Path(scene).stat().st_size / 1e6:.2f} MB of text, "
+          f"parsed in {parse_s:.2f}s; grid medium {grid.shape} "
+          f"({grid.nbytes / 1e6:.2f} MB), media {list(sd.media)}, camera in "
+          f"{sd.camera_medium!r}")
+    img, launches, cli_s = cli_counted(scene, WORK / "media_full_out.exr",
+                                       "main path F (volpath, media)")
+    assert img.shape == (700, 700, 3)
+    job = build_job(sd, "cuda")
+    assert job.cfg.name == "volpath" and job.scene.has_grid_media
+    assert job.scene.has_null_boundaries and job.scene.camera_medium >= 0
+    checks = f_checks(job, img)
+    k1_f = k1_on_path("F media", job, 2)
+    assert sum(not r["any_hit"] for r in k1_f) > 3, k1_f  # walk crossings
+    render_s, runs, peak, img = render_timed(job)
+    stats = TRACK_STATS.read()
+    steps = stats.get("Media/Grid tracking steps", 0)
+    lanes = max(stats.get("Media/Grid tracked lanes", 0), 1)
+    track = dict(steps_mean=steps / lanes,
+                 steps_max=stats.get("Media/Grid tracking steps (max)", 0),
+                 tracked_lanes=lanes,
+                 grid_overflow=stats.get(GRID_OVERFLOW, 0),
+                 walk_overflow=stats.get(WALK_OVERFLOW, 0))
+    print(f"media_render_s {render_s:.4f} (runs {['%.4f' % r for r in runs]})"
+          f" peak mem {peak / 2**30:.3f} GiB, image mean {img.mean():.5f}, "
+          f"CLI first run {cli_s:.2f}s on {gpu}; media loops (last frame): "
+          f"{track}")
+    assert track["grid_overflow"] == 0 and track["walk_overflow"] == 0
+    t_prof = time.time()
+    prof = phase_profile("media frame F", lambda: render_job(job),
+                         render_s, ranges=(TRACKING_RANGE, WALK_RANGE),
+                         top=25 if profile_all else 8, host=profile_all)
+    t_prof = time.time() - t_prof
+    gimg, _ = render(load_scene(write_media(str(WORK / "media_64.pbrt"),
+                                            "medium")), "cuda")
+    himg, _ = render(load_scene(str(WORK / "media_64.pbrt")), "cpu")
+    _close(gimg, himg, "F 64x64")
+    print(f"phase 16 took {time.time() - t_phase:.1f}s, the profiled frame "
+          f"{t_prof:.1f}s of it")
+    return dict(launches=launches, render_s=render_s, parse_s=parse_s,
+                peak=peak, checks=checks, track=track, profile=prof,
+                k1=k1_f)
+
+
+def phase_ao(gpu: str, profile_all: bool):
+    """Main path AO: the stand-in under Integrator "ao" (64 cosine-weighted
+    occlusion rays a camera hit) through the CLI at 700x700, 8 spp: the
+    traversal counters, K1 against its plain version on AO's rays (the
+    camera rays and the first two samples' occlusion rays: 2^20 camera
+    paths), 3 timed renders (ao_render_s), one profiled frame (K1's share
+    of the device time) and AO at 64x64 on the card against the CPU."""
+    import dataclasses
+
+    from tpurt_torch.render.driver import (build_job, load_scene, render,
+                                           render_job)
+    from tpurt_torch.testscenes import write_standin
+
+    scene = write_standin(str(WORK / "standin_ao_full.pbrt"), "full",
+                          integrator="ao")
+    img, launches, cli_s = cli_counted(scene, WORK / "standin_ao_out.exr",
+                                       "main path AO (ambient occlusion)")
+    assert img.shape == (700, 700, 3) and img.max() <= 1.0 + 1e-5
+    job = build_job(load_scene(scene), "cuda")
+    assert job.cfg.name == "ao" and job.cfg.ao_samples == 64
+    k1_ao = k1_on_path("AO", job, 0,
+                       dataclasses.replace(job.cfg, ao_samples=2))
+    assert [r["any_hit"] for r in k1_ao] == [False, True, True], k1_ao
+    render_s, runs, peak, img = render_timed(job)
+    rays = job.film.width * job.film.height * job.sampler.spp
+    print(f"ao_render_s {render_s:.4f} (runs {['%.4f' % r for r in runs]}) "
+          f"peak mem {peak / 2**30:.3f} GiB, image mean {img.mean():.5f}, "
+          f"{rays} camera paths x {job.cfg.ao_samples} occlusion rays, CLI "
+          f"first run {cli_s:.2f}s on {gpu}")
+    prof = phase_profile("ao frame", lambda: render_job(job), render_s,
+                         host=profile_all)
+    print(f"AO: K1 {'is' if prof['k1_share'] > 0.5 else 'is not'} most of "
+          f"the device time ({prof['k1_share']:.3f})")
+    small = write_standin(str(WORK / "standin_ao_64.pbrt"), "medium",
+                          integrator="ao")
+    gimg, _ = render(load_scene(small), "cuda")
+    himg, _ = render(load_scene(small), "cpu")
+    _close(gimg, himg, "AO 64x64")
+    return dict(launches=launches, render_s=render_s, peak=peak,
+                profile=prof, k1=k1_ao)
 
 
 # the jnp code of tpurt's _traverse_wide that each leaf body replaces
@@ -1360,6 +1663,11 @@ def main(argv=None) -> int:
     (e_job, launches_e, e_bodies, launches_e_rpf, e_rpf_bodies, e_s, k1_e,
      e_checks_out) = phase_motion_hair(gpu)
     stamp("phase 15 (E)")
+    media = phase_media(gpu, "--profile" in argv)
+    stamp("phase 16 (F)")
+    ao = phase_ao(gpu, "--profile" in argv)
+    stamp("phase 17 (AO)")
+    k1_paths.update(media=media["k1"], ao=ao["k1"])
     if "--profile" in argv:
         from tpurt_torch.render.driver import render_job
         from tpurt_torch.rpf.driver import render_rpf_job
@@ -1380,15 +1688,19 @@ def main(argv=None) -> int:
              replaces="tpurt/kernels/traverse.py:54",
              launches=(launches_a + launches_b + launches_c1 + launches_w
                        + sum(launches_c2.values()) + launches_d
-                       + launches_d_rpf),
+                       + launches_d_rpf + media["launches"]
+                       + ao["launches"]),
              launches_by_path={
                  "path": launches_a, "rpf": launches_b,
                  "direct_textured": launches_c1,
                  "rpf_random": launches_c2["random"],
                  "rpf_stratified": launches_c2["stratified"],
                  "whitted": launches_w, "materials": launches_d,
-                 "materials_rpf": launches_d_rpf},
-             materials_checks=d_checks,
+                 "materials_rpf": launches_d_rpf,
+                 "media": media["launches"], "ao": ao["launches"]},
+             materials_checks=d_checks, media_checks=media["checks"],
+             media_tracking=media["track"],
+             ao_k1_share_of_device=ao["profile"]["k1_share"],
              vs_plain_by_path=k1_paths, **k1),
         *(leaf_body_entry(body, k1_e, {
             "motion_hair": e_bodies[body],

@@ -27,8 +27,7 @@ def test_supported_base_scene_renders_on_cpu():
 
 @pytest.mark.parametrize("key,value,feature", [
     ("integrator", "bdpt", 'Integrator "bdpt"'),
-    ("integrator", "volpath", 'Integrator "volpath"'),
-    ("integrator", "ao", 'Integrator "ao"'),
+    ("integrator", "mlt", 'Integrator "mlt"'),
     ("sampler", "adaptive", 'Sampler "adaptive"'),
     ("integrator", "sppm", 'Integrator "sppm"'),
     ("material", "fourier", 'Material "fourier"'),
@@ -38,8 +37,6 @@ def test_supported_base_scene_renders_on_cpu():
     ("filter", "catmullrom", 'PixelFilter "catmullrom"'),
     ("camera", "realistic", 'Camera "realistic"'),
     ("kd", '"texture Kd" "checks"', 'Texture "ptex"'),
-    ("medium", 'MakeNamedMedium "fog" "string type" "homogeneous"\n'
-               'MediumInterface "" "fog"', "media"),
 ])
 def test_outside_the_slice_raises(key, value, feature):
     text = BASE.format(**dict(OK, **{key: value}))
@@ -65,6 +62,9 @@ def test_outside_the_slice_raises(key, value, feature):
     ("shape", "paraboloid"), ("shape", "hyperboloid"),
     ("camera", "orthographic"), ("camera", "environment"),
     ("material", "hair"), ("shape", "curve"),
+    ("integrator", "volpath"), ("integrator", "ao"), ("material", "none"),
+    ("medium", 'MakeNamedMedium "fog" "string type" "homogeneous"\n'
+               'MediumInterface "" "fog"'),
 ])
 def test_what_earlier_slices_refused_now_renders(key, value):
     """Each feature this slice added, one at a time in the base scene."""
@@ -91,3 +91,5 @@ def test_what_earlier_slices_refused_now_renders(key, value):
     assert img.shape == (8, 8, 3) and np.isfinite(img).all()
     # (every surface specular under a point light: nothing to see)
     assert img.mean() > 0 or key == "material"
+    if key == "medium":  # path renders a scene with media, ignoring them
+        assert job.scene.has_media and job.cfg.name == "path"

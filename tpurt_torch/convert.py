@@ -2,8 +2,10 @@
 
 ``scene_from_tpurt(job)`` reads every table of a tpurt ``RenderJob``
 (geometry with its motion deltas, animated quadrics, tangents and curve
-tree; lights; materials with their texture records and hair columns; the
-camera, animated or not; sampler, film, integrator config) with ``np.asarray`` and returns the host-table
+tree; lights; the media; materials with their texture records, hair
+columns and ``Material "none"`` rows; the camera, animated or not;
+sampler, film, integrator config, volpath's and ao's included) with
+``np.asarray`` and returns the host-table
 dict that ``tpurt_torch.render.driver.host_tables`` builds from a scene
 description, so tests can feed both packages identical state and compare
 the two builds bit for bit.  Upload it with ``driver.job_from_tables``.
@@ -96,6 +98,21 @@ def _sampler(s) -> dict:
     raise NotImplementedError(f'tpurt sampler "{s.name}"')
 
 
+def _config(cfg) -> IntegratorConfig:
+    """The port's IntegratorConfig of a tpurt one, with the defaults the
+    port's make_integrator_config gives the fields an integrator does not
+    read (tpurt keeps its own defaults there)."""
+    if cfg.name == "ao":
+        return IntegratorConfig(name="ao", ao_samples=cfg.ao_samples,
+                                ao_cos_sample=cfg.ao_cos_sample)
+    if cfg.name in ("directlighting", "whitted"):
+        return IntegratorConfig(name=cfg.name, max_depth=cfg.max_depth)
+    return IntegratorConfig(name=cfg.name, max_depth=cfg.max_depth,
+                            rr_threshold=cfg.rr_threshold,
+                            light_strategy=cfg.light_strategy,
+                            capture_features=cfg.capture_features)
+
+
 def scene_from_tpurt(job) -> dict:
     """Host tables of a tpurt RenderJob for the ported slices."""
     cfg = job.cfg
@@ -130,8 +147,18 @@ def scene_from_tpurt(job) -> dict:
     anim = dict(animated=bool(cam.animated), time0=float(cam.time0),
                 time1=float(cam.time1), anim_t=opt(cam.anim_t),
                 anim_q=opt(cam.anim_q), anim_s=opt(cam.anim_s))
+    sc = job.scene
+    media = dict(sigma_t=a(sc.med_sigma_t), sigma_s=a(sc.med_sigma_s),
+                 g=a(sc.med_g), camera_medium=int(sc.camera_medium),
+                 has_media=bool(sc.has_media), density=a(sc.med_density),
+                 grid_off=a(sc.med_grid_off), grid_dims=a(sc.med_grid_dims),
+                 w2m=a(sc.med_w2m), inv_maxd=a(sc.med_inv_maxd),
+                 is_grid=a(sc.med_is_grid),
+                 has_grid_media=bool(sc.has_grid_media),
+                 has_null_boundaries=bool(sc.has_null_boundaries))
     return dict(
         geo={k: v for k, v in geo.items() if v is not None},
+        media=media,
         lights=dict(rows=a(lt.rows), prim_to_light=a(lt.prim_to_light),
                     power_pmf=a(lt.power_pmf), power_cdf=a(lt.power_cdf),
                     spat_cdf=a(lt.spat_cdf), spat_pmf=a(lt.spat_pmf),
@@ -164,10 +191,5 @@ def scene_from_tpurt(job) -> dict:
                                 tuple(f.filter.params)),
                   filename=f.filename, scale=f.scale,
                   max_sample_luminance=f.max_sample_luminance),
-        cfg=IntegratorConfig(max_depth=cfg.max_depth,
-                             rr_threshold=cfg.rr_threshold,
-                             light_strategy=cfg.light_strategy,
-                             capture_features=cfg.capture_features,
-                             specular_only=cfg.name in ("directlighting",
-                                                        "whitted")),
+        cfg=_config(cfg),
     )

@@ -1,11 +1,15 @@
 """Render driver: SceneDescription -> device tables -> bounce-compacted
 wavefront render (port of tpurt/render/driver.py: build_job for the path,
-rpf, directlighting and whitted integrators, and the loop of
-_render_compact; the RPF passes live in tpurt_torch.rpf).
+volpath, rpf, directlighting, whitted and ao integrators with the media
+tables, and the loop of _render_compact; the RPF passes live in
+tpurt_torch.rpf).  volpath on a scene with media runs its own bounce step
+(render/volpath.py), and ao one closest hit and its occlusion rays a
+chunk; the other integrators render a scene with media and ignore the
+media, as tpurt's do.
 
 Scene features outside the ported slices raise NotImplementedError naming
-the feature: here for the integrator, film, accelerator, media and
-shapes, and in the module that would build them for samplers, filters,
+the feature: here for the integrator, film, accelerator and shapes, and
+in the module that would build them for samplers, filters,
 lights, cameras, materials and textures.  Between bounces the loop
 keeps the alive lanes with a boolean index and banks the terminated ones
 into the film, so terminated paths cost nothing in later bounces (tpurt's
@@ -23,7 +27,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from tpurt_torch.config import WAVEFRONT_SIZE, resolve_device
+from tpurt_torch.config import WAVEFRONT_SIZE, resolve_device, tpurt_chunk
 from tpurt_torch.kernels.traverse import traverse_wide
 from tpurt_torch.render.camera import (Camera, camera_from_tables,
                                        camera_tables)
@@ -31,11 +35,14 @@ from tpurt_torch.render.film import Film, make_film
 from tpurt_torch.render.filters import make_filter
 from tpurt_torch.render.geometry_build import flatten_geometry
 from tpurt_torch.render.integrator import (IntegratorConfig, SceneData,
-                                           path_bounce_init,
+                                           ao_radiance, path_bounce_init,
                                            path_bounce_step)
+from tpurt_torch.render.volpath import (TRACK_STATS, volpath_bounce_init,
+                                        volpath_bounce_step)
 from tpurt_torch.render.intersect import DeviceGeometry
 from tpurt_torch.render.lights import light_table_from_tables, light_tables
-from tpurt_torch.render.materials_build import (build_material_table,
+from tpurt_torch.render.materials_build import (MAT_NONE,
+                                                build_material_table,
                                                 fuse_material_rows,
                                                 lobe_slots)
 from tpurt_torch.render.texeval import TexEval, make_texture_eval
@@ -80,8 +87,6 @@ def _check_slice(sd: SceneDescription) -> None:
         raise NotImplementedError(f'Film "{sd.film_name}"')
     if sd.accelerator_name != "bvh":
         raise NotImplementedError(f'Accelerator "{sd.accelerator_name}"')
-    if sd.media or sd.camera_medium:
-        raise NotImplementedError("participating media")
     for pr in sd.primitives:
         sh = pr.shape
         kind = getattr(sh, "kind", type(sh).__name__)
@@ -89,26 +94,28 @@ def _check_slice(sd: SceneDescription) -> None:
             raise NotImplementedError(f'Shape "{kind}"')
         if kind == "trianglemesh" and sh.alpha_texture is not None:
             raise NotImplementedError("alpha textures")
-        if pr.medium_inside or pr.medium_outside:
-            raise NotImplementedError("MediumInterface (participating media)")
 
 
-INTEGRATORS = ("path", "rpf", "directlighting", "whitted")
+INTEGRATORS = ("path", "volpath", "rpf", "directlighting", "whitted", "ao")
 SHAPES = ("trianglemesh", "sphere", "cylinder", "disk", "cone", "paraboloid",
           "hyperboloid", "curve")
 
 
 def make_integrator_config(sd: SceneDescription) -> IntegratorConfig:
-    """Integrator parameters with the reference defaults.  tpurt also
-    parses directlighting's "strategy" and reads it nowhere; it is not
-    carried here."""
+    """Integrator parameters with the reference defaults (tpurt's
+    driver.py:60-129).  tpurt also parses directlighting's "strategy" and
+    reads it nowhere; it is not carried here."""
     ps = sd.integrator_params
     name = sd.integrator_name
     if name in ("directlighting", "whitted"):
-        return IntegratorConfig(specular_only=True,
+        return IntegratorConfig(name=name,
                                 max_depth=ps.find_one_int("maxdepth", 5))
+    if name == "ao":
+        return IntegratorConfig(
+            name=name, ao_samples=ps.find_one_int("nsamples", 64),
+            ao_cos_sample=ps.find_one_bool("cossample", True))
     cfg = IntegratorConfig(
-        max_depth=ps.find_one_int("maxdepth", 5),
+        name=name, max_depth=ps.find_one_int("maxdepth", 5),
         rr_threshold=ps.find_one_float("rrthreshold", 1.0),
         light_strategy=ps.find_one_string("lightsamplestrategy", "spatial"),
         capture_features=name == "rpf")
@@ -137,6 +144,61 @@ def has_bump(records) -> bool:
                and r.slots["bumpmap"][0] == "texture" for r in records)
 
 
+def media_tables(sd: SceneDescription, geo_h, kinds) -> dict:
+    """The participating media's host tables (tpurt's build_job,
+    driver.py:169-222, :269-291): per medium sigma_t, sigma_s and g, the
+    grid media's concatenated density lattices with each one's offset,
+    dims, world-to-medium and 1 / max density; the camera's medium, and
+    whether a Material "none" prim (``kinds`` of the material table)
+    carries a MediumInterface.  A scene without media gets tpurt's
+    one-row zero tables."""
+    names = list(sd.media)
+    n_med = max(len(names), 1)
+    if names:
+        sig_t = np.stack([sd.media[n].sigma_a + sd.media[n].sigma_s
+                          for n in names]).astype(np.float32)
+        sig_s = np.stack([sd.media[n].sigma_s
+                          for n in names]).astype(np.float32)
+        g = np.asarray([sd.media[n].g for n in names], np.float32)
+    else:
+        sig_t = np.zeros((1, 3), np.float32)
+        sig_s = np.zeros((1, 3), np.float32)
+        g = np.zeros(1, np.float32)
+    grid_off = np.zeros(n_med, np.int32)
+    grid_dims = np.ones((n_med, 3), np.int32)
+    w2m = np.tile(np.eye(4, dtype=np.float32), (n_med, 1, 1))
+    inv_maxd = np.ones(n_med, np.float32)
+    is_grid = np.zeros(n_med, bool)
+    parts, off = [], 0
+    for i, name in enumerate(names):
+        rec = sd.media[name]
+        if rec.density is None:
+            continue
+        nz, ny, nx = rec.density.shape
+        grid_off[i] = off
+        grid_dims[i] = (nx, ny, nz)
+        w2m[i] = rec.world_to_medium
+        inv_maxd[i] = 1.0 / max(float(rec.density.max()), 1e-20)
+        is_grid[i] = True
+        parts.append(rec.density.ravel())
+        off += rec.density.size
+    mat = geo_h.material_id
+    null = (mat >= 0) & (np.asarray(kinds)[np.clip(mat, 0, len(kinds) - 1)]
+                         == MAT_NONE)
+    return dict(
+        sigma_t=sig_t, sigma_s=sig_s, g=g,
+        camera_medium=(names.index(sd.camera_medium)
+                       if sd.camera_medium in names else -1),
+        has_media=bool(names),
+        density=(np.concatenate(parts).astype(np.float32) if parts
+                 else np.zeros(1, np.float32)),
+        grid_off=grid_off, grid_dims=grid_dims, w2m=w2m, inv_maxd=inv_maxd,
+        is_grid=is_grid, has_grid_media=bool(is_grid.any()),
+        has_null_boundaries=bool((null & ((geo_h.medium_inside >= 0)
+                                          | (geo_h.medium_outside >= 0)))
+                                 .any()))
+
+
 def host_tables(sd: SceneDescription, quick: bool = False,
                 crop_override=None) -> dict:
     """All host-side tables of a render job (numpy arrays and Python
@@ -156,11 +218,17 @@ def host_tables(sd: SceneDescription, quick: bool = False,
         area_records.append((key, prim.area_light))
         return len(area_records) - 1
 
+    media_names = list(sd.media)
+
+    def medium_index(name: str) -> int:
+        return media_names.index(name) if name in media_names else -1
+
     t0 = time.time()
     geo_h = flatten_geometry(
         sd.primitives, mat_index, arealight_index,
         max_prims_per_leaf=(sd.accelerator_params.find_one_int(
-            "maxnodeprims", 4) if sd.accelerator_params else 4))
+            "maxnodeprims", 4) if sd.accelerator_params else 4),
+        medium_index=medium_index)
     geo = DeviceGeometry.host_tables(geo_h)
     log.info("scene flatten + BVH build: %.2fs (%d prims, %d wide rows)",
              time.time() - t0, geo_h.n_prims, geo["wnodes"].shape[0])
@@ -178,6 +246,7 @@ def host_tables(sd: SceneDescription, quick: bool = False,
                      crop_override=crop_override)
     return dict(
         geo=geo, lights=lights,
+        media=media_tables(sd, geo_h, mt.kinds),
         mt_table=fuse_material_rows(mt),
         materials=dict(records=records, textured=mt.textured,
                        has_bump=has_bump(records),
@@ -195,12 +264,21 @@ def host_tables(sd: SceneDescription, quick: bool = False,
 def job_from_tables(tab: dict, device) -> RenderJob:
     """Upload host tables to ``device``."""
     mats = tab["materials"]
+    med = tab["media"]
+    media = {}
+    if med["has_media"]:
+        media = {f"med_{k}": torch.tensor(med[k], device=device)
+                 for k in ("sigma_t", "sigma_s", "g", "density", "grid_off",
+                           "grid_dims", "w2m", "inv_maxd", "is_grid")}
+        media.update({k: med[k] for k in (
+            "camera_medium", "has_media", "has_grid_media",
+            "has_null_boundaries")})
     scene = SceneData(
         geo=DeviceGeometry.from_tables(tab["geo"], device),
         lights=light_table_from_tables(tab["lights"], device),
         mt_table=torch.tensor(tab["mt_table"], device=device),
         has_bump=mats["has_bump"], has_texfilter=mats["has_texfilter"],
-        lobe_slots=lobe_slots(tab["mt_table"]))
+        lobe_slots=lobe_slots(tab["mt_table"]), **media)
     return RenderJob(scene=scene, camera=camera_from_tables(tab["camera"],
                                                             device),
                      sampler=sampler_from_tables(tab["sampler"], device),
@@ -233,14 +311,26 @@ def trace_lanes(job: RenderJob, cfg: IntegratorConfig, traverse, bank
     w = film.width
     total = film.width * film.height * spp
     chunk = min(total, WAVEFRONT_SIZE)
+    # volpath runs its own step on a scene with media; without media it
+    # is the path integrator, as in tpurt (integrator.py:1495-1497)
+    volumetric = cfg.name == "volpath" and job.scene.has_media
+    init, step = ((volpath_bounce_init, volpath_bounce_step) if volumetric
+                  else (path_bounce_init, path_bounce_step))
     for start in range(0, total, chunk):
         ids = torch.arange(start, min(start + chunk, total), device=dev)
         pid = ids // spp
         sidx = ids % spp
         px = x0 + pid % w
         py = y0 + pid // w
-        st = path_bounce_init(job.scene, job.sampler, job.camera, px, py,
-                              sidx, cfg, traverse, crop_xy=(x0, y0))
+        if cfg.name == "ao":
+            bank(ao_radiance(job.scene, job.sampler, job.camera, px, py,
+                             sidx, cfg, traverse, crop_xy=(x0, y0)), None)
+            continue
+        # the tracking hash reads each lane's place in tpurt's chunk
+        extra = (dict(track_lane=ids % tpurt_chunk(total)) if volumetric
+                 else {})
+        st = init(job.scene, job.sampler, job.camera, px, py, sidx, cfg,
+                  traverse, crop_xy=(x0, y0), **extra)
         st["lane"] = ids
         for bounce in range(cfg.max_depth + 1):
             alive = st["alive"]
@@ -253,9 +343,8 @@ def trace_lanes(job: RenderJob, cfg: IntegratorConfig, traverse, bank
                 # (a sampler without a lane context carries None)
                 st = {k: None if v is None else v[alive]
                       for k, v in st.items()}
-            st = path_bounce_step(job.scene, job.sampler, cfg, st, bounce,
-                                  traverse, camera=job.camera,
-                                  texture_eval=job.texture_eval)
+            st = step(job.scene, job.sampler, cfg, st, bounce, traverse,
+                      camera=job.camera, texture_eval=job.texture_eval)
         bank(st, None)
 
 
@@ -270,7 +359,15 @@ def render_job(job: RenderJob, traverse=None) -> np.ndarray:
         film.add_samples(state, pick(st["p_film_crop"]), pick(st["L"]),
                          pick(st["ray_w"]))
 
+    TRACK_STATS.reset()
     trace_lanes(job, job.cfg, traverse or traverse_wide, bank)
+    if job.scene.has_media:
+        # the media loops' counters, read once a frame (tpurt's STATS)
+        for name, count in TRACK_STATS.read().items():
+            if count and "exhausted" in name:
+                log.warning("%s: %d lanes", name, count)
+            else:
+                log.info("%s: %d", name, count)
     return film.to_image(state)
 
 

@@ -1,11 +1,14 @@
-"""Wavefront integrators, RGB: path, directlighting and whitted (port of
-tpurt/render/integrator.py: path_bounce_init / path_bounce_step with
+"""Wavefront integrators, RGB: path, directlighting, whitted and ao (port
+of tpurt/render/integrator.py: path_bounce_init / path_bounce_step with
 their helpers _camera_setup, _emitted, _escape_radiance, _escape_pdf,
-_nee_prepare, _nee_resolve, the texture footprints and camera ray
-differentials, Russian roulette and the RPF feature capture; the
-non-fused trace branch).  directlighting and whitted are the same bounce
-step with ``specular_only=True``: emitted light and next-event
-estimation at every vertex, continued only through specular lobes.
+the shading context (ShadeCtx, shade_f, shade_sample), _nee_prepare,
+_nee_resolve, the texture footprints and camera ray differentials,
+Russian roulette and the RPF feature capture; the non-fused trace
+branch; ao_radiance).  volpath's step, which shares the shading context
+and the carried interaction, is render/volpath.py.  directlighting and
+whitted are the same bounce step with ``cfg.specular_only``: emitted
+light and next-event estimation at every vertex, continued only through
+specular lobes.
 Escaped rays take the infinite lights' radiance with its MIS weight
 (only in scenes that hold an infinite light).
 
@@ -32,13 +35,14 @@ hit; deeper bounces use the isotropic footprint ``fp_base + t*fp_slope``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from tpurt_torch.render.bsdf import (ALL_SLOTS, SLOT_FS, SLOT_MIRROR, LobeSet,
-                                     bsdf_f, bsdf_pdf, bsdf_sample)
+from tpurt_torch.render.bsdf import (ALL_SLOTS, SLOT_FS, SLOT_MIRROR,
+                                     LobeParams, LobeSet, bsdf_f, bsdf_pdf,
+                                     bsdf_sample)
 from tpurt_torch.render.hair import HairParams, hair_f, hair_pdf, hair_sample
 from tpurt_torch.render.interaction import (SurfaceInteraction,
                                             compute_interaction,
@@ -50,7 +54,9 @@ from tpurt_torch.render.lights import (LightTable, choice_pmf_at,
                                        pdf_li_from_hit, sample_li)
 from tpurt_torch.render.materials_build import (C_HAIR0, C_KIND, MAT_HAIR,
                                                 fetch_lobes)
-from tpurt_torch.render.sampling_warps import (build_onb, cross, dot, norm,
+from tpurt_torch.render.sampling_warps import (build_onb,
+                                               cosine_sample_hemisphere,
+                                               cross, dot, norm,
                                                power_heuristic, to_local,
                                                to_world)
 
@@ -62,12 +68,21 @@ CAMERA_DIMS = 5
 
 @dataclasses.dataclass(frozen=True)
 class IntegratorConfig:
+    # path | volpath | rpf | directlighting | whitted | ao
+    name: str = "path"
     max_depth: int = 5
     rr_threshold: float = 1.0
     light_strategy: str = "spatial"  # spatial | power | uniform
     capture_features: bool = False  # RPF per-sample feature capture
-    # directlighting / whitted: continue only through specular lobes
-    specular_only: bool = False
+    # ao: occlusion rays a camera hit, cosine-weighted or uniform
+    ao_samples: int = 64
+    ao_cos_sample: bool = True
+
+    @property
+    def specular_only(self) -> bool:
+        """directlighting and whitted continue only through specular
+        lobes."""
+        return self.name in ("directlighting", "whitted")
 
 
 @dataclasses.dataclass
@@ -82,6 +97,25 @@ class SceneData:
     # the lobe slots the scene's materials can activate
     # (materials_build.lobe_slots); the BSDF skips the others
     lobe_slots: LobeSet = ALL_SLOTS
+    # participating media (tpurt's SceneData :89-102): per-medium
+    # sigma_t, sigma_s (M, 3) and HG g (M,); grid media's concatenated
+    # density lattices (D,) with each medium's offset, (nx, ny, nz),
+    # world-to-medium (M, 4, 4), 1 / max density and grid flag
+    med_sigma_t: torch.Tensor = None
+    med_sigma_s: torch.Tensor = None
+    med_g: torch.Tensor = None
+    camera_medium: int = -1
+    has_media: bool = False
+    med_density: torch.Tensor = None
+    med_grid_off: torch.Tensor = None
+    med_grid_dims: torch.Tensor = None
+    med_w2m: torch.Tensor = None
+    med_inv_maxd: torch.Tensor = None
+    med_is_grid: torch.Tensor = None
+    has_grid_media: bool = False
+    # a Material "none" prim carries a MediumInterface: volpath's shadow
+    # rays walk the boundaries (VisibilityTester::Tr)
+    has_null_boundaries: bool = False
 
     @property
     def has_tangents(self) -> bool:
@@ -152,36 +186,87 @@ def _escape_pdf(lights: LightTable, d):
                       device=d.device)
 
 
-def _nee_prepare(scene: SceneData, si: SurfaceInteraction, lobes, u_choice,
-                 u_light, strategy: str, alive, hair_ctx=None):
+class ShadeCtx(NamedTuple):
+    """The surface-shading context of a vertex (tpurt's ShadeCtx,
+    integrator.py:310-324): the lobe mixture, the BSDF's local frame and
+    the hair lanes' (is_hair, HairParams), None on a scene without hair."""
+
+    lobes: LobeParams
+    t: torch.Tensor  # (N, 3) shading tangent
+    b: torch.Tensor  # (N, 3) shading bitangent
+    hair: Optional[tuple] = None
+
+
+def make_shade_ctx(scene: SceneData, si: SurfaceInteraction,
+                   texture_eval=None) -> ShadeCtx:
+    overrides = texture_eval(si) if texture_eval is not None else None
+    lobes = fetch_lobes(scene.mt_table, si.material_id, overrides,
+                        scene.lobe_slots)
+    t, b = _shading_frame(si)
+    return ShadeCtx(lobes=lobes, t=t, b=b, hair=_hair_ctx(scene, si))
+
+
+def shade_f(scene: SceneData, ctx: ShadeCtx, ns, w_out, w_in):
+    """(f, pdf) of the vertex's BSDF for world directions, hair lanes
+    blended in, without the cosine (tpurt's shade_f, integrator.py:378)."""
+    wo_l = to_local(ctx.t, ctx.b, ns, w_out)
+    wi_l = to_local(ctx.t, ctx.b, ns, w_in)
+    f = bsdf_f(ctx.lobes, wo_l, wi_l, scene.lobe_slots)
+    pdf = bsdf_pdf(ctx.lobes, wo_l, wi_l, scene.lobe_slots)
+    if ctx.hair is not None:
+        is_hair, hp = ctx.hair
+        f = torch.where(is_hair[:, None], hair_f(hp, wo_l, wi_l), f)
+        pdf = torch.where(is_hair, hair_pdf(hp, wo_l, wi_l), pdf)
+    return f, pdf
+
+
+def shade_sample(scene: SceneData, ctx: ShadeCtx, ns, w_out, u_lobe, u1,
+                 u2):
+    """A continuation direction at the vertex, hair lanes blended in
+    (tpurt's shade_sample, integrator.py:402): (wi world, f, pdf, is_spec,
+    is_trans)."""
+    wo_l = to_local(ctx.t, ctx.b, ns, w_out)
+    wi_l, f, pdf, is_spec, is_trans = bsdf_sample(ctx.lobes, wo_l, u_lobe,
+                                                  u1, u2, scene.lobe_slots)
+    if ctx.hair is not None:
+        is_hair, hp = ctx.hair
+        wi_h, f_h, pdf_h = hair_sample(hp, wo_l, u1, u2)
+        wi_l = torch.where(is_hair[:, None], wi_h, wi_l)
+        f = torch.where(is_hair[:, None], f_h, f)
+        pdf = torch.where(is_hair, pdf_h, pdf)
+        is_spec = is_spec & ~is_hair
+        is_trans = is_trans & ~is_hair
+    return to_world(ctx.t, ctx.b, ns, wi_l), f, pdf, is_spec, is_trans
+
+
+def shadow_t_max(ls, dist, usable):
+    """A shadow ray's extent to the light sample at ``dist``: shortened
+    by ShadowEpsilon and a magnitude-relative margin, 0 where unusable
+    (integrator.py:470-473, :1540-1543)."""
+    t_max = torch.where(
+        usable, dist * (1.0 - SHADOW_EPS) - 2e-3
+        * torch.clamp(ls.p_light.abs().amax(dim=-1), min=1.0), 0.0)
+    return torch.clamp(t_max, min=0.0)
+
+
+def _nee_prepare(scene: SceneData, si: SurfaceInteraction, ctx: ShadeCtx,
+                 u_choice, u_light, strategy: str, alive):
     """Light-sampling half of next-event estimation: everything except
     the occlusion trace.  Returns (contrib, o_sh, wi_sh, t_sh, usable)."""
     lt = scene.lights
     lidx, pmf = choose_light(lt, u_choice, strategy, p=si.p)
     ls = sample_li(lt, lidx, si.p, u_light)
-    t, b = _shading_frame(si)
-    wo_l = to_local(t, b, si.ns, si.wo)
-    wi_l = to_local(t, b, si.ns, ls.wi)
-    cos_i = dot(ls.wi, si.ns).abs()[:, None]
-    f = bsdf_f(lobes, wo_l, wi_l, scene.lobe_slots) * cos_i
-    scatter_pdf = bsdf_pdf(lobes, wo_l, wi_l, scene.lobe_slots)
-    if hair_ctx is not None:
-        is_hair, hp = hair_ctx
-        f = torch.where(is_hair[:, None], hair_f(hp, wo_l, wi_l) * cos_i, f)
-        scatter_pdf = torch.where(is_hair, hair_pdf(hp, wo_l, wi_l),
-                                  scatter_pdf)
+    f, scatter_pdf = shade_f(scene, ctx, si.ns, si.wo, ls.wi)
+    f = f * dot(ls.wi, si.ns).abs()[:, None]
     usable = (alive & si.valid & (ls.pdf > 0)
               & (ls.li > 0).any(dim=-1) & (f > 0).any(dim=-1))
     # shadow ray: offset endpoints, shortened by ShadowEpsilon
     o_sh = offset_ray_origin(si.p, si.ng, ls.wi, si.p_eps)
-    dist = norm(ls.p_light - o_sh)
-    t_max = torch.where(
-        usable, dist * (1.0 - SHADOW_EPS) - 2e-3
-        * torch.clamp(ls.p_light.abs().amax(dim=-1), min=1.0), 0.0)
     w = torch.where(ls.is_delta, 1.0,
                     power_heuristic(1.0, ls.pdf, 1.0, scatter_pdf))
     contrib = f * ls.li * (w / torch.clamp(ls.pdf * pmf, min=1e-20))[:, None]
-    return contrib, o_sh, ls.wi, torch.clamp(t_max, min=0.0), usable
+    return (contrib, o_sh, ls.wi,
+            shadow_t_max(ls, norm(ls.p_light - o_sh), usable), usable)
 
 
 def _nee_resolve(contrib, usable, occluded):
@@ -299,27 +384,19 @@ def path_bounce_init(scene: SceneData, sampler, camera, px, py, sidx,
     return st
 
 
-def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
-                     state: Dict[str, Any], bounce: int, traverse,
-                     camera=None, texture_eval=None) -> Dict[str, Any]:
-    """One shade-then-trace bounce over the lane-state dict.  ``camera``
-    is read only on scenes with image-map textures (its footprint
-    constants); ``texture_eval`` is the job's TexEval or None."""
-    px, py, sidx, sctx = (state["px"], state["py"], state["sidx"],
-                          state["sctx"])
-    n = px.shape[0]
-    o, d = state["o"], state["d"]
-    beta, L, alive = state["beta"], state["L"], state["alive"]
-    prev_pdf, prev_p = state["prev_pdf"], state["prev_p"]
-    time = state.get("time")
-    out = dict(state)
-
+def carried_interaction(scene: SceneData, state: Dict[str, Any],
+                        bounce: int, camera=None, texture_eval=None,
+                        media: bool = False) -> SurfaceInteraction:
+    """The surface interaction of the hit a lane state carries, with the
+    texture footprints (ray differentials at bounce 0, the isotropic
+    cone deeper) and the bump map applied, as every bounce step shades
+    it.  ``media``: carry the prim's medium ids."""
     hit = Hit(t=state["hit_t"], prim=state["hit_prim"], b0=state["hit_b0"],
               b1=state["hit_b1"])
-    si = compute_interaction(scene.geo, hit, o, d,
+    si = compute_interaction(scene.geo, hit, state["o"], state["d"],
                              tangents=scene.has_tangents,
                              dpduv=scene.has_bump or scene.has_texfilter,
-                             time=time)
+                             time=state.get("time"), media=media)
     if scene.has_texfilter:
         si = _tex_footprint(si, hit.t, camera)
         # camera hits: ray differentials -> anisotropic EWA derivative
@@ -336,6 +413,25 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
         si = si._replace(tex_dst0=dst0, tex_dst1=dst1)
     if scene.has_bump and getattr(texture_eval, "bump", None) is not None:
         si = texture_eval.bump(si)
+    return si
+
+
+def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
+                     state: Dict[str, Any], bounce: int, traverse,
+                     camera=None, texture_eval=None) -> Dict[str, Any]:
+    """One shade-then-trace bounce over the lane-state dict.  ``camera``
+    is read only on scenes with image-map textures (its footprint
+    constants); ``texture_eval`` is the job's TexEval or None."""
+    px, py, sidx, sctx = (state["px"], state["py"], state["sidx"],
+                          state["sctx"])
+    n = px.shape[0]
+    o, d = state["o"], state["d"]
+    beta, L, alive = state["beta"], state["L"], state["alive"]
+    prev_pdf, prev_p = state["prev_pdf"], state["prev_p"]
+    time = state.get("time")
+    out = dict(state)
+
+    si = carried_interaction(scene, state, bounce, camera, texture_eval)
 
     if cfg.capture_features:
         # RPF captures the GEOMETRIC normal + hit point at bounces 0/1
@@ -380,15 +476,13 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
                             0.0)
 
     alive = alive & si.valid & (bounce < cfg.max_depth)
-    overrides = texture_eval(si) if texture_eval is not None else None
-    lobes = fetch_lobes(scene.mt_table, si.material_id, overrides,
-                        scene.lobe_slots)
-    hair_ctx = _hair_ctx(scene, si)
+    ctx = make_shade_ctx(scene, si, texture_eval)
+    lobes = ctx.lobes
     any_lobe = lobes.active.any(dim=-1)
     has_smooth = lobes.active[:, 0] | lobes.active[:, 1]
-    if hair_ctx is not None:
-        any_lobe = any_lobe | hair_ctx[0]
-        has_smooth = has_smooth | hair_ctx[0]
+    if ctx.hair is not None:
+        any_lobe = any_lobe | ctx.hair[0]
+        has_smooth = has_smooth | ctx.hair[0]
     alive = alive & any_lobe
 
     # ---- NEE ----
@@ -397,27 +491,16 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
     u_light = torch.stack([sampler.dim(px, py, sidx, d0 + 1, sctx),
                            sampler.dim(px, py, sidx, d0 + 2, sctx)], dim=-1)
     nee_c, o_sh, wi_sh, t_sh, nee_ok = _nee_prepare(
-        scene, si, lobes, u_choice, u_light, cfg.light_strategy,
-        alive & has_smooth, hair_ctx)
+        scene, si, ctx, u_choice, u_light, cfg.light_strategy,
+        alive & has_smooth)
     beta_nee = beta  # pre-continuation throughput scales the NEE term
 
     # ---- BSDF sampling ----
     u_lobe = sampler.dim(px, py, sidx, d0 + 3, sctx)
     u1 = sampler.dim(px, py, sidx, d0 + 4, sctx)
     u2 = sampler.dim(px, py, sidx, d0 + 5, sctx)
-    t, b = _shading_frame(si)
-    wo_l = to_local(t, b, si.ns, si.wo)
-    wi_l, f, pdf, is_spec, is_trans = bsdf_sample(lobes, wo_l, u_lobe, u1, u2,
-                                                  scene.lobe_slots)
-    if hair_ctx is not None:
-        is_hair, hp = hair_ctx
-        wi_h, f_h, pdf_h = hair_sample(hp, wo_l, u1, u2)
-        wi_l = torch.where(is_hair[:, None], wi_h, wi_l)
-        f = torch.where(is_hair[:, None], f_h, f)
-        pdf = torch.where(is_hair, pdf_h, pdf)
-        is_spec = is_spec & ~is_hair
-        is_trans = is_trans & ~is_hair
-    wi = to_world(t, b, si.ns, wi_l)
+    wi, f, pdf, is_spec, is_trans = shade_sample(scene, ctx, si.ns, si.wo,
+                                                 u_lobe, u1, u2)
     ok = alive & (pdf > 0) & (f > 0).any(dim=-1)
     if cfg.specular_only:
         ok = ok & is_spec
@@ -463,3 +546,53 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
                alive=alive, prev_pdf=prev_pdf, prev_p=prev_p,
                specular=is_spec, eta_scale=eta_scale)
     return out
+
+
+def ao_radiance(scene: SceneData, sampler, camera, px, py, sidx,
+                cfg: IntegratorConfig, traverse, crop_xy=(0, 0)
+                ) -> Dict[str, Any]:
+    """AOIntegrator (integrators/ao.cpp; tpurt's ao_radiance,
+    integrator.py:1148-1181): a closest hit, then ``cfg.ao_samples``
+    any-hit rays out to 1e8 from each camera hit, cosine-weighted or
+    uniform over the hemisphere of the normal faced toward the ray (dims
+    5 + 2k and 6 + 2k), averaged.  As in tpurt the rays carry no shutter
+    time: on a moving scene they see the geometry at time 0.  Only the
+    lanes with a camera hit trace occlusion rays (the others add 0).
+    Returns the lanes' p_film_crop, L and ray_w."""
+    p_film, p_film_crop, p_lens, o, d, ray_w, sctx, _ = _camera_setup(
+        sampler, camera, px, py, sidx, crop_xy, draw_time=camera.animated)
+    n = px.shape[0]
+    si = compute_interaction(scene.geo,
+                             intersect_closest(scene.geo, o, d, INF,
+                                               traverse), o, d)
+    sel = torch.nonzero(si.valid).squeeze(1)
+    # the normal faced toward the ray (ao.cpp Faceforward(n, -ray.d))
+    ns = si.ns[sel]
+    ns = torch.where(dot(ns, si.wo[sel])[:, None] < 0, -ns, ns)
+    t, b = build_onb(ns)
+    p, ng = si.p[sel], si.ng[sel]
+    p_eps = None if si.p_eps is None else si.p_eps[sel]
+    lanes = (px[sel], py[sel], sidx[sel])
+    ctx = None if sctx is None else sctx[sel]
+    acc = torch.zeros(sel.shape[0], dtype=torch.float32, device=o.device)
+    for k in range(cfg.ao_samples):
+        u1 = sampler.dim(*lanes, 5 + 2 * k, ctx)
+        u2 = sampler.dim(*lanes, 6 + 2 * k, ctx)
+        if cfg.ao_cos_sample:
+            w_l = cosine_sample_hemisphere(u1, u2)
+            weight = 1.0
+        else:
+            z = u1
+            r = torch.sqrt(torch.clamp(1 - z * z, min=0.0))
+            phi = 2 * np.pi * u2
+            w_l = torch.stack([r * torch.cos(phi), r * torch.sin(phi), z],
+                              dim=-1)
+            weight = 2.0 * w_l[:, 2]
+        w = to_world(t, b, ns, w_l)
+        occ = intersect_any(scene.geo, offset_ray_origin(p, ng, w, p_eps),
+                            w, 1e8, traverse)
+        acc = acc + torch.where(~occ, weight, 0.0)
+    total = torch.zeros(n, dtype=torch.float32, device=o.device)
+    total = total.index_put((sel,), acc)
+    L = (total / cfg.ao_samples)[:, None].expand(n, 3).contiguous()
+    return dict(p_film_crop=p_film_crop, L=L, ray_w=ray_w)

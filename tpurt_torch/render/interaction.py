@@ -73,6 +73,10 @@ class SurfaceInteraction(NamedTuple):
     # from camera ray differentials; imagemap lookups then use EWA
     tex_dst0: Optional[torch.Tensor] = None  # (N,2)
     tex_dst1: Optional[torch.Tensor] = None  # (N,2)
+    # the hit prim's MediumInterface (-1: none) from the shade row; None
+    # unless asked for (compute_interaction's ``media``)
+    med_in: Optional[torch.Tensor] = None  # (N,) i32
+    med_out: Optional[torch.Tensor] = None  # (N,) i32
     # per-lane spawn-offset floor: a curve hit sits on the span's axis
     # plane with pError = 2 * hitWidth (curve.cpp:342); None without
     # curves
@@ -81,11 +85,14 @@ class SurfaceInteraction(NamedTuple):
 
 def compute_interaction(geo: DeviceGeometry, hit: Hit, o, d,
                         tangents: bool = False, dpduv: bool = False,
-                        time=None) -> SurfaceInteraction:
+                        time=None, media: bool = False) -> SurfaceInteraction:
     """Shading data for each lane from its Hit (tpurt's
     compute_interaction, interaction.py:77-310).  Invalid lanes get
     benign values (ns=+z) and valid=False.  time (N,): the rays' shutter
-    times on a scene with motion, else None."""
+    times on a scene with motion, else None.  With ``media`` the
+    interaction carries the prim's medium ids ``med_in`` and ``med_out``
+    (-1 where the hit is invalid; tpurt's interaction.py:98-99, :306-307),
+    which only a scene with media reads."""
     n = hit.t.shape[0]
     prim = hit.prim.clamp(min=0).long()
     valid = hit.prim >= 0
@@ -257,6 +264,8 @@ def compute_interaction(geo: DeviceGeometry, hit: Hit, o, d,
         dpdu=dpdu,
         dpdv=dpdv,
         p_eps=p_eps,
+        med_in=torch.where(valid, ints[:, 5], -1) if media else None,
+        med_out=torch.where(valid, ints[:, 6], -1) if media else None,
     )
 
 

@@ -209,9 +209,6 @@ class DeviceGeometry:
             PT_TRIANGLE, PT_CURVE, *_QUADRIC_TESTS}
         if bad:
             raise NotImplementedError(f"prim types {sorted(bad)}")
-        if (g.medium_inside is not None and (g.medium_inside >= 0).any()) or (
-                g.medium_outside is not None and (g.medium_outside >= 0).any()):
-            raise NotImplementedError("MediumInterface (participating media)")
         if not (g.bvh.n_prims <= 1).all():
             raise ValueError("collapse expects 1-prim leaves")
         ends = ((g.tri_e0, g.tri_e1, g.tri_e2) if g.has_motion else ())
@@ -219,9 +216,13 @@ class DeviceGeometry:
                                                   g.tri_v2, *ends)
 
         p = len(g.prim_type)
-        med = np.full(p, -1, np.int32)
+        # each prim's MediumInterface (-1: none) rides in the shade row
+        med_in = (g.medium_inside if g.medium_inside is not None
+                  else np.full(p, -1, np.int32))
+        med_out = (g.medium_outside if g.medium_outside is not None
+                   else np.full(p, -1, np.int32))
         ints = np.stack([g.flags, g.prim_type, g.material_id,
-                         g.arealight_id, g.quad_id, med, med],
+                         g.arealight_id, g.quad_id, med_in, med_out],
                         axis=1).astype(np.int32)
         rows = np.zeros((p, 32), np.float32)
         rows[:, 0:7] = ints.view(np.float32)

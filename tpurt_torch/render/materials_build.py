@@ -9,7 +9,9 @@ slot keeps its default in the table and is listed in ``textured``; the
 texture evaluator (render/texeval.py) overrides the slots fetch_lobes
 reads per lane.  A hair row carries its Marschner parameters in the
 ``C_HAIR0`` columns, which the integrator reads (render/hair.py), and
-tpurt's gray diffuse stand-in in its lobe columns.  Fourier, subsurface
+tpurt's gray diffuse stand-in in its lobe columns.  ``Material "none"``
+(a medium boundary) is a row of zeros of kind ``MAT_NONE``, which
+activates no lobe.  Fourier, subsurface
 and kdsubsurface, and any material name tpurt does not know, raise
 NotImplementedError (tpurt maps the last to matte with a warning).
 """
@@ -138,7 +140,11 @@ def build_material_table(materials: List[Optional[MaterialRecord]]
     textured: List[Tuple[int, str]] = []
     for i, rec in enumerate(materials):
         if rec is None:
-            raise NotImplementedError('Material "none" (media boundaries)')
+            # Material "none": a row of zeros of kind MAT_NONE, no lobe
+            # (tpurt's materials_build.py:186-187); volpath passes through
+            # it, the other integrators end the path there
+            kinds[i] = MAT_NONE
+            continue
         kind = _KIND_CODES.get(rec.name)
         if kind is None:
             raise NotImplementedError(f'Material "{rec.name}"')
@@ -303,6 +309,8 @@ def lobe_slots(mt_table: np.ndarray) -> LobeSet:
     kinds = set(mt_table[:, C_KIND].astype(int).tolist())
     for row in mt_table:
         kind = int(row[C_KIND])
+        if kind == MAT_NONE:
+            continue  # Material "none": no slot, no Fresnel kind
         if kind == MAT_MIX:
             mix = True
             for sub in row[C_MIX0:C_MIX0 + 2].astype(int):

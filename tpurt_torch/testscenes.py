@@ -9,10 +9,12 @@ mesh is a displaced sphere made deterministically from ``seed``.
 Sizes:
   "full":  700x700, 8 spp, 2 x 33,024 triangles (~66k, the frame the
            JAX package's bench.py times with killeroo)
+  "medium": 64x64, 2 spp, 2 x 1,200 triangles (the card-vs-CPU checks)
   "small": 32x32, 2 spp, 2 x 312 triangles (CPU tests)
 
 ``integrator="rpf"`` gives the same scene through ``Integrator "rpf"``
-(sample.pbrt's structure: the frame bench.py times second), and
+(sample.pbrt's structure: the frame bench.py times second),
+``integrator="ao"`` through ``Integrator "ao"`` (frame AO), and
 ``sampler=`` picks the Sampler directive (bench.py's sampler sweep runs
 the RPF frame under random, stratified and halton).
 
@@ -32,6 +34,7 @@ import numpy as np
 
 SIZES = {
     "full": dict(res=700, spp=8, mesh_n=128),
+    "medium": dict(res=64, spp=2, mesh_n=24),
     "small": dict(res=32, spp=2, mesh_n=12),
 }
 
@@ -85,19 +88,22 @@ def sampler_directive(sampler: str, spp: int) -> str:
 def standin_scene(size: str = "full", filename: str = "standin.exr",
                   seed: int = 0, integrator: str = "path",
                   sampler: str = "halton") -> str:
-    """The stand-in scene as .pbrt text; integrator is "path" or "rpf"."""
-    if integrator not in ("path", "rpf"):
+    """The stand-in scene as .pbrt text; integrator is "path", "rpf" or
+    "ao" (pbrt's defaults: 64 occlusion rays a hit, cosine-weighted)."""
+    if integrator not in ("path", "rpf", "ao"):
         raise ValueError(f"integrator {integrator!r}")
     cfg = SIZES[size]
     v, idx = blob_mesh(cfg["mesh_n"], seed)
     v = v * 1.6
     mesh = _mesh_text(v, idx)
     res, spp = cfg["res"], cfg["spp"]
+    integ = (f'Integrator "{integrator}"' if integrator == "ao" else
+             f'Integrator "{integrator}" "integer maxdepth" [5]')
     return f"""# tpurt_torch stand-in for killeroo-simple ({size})
 LookAt 0 4.5 -15  0 2.2 0  0 1 0
 Camera "perspective" "float fov" [39]
 {sampler_directive(sampler, spp)}
-Integrator "{integrator}" "integer maxdepth" [5]
+{integ}
 PixelFilter "box"
 Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]
   "string filename" "{filename}"
@@ -698,4 +704,132 @@ def write_motion_hair(path: str, size: str = "full", **kw) -> str:
     with open(path, "w") as f:
         f.write(motion_hair_scene(size, kw.pop("filename", base + ".exr"),
                                   **kw))
+    return path
+
+
+# frame F: participating media through Integrator "volpath"
+F_SIZES = {
+    "full": dict(res=700, spp=8, mesh_n=128, grid=64),
+    "medium": dict(res=64, spp=2, mesh_n=12, grid=16),
+    "small": dict(res=32, spp=2, mesh_n=12, grid=16),
+}
+FOG_SIGMA_A, FOG_SIGMA_S, FOG_G = 0.004, 0.018, 0.2  # optical depth ~0.5
+SMOKE_CENTER, SMOKE_RADIUS = (0.4, 6.2, 1.0), 1.4  # the grid medium's sphere
+SMOKE_SIGMA_A, SMOKE_SIGMA_S, SMOKE_G = 0.3, 2.7, 0.3
+JADE_CENTER, JADE_RADIUS = (3.9, 1.0, -5.0), 1.0  # the glass sphere
+SPOT_FROM, SPOT_CONE, SPOT_DELTA = (-6.0, 9.0, -6.0), 20.0, 4.0
+WALL_Z = 8.0
+
+
+def smoke_density(n: int, seed: int = 4) -> np.ndarray:
+    """The grid medium's density, (n, n, n) float32 in [0, 1] indexed
+    [z, y, x]: a ball falling off linearly from its centre to 0 at the
+    inscribed sphere, modulated by four seeded plane waves."""
+    rng = np.random.default_rng(seed)
+    c = (np.arange(n) + 0.5) / n * 2.0 - 1.0
+    z, y, x = np.meshgrid(c, c, c, indexing="ij")
+    ball = np.clip(1.0 - np.sqrt(x * x + y * y + z * z), 0.0, 1.0)
+    freq = rng.normal(size=(4, 3)) * 3.0
+    phase = rng.uniform(0.0, 2 * np.pi, 4)
+    noise = sum(np.sin(x * f[0] + y * f[1] + z * f[2] + ph)
+                for f, ph in zip(freq, phase)) / 4.0
+    return np.clip(ball * 1.6 * (0.65 + 0.35 * noise), 0.0,
+                   1.0).astype(np.float32)
+
+
+def media_scene(size: str, filename: str = "media.exr",
+                res: int = None) -> str:
+    """Frame F as .pbrt text: ``Integrator "volpath"`` at maxdepth 5, the
+    camera in a thin homogeneous fog (``MediumInterface "" "fog"`` before
+    the Camera), the stand-in's two meshes (matte and plastic) on a
+    ground quad before a back wall, a ``Material "none"`` sphere bounding
+    a grid medium (``"heterogeneous"``, smoke_density on the sphere's
+    box), a glass sphere holding a scattering homogeneous medium
+    ("jade"), a spot light aimed through the fog and the smoke sphere at
+    the wall, and a sphere area light.  The media are declared before
+    LookAt, so the grid's p0 and p1 are world points."""
+    cfg = F_SIZES[size]
+    res = res or cfg["res"]
+    v, idx = blob_mesh(cfg["mesh_n"], seed=0)
+    mesh = _mesh_text(v * 1.6, idx)
+    n = cfg["grid"]
+    dens = " ".join(f"{x:.4g}" for x in smoke_density(n).reshape(-1))
+    c, r = np.asarray(SMOKE_CENTER), SMOKE_RADIUS
+    p0 = " ".join(f"{x:g}" for x in c - r)
+    p1 = " ".join(f"{x:g}" for x in c + r)
+    spot_to = " ".join(f"{x:g}" for x in SMOKE_CENTER)
+    spot_from = " ".join(f"{x:g}" for x in SPOT_FROM)
+    return f"""# tpurt_torch frame F ({size}): participating media
+MakeNamedMedium "fog" "string type" "homogeneous"
+  "rgb sigma_a" [{FOG_SIGMA_A} {FOG_SIGMA_A} {FOG_SIGMA_A}]
+  "rgb sigma_s" [{FOG_SIGMA_S} {FOG_SIGMA_S} {FOG_SIGMA_S}] "float g" [{FOG_G}]
+MakeNamedMedium "jade" "string type" "homogeneous"
+  "rgb sigma_a" [0.4 0.05 0.3] "rgb sigma_s" [1.5 1.5 1.5] "float g" [0]
+MakeNamedMedium "smoke" "string type" "heterogeneous"
+  "integer nx" [{n}] "integer ny" [{n}] "integer nz" [{n}]
+  "point p0" [{p0}] "point p1" [{p1}]
+  "rgb sigma_a" [{SMOKE_SIGMA_A} {SMOKE_SIGMA_A} {SMOKE_SIGMA_A}]
+  "rgb sigma_s" [{SMOKE_SIGMA_S} {SMOKE_SIGMA_S} {SMOKE_SIGMA_S}]
+  "float g" [{SMOKE_G}]
+  "float density" [{dens}]
+LookAt 0 4.5 -15  0 2.2 0  0 1 0
+MediumInterface "" "fog"
+Camera "perspective" "float fov" [39]
+Sampler "halton" "integer pixelsamples" [{cfg["spp"]}]
+Integrator "volpath" "integer maxdepth" [5]
+PixelFilter "box"
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]
+  "string filename" "{filename}"
+WorldBegin
+LightSource "spot" "point from" [{spot_from}] "point to" [{spot_to}]
+  "float coneangle" [{SPOT_CONE}] "float conedeltaangle" [{SPOT_DELTA}]
+  "color I" [6000 6000 6000]
+AttributeBegin
+  AreaLightSource "area" "color L" [40 40 40]
+  Translate 3 9 -5
+  Shape "sphere" "float radius" [1.2]
+AttributeEnd
+AttributeBegin
+  Material "matte" "color Kd" [0.5 0.5 0.5]
+  Shape "trianglemesh" "point P" [-30 0 -30  30 0 -30  30 0 30  -30 0 30]
+    "integer indices" [0 2 1  0 3 2]
+  Material "matte" "color Kd" [0.55 0.45 0.35]
+  Shape "trianglemesh" "point P" [-30 0 {WALL_Z:g}  30 0 {WALL_Z:g}
+    30 30 {WALL_Z:g}  -30 30 {WALL_Z:g}]
+    "integer indices" [0 1 2  0 2 3]
+AttributeEnd
+AttributeBegin
+  Material "plastic" "color Kd" [0.4 0.2 0.2] "color Ks" [0.5 0.5 0.5]
+    "float roughness" [0.025]
+  AttributeBegin
+    Translate -2.2 0 0
+    {mesh}  AttributeEnd
+  Material "matte" "color Kd" [0.3 0.45 0.3]
+  AttributeBegin
+    Translate 2.4 0 2
+    Rotate 40 0 1 0
+    {mesh}  AttributeEnd
+AttributeEnd
+AttributeBegin
+  MediumInterface "smoke" "fog"
+  Material "none"
+  Translate {SMOKE_CENTER[0]} {SMOKE_CENTER[1]} {SMOKE_CENTER[2]}
+  Shape "sphere" "float radius" [{SMOKE_RADIUS}]
+AttributeEnd
+AttributeBegin
+  MediumInterface "jade" "fog"
+  Material "glass" "float eta" [1.5]
+  Translate {JADE_CENTER[0]} {JADE_CENTER[1]} {JADE_CENTER[2]}
+  Shape "sphere" "float radius" [{JADE_RADIUS}]
+AttributeEnd
+WorldEnd
+"""
+
+
+def write_media(path: str, size: str = "full", **kw) -> str:
+    """Write frame F to ``path``; returns ``path``.  kw: ``res``,
+    ``filename``."""
+    base = path.rsplit(".", 1)[0]
+    with open(path, "w") as f:
+        f.write(media_scene(size, kw.pop("filename", base + ".exr"), **kw))
     return path
