@@ -1,12 +1,13 @@
 """Drive the PyTorch/CUDA port's main paths once on one GPU and check them.
 
     python3 chip_smoke.py             # needs one CUDA card
-    python3 chip_smoke.py --profile   # also prints a torch.profiler
-                                      # breakdown of one path frame, one
-                                      # RPF frame, one direct-lighting
-                                      # textured frame, one frame D and
-                                      # one frame E, and traces the host
-                                      # too in F's and AO's profiles
+    python3 chip_smoke.py --profile   # also times 3 renders of each
+                                      # frame (1 without) and prints a
+                                      # torch.profiler breakdown of one
+                                      # frame of A, B, C1, D, E, F, AO
+                                      # and G and of one H chain step
+                                      # (F's, G's and H's with their
+                                      # ranges)
 
 Phases (any failure exits non-zero; none is caught):
   1. environment: versions, the card's name and power limit
@@ -57,7 +58,7 @@ Phases (any failure exits non-zero; none is caught):
      run; the image is finite with mean > 0 and the image map's stripes
      show on the sphere (an unreadable map would render black and pass
      every other check); K1 against its plain version on this frame's
-     rays; then one warm-up and 3 timed renders
+     rays; then one warm-up and the timed renders
      (direct_textured_render_s, peak memory); then the same frame under
      Sampler "sobol" and a gaussian filter, once, with the K1 check too
  11. main path C2: the full RPF frame under Sampler "random" (8 spp) and
@@ -86,7 +87,7 @@ Phases (any failure exits non-zero; none is caught):
      lit side); the environment map's sampling on 2^20 lanes on the card
      against the CPU (same texel on every lane, ties on the CDF included)
      and against the map's distribution; K1 against its plain version on
-     D's rays, every bounce step; one warm-up and 3 timed renders
+     D's rays, every bounce step; one warm-up and the timed renders
      (materials_lights_render_s, peak memory); D under Integrator "rpf"
      at 256x256 through the CLI, untimed, with the counter and image
      checks; the 64x64 D and the orthographic and environment camera
@@ -100,7 +101,7 @@ Phases (any failure exits non-zero; none is caught):
      must have launched, its static body and the plain traversal not; the
      motion and the hair show against renders with each switched off
      (e_checks); K1m and K1c against their plain versions on every call
-     of E's camera rays and first two bounce steps; one warm-up and 3
+     of E's camera rays and first two bounce steps; one warm-up and the
      timed renders (motion_hair_render_s, peak memory); E under
      Integrator "rpf" at 256x256 through the CLI; E at 64x64 on the card
      against the CPU (phase 9's bounds).  Frames A-D must launch only the
@@ -114,16 +115,41 @@ Phases (any failure exits non-zero; none is caught):
      media, the spot's in-scattering and the shadow walk switched off
      (f_checks); K1 against its plain version on F's camera rays and its
      first two bounce steps, the shadow walks' crossing calls included;
-     3 timed renders after a warm-up (media_render_s, peak memory, the
-     tracking loops' steps and both overflow counts, which must be 0); one
-     profiled frame (launches, idle share; under --profile the tracking
-     loops' and the walk's share of the device time); F at 64x64 on the
-     card against the CPU (phase 9's bounds)
+     the timed renders after a warm-up (media_render_s, peak memory, the
+     tracking loops' steps and both overflow counts, which must be 0);
+     under --profile one profiled frame (launches, idle share, the
+     tracking loops' and the walk's share of the device time); F at 64x64
+     on the card against the CPU (phase 9's bounds)
  17. main path AO: the CLI renders the stand-in under Integrator "ao"
      (700x700, 8 spp, 64 occlusion rays a hit) on the card; K1 against its
-     plain version on the camera rays and two samples' occlusion rays; 3
-     timed renders (ao_render_s); one profiled frame (launches, K1's
-     share of the device time); AO at 64x64 on the card against the CPU
+     plain version on the camera rays and two samples' occlusion rays;
+     the timed renders (ao_render_s); under --profile one profiled frame
+     (launches, K1's share of the device time); AO at 64x64 on the card
+     against the CPU
+ 18. main path G: the CLI renders the stand-in under Integrator "bdpt"
+     (700x700, 8 spp, maxdepth 5) on the card; K1 must have launched
+     closest (the walk) and any-hit (the connection batch), the plain
+     traversal not; g_checks: the mean within 5% of frame A's path mean,
+     the light-tracing (t=1 splat) share above 0, the render that ignores
+     connection occlusion brighter; K1 against its plain version on one
+     chunk's walk calls and connection slices (the 2^20-ray slice's time,
+     bound and plain time in the kernels line); the timed renders
+     (bdpt_render_s, peak memory); under --profile one profiled frame
+     with the walk's, the strategy loop's and the connection batch's
+     device time
+ 19. bdpt cross-checks, card against CPU (phase 9's bounds): G at 32x32,
+     frame F's 64x64 scene, frame D's 32x32 scene and frame E's scene at
+     32x32, each under Integrator "bdpt"
+ 20. main path H: the CLI renders the stand-in under Integrator "mlt"
+     (maxdepth 5) at 128x128 with 16 mutations a pixel (K1 launched, no
+     plain traversal); then one 700x700 frame on a built job through
+     render_mlt_job with 2^20 chains and 100 mutations a pixel, its
+     own launches counted (K1 closest and any-hit, no plain traversal;
+     "mlt" in the kernels line, the CLI run's "mlt_cli_128")
+     (mlt_render_s, the bootstrap's and the chains' seconds, acceptance
+     per depth), finite, its mean within 15% of frame A's path mean; K1
+     against its plain version on one chain step's calls (depth 1, 2^20
+     rows); under --profile one chain step's breakdown
 K1 on every path: phase 4 holds the kernel to its plain version on path
 A's rays; paths B, C1, C2 and the whitted variant walk other scenes or
 other rays, so each records the calls K1's wrapper receives while 2^20
@@ -135,9 +161,10 @@ same card tensors under phase 4's bounds, with its work counts, bound and
 both times (k1_on_path; "vs_plain_by_path" in the kernels line).  These
 launches are made outside the counted runs.
 
-Paths A and B are timed over one frame each (three until the script grew
-paths C1 and C2), which keeps the whole run near two minutes; C1 and D
-keep their three.
+Each frame is timed over one render after its warm-up in the
+no-argument run (three under --profile), and the profiled frames run only
+under --profile, which keeps the no-argument run under ten minutes; each
+phase's seconds are printed.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
@@ -268,10 +295,11 @@ def frame_ray_calls(job, bounces: int, cfg=None):
     calls with the alive lanes kept by a boolean index between them, until
     none is alive (volpath's init and step on a scene with media, their
     shadow walks' crossing calls included; ao's camera hits and occlusion
-    rays).  ``cfg`` defaults to the job's (the RPF sampling pass has its
-    own).  Each call is (o, d, t_max, any_hit, time, tree) as the wrapper
+    rays; bdpt's walk and connection batch for one chunk).  ``cfg``
+    defaults to the job's (the RPF sampling pass has its own).  Each call is (o, d, t_max, any_hit, time, tree) as the wrapper
     got it, on the card."""
     from tpurt_torch.config import tpurt_chunk
+    from tpurt_torch.render.bdpt import bdpt_radiance
     from tpurt_torch.render.integrator import (ao_radiance,
                                                path_bounce_init,
                                                path_bounce_step)
@@ -289,6 +317,16 @@ def frame_ray_calls(job, bounces: int, cfg=None):
     px = (x0 + pid % film.width).to(torch.int64)
     py = (y0 + pid // film.width).to(torch.int64)
     calls, recording = recorder()
+    if cfg.name == "bdpt":
+        # one chunk of trace_lanes' bdpt branch: the walk's 2n-lane
+        # closest calls, then the connection batch's any-hit slices
+        c = tpurt_chunk(total)
+        bdpt_radiance(job.scene, job.sampler, job.camera, px, py, ids % spp,
+                      cfg, recording, crop_xy=(x0, y0),
+                      texture_eval=job.texture_eval, track_lane=ids % c,
+                      track_chunk=c)
+        torch.cuda.synchronize()
+        return calls
     if cfg.name == "ao":
         ao_radiance(job.scene, job.sampler, job.camera, px, py, ids % spp,
                     cfg, recording, crop_xy=(x0, y0))
@@ -496,14 +534,19 @@ def k1_on_path(label: str, job, bounces: int, cfg=None):
     the bound from it, the kernel's time per launch in bursts of 10 and
     the plain version's.  Returns one record a call for the kernels line;
     these launches are made outside the counted runs."""
+    calls = frame_ray_calls(job, bounces, cfg)
+    assert calls and not calls[0][3], label
+    return k1_on_calls(label, job.scene.geo, calls)
+
+
+def k1_on_calls(label: str, geo, calls):
+    """k1_on_path's checks and times on recorded calls of K1's wrapper
+    (recorder) on ``geo``."""
     from tpurt_torch.kernels.traverse import (LEAF_KINDS, leaf_kind,
                                               traverse_wide,
                                               traverse_wide_reference)
 
     names = {k: v[1] for k, v in LEAF_KINDS.items()}
-    geo = job.scene.geo
-    calls = frame_ray_calls(job, bounces, cfg)
-    assert calls and not calls[0][3], label
     out = []
     for i, rays in enumerate(calls):
         o, d, tm, any_hit, time_, tree = rays
@@ -634,7 +677,7 @@ def phase_main(scene_path: str, gpu: str):
           f"camera Mrays/s {paths / render_s / 1e6:.4f} ({paths} paths) "
           f"peak mem {peak / 2**30:.3f} GiB, scene build {build_s:.2f}s, "
           f"image mean {img.mean():.5f} on {gpu}")
-    return job, launches, render_s
+    return job, launches, render_s, float(img.mean())
 
 
 def phase_rpf(scene_path: str, gpu: str):
@@ -803,18 +846,7 @@ def phase_direct(gpu: str):
     assert job.cfg.specular_only and job.scene.has_texfilter
     k1_paths = {"direct_textured": k1_on_path(
         "C1 direct-lighting textured", job, job.cfg.max_depth + 1)}
-    render_job(job)  # warm-up
-    runs, peak = [], 0
-    for _ in range(3):
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        img = render_job(job)
-        torch.cuda.synchronize()
-        runs.append(time.time() - t0)
-        peak = max(peak, torch.cuda.max_memory_allocated())
-    assert np.isfinite(img).all() and img.mean() > 0
-    render_s = statistics.median(runs)
+    render_s, runs, peak, img = render_timed(job)
     print(f"direct_textured_render_s {render_s:.4f} (runs "
           f"{['%.4f' % r for r in runs]}) peak mem {peak / 2**30:.3f} GiB, "
           f"image mean {img.mean():.5f} on {gpu}")
@@ -1114,18 +1146,7 @@ def phase_materials(gpu: str):
     checks["env_sampling"] = env_sampling_check(job)
     k1_paths = {"materials": k1_on_path("D materials", job,
                                         job.cfg.max_depth + 1)}
-    render_job(job)  # warm-up
-    runs, peak = [], 0
-    for _ in range(3):
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        img = render_job(job)
-        torch.cuda.synchronize()
-        runs.append(time.time() - t0)
-        peak = max(peak, torch.cuda.max_memory_allocated())
-    assert np.isfinite(img).all() and img.mean() > 0
-    render_s = statistics.median(runs)
+    render_s, runs, peak, img = render_timed(job)
     print(f"materials_lights_render_s {render_s:.4f} (runs "
           f"{['%.4f' % r for r in runs]}) peak mem {peak / 2**30:.3f} GiB, "
           f"image mean {img.mean():.5f} on {gpu}")
@@ -1270,18 +1291,7 @@ def phase_motion_hair(gpu: str):
     checks = e_checks(job, img)
     k1_e = k1_on_path("E motion hair", job, 2)
     assert {r["body"] for r in k1_e} == {"K1m", "K1c"}, k1_e
-    render_job(job)  # warm-up
-    runs, peak = [], 0
-    for _ in range(3):
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        img = render_job(job)
-        torch.cuda.synchronize()
-        runs.append(time.time() - t0)
-        peak = max(peak, torch.cuda.max_memory_allocated())
-    assert np.isfinite(img).all() and img.mean() > 0
-    render_s = statistics.median(runs)
+    render_s, runs, peak, img = render_timed(job)
     print(f"motion_hair_render_s {render_s:.4f} (runs "
           f"{['%.4f' % r for r in runs]}) peak mem {peak / 2**30:.3f} GiB, "
           f"image mean {img.mean():.5f}, CLI first run {cli_s:.2f}s on {gpu}")
@@ -1453,14 +1463,19 @@ def f_checks(job, img):
     return out
 
 
-def render_timed(job, runs: int = 3):
+# timed renders of each frame after its warm-up: 1 in the no-argument run,
+# 3 under --profile (main sets it)
+TIMED_RUNS = 1
+
+
+def render_timed(job):
     """(median seconds, the runs, peak memory in bytes, the last image) of
-    ``runs`` renders of a built job after one warm-up."""
+    TIMED_RUNS renders of a built job after one warm-up."""
     from tpurt_torch.render.driver import render_job
 
     render_job(job)  # warm-up
     times, peak = [], 0
-    for _ in range(runs):
+    for _ in range(TIMED_RUNS):
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.time()
@@ -1522,9 +1537,11 @@ def phase_media(gpu: str, profile_all: bool):
           f"{track}")
     assert track["grid_overflow"] == 0 and track["walk_overflow"] == 0
     t_prof = time.time()
-    prof = phase_profile("media frame F", lambda: render_job(job),
-                         render_s, ranges=(TRACKING_RANGE, WALK_RANGE),
-                         top=25 if profile_all else 8, host=profile_all)
+    prof = None
+    if profile_all:
+        prof = phase_profile("media frame F", lambda: render_job(job),
+                             render_s, ranges=(TRACKING_RANGE, WALK_RANGE),
+                             top=25)
     t_prof = time.time() - t_prof
     gimg, _ = render(load_scene(write_media(str(WORK / "media_64.pbrt"),
                                             "medium")), "cuda")
@@ -1566,10 +1583,11 @@ def phase_ao(gpu: str, profile_all: bool):
           f"peak mem {peak / 2**30:.3f} GiB, image mean {img.mean():.5f}, "
           f"{rays} camera paths x {job.cfg.ao_samples} occlusion rays, CLI "
           f"first run {cli_s:.2f}s on {gpu}")
-    prof = phase_profile("ao frame", lambda: render_job(job), render_s,
-                         host=profile_all)
-    print(f"AO: K1 {'is' if prof['k1_share'] > 0.5 else 'is not'} most of "
-          f"the device time ({prof['k1_share']:.3f})")
+    prof = None
+    if profile_all:
+        prof = phase_profile("ao frame", lambda: render_job(job), render_s)
+        print(f"AO: K1 {'is' if prof['k1_share'] > 0.5 else 'is not'} most "
+              f"of the device time ({prof['k1_share']:.3f})")
     small = write_standin(str(WORK / "standin_ao_64.pbrt"), "medium",
                           integrator="ao")
     gimg, _ = render(load_scene(small), "cuda")
@@ -1577,6 +1595,236 @@ def phase_ao(gpu: str, profile_all: bool):
     _close(gimg, himg, "AO 64x64")
     return dict(launches=launches, render_s=render_s, peak=peak,
                 profile=prof, k1=k1_ao)
+
+
+def _mean_without(job, splats: bool = True, occlusion: bool = True):
+    """The mean of job's bdpt frame rendered with the t=1 splats dropped
+    (``splats=False``) or with every connection ray's occlusion ignored
+    (``occlusion=False``: the any-hit calls see t_max 0), on the same
+    samples."""
+    from tpurt_torch.kernels.traverse import traverse_wide
+    from tpurt_torch.render.driver import trace_lanes
+
+    film = job.film
+    state = film.initial_state(job.scene.geo.device, splats=True)
+
+    def bank(st, sel):
+        film.add_samples(state, st["p_film_crop"], st["L"], st["ray_w"])
+        if splats and "splat_p" in st:
+            film.add_splats(state, st["splat_p"], st["splat_L"])
+
+    def traverse(geo, o, d, t_max, any_hit, time=None, tree="tri"):
+        if any_hit and not occlusion:
+            t_max = torch.zeros_like(t_max)
+        return traverse_wide(geo, o, d, t_max, any_hit, time=time, tree=tree)
+
+    trace_lanes(job, job.cfg, traverse, bank)
+    return float(film.to_image(state, 1.0 / job.sampler.spp).mean())
+
+
+def g_checks(job, img, path_mean: float):
+    """Main path G's checks, each against a render of the same job on the
+    same samples:
+      path: the mean of G over frame A's path mean (the same scene;
+        tpurt's own bdpt-vs-path gap on the small stand-in, measured on
+        the CPU: +1.29% at 8 spp, +0.29% at 32 spp), within 5%;
+      light tracing: 1 - the mean with the t=1 splats dropped over G's
+        mean, the light-tracing strategies' share (dead splats: 0);
+      occlusion: the mean with every connection ray's occlusion ignored
+        over G's (a dead any-hit batch: 1)."""
+    mean = float(img.mean())
+    out = dict(bdpt_over_path=mean / path_mean,
+               light_tracing_share=1.0 - _mean_without(job, splats=False)
+               / mean,
+               unoccluded_over_occluded=_mean_without(job, occlusion=False)
+               / mean)
+    print(f"G checks: {out}")
+    assert abs(out["bdpt_over_path"] - 1.0) < 0.05, out
+    assert out["light_tracing_share"] > 0.001, out
+    assert out["unoccluded_over_occluded"] > 1.01, out
+    return out
+
+
+def phase_bdpt(gpu: str, path_mean: float, profile_all: bool):
+    """Main path G: the stand-in under Integrator "bdpt" through the CLI
+    at 700x700, 8 spp, maxdepth 5 (K1 must launch closest and any-hit, the
+    plain traversal not), g_checks, K1 against its plain version on G's
+    rays (one chunk's walk calls and connection slices), the timed frame
+    (bdpt_render_s, peak memory), and under --profile the breakdown with
+    the walk's, the strategy loop's and the connection batch's ranges."""
+    from tpurt_torch.kernels.traverse import traverse_wide
+    from tpurt_torch.render.bdpt import (CONNECT_RANGE, CONNECT_SLICE,
+                                         STRATEGY_RANGE, WALK_RANGE)
+    from tpurt_torch.render.driver import build_job, load_scene, render_job
+    from tpurt_torch.testscenes import write_standin
+
+    scene = write_standin(str(WORK / "standin_bdpt_full.pbrt"), "full",
+                          integrator="bdpt")
+    img, launches, cli_s = cli_counted(scene, WORK / "standin_bdpt_out.exr",
+                                       "main path G (bdpt)")
+    any_hit = traverse_wide.any_hit_launches
+    print(f"G: K1 closest launches {launches - any_hit}, any-hit {any_hit}")
+    assert img.shape == (700, 700, 3) and any_hit > 0 and launches > any_hit
+    job = build_job(load_scene(scene), "cuda")
+    assert job.cfg.name == "bdpt" and job.cfg.max_depth == 5
+    checks = g_checks(job, img, path_mean)
+    k1_g = k1_on_path("G bdpt", job, 0)
+    conn = [r for r in k1_g if r["any_hit"] and r["rays"] == CONNECT_SLICE]
+    walk = [r for r in k1_g if not r["any_hit"]]
+    assert len(walk) == job.cfg.max_depth + 1 and conn, k1_g
+    render_s, runs, peak, img = render_timed(job)
+    print(f"bdpt_render_s {render_s:.4f} (runs {['%.4f' % r for r in runs]})"
+          f" peak mem {peak / 2**30:.3f} GiB, image mean {img.mean():.5f}, "
+          f"CLI first run {cli_s:.2f}s, K1 launches {launches} on {gpu}")
+    prof = None
+    if profile_all:
+        prof = phase_profile("bdpt frame G", lambda: render_job(job),
+                             render_s, top=20,
+                             ranges=(WALK_RANGE, STRATEGY_RANGE,
+                                     CONNECT_RANGE))
+    return dict(launches=launches, any_hit_launches=any_hit,
+                render_s=render_s, peak=peak, checks=checks, k1=k1_g,
+                connection=conn[0], profile=prof, mean=float(img.mean()))
+
+
+def phase_bdpt_cross():
+    """Phase 19: bdpt on the card against the CPU under phase 9's bounds:
+    G small (32x32), frame F's 64x64 scene (the media walk, the medium
+    vertices, the connection transmittance), frame D's small scene (every
+    light kind's sample_le and pdf_le, the environment map) and frame E's
+    small scene at 32x32 (K1m and K1c inside the walk, the curves'
+    connection offsets)."""
+    from tpurt_torch.render.driver import load_scene, render
+    from tpurt_torch.testscenes import (write_materials, write_media,
+                                        write_motion_hair, write_standin)
+
+    scenes = [
+        ("G 32x32", write_standin(str(WORK / "standin_bdpt_small.pbrt"),
+                                  "small", integrator="bdpt")),
+        ("F 64x64 under bdpt", write_media(str(WORK / "media_bdpt_64.pbrt"),
+                                           "medium", integrator="bdpt")),
+        ("D 32x32 under bdpt", write_materials(
+            str(WORK / "materials_bdpt_small.pbrt"), "small",
+            integrator="bdpt")),
+        ("E 32x32 under bdpt", write_motion_hair(
+            str(WORK / "motion_hair_bdpt_32.pbrt"), "small",
+            integrator="bdpt", res=32)),
+    ]
+    for what, path in scenes:
+        g, job = render(load_scene(path), "cuda")
+        h, _ = render(load_scene(path), "cpu")
+        assert job.cfg.name == "bdpt"
+        _close(g, h, what)
+
+
+def phase_mlt(gpu: str, path_mean: float, profile_all: bool):
+    """Main path H: the stand-in under Integrator "mlt" (maxdepth 5)
+    through the CLI at 128x128 with mutationsperpixel 16 (the dispatch: K1
+    launched, no plain traversal), then one timed 700x700 frame on a built
+    job through render_mlt_job with 2^20 chains and pbrt's 100 mutations
+    a pixel, with the traversal counters set to 0 just before it and read
+    just after (K1 launched closest and any-hit, the plain traversal
+    not): mlt_render_s with its bootstrap and chain seconds and the
+    acceptance per depth; its mean within 15% of frame A's path mean
+    (tpurt's MLT tolerance, tests/test_bdpt.py:124-139).  Then K1 against
+    its plain version on the calls of one chain step's evaluation (depth
+    1, 2^20 rows).  Under --profile one chain step's breakdown
+    (mlt_step_profile)."""
+    from tpurt_torch.kernels.traverse import (reset_launches, traverse_wide,
+                                              traverse_wide_reference)
+    from tpurt_torch.render.driver import build_job, load_scene
+    from tpurt_torch.render.mlt import render_mlt_job
+    from tpurt_torch.testscenes import write_standin
+
+    small = write_standin(str(WORK / "standin_mlt_128.pbrt"), "full",
+                          integrator="mlt", res=128, mutations=16)
+    img, launches_cli, cli_s = cli_counted(
+        small, WORK / "standin_mlt_out.exr", "main path H (mlt, 128x128)")
+    assert img.shape == (128, 128, 3)
+    scene = write_standin(str(WORK / "standin_mlt_full.pbrt"), "full",
+                          integrator="mlt")
+    sd = load_scene(scene)
+    job = build_job(sd, "cuda")
+    assert job.cfg.name == "mlt"
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    traverse_wide_reference.calls = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    img = render_mlt_job(job, sd.integrator_params, n_chains=1 << 20,
+                         stats=stats)
+    torch.cuda.synchronize()
+    render_s = time.time() - t0
+    launches, any_hit = traverse_wide.launches, traverse_wide.any_hit_launches
+    plain_calls = traverse_wide_reference.calls
+    peak = torch.cuda.max_memory_allocated()
+    ratio = float(img.mean()) / path_mean
+    print(f"mlt_render_s {render_s:.4f} (bootstrap {stats['bootstrap_s']:.4f}"
+          f" s, chains {stats['chains_s']:.4f} s) peak mem "
+          f"{peak / 2**30:.3f} GiB, image mean {img.mean():.5f} = "
+          f"{ratio:.4f} of A's path mean, b per depth "
+          f"{stats['b_per_depth']}, chains {stats['depths']}, K1 launches "
+          f"{launches} (any-hit {any_hit}), plain calls {plain_calls}, CLI "
+          f"128x128 {cli_s:.2f}s on {gpu}")
+    assert img.shape == (700, 700, 3) and np.isfinite(img).all()
+    assert launches > any_hit > 0 and plain_calls == 0
+    assert abs(ratio - 1.0) < 0.15, ratio
+    k1_h = k1_on_calls("H chain step", job.scene.geo, mlt_step_calls(job))
+    prof = None
+    if profile_all:
+        prof = mlt_step_profile(job, stats["b_per_depth"][1])
+    return dict(launches=launches, any_hit_launches=any_hit,
+                launches_cli=launches_cli, render_s=render_s, peak=peak,
+                stats=stats, ratio=ratio, k1=k1_h, profile=prof)
+
+
+def mlt_step_calls(job):
+    """Every call K1's wrapper receives while one chain step of frame H
+    evaluates its proposals: depth 1's make_mlt_eval on 2^20 uniform rows
+    (a large step), recorded on the card (recorder)."""
+    from tpurt_torch.render.mlt import make_mlt_eval, n_dims_for
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    X = torch.rand((LANES, n_dims_for(job.cfg.max_depth)), generator=g,
+                   device="cuda")
+    calls, recording = recorder()
+    make_mlt_eval(job, 1, recording)(X)
+    torch.cuda.synchronize()
+    assert calls and not calls[0][3] and any(c[3] for c in calls)
+    return calls
+
+
+def mlt_step_profile(job, b_d: float):
+    """One chain step of frame H's depth 1 (2^20 chains from uniform
+    rows, pbrt's sigma and large-step probability), timed after one
+    warm-up step and then profiled, with bdpt's ranges."""
+    from tpurt_torch.kernels.traverse import traverse_wide
+    from tpurt_torch.render.bdpt import (CONNECT_RANGE, STRATEGY_RANGE,
+                                         WALK_RANGE)
+    from tpurt_torch.render.mlt import (Chains, chain_step, make_mlt_eval,
+                                        n_dims_for)
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    ev = make_mlt_eval(job, 1, traverse_wide)
+    ch = Chains.start(torch.rand((1 << 20, n_dims_for(job.cfg.max_depth)),
+                                generator=g, device="cuda"), ev)
+    state = job.film.initial_state("cuda", splats=True)
+
+    def step():
+        chain_step(job.film, state, ev, ch, g, 0.01, 0.3, 1.0, b_d)
+
+    step()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    step()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    print(f"H chain step (depth 1, 2^20 chains): {wall:.4f}s")
+    return phase_profile("H chain step (depth 1, 2^20 chains)", step, wall,
+                         ranges=(WALK_RANGE, STRATEGY_RANGE, CONNECT_RANGE))
 
 
 # the jnp code of tpurt's _traverse_wide that each leaf body replaces
@@ -1609,11 +1857,18 @@ def leaf_body_entry(body: str, records, launches_by_path, checks):
 
 
 def main(argv=None) -> int:
+    global TIMED_RUNS
     argv = sys.argv[1:] if argv is None else argv
+    profile_all = "--profile" in argv
+    TIMED_RUNS = 3 if profile_all else 1
     t_start = time.time()
+    t_last = [t_start]
 
     def stamp(what: str):
-        print(f"[{time.time() - t_start:7.1f}s] {what} done")
+        now = time.time()
+        print(f"[{now - t_start:7.1f}s] {what} done in "
+              f"{now - t_last[0]:.1f}s")
+        t_last[0] = now
 
     phase_env()
     gpu = gpu_line()
@@ -1643,7 +1898,7 @@ def main(argv=None) -> int:
     k1 = phase_kernel(job)
     stamp("phase 4 (K1)")
     k2 = phase_gather(gpu)
-    job, launches_a, render_s = phase_main(full, gpu)
+    job, launches_a, render_s, path_mean = phase_main(full, gpu)
     stamp("phases 5-6 (K2, path A)")
     launches_b, rpf_job, rpf_total_s, k1_b = phase_rpf(full_rpf, gpu)
     stamp("phase 7 (RPF B)")
@@ -1663,12 +1918,20 @@ def main(argv=None) -> int:
     (e_job, launches_e, e_bodies, launches_e_rpf, e_rpf_bodies, e_s, k1_e,
      e_checks_out) = phase_motion_hair(gpu)
     stamp("phase 15 (E)")
-    media = phase_media(gpu, "--profile" in argv)
+    media = phase_media(gpu, profile_all)
     stamp("phase 16 (F)")
-    ao = phase_ao(gpu, "--profile" in argv)
+    ao = phase_ao(gpu, profile_all)
     stamp("phase 17 (AO)")
-    k1_paths.update(media=media["k1"], ao=ao["k1"])
-    if "--profile" in argv:
+    bdpt = phase_bdpt(gpu, path_mean, profile_all)
+    stamp("phase 18 (G)")
+    phase_bdpt_cross()
+    stamp("phase 19 (bdpt cross-checks)")
+    mlt = phase_mlt(gpu, path_mean, profile_all)
+    stamp("phase 20 (H)")
+    k1_paths.update(media=media["k1"], ao=ao["k1"], bdpt=bdpt["k1"],
+                    mlt=mlt["k1"])
+    conn = bdpt["connection"]
+    if profile_all:
         from tpurt_torch.render.driver import render_job
         from tpurt_torch.rpf.driver import render_rpf_job
 
@@ -1689,7 +1952,8 @@ def main(argv=None) -> int:
              launches=(launches_a + launches_b + launches_c1 + launches_w
                        + sum(launches_c2.values()) + launches_d
                        + launches_d_rpf + media["launches"]
-                       + ao["launches"]),
+                       + ao["launches"] + bdpt["launches"]
+                       + mlt["launches"] + mlt["launches_cli"]),
              launches_by_path={
                  "path": launches_a, "rpf": launches_b,
                  "direct_textured": launches_c1,
@@ -1697,10 +1961,21 @@ def main(argv=None) -> int:
                  "rpf_stratified": launches_c2["stratified"],
                  "whitted": launches_w, "materials": launches_d,
                  "materials_rpf": launches_d_rpf,
-                 "media": media["launches"], "ao": ao["launches"]},
+                 "media": media["launches"], "ao": ao["launches"],
+                 "bdpt": bdpt["launches"], "mlt": mlt["launches"],
+                 "mlt_cli_128": mlt["launches_cli"]},
+             bdpt_any_hit_launches=bdpt["any_hit_launches"],
+             mlt_any_hit_launches=mlt["any_hit_launches"],
+             connection_rays=conn["rays"], ms_connection=conn["ms"],
+             ms_burst_connection=conn["ms_burst"],
+             plain_ms_connection=conn["plain_ms"],
+             bound_ms_connection=conn["bound_ms"],
+             bound_by_connection=conn["bound_by"],
+             bdpt_checks=bdpt["checks"],
+             mlt_mean_over_path=mlt["ratio"],
              materials_checks=d_checks, media_checks=media["checks"],
              media_tracking=media["track"],
-             ao_k1_share_of_device=ao["profile"]["k1_share"],
+             ao_k1_share_of_device=(ao["profile"] or {}).get("k1_share"),
              vs_plain_by_path=k1_paths, **k1),
         *(leaf_body_entry(body, k1_e, {
             "motion_hair": e_bodies[body],

@@ -1,5 +1,6 @@
-"""The port's Threefry-2x32 against ``jax.random``, bit for bit: part 2 of the
-cases of test_torch_threefry.py, in files of at most three cases so that
+"""The port's Threefry-2x32 against ``jax.random``, bit for bit (MLT's
+``split`` and ``uniform`` among them): part 2 of the cases of
+test_torch_threefry.py, in files of at most three test functions so that
 xdist's loadfile queue runs them beside the suite's long files.  Helpers,
 fixtures and bounds are those of test_torch_threefry.py.
 """
@@ -50,3 +51,28 @@ def test_python_int_and_tensor_paths_agree():
     c = torch.as_tensor(COUNTERS[:50].astype(np.int64))
     got = tf.bits(tf.fold_in(key, c)).tolist()
     assert got == [tf.bits(tf.fold_in(key, int(x))) for x in COUNTERS[:50]]
+
+
+def test_split_and_uniform_equal_jax():
+    """MLT's bootstrap draws (tpurt's mlt.py:164-170): under three seeds a
+    chain of ``split`` keys and ``uniform`` matrices under each, bit for
+    bit, and a five-way split."""
+    for seed in (0, 7, 0x9E3779B9):
+        _split_and_uniform(seed)
+
+
+def _split_and_uniform(seed):
+    jkey, key = jax.random.key(seed), tf.key(seed)
+    for shape in [(5,), (257, 13), (64, 62)]:
+        jkey, jk = jax.random.split(jkey)
+        key, k = tf.split(key)
+        assert k == tuple(int(x) for x in np.asarray(jax.random.key_data(jk)))
+        want = np.asarray(jax.random.uniform(jk, shape, jnp.float32))
+        got = tf.uniform(k, shape).numpy()
+        assert got.shape == want.shape and got.dtype == np.float32
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+    jkeys = jax.random.split(jkey, 5)
+    assert tf.split(key, 5) == [
+        tuple(int(x) for x in np.asarray(jax.random.key_data(q)))
+        for q in jkeys]

@@ -6,8 +6,11 @@ renders each scene with its integrator and writes the image named by the
 scene's Film (or --outfile) through tpurt_torch.io (EXR, PFM or PNG by
 extension).  ``Integrator "rpf"`` runs the sampling pass, the RPF filter
 at box 7 and the splat, and writes the six feature EXRs beside the Film's
-filename.  The device is explicit: --device cuda (the default) raises
-when CUDA is absent; pass --device cpu to render on the CPU.
+filename.  ``Integrator "mlt"`` runs the bootstrap and the Metropolis
+chains over bdpt (render.driver.render dispatches it to render/mlt.py, as
+tpurt's cli.py:109-113 does).  The device is
+explicit: --device cuda (the default) raises when CUDA is absent; pass
+--device cpu to render on the CPU.
 """
 
 from __future__ import annotations

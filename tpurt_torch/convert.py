@@ -166,6 +166,7 @@ def scene_from_tpurt(job) -> dict:
                     spat_inv_extent=a(lt.spat_inv_extent),
                     spat_res=int(lt.spat_res), n_lights=int(lt.n_lights),
                     world_radius=float(lt.world_radius),
+                    world_center=a(lt.world_center),
                     env_map=a(lt.env_map), env_cond_cdf=a(lt.env_cond_cdf),
                     env_cond_int=a(lt.env_cond_int),
                     env_marg_cdf=a(lt.env_marg_cdf), env_w2l=a(lt.env_w2l),

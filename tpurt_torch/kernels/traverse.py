@@ -161,12 +161,15 @@ def traverse_wide(geo, o, d, t_max, any_hit: bool, time=None,
     if o.shape[0]:
         traverse_wide.launches += 1
         traverse_wide.kernel_launches[LEAF_KINDS[kind][1]] += 1
+        traverse_wide.any_hit_launches += bool(any_hit)
     return out
 
 
 def reset_launches() -> None:
-    """Zero the wrapper's launch counts (the total and by body)."""
+    """Zero the wrapper's launch counts (the total, the any-hit ones and
+    by body)."""
     traverse_wide.launches = 0
+    traverse_wide.any_hit_launches = 0
     traverse_wide.kernel_launches = {name: 0 for _c, name in
                                      LEAF_KINDS.values()}
 

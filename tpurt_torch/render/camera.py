@@ -12,6 +12,13 @@ the camera, the orthographic camera's).  An animated camera (a transform
 given for the end time with ``ActiveTransform EndTime``) interpolates
 its camera-to-world per lane at the ray's shutter time (``_interp_c2w``).
 The realistic camera is outside the port.
+
+Camera importance for the bidirectional integrators (tpurt's
+camera_screen_area, _camera_frame, camera_we, camera_pdf_we and
+camera_sample_wi, camera.py:426-502; perspective.cpp:150-239) is the
+perspective camera's, thin lens included, and reads the static
+camera-to-world; its constants are computed once, at upload.  As in tpurt the same formulas serve the orthographic
+and environment cameras too, whose importance they do not describe.
 """
 
 from __future__ import annotations
@@ -70,6 +77,13 @@ class Camera:
     time0: float = 0.0
     time1: float = 1.0
     animated: bool = False
+    # the constants camera importance reads (camera_we, camera_pdf_we,
+    # camera_sample_wi), computed once on the host by camera_from_tables
+    world_to_camera: torch.Tensor = None  # (4,4)
+    camera_to_raster: torch.Tensor = None  # (4,4)
+    screen_area: torch.Tensor = None  # () camera_screen_area
+    origin: torch.Tensor = None  # (3,) world position (_camera_frame)
+    forward: torch.Tensor = None  # (3,) unit world forward
 
     def _interp_c2w(self, time):
         """Per-lane T-lerp, quaternion slerp and S-lerp, composed
@@ -222,6 +236,102 @@ def camera_tables(name: str, ps: ParamSet, camera_to_world: xf.Transform,
 
 
 def camera_from_tables(tab: dict, device) -> Camera:
-    return Camera(**{k: (torch.tensor(v, device=device)
-                         if isinstance(v, np.ndarray) else v)
-                     for k, v in tab.items()})
+    """The Camera of camera_tables' constants on ``device``, with the
+    constants of camera importance computed here on the host: the
+    inverses of camera-to-world and raster-to-camera (in float64, rounded
+    to float32), the screen area and the camera's frame."""
+    inv = {k: np.linalg.inv(np.asarray(tab[m], np.float64)).astype(
+        np.float32) for k, m in (("world_to_camera", "camera_to_world"),
+                                 ("camera_to_raster", "raster_to_camera"))}
+    host = Camera(**{k: (torch.tensor(v) if isinstance(v, np.ndarray)
+                         else v) for k, v in {**tab, **inv}.items()})
+    host.origin, host.forward = _camera_frame(host)
+    host.screen_area = camera_screen_area(host)
+    return Camera(**{f.name: (v.to(device) if isinstance(v, torch.Tensor)
+                              else v)
+                     for f in dataclasses.fields(Camera)
+                     for v in [getattr(host, f.name)]})
+
+
+# ---------------------------------------------------------------------------
+# camera importance (We / Pdf_We / Sample_Wi) for bdpt and mlt
+# ---------------------------------------------------------------------------
+
+def camera_screen_area(cam: Camera):
+    """Area A of the screen window on the z=1 camera plane (a 0-dim
+    tensor)."""
+    corners = torch.tensor([[0.0, 0.0, 0.0],
+                            [float(cam.res_x), float(cam.res_y), 0.0]],
+                           dtype=torch.float32,
+                           device=cam.raster_to_camera.device)
+    pc = _xform_point_batch(cam.raster_to_camera, corners)
+    pc = pc / pc[:, 2:3]
+    return ((pc[1, 0] - pc[0, 0]) * (pc[1, 1] - pc[0, 1])).abs()
+
+
+def _camera_frame(cam: Camera):
+    """(origin (3,), unit forward (3,)) of the static camera-to-world."""
+    c2w = cam.camera_to_world
+    o_w = _xform_point_batch(c2w, torch.zeros((1, 3), dtype=torch.float32,
+                                              device=c2w.device))[0]
+    fwd = _xform_vector_batch(c2w, torch.tensor(
+        [[0.0, 0.0, 1.0]], dtype=torch.float32, device=c2w.device))[0]
+    return o_w, fwd / torch.linalg.vector_norm(fwd)
+
+
+def _lens_area(cam: Camera) -> float:
+    return np.pi * cam.lens_radius ** 2 if cam.lens_radius > 0 else 1.0
+
+
+def camera_we(cam: Camera, o, d):
+    """Importance We(ray) and its raster point (PerspectiveCamera::We).
+    o, d: (N, 3) world.  Returns (we (N,), p_raster (N, 2), valid (N,))."""
+    d_c = _xform_vector_batch(cam.world_to_camera, d)
+    o_c = _xform_point_batch(cam.world_to_camera, o)
+    cos_t = d_c[:, 2] / norm(d_c)
+    focus = cam.focal_distance if cam.lens_radius > 0 else 1.0
+    t = focus / torch.where(cos_t == 0, 1e-9, d_c[:, 2])
+    p_focus = o_c + t[:, None] * d_c
+    p_raster3 = _xform_point_batch(cam.camera_to_raster, p_focus)
+    inside = ((p_raster3[:, 0] >= 0) & (p_raster3[:, 0] < cam.res_x)
+              & (p_raster3[:, 1] >= 0) & (p_raster3[:, 1] < cam.res_y))
+    valid = (cos_t > 0) & inside
+    a = cam.screen_area
+    cos4 = torch.clamp(cos_t, min=1e-9) ** 4
+    we = torch.where(valid, 1.0 / (a * _lens_area(cam) * cos4), 0.0)
+    return we, p_raster3[:, :2], valid
+
+
+def camera_pdf_we(cam: Camera, d):
+    """(pdf_pos, pdf_dir) of GenerateRay producing the world direction d
+    (PerspectiveCamera::Pdf_We)."""
+    d_c = _xform_vector_batch(cam.world_to_camera, d)
+    cos_t = d_c[:, 2] / torch.clamp(norm(d_c), min=1e-12)
+    a = cam.screen_area
+    pdf_dir = torch.where(cos_t > 0,
+                          1.0 / (a * torch.clamp(cos_t, min=1e-9) ** 3), 0.0)
+    pdf_pos = torch.full(d.shape[:1], 1.0 / _lens_area(cam),
+                         dtype=torch.float32, device=d.device)
+    return pdf_pos, pdf_dir
+
+
+def camera_sample_wi(cam: Camera, ref_p, u_lens):
+    """A direction from ref_p to the camera (PerspectiveCamera::Sample_Wi,
+    the t=1 strategies).  u_lens (N, 2).  Returns (wi (N, 3), pdf (N,),
+    we (N,), p_raster (N, 2), p_lens_w (N, 3), cam_fwd (3,))."""
+    o_w, fwd = cam.origin, cam.forward
+    if cam.lens_radius > 0:
+        p_disk = cam.lens_radius * torch.stack(
+            concentric_sample_disk(u_lens[:, 0], u_lens[:, 1]), dim=-1)
+        p_lens_c = torch.cat([p_disk, torch.zeros_like(p_disk[:, :1])], -1)
+        p_lens_w = _xform_point_batch(cam.camera_to_world, p_lens_c)
+    else:
+        p_lens_w = o_w[None, :].expand(ref_p.shape)
+    to_cam = p_lens_w - ref_p
+    dist = torch.clamp(norm(to_cam), min=1e-9)
+    wi = to_cam / dist[:, None]
+    cos_lens = (wi * fwd[None, :]).sum(dim=-1).abs()
+    pdf = (dist * dist) / torch.clamp(cos_lens * _lens_area(cam), min=1e-12)
+    we, p_raster, valid = camera_we(cam, p_lens_w, -wi)
+    pdf = torch.where(valid, pdf, 0.0)
+    return wi, pdf, we, p_raster, p_lens_w, fwd

@@ -1,11 +1,13 @@
 """Render driver: SceneDescription -> device tables -> bounce-compacted
 wavefront render (port of tpurt/render/driver.py: build_job for the path,
-volpath, rpf, directlighting, whitted and ao integrators with the media
-tables, and the loop of _render_compact; the RPF passes live in
-tpurt_torch.rpf).  volpath on a scene with media runs its own bounce step
-(render/volpath.py), and ao one closest hit and its occlusion rays a
-chunk; the other integrators render a scene with media and ignore the
-media, as tpurt's do.
+volpath, rpf, directlighting, whitted, ao, bdpt and mlt integrators with
+the media tables, and the loop of _render_compact; the RPF passes live in
+tpurt_torch.rpf, MLT's chains in render/mlt.py).  volpath on a scene with
+media runs its own bounce step (render/volpath.py), ao one closest hit and
+its occlusion rays a chunk, bdpt one call of bdpt_radiance a chunk (no
+bounce loop; its t=1 strategies bank film splats, resolved at 1/spp as
+tpurt's driver.py:527-530 does); the other integrators render a scene
+with media and ignore the media, as tpurt's do.
 
 Scene features outside the ported slices raise NotImplementedError naming
 the feature: here for the integrator, film, accelerator and shapes, and
@@ -29,6 +31,7 @@ import torch
 
 from tpurt_torch.config import WAVEFRONT_SIZE, resolve_device, tpurt_chunk
 from tpurt_torch.kernels.traverse import traverse_wide
+from tpurt_torch.render.bdpt import bdpt_radiance
 from tpurt_torch.render.camera import (Camera, camera_from_tables,
                                        camera_tables)
 from tpurt_torch.render.film import Film, make_film
@@ -96,7 +99,10 @@ def _check_slice(sd: SceneDescription) -> None:
             raise NotImplementedError("alpha textures")
 
 
-INTEGRATORS = ("path", "volpath", "rpf", "directlighting", "whitted", "ao")
+INTEGRATORS = ("path", "volpath", "rpf", "directlighting", "whitted", "ao",
+               "bdpt", "mlt")
+# the integrators whose film carries splats (Film::AddSplat)
+SPLAT_INTEGRATORS = ("bdpt", "mlt")
 SHAPES = ("trianglemesh", "sphere", "cylinder", "disk", "cone", "paraboloid",
           "hyperboloid", "curve")
 
@@ -114,6 +120,15 @@ def make_integrator_config(sd: SceneDescription) -> IntegratorConfig:
         return IntegratorConfig(
             name=name, ao_samples=ps.find_one_int("nsamples", 64),
             ao_cos_sample=ps.find_one_bool("cossample", True))
+    if name in ("bdpt", "mlt"):
+        # tpurt parses bdpt's lightsamplestrategy and samples by power
+        # whatever it says; its mlt config fixes "power" (MLT's own
+        # parameters are read by render/mlt.py:render_mlt)
+        return IntegratorConfig(
+            name=name, max_depth=ps.find_one_int("maxdepth", 5),
+            light_strategy=(ps.find_one_string("lightsamplestrategy",
+                                               "power")
+                            if name == "bdpt" else "power"))
     cfg = IntegratorConfig(
         name=name, max_depth=ps.find_one_int("maxdepth", 5),
         rr_threshold=ps.find_one_float("rrthreshold", 1.0),
@@ -303,7 +318,8 @@ def trace_lanes(job: RenderJob, cfg: IntegratorConfig, traverse, bank
     state carries each lane's number as ``st["lane"]``, so finished lanes
     can be put back in order.  ``bank(st, sel)`` receives each batch of
     finished lanes: the lanes of ``st`` where the boolean mask ``sel`` is
-    set, or all of them when ``sel`` is None."""
+    set, or all of them when ``sel`` is None; bdpt's batches also carry
+    their splats (``splat_p``, ``splat_L``)."""
     film = job.film
     dev = job.scene.geo.device
     spp = job.sampler.spp
@@ -325,6 +341,14 @@ def trace_lanes(job: RenderJob, cfg: IntegratorConfig, traverse, bank
         if cfg.name == "ao":
             bank(ao_radiance(job.scene, job.sampler, job.camera, px, py,
                              sidx, cfg, traverse, crop_xy=(x0, y0)), None)
+            continue
+        if cfg.name == "bdpt":
+            # the media hash reads each lane's place in tpurt's chunk
+            c = tpurt_chunk(total)
+            bank(bdpt_radiance(job.scene, job.sampler, job.camera, px, py,
+                               sidx, cfg, traverse, crop_xy=(x0, y0),
+                               texture_eval=job.texture_eval,
+                               track_lane=ids % c, track_chunk=c), None)
             continue
         # the tracking hash reads each lane's place in tpurt's chunk
         extra = (dict(track_lane=ids % tpurt_chunk(total)) if volumetric
@@ -352,12 +376,18 @@ def render_job(job: RenderJob, traverse=None) -> np.ndarray:
     """Render a built job; returns the (H, W, 3) float32 image.  traverse
     defaults to the kernel wrapper (kernels.traverse.traverse_wide)."""
     film = job.film
-    state = film.initial_state(job.scene.geo.device)
+    if job.cfg.name == "mlt":
+        raise ValueError('Integrator "mlt" renders through '
+                         "render/mlt.py:render_mlt_job")
+    state = film.initial_state(job.scene.geo.device,
+                               splats=job.cfg.name in SPLAT_INTEGRATORS)
 
     def bank(st, sel):
         pick = (lambda v: v) if sel is None else (lambda v: v[sel])
         film.add_samples(state, pick(st["p_film_crop"]), pick(st["L"]),
                          pick(st["ray_w"]))
+        if "splat_p" in st:
+            film.add_splats(state, st["splat_p"], st["splat_L"])
 
     TRACK_STATS.reset()
     trace_lanes(job, job.cfg, traverse or traverse_wide, bank)
@@ -368,13 +398,23 @@ def render_job(job: RenderJob, traverse=None) -> np.ndarray:
                 log.warning("%s: %d lanes", name, count)
             else:
                 log.info("%s: %d", name, count)
-    return film.to_image(state)
+    # bdpt's splats are averaged over the samples at resolve time
+    # (bdpt.cpp Render: WriteImage(1 / samplesPerPixel))
+    return film.to_image(state, splat_scale=(
+        1.0 / job.sampler.spp if job.cfg.name in SPLAT_INTEGRATORS
+        else 1.0))
 
 
 def render(sd: SceneDescription, device="cuda", quick: bool = False,
            crop_override=None, traverse=None):
     """Render a scene description on ``device``; returns (image, job).
-    Writes no files (the CLI writes the image)."""
+    Writes no files (the CLI writes the image).  ``Integrator "mlt"``
+    renders through render/mlt.py:render_mlt."""
+    if sd.integrator_name == "mlt":
+        from tpurt_torch.render.mlt import render_mlt
+
+        return render_mlt(sd, device, quick=quick,
+                          crop_override=crop_override, traverse=traverse)
     job = build_job(sd, device, quick=quick, crop_override=crop_override)
     t0 = time.time()
     img = render_job(job, traverse)

@@ -1,5 +1,6 @@
 """Film: RGB accumulation with filter-stamped scatter-add (port of
-tpurt/render/film.py: make_film, Film.add_samples, Film.to_image).
+tpurt/render/film.py: make_film, Film.add_samples, Film.add_splats,
+Film.to_image).
 
 The film is an (H, W, 3) + (H, W) pair of tensors on the render device.
 Unlike tpurt's functional update, add_samples accumulates IN PLACE with
@@ -11,7 +12,7 @@ are taken in an order that changes from run to run.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +25,7 @@ from tpurt_torch.render.filters import Filter
 class FilmState:
     rgb: torch.Tensor  # (H, W, 3) filter-weighted radiance sums
     weight: torch.Tensor  # (H, W) filter weight sums
+    splat: Optional[torch.Tensor] = None  # (H, W, 3) unweighted splats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,11 +55,13 @@ class Film:
         return (int(np.floor(x0 + 0.5 - rx)), int(np.ceil(x1 - 0.5 + rx)),
                 int(np.floor(y0 + 0.5 - ry)), int(np.ceil(y1 - 0.5 + ry)))
 
-    def initial_state(self, device) -> FilmState:
+    def initial_state(self, device, splats: bool = False) -> FilmState:
         h, w = self.height, self.width
         return FilmState(
             rgb=torch.zeros((h, w, 3), dtype=torch.float32, device=device),
-            weight=torch.zeros((h, w), dtype=torch.float32, device=device))
+            weight=torch.zeros((h, w), dtype=torch.float32, device=device),
+            splat=(torch.zeros((h, w, 3), dtype=torch.float32,
+                               device=device) if splats else None))
 
     def _clamp(self, L):
         """maxSampleLuminance clamp (film.h:161)."""
@@ -98,11 +102,35 @@ class Film:
                 state.weight.index_put_(idx, fw * ray_weight,
                                         accumulate=True)
 
-    def to_image(self, state: FilmState) -> np.ndarray:
-        """Resolve to an (H, W, 3) image (Film::WriteImage :169-195)."""
+    def add_splats(self, state: FilmState, p_film, v) -> None:
+        """Film::AddSplat (film.cpp:139): unweighted accumulation of N
+        values v (N, 3) at the pixels holding p_film (N, 2), in
+        crop-window raster space, IN PLACE; a position off the film (or
+        not finite) adds nothing (tpurt's film.py:119-136).  Only the
+        splats that add something are scattered: bdpt's dead lanes carry
+        zeros, which clamped onto one pixel would serialise the scatter
+        on the card."""
+        v = torch.nan_to_num(v, nan=0.0, posinf=0.0, neginf=0.0)
+        v = self._clamp(v)
+        fin = torch.isfinite(p_film).all(dim=-1)
+        pf = torch.where(fin[:, None], p_film, -1.0)
+        px = torch.floor(pf[:, 0]).long()
+        py = torch.floor(pf[:, 1]).long()
+        ok = (fin & (px >= 0) & (px < self.width) & (py >= 0)
+              & (py < self.height) & (v != 0).any(dim=-1))
+        sel = torch.nonzero(ok).squeeze(1)
+        state.splat.index_put_((py[sel], px[sel]), v[sel], accumulate=True)
+
+    def to_image(self, state: FilmState,
+                 splat_scale: float = 1.0) -> np.ndarray:
+        """Resolve to an (H, W, 3) image (Film::WriteImage :169-195), the
+        splats scaled by ``splat_scale`` added after the weighted
+        resolve."""
         rgb = state.rgb.double().cpu().numpy()
         wsum = state.weight.double().cpu().numpy()
         img = rgb / np.where(wsum > 0, wsum, 1.0)[..., None]
+        if state.splat is not None:
+            img = img + splat_scale * state.splat.double().cpu().numpy()
         img = img * self.scale
         return np.maximum(img, 0.0).astype(np.float32)
 

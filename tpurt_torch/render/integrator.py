@@ -169,7 +169,9 @@ def _emitted(scene: SceneData, si: SurfaceInteraction):
 
 def _escape_radiance(lights: LightTable, d):
     """Infinite-light radiance for escaped rays along d: the constant
-    lights' sum plus the mapped light's lookup (integrator.py:204-221)."""
+    lights' sum plus the mapped light's lookup (integrator.py:204-221).
+    The sum is ``LightTable.inf_L``, the same sum as tpurt's _infinite_L
+    (integrator.py:204), taken once at upload."""
     L = lights.inf_L.expand(d.shape[0], 3)
     if lights.env_light_row >= 0:
         L = L + env_le(lights, d)
@@ -204,6 +206,27 @@ def make_shade_ctx(scene: SceneData, si: SurfaceInteraction,
                         scene.lobe_slots)
     t, b = _shading_frame(si)
     return ShadeCtx(lobes=lobes, t=t, b=b, hair=_hair_ctx(scene, si))
+
+
+def zero_shade_ctx(scene: SceneData, n: int, device) -> ShadeCtx:
+    """An all-dark context of the same structure as make_shade_ctx's on
+    this scene, hair included (tpurt's zero_shade_ctx, integrator.py:347):
+    bdpt's endpoint vertices.  Its lobes are those of a lane with no
+    material."""
+    lobes = fetch_lobes(scene.mt_table,
+                        torch.full((n,), -1, dtype=torch.int32,
+                                   device=device), None, scene.lobe_slots)
+    t = torch.zeros((n, 3), dtype=torch.float32, device=device)
+    b = torch.zeros_like(t)
+    t[:, 0] = 1.0
+    b[:, 1] = 1.0
+    hair = None
+    if scene.lobe_slots.hair:
+        z = torch.zeros(n, dtype=torch.float32, device=device)
+        hair = (torch.zeros(n, dtype=torch.bool, device=device),
+                HairParams(h=z, eta=z + 1.55, sigma_a=torch.zeros_like(t),
+                           beta_m=z + 0.3, beta_n=z + 0.3, alpha=z))
+    return ShadeCtx(lobes=lobes, t=t, b=b, hair=hair)
 
 
 def shade_f(scene: SceneData, ctx: ShadeCtx, ns, w_out, w_in):

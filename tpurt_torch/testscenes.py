@@ -14,9 +14,13 @@ Sizes:
 
 ``integrator="rpf"`` gives the same scene through ``Integrator "rpf"``
 (sample.pbrt's structure: the frame bench.py times second),
-``integrator="ao"`` through ``Integrator "ao"`` (frame AO), and
-``sampler=`` picks the Sampler directive (bench.py's sampler sweep runs
-the RPF frame under random, stratified and halton).
+``integrator="ao"`` through ``Integrator "ao"`` (frame AO),
+``integrator="bdpt"`` and ``"mlt"`` through the bidirectional path tracer
+and Metropolis light transport (main paths G and H; ``mutations`` sets
+mlt's mutationsperpixel, pbrt's 100 by default), and ``sampler=`` picks
+the Sampler directive (bench.py's sampler sweep runs the RPF frame under
+random, stratified and halton); ``res``, ``spp`` and ``maxdepth``
+override the size's resolution, samples and the integrator's depth.
 
 ``textured_scene(size, texpng)`` is the direct-lighting textured frame
 that bench.py times as its config 5: ``Integrator "directlighting"``, a
@@ -87,18 +91,23 @@ def sampler_directive(sampler: str, spp: int) -> str:
 
 def standin_scene(size: str = "full", filename: str = "standin.exr",
                   seed: int = 0, integrator: str = "path",
-                  sampler: str = "halton") -> str:
-    """The stand-in scene as .pbrt text; integrator is "path", "rpf" or
-    "ao" (pbrt's defaults: 64 occlusion rays a hit, cosine-weighted)."""
-    if integrator not in ("path", "rpf", "ao"):
+                  sampler: str = "halton", res: int = None, spp: int = None,
+                  maxdepth: int = 5, mutations: int = None) -> str:
+    """The stand-in scene as .pbrt text; integrator is "path", "rpf",
+    "ao" (pbrt's defaults: 64 occlusion rays a hit, cosine-weighted),
+    "bdpt" or "mlt"."""
+    if integrator not in ("path", "rpf", "ao", "bdpt", "mlt"):
         raise ValueError(f"integrator {integrator!r}")
     cfg = SIZES[size]
     v, idx = blob_mesh(cfg["mesh_n"], seed)
     v = v * 1.6
     mesh = _mesh_text(v, idx)
-    res, spp = cfg["res"], cfg["spp"]
+    res = res or cfg["res"]
+    spp = spp or cfg["spp"]
     integ = (f'Integrator "{integrator}"' if integrator == "ao" else
-             f'Integrator "{integrator}" "integer maxdepth" [5]')
+             f'Integrator "{integrator}" "integer maxdepth" [{maxdepth}]')
+    if integrator == "mlt" and mutations is not None:
+        integ += f' "integer mutationsperpixel" [{mutations}]'
     return f"""# tpurt_torch stand-in for killeroo-simple ({size})
 LookAt 0 4.5 -15  0 2.2 0  0 1 0
 Camera "perspective" "float fov" [39]
@@ -174,11 +183,12 @@ WorldEnd
 
 def write_standin(path: str, size: str = "full", filename: str = None,
                   seed: int = 0, integrator: str = "path",
-                  sampler: str = "halton") -> str:
-    """Write the stand-in scene to ``path``; returns ``path``."""
+                  sampler: str = "halton", **kw) -> str:
+    """Write the stand-in scene to ``path``; returns ``path``.  kw:
+    standin_scene's ``res``, ``spp``, ``maxdepth`` and ``mutations``."""
     with open(path, "w") as f:
         f.write(standin_scene(size, filename or path.rsplit(".", 1)[0]
-                              + ".exr", seed, integrator, sampler))
+                              + ".exr", seed, integrator, sampler, **kw))
     return path
 
 
@@ -363,7 +373,7 @@ def materials_scene(size: str, maps: dict, filename: str = "materials.exr",
     light with the sky map, the projection light and the goniometric
     light.  ``maps`` holds the paths of the three maps (write_materials
     writes them)."""
-    if integrator not in ("path", "rpf"):
+    if integrator not in ("path", "rpf", "bdpt"):
         raise ValueError(f"integrator {integrator!r}")
     cfg = D_SIZES[size]
     res = res or cfg["res"]
@@ -468,7 +478,7 @@ WorldEnd
 
 def write_materials(path: str, size: str = "full", **kw) -> str:
     """Write scene D to ``path`` and its three maps beside it; returns
-    ``path``.  kw: ``integrator`` ("path" or "rpf"), ``res``,
+    ``path``.  kw: ``integrator`` ("path", "rpf" or "bdpt"), ``res``,
     ``filename``."""
     base = path.rsplit(".", 1)[0]
     with open(path, "w") as f:
@@ -600,7 +610,7 @@ def motion_hair_scene(size: str, filename: str = "motion_hair.exr",
     flat curves under matte, a quad carrying ``"vector S"`` under a metal
     whose u and v roughness differ, a matte ground, a sphere area light
     and a distant light."""
-    if integrator not in ("path", "rpf"):
+    if integrator not in ("path", "rpf", "bdpt"):
         raise ValueError(f"integrator {integrator!r}")
     cfg = E_SIZES[size]
     res = res or cfg["res"]
@@ -699,7 +709,7 @@ WorldEnd
 
 def write_motion_hair(path: str, size: str = "full", **kw) -> str:
     """Write frame E to ``path``; returns ``path``.  kw: ``integrator``
-    ("path" or "rpf"), ``res``, ``filename``."""
+    ("path", "rpf" or "bdpt"), ``res``, ``filename``."""
     base = path.rsplit(".", 1)[0]
     with open(path, "w") as f:
         f.write(motion_hair_scene(size, kw.pop("filename", base + ".exr"),
@@ -738,7 +748,8 @@ def smoke_density(n: int, seed: int = 4) -> np.ndarray:
 
 
 def media_scene(size: str, filename: str = "media.exr",
-                res: int = None) -> str:
+                res: int = None, integrator: str = "volpath",
+                maxdepth: int = 5) -> str:
     """Frame F as .pbrt text: ``Integrator "volpath"`` at maxdepth 5, the
     camera in a thin homogeneous fog (``MediumInterface "" "fog"`` before
     the Camera), the stand-in's two meshes (matte and plastic) on a
@@ -747,7 +758,10 @@ def media_scene(size: str, filename: str = "media.exr",
     box), a glass sphere holding a scattering homogeneous medium
     ("jade"), a spot light aimed through the fog and the smoke sphere at
     the wall, and a sphere area light.  The media are declared before
-    LookAt, so the grid's p0 and p1 are world points."""
+    LookAt, so the grid's p0 and p1 are world points.  ``integrator``
+    ("volpath" or "bdpt") and ``maxdepth`` set the Integrator."""
+    if integrator not in ("volpath", "bdpt"):
+        raise ValueError(f"integrator {integrator!r}")
     cfg = F_SIZES[size]
     res = res or cfg["res"]
     v, idx = blob_mesh(cfg["mesh_n"], seed=0)
@@ -776,7 +790,7 @@ LookAt 0 4.5 -15  0 2.2 0  0 1 0
 MediumInterface "" "fog"
 Camera "perspective" "float fov" [39]
 Sampler "halton" "integer pixelsamples" [{cfg["spp"]}]
-Integrator "volpath" "integer maxdepth" [5]
+Integrator "{integrator}" "integer maxdepth" [{maxdepth}]
 PixelFilter "box"
 Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]
   "string filename" "{filename}"
@@ -828,7 +842,7 @@ WorldEnd
 
 def write_media(path: str, size: str = "full", **kw) -> str:
     """Write frame F to ``path``; returns ``path``.  kw: ``res``,
-    ``filename``."""
+    ``filename``, ``integrator``, ``maxdepth``."""
     base = path.rsplit(".", 1)[0]
     with open(path, "w") as f:
         f.write(media_scene(size, kw.pop("filename", base + ".exr"), **kw))
