@@ -5,8 +5,9 @@
                                       # frame (1 without) and prints a
                                       # torch.profiler breakdown of one
                                       # frame of A, B, C1, D, E, F, AO
-                                      # and G and of one H chain step
-                                      # (F's, G's and H's with their
+                                      # and G, of one H chain step and
+                                      # of a 4-iteration I render (F's,
+                                      # G's, H's and I's with their
                                       # ranges)
 
 Phases (any failure exits non-zero; none is caught):
@@ -150,6 +151,21 @@ Phases (any failure exits non-zero; none is caught):
      per depth), finite, its mean within 15% of frame A's path mean; K1
      against its plain version on one chain step's calls (depth 1, 2^20
      rows); under --profile one chain step's breakdown
+ 21. main path I: the CLI renders the caustic frame (testscenes.
+     write_caustic "full": a glass sphere over a matte floor under a
+     sphere area light, 700x700, Integrator "sppm", 64 iterations of
+     490,000 photons, maxdepth 5, radius 0.0171) on the card (K1 launched
+     closest and any-hit, no plain traversal); one timed render of the
+     built job (sppm_render_s with its camera, grid, photon and deposit
+     seconds summed over the iterations, peak memory, each iteration's
+     fullest grid cell and candidate pairs); K1 against its plain version
+     on every call of one iteration; the grid's pairs within the radius
+     equal to brute force on 2^16 of that iteration's photon records;
+     SPPM's camera and photon dims on the card bit-equal to the CPU's;
+     tpurt's furnace scene within 0.05 of its closed form; the small
+     caustic (48x48, 4 iterations) on the card against the CPU (phase 9's
+     bounds); under --profile a 4-iteration render's breakdown with the
+     four sppm ranges
 K1 on every path: phase 4 holds the kernel to its plain version on path
 A's rays; paths B, C1, C2 and the whitted variant walk other scenes or
 other rays, so each records the calls K1's wrapper receives while 2^20
@@ -1827,6 +1843,190 @@ def mlt_step_profile(job, b_d: float):
                          ranges=(WALK_RANGE, STRATEGY_RANGE, CONNECT_RANGE))
 
 
+# tpurt's tests/test_sppm.py furnace: a point light inside a Kd = .5
+# sphere seen from the light, sum_{k=1..5} 0.5^k in closed form
+SPPM_FURNACE = """
+Film "image" "integer xresolution" [16] "integer yresolution" [16]
+Integrator "sppm" "integer iterations" [8] "float radius" [0.25]
+Camera "perspective" "float fov" [45]
+WorldBegin
+LightSource "point" "color I" [3.1415926 3.1415926 3.1415926]
+Material "matte" "color Kd" [.5 .5 .5] "float sigma" [0]
+ReverseOrientation
+Shape "sphere" "float radius" [1]
+WorldEnd
+"""
+# frame I's iterations (pbrt's default); 16 if the run outgrows its time
+SPPM_ITERS = 64
+
+
+def sppm_grid_check(vp_p, vp_valid, radius, ph, hash_size: int):
+    """The (photon, visible point) pairs with d^2 <= r^2 found through the
+    hash grid (as the deposit finds them) against every pair tested, on
+    the card: returns (pairs found, pairs by brute force, brute-force
+    pairs of photons outside the grid, equal)."""
+    from tpurt_torch.render import sppm
+
+    keep = torch.nonzero(vp_valid).squeeze(1)
+    grid = sppm._build_grid(vp_p, vp_valid, radius, hash_size)
+    rid, start, count, ends = sppm._cell_runs(grid, ph, hash_size)
+    k, vp = sppm._pair_slice(grid[1], start, count, ends, 0, int(ends[-1]))
+    rec = rid[k]
+    dp = ph[rec] - vp_p[vp]
+    ok = ((dp * dp).sum(-1) <= radius[vp] * radius[vp]) & vp_valid[vp]
+    n_vp = vp_p.shape[0]
+    found = torch.unique(rec[ok] * n_vp + vp[ok])
+    vq, rq = vp_p[keep], radius[keep]
+    step = max(1, (1 << 26) // max(keep.numel(), 1))
+    brute = []
+    for a in range(0, ph.shape[0], step):
+        dp = ph[a:a + step, None, :] - vq[None, :, :]
+        i, j = torch.nonzero((dp * dp).sum(-1) <= (rq * rq)[None, :],
+                             as_tuple=True)
+        brute.append((i + a) * n_vp + keep[j])
+    brute = torch.unique(torch.cat(brute))
+    inside = torch.zeros(ph.shape[0], dtype=torch.bool, device=ph.device)
+    inside[rid] = True
+    outside = int((~inside[brute // n_vp]).sum())
+    return (found.numel(), brute.numel(), outside,
+            bool(torch.equal(found, brute)))
+
+
+def sppm_dims_card_vs_cpu(film, n_iters: int):
+    """SPPM's camera dims (its fused Halton sampler) and photon dims
+    (dims 0-4 and the bounce dims through _ri_dyn) on 2^20 lanes on the
+    card bit-equal to the CPU's."""
+    from tpurt_torch.render import sppm
+    from tpurt_torch.sampling import lowdiscrepancy as ld
+
+    gen = torch.Generator().manual_seed(9)
+    px = torch.randint(0, film.full_x, (LANES,), generator=gen)
+    py = torch.randint(0, film.full_y, (LANES,), generator=gen)
+    si = torch.randint(0, n_iters, (LANES,), generator=gen)
+    hidx = torch.randint(0, 1 << 31, (LANES,), generator=gen)
+    cpu = sppm.sppm_sampler(film, n_iters, "cpu")
+    gpu = sppm.sppm_sampler(film, n_iters, "cuda")
+    lc, lg = (px, py, si), tuple(a.cuda() for a in (px, py, si))
+    cam = all(torch.equal(gpu.dim(*lg, d, gpu.lane_ctx(*lg)).cpu(),
+                          cpu.dim(*lc, d, cpu.lane_ctx(*lc)))
+              for d in range(2, 5 + 7 * 5))
+    ph = all(torch.equal(sppm._radical_inverse(hidx.cuda(), b).cpu(),
+                         sppm._radical_inverse(hidx, b))
+             for b in (2, 3, 5, 7, 11))
+    ph = ph and all(torch.equal(
+        sppm._ri_dyn(hidx.cuda(), int(ld.PRIMES[d]), 8).cpu(),
+        sppm._ri_dyn(hidx, int(ld.PRIMES[d]), 8)) for d in range(6, 26))
+    print(f"sppm dims on {LANES} lanes, card bit-equal to the CPU: camera "
+          f"dims 2-39 {cam}, photon dims {ph}")
+    assert cam and ph
+    return cam and ph
+
+
+def phase_sppm(gpu: str, profile_all: bool):
+    """Main path I: the caustic frame (testscenes.write_caustic "full":
+    700x700, Integrator "sppm", SPPM_ITERS iterations of 490,000 photons,
+    maxdepth 5, radius 0.0171) through the CLI (K1 closest and any-hit
+    launched, the plain traversal not); one timed render of the built job
+    (sppm_render_s, its four stages summed over the iterations, peak
+    memory, and per iteration the fullest grid cell and the candidate
+    pairs tested); K1 against its plain version on every call of one
+    iteration (its camera pass and photon pass); the grid against brute
+    force on 2^16 of that iteration's photon records; SPPM's dims card
+    against CPU; the furnace's closed form on the card; the small caustic
+    card against CPU (phase 9's bounds); under --profile the breakdown of
+    a 4-iteration render with the four sppm ranges."""
+    from tpurt_torch.kernels.traverse import traverse_wide
+    from tpurt_torch.render import sppm
+    from tpurt_torch.render.driver import build_job, load_scene, render
+    from tpurt_torch.scene import load_scene_string
+    from tpurt_torch.testscenes import write_caustic
+
+    t_phase = time.time()
+    scene = write_caustic(str(WORK / "caustic_full.pbrt"), "full",
+                          iterations=SPPM_ITERS)
+    img, launches, cli_s = cli_counted(scene, WORK / "caustic_full_out.exr",
+                                       "main path I (sppm)")
+    any_hit = traverse_wide.any_hit_launches
+    print(f"I: K1 closest launches {launches - any_hit}, any-hit {any_hit}")
+    assert img.shape == (700, 700, 3) and launches > any_hit > 0
+    sd = load_scene(scene)
+    job = build_job(sd, "cuda")
+    assert job.cfg.name == "sppm"
+    cfg = sppm.sppm_params(sd.integrator_params)
+    assert cfg["n_iters"] == SPPM_ITERS and cfg["max_depth"] == 5
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    img = sppm.render_sppm_job(job, sd.integrator_params, stats=stats)
+    torch.cuda.synchronize()
+    render_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    stages = {k: stats[k] for k in ("camera_s", "grid_s", "photons_s",
+                                    "deposit_s")}
+    print(f"sppm_render_s {render_s:.4f} ({stages}) peak mem "
+          f"{peak / 2**30:.3f} GiB, image mean {img.mean():.5f}, CLI first "
+          f"run {cli_s:.2f}s on {gpu}")
+    print(f"I per iteration: max_occ {stats['max_occ']}")
+    print(f"I per iteration: candidate pairs {stats['pairs']}")
+    assert np.isfinite(img).all() and img.mean() > 0
+
+    # one iteration (the first) recorded: K1 on its calls, the grid on its
+    # visible points and photon records
+    calls, recording = recorder()
+    n_pix = job.film.width * job.film.height
+    pix = sppm._init_pixels(n_pix, cfg["radius"], job.scene, "cuda")
+    smplr = sppm.sppm_sampler(job.film, cfg["n_iters"], "cuda")
+    sppm._camera_pass(job, pix, smplr, 0, cfg["max_depth"], recording)
+    hidx = torch.arange(n_pix, device="cuda")
+    rec_p, _, _ = sppm._photon_walk(job.scene, hidx, cfg["max_depth"],
+                                    recording, job.texture_eval)
+    torch.cuda.synchronize()
+    assert any(c[3] for c in calls) and not calls[0][3]
+    k1_i = k1_on_calls("I sppm iteration", job.scene.geo, calls)
+    found, brute, outside, equal = sppm_grid_check(
+        pix.vp_p, pix.vp_valid, pix.radius, rec_p[:1 << 16], n_pix)
+    print(f"I grid check: {min(1 << 16, rec_p.shape[0])} of "
+          f"{rec_p.shape[0]} photon records, {int(pix.vp_valid.sum())} "
+          f"visible points: pairs within r through the grid {found}, by "
+          f"brute force {brute}, brute-force pairs outside the grid "
+          f"{outside}, equal {equal}")
+    assert equal and outside == 0 and brute > 0
+    dims = sppm_dims_card_vs_cpu(job.film, cfg["n_iters"])
+
+    fimg, _ = render(load_scene_string(SPPM_FURNACE), "cuda")
+    want = sum(0.5 ** k for k in range(1, 6))
+    print(f"I furnace on the card: mean {fimg.mean():.5f}, closed form "
+          f"{want:.5f}")
+    assert np.isfinite(fimg).all() and abs(fimg.mean() - want) < 0.05
+    small = write_caustic(str(WORK / "caustic_small.pbrt"), "small")
+    gimg, _ = render(load_scene(small), "cuda")
+    himg, _ = render(load_scene(small), "cpu")
+    _close(gimg, himg, "small caustic (sppm)")
+
+    prof = None
+    if profile_all:
+        four = load_scene(write_caustic(str(WORK / "caustic_4.pbrt"), "full",
+                                        iterations=4)).integrator_params
+        sppm.render_sppm_job(job, four)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sppm.render_sppm_job(job, four)
+        torch.cuda.synchronize()
+        prof = phase_profile(
+            "sppm frame I (4 iterations)",
+            lambda: sppm.render_sppm_job(job, four), time.time() - t0,
+            top=20, ranges=(sppm.CAMERA_RANGE, sppm.GRID_RANGE,
+                            sppm.PHOTON_RANGE, sppm.DEPOSIT_RANGE))
+    print(f"phase 21 took {time.time() - t_phase:.1f}s")
+    checks = dict(grid_pairs=found, grid_equal=equal,
+                  furnace_mean=float(fimg.mean()), furnace_want=want,
+                  dims_card_equal_cpu=dims)
+    return dict(launches=launches, any_hit_launches=any_hit,
+                render_s=render_s, stages=stages, peak=peak, stats=stats,
+                k1=k1_i, checks=checks, profile=prof)
+
+
 # the jnp code of tpurt's _traverse_wide that each leaf body replaces
 LEAF_BODIES = {
     "K1m": ("traverse_wide_motion",
@@ -1928,8 +2128,10 @@ def main(argv=None) -> int:
     stamp("phase 19 (bdpt cross-checks)")
     mlt = phase_mlt(gpu, path_mean, profile_all)
     stamp("phase 20 (H)")
+    sppm = phase_sppm(gpu, profile_all)
+    stamp("phase 21 (I)")
     k1_paths.update(media=media["k1"], ao=ao["k1"], bdpt=bdpt["k1"],
-                    mlt=mlt["k1"])
+                    mlt=mlt["k1"], sppm=sppm["k1"])
     conn = bdpt["connection"]
     if profile_all:
         from tpurt_torch.render.driver import render_job
@@ -1953,7 +2155,8 @@ def main(argv=None) -> int:
                        + sum(launches_c2.values()) + launches_d
                        + launches_d_rpf + media["launches"]
                        + ao["launches"] + bdpt["launches"]
-                       + mlt["launches"] + mlt["launches_cli"]),
+                       + mlt["launches"] + mlt["launches_cli"]
+                       + sppm["launches"]),
              launches_by_path={
                  "path": launches_a, "rpf": launches_b,
                  "direct_textured": launches_c1,
@@ -1963,9 +2166,12 @@ def main(argv=None) -> int:
                  "materials_rpf": launches_d_rpf,
                  "media": media["launches"], "ao": ao["launches"],
                  "bdpt": bdpt["launches"], "mlt": mlt["launches"],
-                 "mlt_cli_128": mlt["launches_cli"]},
+                 "mlt_cli_128": mlt["launches_cli"],
+                 "sppm": sppm["launches"]},
              bdpt_any_hit_launches=bdpt["any_hit_launches"],
              mlt_any_hit_launches=mlt["any_hit_launches"],
+             sppm_any_hit_launches=sppm["any_hit_launches"],
+             sppm_checks=sppm["checks"],
              connection_rays=conn["rays"], ms_connection=conn["ms"],
              ms_burst_connection=conn["ms_burst"],
              plain_ms_connection=conn["plain_ms"],

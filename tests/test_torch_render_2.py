@@ -27,7 +27,6 @@ def test_supported_base_scene_renders_on_cpu():
 
 @pytest.mark.parametrize("key,value,feature", [
     ("sampler", "adaptive", 'Sampler "adaptive"'),
-    ("integrator", "sppm", 'Integrator "sppm"'),
     ("material", "fourier", 'Material "fourier"'),
     ("material", "subsurface", 'Material "subsurface"'),
     ("material", "kdsubsurface", 'Material "kdsubsurface"'),
@@ -63,12 +62,13 @@ def test_outside_the_slice_raises(key, value, feature):
     ("integrator", "volpath"), ("integrator", "ao"), ("material", "none"),
     ("medium", 'MakeNamedMedium "fog" "string type" "homogeneous"\n'
                'MediumInterface "" "fog"'),
-    ("integrator", "bdpt"), ("integrator", "mlt"),
+    ("integrator", "bdpt"), ("integrator", "mlt"), ("integrator", "sppm"),
 ])
 def test_what_earlier_slices_refused_now_renders(key, value, monkeypatch):
     """Each feature this slice added, one at a time in the base scene.
     mlt's bootstrap shrinks to 2^12 rows a depth (render/mlt.py's
-    N_BOOTSTRAP) so that the case runs in seconds."""
+    N_BOOTSTRAP) and sppm runs 4 iterations so that the cases run in
+    seconds."""
     from tpurt_torch.render import mlt
 
     monkeypatch.setattr(mlt, "N_BOOTSTRAP", 1 << 12)
@@ -76,6 +76,9 @@ def test_what_earlier_slices_refused_now_renders(key, value, monkeypatch):
         **dict(OK, **{key: value})).replace(
         "WorldBegin", 'WorldBegin\nTexture "checks" "spectrum" '
         '"checkerboard" "float uscale" [4] "float vscale" [4]')
+    if value == "sppm":
+        text = text.replace('Integrator "sppm"',
+                            'Integrator "sppm" "integer numiterations" [4]')
     if value == "spot":  # aim it at the sphere from the light's place
         text = text.replace('"point from" [0 4 0]',
                             '"point from" [0 4 0] "point to" [0 0 0]')

@@ -1,12 +1,13 @@
-"""PyTorch/CUDA port of tpurt's path-render and RPF slices.
+"""PyTorch/CUDA port of tpurt (pbrt-v3 with Random Parameter Filtering).
 
 The JAX package ``tpurt`` is the reference; this package renders the same
-``.pbrt`` scenes with ``Integrator "path"`` (RGB) or ``Integrator "rpf"``
-(the path sampling pass with feature capture, the Random Parameter Filter
-and the splat), the Halton sampler (affine scramble), a perspective
-camera, a box filter, matte and plastic materials, triangle meshes,
-spheres, sphere/triangle area lights and point lights.  Anything else
-raises ``NotImplementedError`` naming the feature.
+``.pbrt`` scenes with the same integrators (path, volpath,
+directlighting, whitted, ao, rpf, bdpt, mlt and sppm), samplers,
+filters, cameras, materials, textures, shapes, lights and media, through
+the same command line (``python -m tpurt_torch.cli``).  What is not
+ported (the realistic camera, fourier and subsurface materials, ptex,
+``Accelerator "kdtree"``, ``--spectrum sampled``) raises
+``NotImplementedError`` naming the feature.
 
 It imports torch and never jax, and nothing of tpurt: the host modules it
 shares with tpurt are its own copies under the same names

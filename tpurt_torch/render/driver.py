@@ -1,8 +1,11 @@
 """Render driver: SceneDescription -> device tables -> bounce-compacted
 wavefront render (port of tpurt/render/driver.py: build_job for the path,
-volpath, rpf, directlighting, whitted, ao, bdpt and mlt integrators with
-the media tables, and the loop of _render_compact; the RPF passes live in
-tpurt_torch.rpf, MLT's chains in render/mlt.py).  volpath on a scene with
+volpath, rpf, directlighting, whitted, ao, bdpt, mlt and sppm integrators
+with the media tables, and the loop of _render_compact; the RPF passes
+live in tpurt_torch.rpf, MLT's chains in render/mlt.py, SPPM's iterations
+in render/sppm.py).  Scene build and render record tpurt's counters
+(``Scene/*``, ``Memory/*``, ``Integrator/Camera rays traced``) in
+utils/stats.py's registry, which the CLI prints.  volpath on a scene with
 media runs its own bounce step (render/volpath.py), ao one closest hit and
 its occlusion rays a chunk, bdpt one call of bdpt_radiance a chunk (no
 bounce loop; its t=1 strategies bank film splats, resolved at 1/spp as
@@ -53,6 +56,7 @@ from tpurt_torch.sampling.samplers import sampler_from_tables, sampler_tables
 from tpurt_torch.scene.records import TextureRecord
 from tpurt_torch.scene import load_scene  # noqa: F401  (re-exported)
 from tpurt_torch.scene.records import MaterialRecord, SceneDescription
+from tpurt_torch.utils.stats import STATS
 
 log = logging.getLogger("tpurt_torch.render")
 
@@ -100,7 +104,7 @@ def _check_slice(sd: SceneDescription) -> None:
 
 
 INTEGRATORS = ("path", "volpath", "rpf", "directlighting", "whitted", "ao",
-               "bdpt", "mlt")
+               "bdpt", "mlt", "sppm")
 # the integrators whose film carries splats (Film::AddSplat)
 SPLAT_INTEGRATORS = ("bdpt", "mlt")
 SHAPES = ("trianglemesh", "sphere", "cylinder", "disk", "cone", "paraboloid",
@@ -120,6 +124,11 @@ def make_integrator_config(sd: SceneDescription) -> IntegratorConfig:
         return IntegratorConfig(
             name=name, ao_samples=ps.find_one_int("nsamples", 64),
             ao_cos_sample=ps.find_one_bool("cossample", True))
+    if name == "sppm":
+        # the iteration driver is render/sppm.py:render_sppm (tpurt's
+        # driver.py:124-128)
+        return IntegratorConfig(name=name,
+                                max_depth=ps.find_one_int("maxdepth", 5))
     if name in ("bdpt", "mlt"):
         # tpurt parses bdpt's lightsamplestrategy and samples by power
         # whatever it says; its mlt config fixes "power" (MLT's own
@@ -245,6 +254,14 @@ def host_tables(sd: SceneDescription, quick: bool = False,
             "maxnodeprims", 4) if sd.accelerator_params else 4),
         medium_index=medium_index)
     geo = DeviceGeometry.host_tables(geo_h)
+    # tpurt's counters at build (driver.py:181-187)
+    STATS.phase_times["Scene flatten + BVH build"] += time.time() - t0
+    STATS.counter("Scene/Primitives", geo_h.n_prims)
+    STATS.counter("Scene/BVH nodes", geo_h.bvh.n_nodes)
+    STATS.counter("Scene/Triangles", geo_h.n_tris)
+    STATS.counter("Scene/Quadrics", geo_h.n_quads)
+    STATS.memory_counter("Memory/BVH tree", geo_h.bvh.n_nodes * 64)
+    STATS.memory_counter("Memory/Primitive tables", geo_h.n_prims * 64)
     log.info("scene flatten + BVH build: %.2fs (%d prims, %d wide rows)",
              time.time() - t0, geo_h.n_prims, geo["wnodes"].shape[0])
     mt = build_material_table(mat_index.materials)
@@ -376,9 +393,10 @@ def render_job(job: RenderJob, traverse=None) -> np.ndarray:
     """Render a built job; returns the (H, W, 3) float32 image.  traverse
     defaults to the kernel wrapper (kernels.traverse.traverse_wide)."""
     film = job.film
-    if job.cfg.name == "mlt":
-        raise ValueError('Integrator "mlt" renders through '
-                         "render/mlt.py:render_mlt_job")
+    if job.cfg.name in ("mlt", "sppm"):
+        raise ValueError(f'Integrator "{job.cfg.name}" renders through '
+                         f"render/{job.cfg.name}.py:render_{job.cfg.name}"
+                         "_job")
     state = film.initial_state(job.scene.geo.device,
                                splats=job.cfg.name in SPLAT_INTEGRATORS)
 
@@ -390,7 +408,11 @@ def render_job(job: RenderJob, traverse=None) -> np.ndarray:
             film.add_splats(state, st["splat_p"], st["splat_L"])
 
     TRACK_STATS.reset()
+    t0 = time.time()
     trace_lanes(job, job.cfg, traverse or traverse_wide, bank)
+    STATS.counter("Integrator/Camera rays traced",
+                  film.width * film.height * job.sampler.spp)
+    STATS.phase_times["Render (trace + film)"] += time.time() - t0
     if job.scene.has_media:
         # the media loops' counters, read once a frame (tpurt's STATS)
         for name, count in TRACK_STATS.read().items():
@@ -409,12 +431,18 @@ def render(sd: SceneDescription, device="cuda", quick: bool = False,
            crop_override=None, traverse=None):
     """Render a scene description on ``device``; returns (image, job).
     Writes no files (the CLI writes the image).  ``Integrator "mlt"``
-    renders through render/mlt.py:render_mlt."""
+    renders through render/mlt.py:render_mlt, ``"sppm"`` through
+    render/sppm.py:render_sppm (tpurt's driver.py:455-463)."""
     if sd.integrator_name == "mlt":
         from tpurt_torch.render.mlt import render_mlt
 
         return render_mlt(sd, device, quick=quick,
                           crop_override=crop_override, traverse=traverse)
+    if sd.integrator_name == "sppm":
+        from tpurt_torch.render.sppm import render_sppm
+
+        return render_sppm(sd, device, quick=quick,
+                           crop_override=crop_override, traverse=traverse)
     job = build_job(sd, device, quick=quick, crop_override=crop_override)
     t0 = time.time()
     img = render_job(job, traverse)

@@ -9,7 +9,8 @@ in a process of its own that imports only its own tree: frame G
 maxdepth 5) rendered three times after one warm-up (the median), then
 frame H (the stand-in under ``Integrator "mlt"``, 100 mutations a pixel,
 2^20 chains) rendered once through ``render_mlt_job``.  Prints one line a
-side and frame, and the medians; needs one CUDA card.
+side and frame, G's kernel launches a frame (one more render, the card's
+activity profiled), and the medians; needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -49,6 +50,15 @@ def _one(root: str, label: str) -> None:
     runs = [timed(lambda: render_job(g)) for _ in range(3)]
     print(f"G {label} {root}: median {statistics.median(runs):.4f} s, runs "
           f"{['%.4f' % r for r in runs]}")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        render_job(g)
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    print(f"launches G {label} {root}: {launches} kernel launches a frame")
     sd = load_scene(write_standin(str(cs.WORK / "ab_mlt.pbrt"), "full",
                                   integrator="mlt"))
     h = build_job(sd, "cuda")
@@ -72,6 +82,8 @@ def main(argv=None) -> int:
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
                               args.other, "--child", root, side],
                              capture_output=True, text=True, check=True)
+        print(*[ln for ln in res.stdout.splitlines()
+                 if ln.startswith("launches ")], sep="\n")
         for frame in "GH":
             line = [ln for ln in res.stdout.splitlines()
                     if ln.startswith(f"{frame} ")][-1]

@@ -44,6 +44,7 @@ import torch
 
 from tpurt_torch.render.bdpt import bdpt_radiance
 from tpurt_torch.sampling import threefry
+from tpurt_torch.utils.stats import STATS
 
 log = logging.getLogger("tpurt_torch.mlt")
 
@@ -280,7 +281,10 @@ def render_mlt_job(job, params, quick: bool = False, traverse=None,
         for _ in range(steps):
             chain_step(film, state, evals[d], ch, g, sigma, p_large,
                        w_scale, b_d)
-        acc = int(ch.n_accept) / max(chains * steps, 1)
+        n_accept = int(ch.n_accept)
+        acc = n_accept / max(chains * steps, 1)
+        STATS.counter("MLT/Mutations proposed", chains * steps)
+        STATS.counter("MLT/Mutations accepted", n_accept)
         stats["depths"][d] = dict(chains=chains, steps=steps,
                                   acceptance=acc)
         log.info("MLT depth %d: %d chains x %d steps (acceptance %.1f%%)",

@@ -126,9 +126,18 @@ def _scrambled_radical_inverse(a, base: int, perm, max_index: int):
     return torch.clamp(acc + tail, max=ONE_MINUS_EPS)
 
 
-def _affine_radical_inverse(a, base: int, m: int, s: int, n_digits: int):
+def _fma32(acc, x, y):
+    """float32 acc + x * y rounded once, as the fused multiply-add that
+    XLA makes of a digit sum inside jitted code on the CPU (a digit times
+    a float32 scale is exact in float64)."""
+    return (acc.double() + x.double() * y.double()).to(torch.float32)
+
+
+def _affine_radical_inverse(a, base: int, m: int, s: int, n_digits: int,
+                            fma: bool = False):
     """Radical inverse with the affine digit permutation at every digit;
-    the zero-digit tail has pbrt's closed form with perm[0] == s."""
+    the zero-digit tail has pbrt's closed form with perm[0] == s.  With
+    ``fma`` each digit's term is added as a fused multiply-add."""
     basef = np.float32(base)
     inv_base = float(np.float32(1.0) / basef)
     acc = torch.zeros(a.shape, dtype=torch.float32, device=a.device)
@@ -138,7 +147,9 @@ def _affine_radical_inverse(a, base: int, m: int, s: int, n_digits: int):
         digit = a % base
         pdigit = (m * digit + s) % base
         active = a > 0
-        acc = torch.where(active, acc + pdigit.to(torch.float32) * scale, acc)
+        pd = pdigit.to(torch.float32)
+        acc = torch.where(active, _fma32(acc, pd, scale) if fma
+                          else acc + pd * scale, acc)
         inv_base_n = torch.where(active, inv_base_n * inv_base, inv_base_n)
         a = a // base
         scale = scale * inv_base
@@ -160,6 +171,11 @@ class HaltonSampler:
     # the reference's PCG32 permutation tables, one gather per digit
     scramble: str = "affine"
     perms: Optional[torch.Tensor] = None  # flat table ("pbrt" mode)
+    # affine dims >= 2 add each digit's term as a fused multiply-add, as
+    # tpurt's jitted code computes them on the CPU; off, they round the
+    # product first, as tpurt's eager functions do (which the other
+    # integrators' samplers are held to).  SPPM's sampler sets it.
+    fma: bool = False
 
     name = "halton"
 
@@ -186,7 +202,8 @@ class HaltonSampler:
                 idx, base, self.perms[off:off + base], self.max_index)
         m, s = _affine_perm_params(d, base)
         return _affine_radical_inverse(idx, base, m, s,
-                                       _digits_needed(base, self.max_index))
+                                       _digits_needed(base, self.max_index),
+                                       fma=self.fma)
 
     def film_offset(self, px, py, sample_idx, ctx=None):
         """Dims 0/1 are the in-pixel offsets (halton.cpp:118-124)."""

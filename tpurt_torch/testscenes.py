@@ -30,6 +30,13 @@ sphere area light and a distant light, a ground quad with a checkerboard
 ("full") or 32x32 at 2 spp ("small").  ``variant="whitted"`` swaps the
 integrator for ``"whitted"`` and adds a smooth glass sphere and a mirror
 quad, so that the specular continuation has lobes to follow.
+
+``caustic_scene(size)`` is the caustic scene of tpurt's sppm-against-C++
+parity test (a glass sphere over a matte floor, lit by a sphere area
+light; tests/test_cpp_parity.py's ``_CAUSTIC``) under
+``Integrator "sppm"``: "full" is frame I (700x700, pbrt's 64 iterations
+and maxdepth 5, radius 0.0171, the film's area of photons an
+iteration), "small" 48x48 with 4 iterations at radius 0.25.
 """
 
 from __future__ import annotations
@@ -846,4 +853,62 @@ def write_media(path: str, size: str = "full", **kw) -> str:
     base = path.rsplit(".", 1)[0]
     with open(path, "w") as f:
         f.write(media_scene(size, kw.pop("filename", base + ".exr"), **kw))
+    return path
+
+
+# frame I: the parity test's 0.25 at 48x48 scaled to the same footprint
+# in pixels at 700x700 (0.25 * 48 / 700); pbrt's default radius of 1
+# would put ~10^4 visible points in a grid cell at this resolution
+CAUSTIC_SIZES = {
+    "full": dict(res=700, iterations=64, radius=0.0171),
+    "small": dict(res=48, iterations=4, radius=0.25),
+}
+
+
+def caustic_scene(size: str = "full", filename: str = "caustic.exr",
+                  integrator: str = "sppm", res: int = None,
+                  iterations: int = None, radius: float = None,
+                  spp: int = 8) -> str:
+    """The caustic scene's text (tpurt's tests/test_cpp_parity.py:314-336,
+    a copy) at maxdepth 5: sppm takes numiterations and radius from the
+    size (``res``, ``iterations``, ``radius`` override it); another
+    integrator gets a Halton sampler of ``spp``."""
+    cfg = CAUSTIC_SIZES[size]
+    res = res or cfg["res"]
+    iparams = '"integer maxdepth" [5]'
+    if integrator == "sppm":
+        iparams = (f'"integer numiterations" [{iterations or cfg["iterations"]}]'
+                   f' {iparams} "float radius" [{radius or cfg["radius"]}]')
+    return f"""LookAt 0 2.2 5  0 -0.3 0  0 1 0
+Camera "perspective" "float fov" [42]
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]
+  "string filename" "{filename}"
+Sampler "halton" "integer pixelsamples" [{spp}]
+Integrator "{integrator}" {iparams}
+WorldBegin
+AttributeBegin
+  AreaLightSource "area" "color L" [40 40 40]
+  Translate 0 3.5 0.5
+  Shape "sphere" "float radius" [0.4]
+AttributeEnd
+Material "glass"
+AttributeBegin
+  Translate 0 -0.2 0
+  Shape "sphere" "float radius" [0.7]
+AttributeEnd
+Material "matte" "color Kd" [.6 .55 .5]
+Shape "trianglemesh" "point P" [-8 -1 -8  8 -1 -8  8 -1 8  -8 -1 8]
+  "integer indices" [0 1 2 2 3 0]
+WorldEnd
+"""
+
+
+def write_caustic(path: str, size: str = "full", integrator: str = "sppm",
+                  **kw) -> str:
+    """Write the caustic scene (frame I at size "full") to ``path``;
+    returns ``path``.  kw: caustic_scene's ``filename``, ``res``,
+    ``iterations``, ``radius``, ``spp``."""
+    with open(path, "w") as f:
+        f.write(caustic_scene(size, kw.pop("filename", path.rsplit(".", 1)[0]
+                                           + ".exr"), integrator, **kw))
     return path
