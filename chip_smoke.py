@@ -4,17 +4,17 @@
     python3 chip_smoke.py --profile   # also times 3 renders of each
                                       # frame (1 without) and prints a
                                       # torch.profiler breakdown of one
-                                      # frame of A, B, C1, D, E, F, AO
-                                      # and G, of one H chain step and
-                                      # of a 4-iteration I render (F's,
-                                      # G's, H's and I's with their
-                                      # ranges)
+                                      # frame of A, B, C1, D, E, F, AO,
+                                      # G, J and K, of one H chain step
+                                      # and of a 4-iteration I render
+                                      # (F's, G's, H's and I's with
+                                      # their ranges)
 
 Phases (any failure exits non-zero; none is caught):
   1. environment: versions, the card's name and power limit
   2. build: every kernel library (traversal K1 with its motion and curve
-     leaf bodies K1m and K1c, gather probe K2) from the sources in this
-     checkout, one nvcc each, started together
+     leaf bodies K1m and K1c and the kd walk K1k / K1km, gather probe K2)
+     from the sources in this checkout, one nvcc each, started together
   3. scenes: the 700x700, 8 spp, ~66k-triangle stand-in for
      killeroo-simple, as a path scene and as an RPF scene, and their
      32x32 small versions
@@ -166,6 +166,27 @@ Phases (any failure exits non-zero; none is caught):
      caustic (48x48, 4 iterations) on the card against the CPU (phase 9's
      bounds); under --profile a 4-iteration render's breakdown with the
      four sppm ranges
+ 22. main path J: the CLI renders frame A's stand-in with --spectrum
+     sampled (700x700, 8 spp, path, 60-bin spectra) on the card (K1
+     launched, no plain traversal); K1 against its plain version on J's
+     camera rays and first two bounce steps; the timed render
+     (spectral_render_s, peak memory), J's mean beside A's; the small
+     spectral scenes of path, directlighting, whitted, volpath (a
+     homogeneous and a grid medium), bdpt and sppm on the card against
+     the CPU (phase 9's bounds), and MLT's spectral evaluation on 2^14
+     primary-sample rows card against CPU (rtol 1e-4 / atol 1e-5, the
+     raster equal); under --profile one profiled frame
+ 23. main path K: the CLI renders frame A's stand-in under Accelerator
+     "kdtree" (700x700, 8 spp) on the card (the kd walk K1k launched, no
+     other body, no plain traversal); K1k against its plain twin on every
+     call of K's camera rays and first two bounce steps (primary, bounce
+     and shadow rays), with the work, bound and times; K1k's hits against
+     K1's (the wide BVH of frame A) on the same 2^20 primary rays (prims
+     equal on >= 99.99%); the timed render (kdtree_render_s, peak memory)
+     and K's image against A's (phase 9's bounds); frame E under the
+     kd-tree at 256x256 through render() (K1km and K1c launched, no other
+     body, no plain traversal) and K1km against its twin on E's camera
+     rays and first bounce step; under --profile one profiled frame of K
 K1 on every path: phase 4 holds the kernel to its plain version on path
 A's rays; paths B, C1, C2 and the whitted variant walk other scenes or
 other rays, so each records the calls K1's wrapper receives while 2^20
@@ -230,6 +251,15 @@ K1C_BYTES_LEAF = 112 * 4
 K1C_BYTES_AUX = 64 * 4
 K1C_BYTES_PRIMS = 8 * 4
 K1C_OPS_SPAN = 90 + 8 * 190
+# K1k / K1km, the kd walk: an interior row is read as two float4 (its
+# split, axis and children, and its kind), a leaf as its 108 vertex floats
+# and its kind and continuation; an interior step is the plane's t (a
+# difference and a product) and 6 comparisons; a ray's root clip 6
+# differences, 6 products and 12 min / max
+K1K_BYTES_INTERIOR = 2 * 16
+K1K_BYTES_LEAF = 108 * 4 + 16
+K1K_OPS_INTERIOR = 8
+K1K_OPS_RAY = 24
 
 
 def bound(nbytes: float, ops: float):
@@ -391,7 +421,7 @@ def frame_ray_sets(job):
     return dict(primary=calls[0], shadow=calls[3], bounce=calls[4])
 
 
-def k1_work(geo, rays):
+def k1_work(geo, rays, w=None):
     """(bound_ms, bound_by, text): the least time for these rays.  The
     work is counted by the twin from what this run's rays need: each
     distinct record's live bytes read once (prim rows only of leaves in
@@ -399,16 +429,19 @@ def k1_work(geo, rays):
     aux row beside it), the rays in (with their times, K1m) and the hits
     out once; the twin's arithmetic on the present children and non-pad
     triangles or curve spans of every record read, and a sort only where
-    two or more children were hit."""
-    from tpurt_torch.kernels.traverse import (leaf_kind,
-                                              traverse_wide_reference)
+    two or more children were hit.  ``w``: the plain version's counts of
+    these rays when the caller has them, else they are counted here."""
+    from tpurt_torch.kernels.traverse import leaf_kind, traverse_reference
 
     o, d, tm, any_hit, time_, tree = rays
     kind = leaf_kind(geo, time_, tree)
-    w = {}
-    traverse_wide_reference(geo, o, d, tm, any_hit=any_hit, time=time_,
-                            tree=tree, stats=w)
+    if w is None:
+        w = {}
+        traverse_reference(geo, o, d, tm, any_hit=any_hit, time=time_,
+                           tree=tree, stats=w)
     n = o.shape[0]
+    if kind in ("kd", "kd_motion"):
+        return kd_work(kind, n, w)
     if kind == "curve":
         leaf_b = K1C_BYTES_LEAF + (0 if geo.cleaves_aux is None
                                    else K1C_BYTES_AUX)
@@ -434,6 +467,35 @@ def k1_work(geo, rays):
         f"({w['children'] / max(w['interior_steps'], 1):.2f} a record), "
         f"{w['sorts']} sorts, {w['triangles']} "
         f"{'spans' if kind == 'curve' else 'triangles'} "
+        f"({w['triangles'] / max(w['leaf_steps'], 1):.2f} a leaf); "
+        f"{nbytes / 1e6:.2f} MB ({b_ms:.4f} ms), {ops / 1e9:.3f} Gop "
+        f"({o_ms:.4f} ms); bound {bound_ms:.4f} ms ({bound_by})")
+
+
+def kd_work(kind: str, n: int, w: dict):
+    """k1_work's (bound_ms, bound_by, text) for the kd walk, from the kd
+    twin's counts ``w`` of these n rays: each distinct row's live bytes
+    once (a moving leaf's delta rows beside it, prim rows of the leaves
+    with a hit), the rays in and the hits out; the plane tests of every
+    interior step, the triangle tests of every leaf step and each ray's
+    root clip."""
+    motion = kind == "kd_motion"
+    nbytes = (w["interior_records"] * K1K_BYTES_INTERIOR
+              + w["leaf_records"] * (K1K_BYTES_LEAF
+                                     + (108 * 4 if motion else 0))
+              + w["hit_leaves"] * K1_BYTES_PRIMS
+              + n * (7 * 4 + 4 * 4 + (4 if motion else 0)))
+    ops = (w["interior_steps"] * K1K_OPS_INTERIOR + n * K1K_OPS_RAY
+           + w["triangles"] * (K1_OPS_TRIANGLE
+                               + (K1M_OPS_LERP if motion else 0)))
+    b_ms, o_ms = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
+    bound_ms, bound_by = bound(nbytes, ops)
+    steps = w["interior_steps"] + w["leaf_steps"]
+    return bound_ms, bound_by, (
+        f"{n} rays: {w['interior_steps']} interior + {w['leaf_steps']} leaf "
+        f"steps ({steps / n:.2f} a ray) on {w['interior_records']} + "
+        f"{w['leaf_records']} distinct rows ({w['hit_leaves']} leaves with "
+        f"a hit); {w['triangles']} triangles "
         f"({w['triangles'] / max(w['leaf_steps'], 1):.2f} a leaf); "
         f"{nbytes / 1e6:.2f} MB ({b_ms:.4f} ms), {ops / 1e9:.3f} Gop "
         f"({o_ms:.4f} ms); bound {bound_ms:.4f} ms ({bound_by})")
@@ -559,8 +621,8 @@ def k1_on_calls(label: str, geo, calls):
     """k1_on_path's checks and times on recorded calls of K1's wrapper
     (recorder) on ``geo``."""
     from tpurt_torch.kernels.traverse import (LEAF_KINDS, leaf_kind,
-                                              traverse_wide,
-                                              traverse_wide_reference)
+                                              traverse_reference,
+                                              traverse_wide)
 
     names = {k: v[1] for k, v in LEAF_KINDS.items()}
     out = []
@@ -568,14 +630,15 @@ def k1_on_calls(label: str, geo, calls):
         o, d, tm, any_hit, time_, tree = rays
         body = names[leaf_kind(geo, time_, tree)]
         kw = dict(any_hit=any_hit, time=time_, tree=tree)
-        ref = traverse_wide_reference(geo, o, d, tm, **kw)
+        w = {}
+        ref = traverse_reference(geo, o, d, tm, stats=w, **kw)
         ker = traverse_wide(geo, o, d, tm, **kw)
         torch.cuda.synchronize()
         agree, t_ok, t_err = k1_agreement(ref, ker, any_hit)
-        b_ms, b_by, text = k1_work(geo, rays)
+        b_ms, b_by, text = k1_work(geo, rays, w)
         ms_one = cuda_ms(lambda: traverse_wide(geo, o, d, tm, **kw))
         ms = cuda_ms(lambda: traverse_wide(geo, o, d, tm, **kw), burst=10)
-        plain = cuda_ms(lambda: traverse_wide_reference(geo, o, d, tm, **kw),
+        plain = cuda_ms(lambda: traverse_reference(geo, o, d, tm, **kw),
                         reps=1)
         kind = "any-hit" if any_hit else "closest"
         print(f"{body} work @ {label} call {i} {text}")
@@ -803,28 +866,34 @@ def phase_cross(scene_path: str, small_path: str, small_rpf: str):
     _close(g, h, "small RPF stand-in")
 
 
-def cli_counted(scene_path: str, out: Path, what: str, bodies=("K1",)):
+def cli_counted(scene_path: str, out: Path, what: str, bodies=("K1",),
+                args=()):
     """Render a scene through the CLI on the card with the traversal
     counters set to 0 just before: returns (image read back from ``out``,
     traversal launches, seconds).  Fails if a leaf body of ``bodies`` did
     not launch or another one did (a frame without motion or curves runs
-    only K1's static body), if the plain traversal ran, or if the image is
-    not finite with mean > 0."""
+    only K1's static body), if a plain traversal (the wide-BVH or the kd
+    twin) ran, or if the image is not finite with mean > 0.  ``args``:
+    more CLI arguments."""
     from tpurt_torch import cli
     from tpurt_torch.io.image import read_image
-    from tpurt_torch.kernels.traverse import (reset_launches, traverse_wide,
+    from tpurt_torch.kernels.traverse import (reset_launches,
+                                              traverse_kd_reference,
+                                              traverse_wide,
                                               traverse_wide_reference)
 
     out.unlink(missing_ok=True)
     reset_launches()
     traverse_wide_reference.calls = 0
+    traverse_kd_reference.calls = 0
     t0 = time.time()
     rc = cli.main([scene_path, "--device", "cuda", "--outfile", str(out),
-                   "--quiet"])
+                   "--quiet", *args])
     torch.cuda.synchronize()
     cli_s = time.time() - t0
     launches = traverse_wide.launches
-    plain_calls = traverse_wide_reference.calls
+    plain_calls = (traverse_wide_reference.calls
+                   + traverse_kd_reference.calls)
     img = read_image(str(out))
     by_body = dict(traverse_wide.kernel_launches)
     print(f"{what} (CLI, first run incl. scene build): {cli_s:.2f}s, "
@@ -2028,19 +2097,177 @@ def phase_sppm(gpu: str, profile_all: bool):
 
 
 # the jnp code of tpurt's _traverse_wide that each leaf body replaces
+def phase_spectral(gpu: str, path_mean: float, profile_all: bool):
+    """Main path J: frame A's stand-in with --spectrum sampled through the
+    CLI at 700x700, 8 spp (K1 launched, no plain traversal); K1 against
+    its plain version on J's rays; the timed render and J's mean beside
+    A's; the small spectral scenes card against CPU; MLT's spectral
+    evaluation card against CPU; under --profile one profiled frame."""
+    from tpurt_torch.kernels.traverse import traverse_wide
+    from tpurt_torch.render.driver import (build_job, load_scene, render,
+                                           render_job)
+    from tpurt_torch.render.mlt import make_mlt_eval, n_dims_for
+    from tpurt_torch.scene import load_scene_string
+    from tpurt_torch.spectrum_sampled import tables
+    from tpurt_torch.testscenes import (SPECTRAL_SPECULAR_WORLD,
+                                        spectral_media_world,
+                                        spectral_scene, write_standin)
+
+    scene = write_standin(str(WORK / "standin_spectral_full.pbrt"), "full")
+    img, launches, cli_s = cli_counted(
+        scene, WORK / "standin_spectral_out.exr",
+        "main path J (--spectrum sampled)", args=("--spectrum", "sampled"))
+    assert img.shape == (700, 700, 3)
+    job = build_job(load_scene(scene), "cuda", spectrum="sampled")
+    assert job.cfg.spectral and job.cfg.nch == 60
+    k1_j = k1_on_path("J spectral", job, 2)
+    render_s, runs, peak, img = render_timed(job)
+    ratio = float(img.mean()) / path_mean
+    print(f"spectral_render_s {render_s:.4f} (runs "
+          f"{['%.4f' % r for r in runs]}) peak mem {peak / 2**30:.3f} GiB, "
+          f"image mean {img.mean():.5f} = {ratio:.4f} of A's RGB mean "
+          f"{path_mean:.5f} (basis: {tables().source}), CLI first run "
+          f"{cli_s:.2f}s on {gpu}")
+    cases = (("path", {}), ("directlighting", {}),
+             ("whitted", dict(maxdepth=4, world=SPECTRAL_SPECULAR_WORLD)),
+             ("volpath", dict(world=spectral_media_world())),
+             ("bdpt", dict(maxdepth=2)),
+             ("sppm", dict(maxdepth=2, extra=' "integer iterations" [2] '
+                           '"float radius" [0.5]')))
+    for integ, kw in cases:
+        text = spectral_scene(integ, **kw)
+        g, _ = render(load_scene_string(text), "cuda", spectrum="sampled")
+        h, _ = render(load_scene_string(text), "cpu", spectrum="sampled")
+        _close(g, h, f"spectral {integ} 16x16")
+    text = spectral_scene("mlt", maxdepth=1,
+                          extra=' "integer mutationsperpixel" [2]')
+    jobs = [build_job(load_scene_string(text), dev, spectrum="sampled")
+            for dev in ("cuda", "cpu")]
+    gen = torch.Generator().manual_seed(5)
+    X = torch.rand((1 << 14, n_dims_for(1)), generator=gen)
+    vc, rc = make_mlt_eval(jobs[0], 1, traverse_wide)(X.cuda())
+    vh, rh = make_mlt_eval(jobs[1], 1, traverse_wide)(X)
+    torch.testing.assert_close(vc.cpu(), vh, rtol=1e-4, atol=1e-5)
+    assert torch.equal(rc.cpu(), rh)
+    print(f"spectral mlt eval cuda vs cpu on {X.shape[0]} rows: max |diff| "
+          f"{(vc.cpu() - vh).abs().max().item():.3e}, raster equal, "
+          f"nonzero {(vh > 0).any(-1).float().mean().item():.3f}")
+    prof = None
+    if profile_all:
+        prof = phase_profile("spectral frame J", lambda: render_job(job),
+                             render_s)
+    return dict(launches=launches, render_s=render_s, peak=peak,
+                ratio=ratio, k1=k1_j, profile=prof, job=job)
+
+
+def phase_kdtree(gpu: str, job_a, profile_all: bool):
+    """Main path K: frame A's stand-in under Accelerator "kdtree" through
+    the CLI at 700x700, 8 spp (K1k launched, no other body, no plain
+    traversal); K1k against its twin on K's rays; K1k's hits against K1's
+    on the same primary rays; the timed render and K's image against A's;
+    frame E under the kd-tree at 256x256 (K1km and K1c) with K1km against
+    its twin; under --profile one profiled frame."""
+    from tpurt_torch.kernels.traverse import (reset_launches,
+                                              traverse_kd_reference,
+                                              traverse_wide,
+                                              traverse_wide_reference)
+    from tpurt_torch.render.driver import (build_job, load_scene, render,
+                                           render_job)
+    from tpurt_torch.testscenes import write_motion_hair, write_standin
+
+    scene = write_standin(str(WORK / "standin_kd_full.pbrt"), "full",
+                          accelerator="kdtree")
+    img, launches, cli_s = cli_counted(
+        scene, WORK / "standin_kd_out.exr", "main path K (kd-tree)",
+        bodies=("K1k",))
+    by_body = dict(traverse_wide.kernel_launches)
+    assert img.shape == (700, 700, 3)
+    t0 = time.time()
+    job = build_job(load_scene(scene), "cuda")
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    g = job.scene.geo
+    kind = g.knodes[:, 126]
+    cont = g.knodes[:, 124].contiguous().view(torch.int32)
+    tris = (~torch.isnan(g.knodes[:, :12])).sum(1)[kind > 0]
+    print(f"kd table: {g.knodes.shape[0]} rows "
+          f"({g.knodes.numel() * 4 / 1e6:.2f} MB), "
+          f"{int((kind == 0).sum())} interior, {int((kind > 0).sum())} leaf "
+          f"(continued {int((cont >= 0).sum())}), triangles a leaf row "
+          f"{tris.float().mean().item():.2f} of 12, stack depth "
+          f"{g.kstack_depth}; scene build {build_s:.2f}s")
+    calls = frame_ray_calls(job, 2)
+    assert [c[3] for c in calls] == [False, True, False, True, False]
+    k1_k = k1_on_calls("K kdtree", g, calls)
+    assert {r["body"] for r in k1_k} == {"K1k"}, k1_k
+    # the same triangles through the wide BVH: prims equal
+    o, d, tm = calls[0][:3]
+    hk = traverse_wide(g, o, d, tm, any_hit=False)
+    hb = traverse_wide(job_a.scene.geo, o, d, tm, any_hit=False)
+    vs_k1 = (hk[1] == hb[1]).float().mean().item()
+    both = (hk[1] >= 0) & (hb[1] >= 0)
+    dt = (hk[0] - hb[0]).abs()[both].max().item()
+    print(f"K1k vs K1 (wide BVH) on {o.shape[0]} primary rays: prims equal "
+          f"{vs_k1:.6f}, max |dt| over common hits {dt:.3e}")
+    assert vs_k1 >= 0.9999, vs_k1
+    render_s, runs, peak, img = render_timed(job)
+    img_a = render_job(job_a)
+    print(f"kdtree_render_s {render_s:.4f} (runs "
+          f"{['%.4f' % r for r in runs]}) peak mem {peak / 2**30:.3f} GiB, "
+          f"image mean {img.mean():.5f}, CLI first run {cli_s:.2f}s on {gpu}")
+    _close(img, img_a, "K (kd-tree) vs A (wide BVH) 700x700")
+
+    # frame E under the kd-tree through render(), which returns the job
+    # the K1km checks reuse (the 5 MB scene parses once)
+    e = write_motion_hair(str(WORK / "motion_hair_kd_256.pbrt"), "full",
+                          res=256, accelerator="kdtree")
+    reset_launches()
+    traverse_wide_reference.calls = traverse_kd_reference.calls = 0
+    t0 = time.time()
+    img_e, ejob = render(load_scene(e), "cuda")
+    torch.cuda.synchronize()
+    e_by_body = dict(traverse_wide.kernel_launches)
+    launches_e = traverse_wide.launches
+    plain_calls = traverse_wide_reference.calls + traverse_kd_reference.calls
+    print(f"frame E under the kd-tree, 256x256 (render(), scene build "
+          f"included): {time.time() - t0:.2f}s, traversal kernel launches "
+          f"{launches_e} {e_by_body}, plain calls {plain_calls}, image mean "
+          f"{img_e.mean():.5f}")
+    assert img_e.shape == (256, 256, 3) and np.isfinite(img_e).all()
+    assert plain_calls == 0 and img_e.mean() > 0
+    assert all((n > 0) == (b in ("K1km", "K1c"))
+               for b, n in e_by_body.items()), e_by_body
+    k1_ek = k1_on_path("E kd-tree 256", ejob, 1)
+    assert {r["body"] for r in k1_ek} == {"K1km", "K1c"}, k1_ek
+    prof = None
+    if profile_all:
+        prof = phase_profile("kd-tree frame K", lambda: render_job(job),
+                             render_s)
+    return dict(launches=launches, by_body=by_body, e_by_body=e_by_body,
+                launches_e=launches_e, render_s=render_s, peak=peak,
+                k1=k1_k, k1_e=k1_ek, vs_k1=vs_k1, profile=prof)
+
+
 LEAF_BODIES = {
     "K1m": ("traverse_wide_motion",
             "tpurt/render/intersect.py:669 (_tri_bundle_test, drec/time)"),
     "K1c": ("traverse_wide_curve",
             "tpurt/render/intersect.py:751 (_curve_bundle_test)"),
+    "K1k": ("traverse_kd",
+            "tpurt/render/intersect.py:1038 (_kd_step_fns; _kd_init_state "
+            ":1147; the kd branch of _traverse_wide :1236)"),
+    "K1km": ("traverse_kd_motion",
+             "tpurt/render/intersect.py:1038 (_kd_step_fns with "
+             "knodes_delta, _tri_bundle_test(drec, time) :669)"),
 }
 
 
 def leaf_body_entry(body: str, records, launches_by_path, checks):
     """The kernels line's entry of one leaf body of K1 (an instantiation of
-    the same kernel, so it replaces K1's TPU kernel; ``body`` names the jnp
-    code it carries): the main path's launches, the numbers of its first
-    call on E's rays (the 2^20 camera rays) and every recorded call."""
+    the same kernel file, so it replaces K1's TPU kernel; ``body`` names
+    the jnp code it carries): the main path's launches, the numbers of its
+    first recorded call (the 2^20 camera rays of its frame) and every
+    recorded call."""
     name, jnp_code = LEAF_BODIES[body]
     mine = [r for r in records if r["body"] == body]
     first = mine[0]
@@ -2130,8 +2357,12 @@ def main(argv=None) -> int:
     stamp("phase 20 (H)")
     sppm = phase_sppm(gpu, profile_all)
     stamp("phase 21 (I)")
+    spectral = phase_spectral(gpu, path_mean, profile_all)
+    stamp("phase 22 (J)")
+    kd = phase_kdtree(gpu, job, profile_all)
+    stamp("phase 23 (K)")
     k1_paths.update(media=media["k1"], ao=ao["k1"], bdpt=bdpt["k1"],
-                    mlt=mlt["k1"], sppm=sppm["k1"])
+                    mlt=mlt["k1"], sppm=sppm["k1"], spectral=spectral["k1"])
     conn = bdpt["connection"]
     if profile_all:
         from tpurt_torch.render.driver import render_job
@@ -2156,7 +2387,7 @@ def main(argv=None) -> int:
                        + launches_d_rpf + media["launches"]
                        + ao["launches"] + bdpt["launches"]
                        + mlt["launches"] + mlt["launches_cli"]
-                       + sppm["launches"]),
+                       + sppm["launches"] + spectral["launches"]),
              launches_by_path={
                  "path": launches_a, "rpf": launches_b,
                  "direct_textured": launches_c1,
@@ -2167,7 +2398,7 @@ def main(argv=None) -> int:
                  "media": media["launches"], "ao": ao["launches"],
                  "bdpt": bdpt["launches"], "mlt": mlt["launches"],
                  "mlt_cli_128": mlt["launches_cli"],
-                 "sppm": sppm["launches"]},
+                 "sppm": sppm["launches"], "spectral": spectral["launches"]},
              bdpt_any_hit_launches=bdpt["any_hit_launches"],
              mlt_any_hit_launches=mlt["any_hit_launches"],
              sppm_any_hit_launches=sppm["any_hit_launches"],
@@ -2187,6 +2418,10 @@ def main(argv=None) -> int:
             "motion_hair": e_bodies[body],
             "motion_hair_rpf": e_rpf_bodies[body]}, e_checks_out)
           for body in ("K1m", "K1c")),
+        leaf_body_entry("K1k", kd["k1"], {"kdtree": kd["by_body"]["K1k"]},
+                        dict(prims_equal_to_k1=kd["vs_k1"])),
+        leaf_body_entry("K1km", kd["k1_e"], {
+            "motion_hair_kdtree_256": kd["e_by_body"]["K1km"]}, {}),
         dict(name="gather_rows_sum", route="cuda",
              source="tpurt_torch/csrc/gather_bench.cu",
              replaces="tpurt/kernels/gather_bench.py:24",

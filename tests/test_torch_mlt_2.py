@@ -2,8 +2,9 @@
 test_mlt_matches_path (tests/test_bdpt.py:124-139: the same scene,
 parameters and 15% bound against the path tracer's mean), and the CLI's
 ``Integrator "mlt"`` dispatch on the CPU (tpurt's cli.py:109-113), with
-``Integrator "sppm"`` rendered through the CLI too and refused by name
-only under ``--spectrum sampled``.  The CLI case shrinks the
+``Integrator "sppm"`` rendered through the CLI too, in RGB and under
+``--spectrum sampled``, and a feature still outside the port (``Camera
+"realistic"``) refused by name.  The CLI case shrinks the
 bootstrap to 2^12 rows a depth (render/mlt.py's N_BOOTSTRAP, read at the
 call) so that it runs in seconds.  Also bdpt's endpoint shading context
 (zero_shade_ctx), whose structure must be make_shade_ctx's, hair
@@ -70,18 +71,22 @@ def test_cli_renders_mlt_and_refuses_sppm(tmp_path, monkeypatch):
     img = read_image(str(out))
     assert img.shape == (16, 16, 3) and np.isfinite(img).all()
     assert img.mean() > 0
-    # sppm renders through the CLI too; what it still refuses is the
-    # sampled spectrum
+    # sppm renders through the CLI too, in RGB and in sampled spectra;
+    # what the CLI still refuses is a feature outside the port, by name
     sppm = tmp_path / "s.pbrt"
     sppm.write_text(open(scene).read().replace(
         'Integrator "mlt"', 'Integrator "sppm" "integer numiterations" [2]'))
-    assert cli.main([str(sppm), "--device", "cpu", "--outfile", str(out),
-                     "--quiet"]) == 0
-    img = read_image(str(out))
-    assert img.shape == (16, 16, 3) and np.isfinite(img).all()
-    assert img.mean() > 0
-    with pytest.raises(NotImplementedError, match="--spectrum sampled"):
-        cli.main([str(sppm), "--device", "cpu", "--quiet", "--spectrum",
+    for spectrum in ("rgb", "sampled"):
+        assert cli.main([str(sppm), "--device", "cpu", "--outfile", str(out),
+                         "--quiet", "--spectrum", spectrum]) == 0
+        img = read_image(str(out))
+        assert img.shape == (16, 16, 3) and np.isfinite(img).all()
+        assert img.mean() > 0
+    realistic = tmp_path / "r.pbrt"
+    realistic.write_text(sppm.read_text().replace(
+        'Camera "perspective"', 'Camera "realistic"'))
+    with pytest.raises(NotImplementedError, match='Camera "realistic"'):
+        cli.main([str(realistic), "--device", "cpu", "--quiet", "--spectrum",
                   "sampled"])
 
 

@@ -30,7 +30,6 @@ def test_supported_base_scene_renders_on_cpu():
     ("material", "fourier", 'Material "fourier"'),
     ("material", "subsurface", 'Material "subsurface"'),
     ("material", "kdsubsurface", 'Material "kdsubsurface"'),
-    ("accel", 'Accelerator "kdtree"', 'Accelerator "kdtree"'),
     ("filter", "catmullrom", 'PixelFilter "catmullrom"'),
     ("camera", "realistic", 'Camera "realistic"'),
     ("kd", '"texture Kd" "checks"', 'Texture "ptex"'),
@@ -63,6 +62,7 @@ def test_outside_the_slice_raises(key, value, feature):
     ("medium", 'MakeNamedMedium "fog" "string type" "homogeneous"\n'
                'MediumInterface "" "fog"'),
     ("integrator", "bdpt"), ("integrator", "mlt"), ("integrator", "sppm"),
+    ("accel", 'Accelerator "kdtree"'),
 ])
 def test_what_earlier_slices_refused_now_renders(key, value, monkeypatch):
     """Each feature this slice added, one at a time in the base scene.

@@ -67,7 +67,8 @@ def test_motion_body_matches_plain(job, any_hit):
         tm = torch.full_like(time, 14.0)
     ktr.reset_launches()
     got = ktr.traverse_wide(geo, o, d, tm, any_hit, time=time)
-    assert ktr.traverse_wide.kernel_launches == {"K1": 0, "K1m": 1, "K1c": 0}
+    assert ktr.traverse_wide.kernel_launches == {"K1": 0, "K1m": 1, "K1c": 0,
+                                                 "K1k": 0, "K1km": 0}
     want = ktr.traverse_wide_reference(geo, o, d, tm, any_hit, time=time)
     assert 0.05 < (want[1] >= 0).float().mean().item() < 0.999
     _check(got, want, any_hit)
@@ -85,7 +86,8 @@ def test_curve_body_matches_plain(job, any_hit):
     tm = torch.full((o.shape[0],), float("inf"), device="cuda")
     ktr.reset_launches()
     got = ktr.traverse_wide(geo, o, d, tm, any_hit, tree="curve")
-    assert ktr.traverse_wide.kernel_launches == {"K1": 0, "K1m": 0, "K1c": 1}
+    assert ktr.traverse_wide.kernel_launches == {"K1": 0, "K1m": 0, "K1c": 1,
+                                                 "K1k": 0, "K1km": 0}
     want = ktr.traverse_wide_reference(geo, o, d, tm, any_hit, tree="curve")
     assert 0.001 < (want[1] >= 0).float().mean().item() < 0.9
     _check(got, want, any_hit)
@@ -122,6 +124,7 @@ def test_static_frame_launches_only_k1(job):
     tm = torch.full((o.shape[0],), float("inf"), device="cuda")
     ktr.reset_launches()
     got = ktr.traverse_wide(geo, o, d, tm, False)
-    assert ktr.traverse_wide.kernel_launches == {"K1": 1, "K1m": 0, "K1c": 0}
+    assert ktr.traverse_wide.kernel_launches == {"K1": 1, "K1m": 0, "K1c": 0,
+                                                 "K1k": 0, "K1km": 0}
     want = ktr.traverse_wide_reference(geo, o, d, tm, False)
     _check(got, want, False)

@@ -18,7 +18,9 @@ scene's render to DIR (Chrome trace JSON, one file a scene).  --nthreads
 and --seed are accepted for pbrt's and tpurt's command line and read by
 nothing.  The device is explicit: --device cuda (the default) raises
 when CUDA is absent; pass --device cpu to render on the CPU.
---spectrum sampled raises NotImplementedError.
+--spectrum sampled renders path, volpath, directlighting, whitted, bdpt,
+mlt and sppm with 60-bin spectra (spectrum_sampled.py); rpf renders in RGB
+with a warning, ao is colourless.
 """
 
 from __future__ import annotations
@@ -79,7 +81,9 @@ def main(argv=None) -> int:
                     help="like --cat, but write big triangle meshes to PLY "
                          "files in the current directory (pbrt --toply)")
     ap.add_argument("--spectrum", choices=("rgb", "sampled"), default="rgb",
-                    help="spectral representation (only rgb is ported)")
+                    help="spectral representation: rgb (RGBSpectrum, the "
+                         "reference default) or sampled (60-bin "
+                         "SampledSpectrum, pbrt.h PBRT_SAMPLED_SPECTRUM)")
     ap.add_argument("--profile", metavar="DIR", default="",
                     help="write a torch.profiler trace of each scene's "
                          "render to DIR (Chrome trace JSON)")
@@ -105,11 +109,9 @@ def main(argv=None) -> int:
         ap.print_usage()
         print("error: no scene files given", file=sys.stderr)
         return 1
-    if args.spectrum != "rgb":
-        raise NotImplementedError("--spectrum sampled")
 
     from tpurt_torch.io.image import write_image
-    from tpurt_torch.render.driver import load_scene, render
+    from tpurt_torch.render.driver import load_scene, render, spectral_mode
     from tpurt_torch.utils.stats import print_stats
 
     if args.profile:
@@ -124,12 +126,14 @@ def main(argv=None) -> int:
             if sd.integrator_name == "rpf":
                 from tpurt_torch.rpf.driver import render_rpf
 
+                spectral_mode("rpf", args.spectrum)  # warns: RGB only
                 img, job, _extras = render_rpf(sd, device=args.device,
                                                quick=args.quick,
                                                crop_override=args.cropwindow)
             else:
                 img, job = render(sd, device=args.device, quick=args.quick,
-                                  crop_override=args.cropwindow)
+                                  crop_override=args.cropwindow,
+                                  spectrum=args.spectrum)
         out = args.outfile or job.film.filename
         write_image(out, img)
         log.info("wrote %s (%dx%d)", out, img.shape[1], img.shape[0])

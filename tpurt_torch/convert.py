@@ -1,10 +1,11 @@
 """Carry a tpurt render job across to the port.
 
 ``scene_from_tpurt(job)`` reads every table of a tpurt ``RenderJob``
-(geometry with its motion deltas, animated quadrics, tangents and curve
-tree; lights; the media; materials with their texture records, hair
+(geometry with its motion deltas, animated quadrics, tangents, curve
+tree and kd-tree; lights; the media; materials with their texture records, hair
 columns and ``Material "none"`` rows; the camera, animated or not;
-sampler, film, integrator config, volpath's and ao's included) with
+sampler, film, integrator config, volpath's and ao's included, and the
+sampled-spectrum flag) with
 ``np.asarray`` and returns the host-table
 dict that ``tpurt_torch.render.driver.host_tables`` builds from a scene
 description, so tests can feed both packages identical state and compare
@@ -105,21 +106,24 @@ def _config(cfg) -> IntegratorConfig:
     if cfg.name == "ao":
         return IntegratorConfig(name="ao", ao_samples=cfg.ao_samples,
                                 ao_cos_sample=cfg.ao_cos_sample)
+    spectral = bool(cfg.spectral)
     if cfg.name in ("directlighting", "whitted"):
-        return IntegratorConfig(name=cfg.name, max_depth=cfg.max_depth)
+        return IntegratorConfig(name=cfg.name, max_depth=cfg.max_depth,
+                                spectral=spectral)
     return IntegratorConfig(name=cfg.name, max_depth=cfg.max_depth,
                             rr_threshold=cfg.rr_threshold,
                             light_strategy=cfg.light_strategy,
-                            capture_features=cfg.capture_features)
+                            capture_features=cfg.capture_features,
+                            spectral=spectral)
 
 
 def scene_from_tpurt(job) -> dict:
     """Host tables of a tpurt RenderJob for the ported slices."""
     cfg = job.cfg
-    if cfg.name not in INTEGRATORS or cfg.spectral:
+    if cfg.name not in INTEGRATORS:
         raise NotImplementedError(f'tpurt job integrator "{cfg.name}"')
     g = job.scene.geo
-    if g.accel != "bvh":
+    if g.accel not in ("bvh", "kdtree"):
         raise NotImplementedError("tpurt geometry outside the ported slices")
     lt = job.scene.lights
     cam = job.camera
@@ -144,6 +148,10 @@ def scene_from_tpurt(job) -> dict:
         geo.update(n_curves=int(g.n_curves), cnodes=a(g.cnodes),
                    cnodes_aux=opt(g.cnodes_aux),
                    cstack_depth=int(g.cstack_depth))
+    if g.accel == "kdtree":
+        geo.update(accel="kdtree", knodes=a(g.knodes),
+                   knodes_delta=opt(g.knodes_delta), kbounds=a(g.kbounds),
+                   kstack_depth=int(g.kstack_depth))
     anim = dict(animated=bool(cam.animated), time0=float(cam.time0),
                 time1=float(cam.time1), anim_t=opt(cam.anim_t),
                 anim_q=opt(cam.anim_q), anim_s=opt(cam.anim_s))

@@ -22,6 +22,11 @@
 //     intersect.py:751-897), ribbons scaled by the aux rows.
 // The interior records, the stack, the schedule and the body choice are
 // the same for all three.
+// Under Accelerator "kdtree" the triangle rays take the kd walk instead
+// (traverse_kd_kernel, at the end of this file): K1k and K1km, which replace
+// tpurt's jnp kd traversal (_kd_step_fns, intersect.py:1038, the kd branch
+// of _traverse_wide, which stands in for traverse.py:54 there) and share
+// K1's ray setup and watertight leaf test.
 //
 // Tables (derived at upload from the host record table of
 // tpurt/geom/wbvh.py by render/intersect.py:derive_traversal_tables):
@@ -109,6 +114,8 @@
 #define TPURT_WIDTH 8
 #define TPURT_LEAF_K 12
 #define TPURT_STACK_MAX 256    // must equal STACK_MAX in kernels/traverse.py
+#define TPURT_KD_STACK_MAX 128  // must equal KD_STACK_MAX there
+#define TPURT_KD_BLOCK 128
 #define TPURT_BLOCK 128
 #define TPURT_INT_ROW4 16      // float4 per interior-table row (256 B)
 #define TPURT_LEAF_ROW4 32     // float4 per leaf-table row (512 B)
@@ -151,6 +158,58 @@ struct Ray {
 
 __device__ __forceinline__ float comp(const float4& v, int j) {
   return reinterpret_cast<const float*>(&v)[j];
+}
+
+// a ray as a lane keeps it: 1/d with signed infinities on zero components
+// (intersect.py:1234), the watertight test's permutation (|d|'s largest
+// axis becomes z) and shear, the shutter time (K1m), the direction and its
+// length (K1c)
+template <int LEAF>
+__device__ __forceinline__ void load_ray(Ray& r,
+                                         const float* __restrict__ o_in,
+                                         const float* __restrict__ d_in,
+                                         const float* __restrict__ time_in,
+                                         int ray) {
+  const float inf = __int_as_float(0x7f800000);
+  r.ox = o_in[3 * ray];
+  r.oy = o_in[3 * ray + 1];
+  r.oz = o_in[3 * ray + 2];
+  const float dx = d_in[3 * ray], dy = d_in[3 * ray + 1],
+              dz = d_in[3 * ray + 2];
+  r.ix = dx != 0.f ? 1.f / dx : (dx >= 0.f ? inf : -inf);
+  r.iy = dy != 0.f ? 1.f / dy : (dy >= 0.f ? inf : -inf);
+  r.iz = dz != 0.f ? 1.f / dz : (dz >= 0.f ? inf : -inf);
+  const float ax = fabsf(dx), ay = fabsf(dy), az = fabsf(dz);
+  const bool use2 = (az >= ax) && (az >= ay);  // (x, y, z)
+  const bool use1 = !use2 && (ay >= ax);       // (z, x, y); else (y, z, x)
+#define PERM_X(x, y, z) (use2 ? (x) : (use1 ? (z) : (y)))
+#define PERM_Y(x, y, z) (use2 ? (y) : (use1 ? (x) : (z)))
+#define PERM_Z(x, y, z) (use2 ? (z) : (use1 ? (y) : (x)))
+  const float dpx = PERM_X(dx, dy, dz), dpy = PERM_Y(dx, dy, dz),
+              dpz = PERM_Z(dx, dy, dz);
+  r.opx = PERM_X(r.ox, r.oy, r.oz);
+  r.opy = PERM_Y(r.ox, r.oy, r.oz);
+  r.opz = PERM_Z(r.ox, r.oy, r.oz);
+  // a leaf's x, y, z rows of one vertex are 3 float4 apart
+  r.kx = 3 * PERM_X(0, 1, 2);
+  r.ky = 3 * PERM_Y(0, 1, 2);
+  r.kz = 3 * PERM_Z(0, 1, 2);
+#undef PERM_X
+#undef PERM_Y
+#undef PERM_Z
+  r.sx = -dpx / dpz;
+  r.sy = -dpy / dpz;
+  r.sz = 1.f / dpz;
+  if (LEAF == TPURT_LEAF_MOTION) r.time = time_in[ray];
+  if (LEAF == TPURT_LEAF_CURVE) {
+    r.dx = dx;
+    r.dy = dy;
+    r.dz = dz;
+    r.dl = sqrtf(dx * dx + dy * dy + dz * dz);
+    r.hx = dx / r.dl;
+    r.hy = dy / r.dl;
+    r.hz = dz / r.dl;
+  }
 }
 
 // 8 slab tests of an interior record, then the
@@ -529,47 +588,7 @@ traverse_wide_kernel(const float4* __restrict__ inodes, int n_inodes,
       const int mine = pool + __popc(dead & ((1u << lane) - 1u));
       if (cur < 0 && mine < pool_end) {
         ray = mine;
-        r.ox = o_in[3 * ray];
-        r.oy = o_in[3 * ray + 1];
-        r.oz = o_in[3 * ray + 2];
-        const float dx = d_in[3 * ray], dy = d_in[3 * ray + 1],
-                    dz = d_in[3 * ray + 2];
-        // 1/d with signed infinities on zero components (intersect.py:1234)
-        r.ix = dx != 0.f ? 1.f / dx : (dx >= 0.f ? inf : -inf);
-        r.iy = dy != 0.f ? 1.f / dy : (dy >= 0.f ? inf : -inf);
-        r.iz = dz != 0.f ? 1.f / dz : (dz >= 0.f ? inf : -inf);
-        // watertight-test permutation: |d| largest axis becomes z
-        const float ax = fabsf(dx), ay = fabsf(dy), az = fabsf(dz);
-        const bool use2 = (az >= ax) && (az >= ay);  // (x, y, z)
-        const bool use1 = !use2 && (ay >= ax);       // (z, x, y); else (y, z, x)
-#define PERM_X(x, y, z) (use2 ? (x) : (use1 ? (z) : (y)))
-#define PERM_Y(x, y, z) (use2 ? (y) : (use1 ? (x) : (z)))
-#define PERM_Z(x, y, z) (use2 ? (z) : (use1 ? (y) : (x)))
-        const float dpx = PERM_X(dx, dy, dz), dpy = PERM_Y(dx, dy, dz),
-                    dpz = PERM_Z(dx, dy, dz);
-        r.opx = PERM_X(r.ox, r.oy, r.oz);
-        r.opy = PERM_Y(r.ox, r.oy, r.oz);
-        r.opz = PERM_Z(r.ox, r.oy, r.oz);
-        // a leaf's x, y, z rows of one vertex are 3 float4 apart
-        r.kx = 3 * PERM_X(0, 1, 2);
-        r.ky = 3 * PERM_Y(0, 1, 2);
-        r.kz = 3 * PERM_Z(0, 1, 2);
-#undef PERM_X
-#undef PERM_Y
-#undef PERM_Z
-        r.sx = -dpx / dpz;
-        r.sy = -dpy / dpz;
-        r.sz = 1.f / dpz;
-        if (LEAF == TPURT_LEAF_MOTION) r.time = time_in[ray];
-        if (LEAF == TPURT_LEAF_CURVE) {
-          r.dx = dx;
-          r.dy = dy;
-          r.dz = dz;
-          r.dl = sqrtf(dx * dx + dy * dy + dz * dz);
-          r.hx = dx / r.dl;
-          r.hy = dy / r.dl;
-          r.hz = dz / r.dl;
-        }
+        load_ray<LEAF>(r, o_in, d_in, time_in, ray);
         t_best = t_max_in[ray];
         prim_best = -1;
         b0_best = 0.f;
@@ -755,4 +774,179 @@ extern "C" int tpurt_traverse_wide(int leaf_kind, const float* inodes,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The kd walk: K1k (static triangles) and K1km (the motion delta rows)
+// ---------------------------------------------------------------------------
+// tpurt's kd traversal (_kd_init_state and _kd_step_fns,
+// tpurt/render/intersect.py:1038-1162, the kd branch of _traverse_wide at
+// :1236-1240) is jnp code, not a Pallas kernel; it runs under
+// Accelerator "kdtree".  One thread walks one ray over the kd record table
+// of tpurt_torch/geom/kdtree.py as it is (rows of 128 f32):
+//   interior: [120] split, [121] axis (i32), [122] below row, [123] above
+//     row (i32): one float4, 16 bytes, the only part of the row it reads;
+//   leaf: the BVH leaf's 12-triangle bundle in [0:120] (K1's leaf_test
+//     reads it unchanged), [124] the continuation row (i32, -1 = none);
+//   [126] kind (0 interior, 1 leaf).
+// The root-bounds clip (its far t scaled by box_scale, _BOX_T_SCALE), then
+// binary descent with a (node, tmin, tmax) interval stack of stack_depth
+// slots: near child first (below when o < split, or o == split and
+// d <= 0), the far child pushed with (tplane, tmax) when the plane lies
+// inside the interval; a cell past the best hit pops; a leaf walks its
+// continuation rows before popping; any-hit ends at the first hit.  The
+// updates come in the twin's order (kernels/traverse.py:
+// traverse_kd_reference), so ties resolve as tpurt's do: tplane rounds as
+// its (split - o) * inv_d, no FMA (-fmad=false).
+// What bounds it: not bytes (a ray reads one 16-byte interior row a level
+// it descends and a few leaf rows, from L1 or L2) but the chain of
+// dependent reads and the divergence: measured on an H100, a primary ray
+// of frame A's stand-in takes 16.6 steps (12.3 interior, 4.3 leaf rows of
+// 2.4 triangles), and the walk runs ~38x its byte bound (PERF.md).
+// The design is the simple one: a thread a ray, the interval stack in
+// local memory, no persistent warps, the tables as the host built them;
+// chip_smoke.py reports its time against its bound on every driven call.
+template <int LEAF>
+__global__ void __launch_bounds__(TPURT_KD_BLOCK)
+traverse_kd_kernel(const float4* __restrict__ nodes, int n_rows,
+                   const float4* __restrict__ delta,
+                   const float* __restrict__ time_in,
+                   const float* __restrict__ bounds,
+                   const float* __restrict__ o_in,
+                   const float* __restrict__ d_in,
+                   const float* __restrict__ t_max_in, int n,
+                   int stack_depth, int any_hit, float box_scale,
+                   float* __restrict__ t_out, int* __restrict__ prim_out,
+                   float* __restrict__ b0_out, float* __restrict__ b1_out) {
+  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
+  if (ray >= n) return;
+  const float inf = __int_as_float(0x7f800000);
+  Ray r;
+  load_ray<LEAF>(r, o_in, d_in, time_in, ray);
+  const float t_max = t_max_in[ray];
+  // root clip: jnp's minimum / maximum and max / min reductions propagate
+  // NaN, so a ray in the plane of a face (0 * inf) misses the box
+  const float tx0 = (bounds[0] - r.ox) * r.ix, tx1 = (bounds[3] - r.ox) * r.ix;
+  const float ty0 = (bounds[1] - r.oy) * r.iy, ty1 = (bounds[4] - r.oy) * r.iy;
+  const float tz0 = (bounds[2] - r.oz) * r.iz, tz1 = (bounds[5] - r.oz) * r.iz;
+  const float t_near = max_nan(max_nan(min_nan(tx0, tx1), min_nan(ty0, ty1)),
+                               min_nan(tz0, tz1));
+  const float t_far = min_nan(min_nan(max_nan(tx0, tx1), max_nan(ty0, ty1)),
+                              max_nan(tz0, tz1)) * box_scale;
+  float tmin = max_nan(t_near, 0.f);
+  float tmax = min_nan(t_far, t_max);
+  float t_best = t_max, b0_best = 0.f, b1_best = 0.f;
+  int prim_best = -1;
+  int cur = (t_max > 0.f && tmin <= tmax) ? 0 : -1;
+  int st_node[TPURT_KD_STACK_MAX];
+  float st_tmin[TPURT_KD_STACK_MAX], st_tmax[TPURT_KD_STACK_MAX];
+  int sp = 0, steps = 0;
+  while (cur >= 0) {
+    if (cur >= n_rows) break;  // malformed table
+    const float4* rec = nodes + (size_t)cur * (TPURT_LEAF_ROW4);
+    const float4 tail = rec[31];  // [124] cont, [126] kind
+    int nxt = -1;
+    bool pop = false;
+    if (tail.z > 0.f) {
+      float t_min = inf, bb0 = 0.f, bb1 = 0.f;
+      int k_best = 0;
+      leaf_test<LEAF == TPURT_LEAF_MOTION>(
+          rec,
+          LEAF == TPURT_LEAF_MOTION ? delta + (size_t)cur * TPURT_LEAF_ROW4
+                                    : nullptr,
+          r, t_best, t_min, k_best, bb0, bb1);
+      if (t_min < t_best) {
+        t_best = t_min;
+        prim_best = reinterpret_cast<const int*>(rec)[108 + k_best];
+        b0_best = bb0;
+        b1_best = bb1;
+      }
+      nxt = __float_as_int(tail.x);
+      pop = nxt < 0;
+    } else {
+      const float4 node = rec[30];  // split, axis, below, above
+      const float split = node.x;
+      const int axis = __float_as_int(node.y);
+      const int below = __float_as_int(node.z), above = __float_as_int(node.w);
+      const float o_a = axis == 0 ? r.ox : (axis == 1 ? r.oy : r.oz);
+      const float inv_a = axis == 0 ? r.ix : (axis == 1 ? r.iy : r.iz);
+      const float d_a = d_in[3 * ray + (axis == 0 ? 0 : (axis == 1 ? 1 : 2))];
+      const float tplane = (split - o_a) * inv_a;
+      const bool below_first = (o_a < split) || (o_a == split && d_a <= 0.f);
+      const int near = below_first ? below : above;
+      const int far = below_first ? above : below;
+      if (tmin > t_best) {
+        pop = true;  // a cell past the best hit cannot improve it
+      } else {
+        const bool no_far = (tplane > tmax) || (tplane <= 0.f);
+        const bool no_near = tplane < tmin;
+        nxt = (no_far || !no_near) ? near : far;
+        if (!no_far && !no_near) {
+          if (sp < stack_depth) {
+            st_node[sp] = far;
+            st_tmin[sp] = tplane;
+            st_tmax[sp] = tmax;
+          }
+          ++sp;
+          tmax = tplane;
+        }
+      }
+    }
+    if (pop && sp > 0) {
+      // slots past stack_depth read as (0, 0, 0), like the twin's
+      const bool ok = sp - 1 < stack_depth;
+      nxt = ok ? st_node[sp - 1] : 0;
+      tmin = ok ? st_tmin[sp - 1] : 0.f;
+      tmax = ok ? st_tmax[sp - 1] : 0.f;
+      --sp;
+    }
+    if (any_hit && prim_best >= 0) nxt = -1;
+    // a walk reads each row at most once; the bound guards against a
+    // malformed table hanging the card
+    if (++steps > n_rows) nxt = -1;
+    cur = nxt;
+  }
+  t_out[ray] = t_best;
+  prim_out[ray] = prim_best;
+  b0_out[ray] = b0_best;
+  b1_out[ray] = b1_best;
+}
+
+// C entry point for ctypes: the kd walk.  leaf_kind TPURT_LEAF_TRI (K1k)
+// or TPURT_LEAF_MOTION (K1km, with delta and time).  nodes: the (n_rows,
+// 128) kd record table; bounds: the root box lo.xyz, hi.xyz.  Launches on
+// `stream`, does not synchronise, allocates nothing; returns
+// cudaGetLastError() (0 = launched).
+extern "C" int tpurt_traverse_kd(int leaf_kind, const float* nodes,
+                                 int n_rows, const float* delta,
+                                 const float* time, const float* bounds,
+                                 const float* o, const float* d,
+                                 const float* t_max, int n, int stack_depth,
+                                 int any_hit, float box_scale, float* t_out,
+                                 int* prim_out, float* b0_out,
+                                 float* b1_out, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (stack_depth > TPURT_KD_STACK_MAX || stack_depth < 1 || n_rows < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int blocks = (n + TPURT_KD_BLOCK - 1) / TPURT_KD_BLOCK;
+  const float4* nd = reinterpret_cast<const float4*>(nodes);
+  switch (leaf_kind) {
+    case TPURT_LEAF_TRI:
+      traverse_kd_kernel<TPURT_LEAF_TRI><<<blocks, TPURT_KD_BLOCK, 0, s>>>(
+          nd, n_rows, nullptr, nullptr, bounds, o, d, t_max, n, stack_depth,
+          any_hit, box_scale, t_out, prim_out, b0_out, b1_out);
+      break;
+    case TPURT_LEAF_MOTION:
+      if (delta == nullptr || time == nullptr)
+        return (int)cudaErrorInvalidValue;
+      traverse_kd_kernel<TPURT_LEAF_MOTION><<<blocks, TPURT_KD_BLOCK, 0, s>>>(
+          nd, n_rows, reinterpret_cast<const float4*>(delta), time, bounds, o,
+          d, t_max, n, stack_depth, any_hit, box_scale, t_out, prim_out,
+          b0_out, b1_out);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }

@@ -24,6 +24,13 @@ tpurt's ``_tri_bundle_test(drec, time)``); K1c, the curve-span tree
 (``tree="curve"``: ``geo.cinodes``, ``geo.cleaves``, ribbons from
 ``geo.cleaves_aux``; tpurt's ``_curve_bundle_test``).  A frame without
 motion or curves launches only K1.
+
+Under ``Accelerator "kdtree"`` (``geo.accel``) the triangle rays walk the
+kd-tree instead (tpurt's ``_kd_step_fns`` / ``_kd_init_state``,
+intersect.py:1038-1162): K1k over static triangles, K1km with the motion
+delta rows, both instantiations of the kd walk in traverse.cu, which
+shares K1's leaf test; ``traverse_kd_reference`` is their plain twin.
+Curves keep K1c.
 """
 
 from __future__ import annotations
@@ -48,8 +55,13 @@ EXTRA_FLAGS = ("-fmad=false",)
 # of two)
 STACK_MAX = 256
 # the leaf bodies, by the code the C entry takes (TPURT_LEAF_* in
-# traverse.cu) and the name chip_smoke.py reports
-LEAF_KINDS = {"tri": (0, "K1"), "motion": (1, "K1m"), "curve": (2, "K1c")}
+# traverse.cu) and the name chip_smoke.py reports; "kd" and "kd_motion"
+# are the kd walk's (tpurt_traverse_kd)
+LEAF_KINDS = {"tri": (0, "K1"), "motion": (1, "K1m"), "curve": (2, "K1c"),
+              "kd": (0, "K1k"), "kd_motion": (1, "K1km")}
+# must equal TPURT_KD_STACK_MAX in traverse.cu: the deepest interval stack
+# the kd walk holds (tpurt's kstack_depth is the tree's depth cap + 2)
+KD_STACK_MAX = 128
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,22 +78,70 @@ def _bind(cdll) -> None:
     fn.argtypes = [ci, vp, ci, vp, ci, vp, vp, ci, ci, vp, vp, vp, vp,
                    ci, ci, ci, ctypes.c_float, vp, vp, vp, vp, vp, vp]
     fn.restype = ci
+    fn = cdll.tpurt_traverse_kd
+    fn.argtypes = [ci, vp, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci,
+                   ctypes.c_float, vp, vp, vp, vp, vp]
+    fn.restype = ci
 
 
 def leaf_kind(geo, time, tree: str) -> str:
-    """The leaf body a walk runs: "curve" for the curve tree, "motion"
-    for the triangle tree of an animated mesh with ray times, else
-    "tri"."""
+    """The leaf body a walk runs: "curve" for the curve tree; for the
+    triangles "kd" or "kd_motion" under the kd-tree, else "tri" or
+    "motion" (an animated mesh with ray times)."""
     if tree == "curve":
         return "curve"
     if tree != "tri":
         raise ValueError(f"tree {tree!r}")
+    if geo.accel == "kdtree":
+        return ("kd" if time is None or geo.knodes_delta is None
+                else "kd_motion")
     return "tri" if time is None or geo.wnodes_delta is None else "motion"
+
+
+def _launch_kd(geo, o, d, t_max, any_hit: bool, time, kind: str):
+    """Check the inputs and launch the kd walk (K1k, or K1km with the
+    delta rows and ray times) on the current stream; returns (t, prim,
+    b0, b1)."""
+    n = o.shape[0]
+    dev = o.device
+    m = geo.knodes.shape[0]
+    motion = kind == "kd_motion"
+    build.check_tensor("knodes", geo.knodes, torch.float32, (m, REC), dev)
+    build.check_tensor("kbounds", geo.kbounds, torch.float32, (2, 3), dev)
+    if motion:
+        build.check_tensor("knodes_delta", geo.knodes_delta, torch.float32,
+                           (m, REC), dev)
+        build.check_tensor("time", time, torch.float32, (n,), dev)
+    build.check_tensor("o", o, torch.float32, (n, 3), dev)
+    build.check_tensor("d", d, torch.float32, (n, 3), dev)
+    build.check_tensor("t_max", t_max, torch.float32, (n,), dev)
+    if not 1 <= geo.kstack_depth <= KD_STACK_MAX:
+        raise ValueError(f"kd stack depth {geo.kstack_depth} outside the "
+                         f"kernel's compiled range 1..{KD_STACK_MAX}")
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    prim = torch.empty(n, dtype=torch.int32, device=dev)
+    b0 = torch.empty(n, dtype=torch.float32, device=dev)
+    b1 = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return t, prim, b0, b1
+    with torch.cuda.device(dev):
+        err = load_library().cdll.tpurt_traverse_kd(
+            LEAF_KINDS[kind][0], geo.knodes.data_ptr(), m,
+            geo.knodes_delta.data_ptr() if motion else 0,
+            time.data_ptr() if motion else 0, geo.kbounds.data_ptr(),
+            o.data_ptr(), d.data_ptr(), t_max.data_ptr(), n,
+            geo.kstack_depth, int(bool(any_hit)), _BOX_T_SCALE,
+            t.data_ptr(), prim.data_ptr(), b0.data_ptr(), b1.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.raise_on_error(f"traverse_kd_kernel ({LEAF_KINDS[kind][1]})", err)
+    return t, prim, b0, b1
 
 
 def _launch(geo, o, d, t_max, any_hit: bool, time, kind: str):
     """Check the inputs and launch the traversal kernel with the leaf
     body ``kind`` on the current stream; returns (t, prim, b0, b1)."""
+    if kind in ("kd", "kd_motion"):
+        return _launch_kd(geo, o, d, t_max, any_hit, time, kind)
     n = o.shape[0]
     dev = o.device
     curve = kind == "curve"
@@ -150,11 +210,12 @@ def traverse_wide(geo, o, d, t_max, any_hit: bool, time=None,
     lane at its first hit (shadow rays).  time (N,) f32: each ray's
     shutter time, read by the motion body when the mesh is animated.
     tree "curve" walks the curve-span tree (b0, b1 = span-local s, width
-    v)."""
+    v).  Under the kd-tree (``geo.accel``) the triangle rays take the kd
+    walk (K1k, K1km)."""
     kind = leaf_kind(geo, time, tree)
     if o.device.type == "cpu":
-        return traverse_wide_reference(geo, o, d, t_max, any_hit, time=time,
-                                       tree=tree)
+        return traverse_reference(geo, o, d, t_max, any_hit, time=time,
+                                  tree=tree)
     if o.device.type != "cuda":
         raise NotImplementedError(f"traversal on {o.device}")
     out = _launch(geo, o, d, t_max, any_hit, time, kind)
@@ -331,3 +392,176 @@ def traverse_wide_reference(geo, o, d, t_max, any_hit: bool, time=None,
 
 
 traverse_wide_reference.calls = 0
+
+
+def traverse_kd_reference(geo, o, d, t_max, any_hit: bool, time=None,
+                          stats=None):
+    """Plain PyTorch twin of tpurt's kd walk (``_kd_init_state`` and
+    ``_kd_step_fns``, intersect.py:1038-1162), K1k's and K1km's plain
+    version: the root-bounds clip (the far t scaled by ``_BOX_T_SCALE``),
+    then binary descent with a per-lane (node, tmin, tmax) interval stack
+    of ``geo.kstack_depth`` slots.  An interior record sends the lane to
+    its near child (below first when ``o < split``, or ``o == split`` and
+    ``d <= 0``) and pushes the far one with (tplane, tmax) when the ray
+    crosses the plane inside its interval; a cell whose tmin lies past
+    the best hit pops; a leaf runs the 12-triangle bundle (lerped to
+    ``time`` when the mesh moves), then walks its continuation row before
+    popping.  any_hit stops a lane at its first hit.
+
+    Lockstep over the live lanes, dead lanes dropped between steps; stack
+    slots past the depth are dropped on push and read as (0, 0, 0) on
+    pop, as tpurt's one-hot stack does.  A lane takes at most one step
+    per table row plus one.  ``stats`` (a dict) receives the work these
+    rays need: "interior_steps", "leaf_steps", "triangles" (non-pad
+    triangles tested), and the distinct rows read, "interior_records",
+    "leaf_records" and "hit_leaves" (leaf rows in which some lane found a
+    closer hit, whose prim rows are then read)."""
+    traverse_kd_reference.calls += 1
+    from tpurt_torch.geom.kdtree import (SLOT_ABOVE, SLOT_AXIS, SLOT_BELOW,
+                                         SLOT_CONT, SLOT_SPLIT)
+
+    dev = o.device
+    n = o.shape[0]
+    S = geo.kstack_depth
+    nodes = geo.knodes
+    delta = geo.knodes_delta if time is not None else None
+    inv_d = safe_inv_dir(d)
+    t_max = t_max.to(torch.float32)
+    # root clip (Bounds3::IntersectP); min / max propagate NaN as jnp's
+    t0 = (geo.kbounds[0][None, :] - o) * inv_d
+    t1 = (geo.kbounds[1][None, :] - o) * inv_d
+    tnear = torch.minimum(t0, t1).amax(dim=1)
+    tfar = torch.maximum(t0, t1).amin(dim=1) * _BOX_T_SCALE
+    tmin = torch.maximum(tnear, torch.zeros_like(tnear))
+    tmax = torch.minimum(tfar, t_max)
+    cur = torch.where((t_max > 0) & (tmin <= tmax), 0, -1).to(torch.int64)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    st_node = torch.zeros((n, S), dtype=torch.int64, device=dev)
+    st_tmin = torch.zeros((n, S), dtype=torch.float32, device=dev)
+    st_tmax = torch.zeros((n, S), dtype=torch.float32, device=dev)
+    t_best = t_max.clone()
+    prim_best = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    b0_best = torch.zeros(n, dtype=torch.float32, device=dev)
+    b1_best = torch.zeros(n, dtype=torch.float32, device=dev)
+    live = torch.nonzero(cur >= 0).squeeze(1)
+    if stats is not None:
+        seen = torch.zeros(nodes.shape[0], dtype=torch.bool, device=dev)
+        seen_hit = torch.zeros_like(seen)
+        stats.update(interior_steps=0, leaf_steps=0, triangles=0)
+    steps = 0
+    while live.numel() and steps <= nodes.shape[0]:
+        steps += 1
+        rows = cur[live]
+        rec = nodes[rows]
+        is_leaf = rec[:, SLOT_KIND] > 0
+        m = live.numel()
+        if stats is not None:
+            seen[rows] = True
+            n_leaf = int(is_leaf.sum())
+            stats["leaf_steps"] += n_leaf
+            stats["interior_steps"] += m - n_leaf
+        nxt = torch.full((m,), -1, dtype=torch.int64, device=dev)
+        pop = torch.zeros(m, dtype=torch.bool, device=dev)
+
+        # --- leaf lanes: the triangle bundle, then the continuation ---
+        lpos = torch.nonzero(is_leaf).squeeze(1)
+        if lpos.numel():
+            lanes = live[lpos]
+            lrec = rec[lpos]
+            if delta is not None:
+                h, t, b0, b1 = _tri_bundle_test(
+                    o[lanes], d[lanes], t_best[lanes], lrec,
+                    delta[rows[lpos]], time[lanes])
+            else:
+                h, t, b0, b1 = _tri_bundle_test(o[lanes], d[lanes],
+                                                t_best[lanes], lrec)
+            tk = torch.where(h, t, INF)
+            kbest = torch.argmin(tk, dim=1, keepdim=True)  # first minimum
+            t_min = tk.gather(1, kbest)[:, 0]
+            better = t_min < t_best[lanes]
+            if stats is not None:
+                stats["triangles"] += int((~torch.isnan(lrec[:, :LEAF_K]))
+                                          .sum())
+                seen_hit[rows[lpos][better]] = True
+            bl = lanes[better]
+            kb = kbest[better]
+            t_best[bl] = t_min[better]
+            prim_rows = lrec[better][:, PRIM_LO:PRIM_LO + LEAF_K].contiguous()
+            prim_best[bl] = prim_rows.view(torch.int32).gather(1, kb)[:, 0]
+            b0_best[bl] = b0[better].gather(1, kb)[:, 0]
+            b1_best[bl] = b1[better].gather(1, kb)[:, 0]
+            cont = lrec[:, SLOT_CONT:SLOT_CONT + 1].contiguous().view(
+                torch.int32)[:, 0].to(torch.int64)
+            nxt[lpos] = cont
+            pop[lpos] = cont < 0
+
+        # --- interior lanes: the split plane against the interval ---
+        ipos = torch.nonzero(~is_leaf).squeeze(1)
+        if ipos.numel():
+            lanes = live[ipos]
+            irec = rec[ipos]
+            split = irec[:, SLOT_SPLIT]
+            meta = irec[:, SLOT_AXIS:SLOT_ABOVE + 1].contiguous().view(
+                torch.int32).to(torch.int64)
+            axis, below, above = (meta[:, 0:1], meta[:, SLOT_BELOW - SLOT_AXIS],
+                                  meta[:, SLOT_ABOVE - SLOT_AXIS])
+            o_a = o[lanes].gather(1, axis)[:, 0]
+            d_a = d[lanes].gather(1, axis)[:, 0]
+            inv_a = inv_d[lanes].gather(1, axis)[:, 0]
+            tplane = (split - o_a) * inv_a
+            below_first = (o_a < split) | ((o_a == split) & (d_a <= 0))
+            near = torch.where(below_first, below, above)
+            far = torch.where(below_first, above, below)
+            tmin_l, tmax_l = tmin[lanes], tmax[lanes]
+            dead = tmin_l > t_best[lanes]
+            no_far = (tplane > tmax_l) | (tplane <= 0)
+            no_near = tplane < tmin_l
+            push = ~dead & ~no_far & ~no_near
+            nxt[ipos] = torch.where(dead, -1,
+                                    torch.where(no_far | ~no_near, near, far))
+            pop[ipos] = dead
+            # push the far child's (node, tplane, tmax) interval
+            pl, pp = lanes[push], sp[lanes[push]]
+            w = pp < S
+            st_node[pl[w], pp[w]] = far[push][w]
+            st_tmin[pl[w], pp[w]] = tplane[push][w]
+            st_tmax[pl[w], pp[w]] = tmax_l[push][w]
+            sp[pl] = pp + 1
+            tmax[pl] = tplane[push]
+
+        # --- pop: the top interval, (0, 0, 0) past the stack's depth ---
+        sp_l = sp[live]
+        can_pop = pop & (sp_l > 0)
+        cl = live[can_pop]
+        top = sp[cl] - 1
+        ok = top < S
+        slot = top.clamp(max=S - 1)
+        nxt[can_pop] = torch.where(ok, st_node[cl, slot], 0)
+        tmin[cl] = torch.where(ok, st_tmin[cl, slot], 0.0)
+        tmax[cl] = torch.where(ok, st_tmax[cl, slot], 0.0)
+        sp[cl] = top
+        if any_hit:
+            nxt = torch.where(prim_best[live] >= 0, -1, nxt)
+        cur[live] = nxt
+        live = live[nxt >= 0]
+    if stats is not None:
+        leaf_rows = nodes[:, SLOT_KIND] > 0
+        stats.update(interior_records=int((seen & ~leaf_rows).sum()),
+                     leaf_records=int((seen & leaf_rows).sum()),
+                     hit_leaves=int(seen_hit.sum()))
+    return t_best, prim_best, b0_best, b1_best
+
+
+traverse_kd_reference.calls = 0
+
+
+def traverse_reference(geo, o, d, t_max, any_hit: bool, time=None,
+                       tree: str = "tri", stats=None):
+    """The plain version of whichever body ``traverse_wide`` launches for
+    these arguments: the kd twin under the kd-tree, the wide-BVH twin
+    otherwise."""
+    if leaf_kind(geo, time, tree) in ("kd", "kd_motion"):
+        return traverse_kd_reference(geo, o, d, t_max, any_hit, time=time,
+                                     stats=stats)
+    return traverse_wide_reference(geo, o, d, t_max, any_hit, time=time,
+                                   tree=tree, stats=stats)

@@ -53,9 +53,10 @@ from tpurt_torch.render.camera import camera_pdf_we, camera_sample_wi
 from tpurt_torch.render.integrator import (INF, SHADOW_EPS, IntegratorConfig,
                                            SceneData, ShadeCtx,
                                            _camera_setup, _escape_pdf,
-                                           _escape_radiance, make_shade_ctx,
+                                           _escape_radiance,
+                                           lift_illum_maybe, make_shade_ctx,
                                            shade_f, shade_sample,
-                                           zero_shade_ctx)
+                                           to_rgb_maybe, zero_shade_ctx)
 from tpurt_torch.render.interaction import (compute_interaction,
                                             offset_ray_origin)
 from tpurt_torch.render.intersect import intersect_any, intersect_closest
@@ -195,6 +196,7 @@ def _random_walk_pair(scene: SceneData, texture_eval, sampler, px, py, sidx,
         return torch.cat([cam[key], lit[key]], dim=0)
 
     o, d, beta = cat("o"), cat("d"), cat("beta0")
+    nch = beta.shape[-1]  # the colour channels the throughputs carry
     pdf_dir, alive, med = cat("pdf0"), cat("alive0"), cat("med0")
     prev_p = o
     steps: List[Dict[str, Any]] = []
@@ -222,7 +224,8 @@ def _random_walk_pair(scene: SceneData, texture_eval, sampler, px, py, sidx,
             # the dead lanes' results are dropped: they sample no medium
             med_live = torch.where(alive, med, -1)
             scattered, t_min, thru, g_med = _sample_medium_distance(
-                scene, med_live, o, d, t_surf, dim2(3), dim2(4), lane2, b)
+                scene, med_live, o, d, t_surf, dim2(3), dim2(4), lane2, b,
+                nch)
             sampled_med = alive & scattered
             beta = torch.where((alive & (med >= 0))[:, None], beta * thru,
                                beta)
@@ -244,7 +247,7 @@ def _random_walk_pair(scene: SceneData, texture_eval, sampler, px, py, sidx,
             pdf_fwd = _convert_density(pdf_dir, prev_p, p_v, si.ng)
         pdf_fwd = torch.where(escaped, pdf_dir, pdf_fwd)
 
-        shade = make_shade_ctx(scene, si, texture_eval)
+        shade = make_shade_ctx(scene, si, texture_eval, channels=nch)
         lrow = torch.where(
             surf_valid,
             scene.lights.prim_to_light[si.prim.clamp(min=0).long()], -1)
@@ -438,17 +441,20 @@ def bdpt_radiance(scene: SceneData, sampler, camera, px, py, sidx,
         return torch.zeros(n, dtype=dtype, device=dev)
 
     # ---- the camera subpath's endpoint ----
+    # spectral mode: throughputs and emissions carry nch bins, the MIS
+    # weights stay scalar, deposit() converts to RGB (tpurt :416-418)
+    nch = cfg.nch
     _, cam_pdf_dir = camera_pdf_we(camera, d)
-    ones3 = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    onesc = torch.ones((n, nch), dtype=torch.float32, device=dev)
     med_cam = torch.full((n,), scene.camera_medium, dtype=torch.int32,
                          device=dev)
     zb, zf = zeros(torch.bool), zeros()
     cam_v0 = dict(
         p=cam_o[None, :].expand(n, 3), ng=cam_fwd[None, :].expand(n, 3),
-        ns=cam_fwd[None, :].expand(n, 3), beta=ones3, pdf_fwd=zf + 1.0,
+        ns=cam_fwd[None, :].expand(n, 3), beta=onesc, pdf_fwd=zf + 1.0,
         delta=zb, valid=~zb, escaped=zb, lrow=zeros(torch.int64) - 1,
         is_medium=zb, g=zf, med=med_cam, p_eps=zf,
-        shade=zero_shade_ctx(scene, n, dev))
+        shade=zero_shade_ctx(scene, n, dev, channels=nch))
     # ---- the light subpath's endpoint ----
     bl = 5 + dpb * (t_max_v - 1)
 
@@ -459,15 +465,16 @@ def bdpt_radiance(scene: SceneData, sampler, camera, px, py, sidx,
     le = sample_le(lt, lidx, dim(bl + 1), dim(bl + 2), dim(bl + 3),
                    dim(bl + 4))
     l_valid = (le.pdf_pos > 0) & (le.pdf_dir > 0) & (le.le > 0).any(dim=-1)
+    le_c = lift_illum_maybe(le.le, nch)
     # the lights share the camera medium (tpurt's scope: exact for
     # global-fog scenes)
     lit_v0 = dict(
         p=le.p, ng=le.n, ns=le.n,
-        beta=le.le / torch.clamp(le.pdf_pos * lpmf, min=1e-20)[:, None],
+        beta=le_c / torch.clamp(le.pdf_pos * lpmf, min=1e-20)[:, None],
         pdf_fwd=le.pdf_pos * lpmf, delta=zb, valid=l_valid, escaped=zb,
         lrow=lidx, is_medium=zb, g=zf, med=med_cam, p_eps=zf,
-        shade=zero_shade_ctx(scene, n, dev))
-    beta0 = le.le * (dot(le.n, le.d).abs()
+        shade=zero_shade_ctx(scene, n, dev, channels=nch))
+    beta0 = le_c * (dot(le.n, le.d).abs()
                      / torch.clamp(lpmf * le.pdf_pos * le.pdf_dir,
                                    min=1e-20))[:, None]
     o_l = torch.where((le.is_delta_pos | le.is_infinite)[:, None], le.p,
@@ -477,7 +484,7 @@ def bdpt_radiance(scene: SceneData, sampler, camera, px, py, sidx,
     with torch.profiler.record_function(WALK_RANGE):
         cam_walk, lit_walk = _random_walk_pair(
             scene, texture_eval, sampler, px, py, sidx, sctx,
-            cam=dict(o=o, d=d, beta0=ones3 * ray_w[:, None],
+            cam=dict(o=o, d=d, beta0=onesc * ray_w[:, None],
                      pdf0=cam_pdf_dir, alive0=~zb, med0=med_cam,
                      n_steps=t_max_v - 1, dim_base=5),
             lit=dict(o=o_l, d=le.d, beta0=beta0, pdf0=le.pdf_dir,
@@ -541,8 +548,10 @@ def bdpt_radiance(scene: SceneData, sampler, camera, px, py, sidx,
 
     def deposit(s, contrib, p_raster=None):
         """A strategy's weighted contribution: the pixel sample normally,
-        per-lane masked splats in MLT mode."""
+        per-lane masked splats in MLT mode; spectral contributions become
+        RGB here, the film being 3-channel (tpurt :527-533)."""
         nonlocal L
+        contrib = to_rgb_maybe(contrib)
         if mlt_mode:
             c = contrib * n_strat
             if s_select is not None:
@@ -587,12 +596,15 @@ def bdpt_radiance(scene: SceneData, sampler, camera, px, py, sidx,
                     lrow_rec = lt.rows[pt.lrow.clamp(min=0).long()]
                     emits = (lrow_rec[:, 13] > 0) | (dot(pt.ng, w_to_prev) > 0)
                     Le_v = torch.where((on_light & emits)[:, None],
-                                       lrow_rec[:, 1:4], 0.0)
+                                       lift_illum_maybe(lrow_rec[:, 1:4],
+                                                        nch), 0.0)
                     usable = on_light
                     if lt.has_infinite:
                         # p holds the escaped ray's direction
-                        Le_v = torch.where(pt.escaped[:, None],
-                                           _escape_radiance(lt, pt.p), Le_v)
+                        Le_v = torch.where(
+                            pt.escaped[:, None],
+                            lift_illum_maybe(_escape_radiance(lt, pt.p), nch),
+                            Le_v)
                         usable = on_light | pt.escaped
                     contrib = pt.beta * Le_v
                     if t == 2:
@@ -667,7 +679,7 @@ def bdpt_radiance(scene: SceneData, sampler, camera, px, py, sidx,
                     amp = dot(ls.wi, pt.ns).abs()
                     if has_media:
                         amp = torch.where(pt.is_medium, 1.0, amp)
-                    contrib = (pt.beta * f_pt * ls.li
+                    contrib = (pt.beta * f_pt * lift_illum_maybe(ls.li, nch)
                                * (amp / torch.clamp(ls.pdf * pmf2,
                                                     min=1e-20))[:, None])
                     usable = (base_ok & (ls.pdf > 0)
@@ -764,10 +776,10 @@ def _connect(scene: SceneData, pending, traverse, time, track_lane,
     walk, or the shadow walk on a scene with null boundaries; in media,
     each segment's transmittance from its origin's medium.  The media
     hash reads lane k * track_chunk + track_lane for strategy k.  Returns
-    per strategy (occluded (n,), transmittance (n, 3) or None)."""
+    per strategy (occluded (n,), transmittance (n, nch) or None)."""
     if not pending:
         return [], None
-    n = pending[0][1].shape[0]
+    n, nch = pending[0][1].shape
     dev = pending[0][1].device
     sel = [torch.nonzero(p[7]).squeeze(1) for p in pending]
     O = torch.cat([p[2][i] for p, i in zip(pending, sel)])
@@ -783,10 +795,11 @@ def _connect(scene: SceneData, pending, traverse, time, track_lane,
         if scene.has_null_boundaries:
             occ, tr = _shadow_tr_walk(scene, O, D, T, MED, lanes, 0,
                                       usable=T > 0, traverse=traverse,
-                                      time=tf)
+                                      time=tf, channels=nch)
         else:
             occ = _trace_slices(scene, O, D, T, traverse, tf)
-            tr = _medium_tr(scene, MED, T, O, D, lanes, 0, live=~occ)
+            tr = _medium_tr(scene, MED, T, O, D, lanes, 0, live=~occ,
+                            channels=nch)
     else:
         occ = _trace_slices(scene, O, D, T, traverse, tf)
     # back to one (n,) row a strategy
@@ -796,7 +809,7 @@ def _connect(scene: SceneData, pending, traverse, time, track_lane,
         o_k = torch.zeros(n, dtype=torch.bool, device=dev)
         out_occ.append(o_k.index_put((i,), occ[at:at + m]))
         if tr is not None:
-            t_k = torch.ones((n, 3), dtype=torch.float32, device=dev)
+            t_k = torch.ones((n, nch), dtype=torch.float32, device=dev)
             out_tr.append(t_k.index_put((i,), tr[at:at + m]))
         at += m
     return out_occ, (out_tr if tr is not None else None)

@@ -42,7 +42,7 @@ from tpurt_torch.render.filters import make_filter
 from tpurt_torch.render.geometry_build import flatten_geometry
 from tpurt_torch.render.integrator import (IntegratorConfig, SceneData,
                                            ao_radiance, path_bounce_init,
-                                           path_bounce_step)
+                                           path_bounce_step, to_rgb_maybe)
 from tpurt_torch.render.volpath import (TRACK_STATS, volpath_bounce_init,
                                         volpath_bounce_step)
 from tpurt_torch.render.intersect import DeviceGeometry
@@ -92,7 +92,7 @@ def _check_slice(sd: SceneDescription) -> None:
         raise NotImplementedError(f'Integrator "{sd.integrator_name}"')
     if sd.film_name != "image":
         raise NotImplementedError(f'Film "{sd.film_name}"')
-    if sd.accelerator_name != "bvh":
+    if sd.accelerator_name not in ACCELERATORS:
         raise NotImplementedError(f'Accelerator "{sd.accelerator_name}"')
     for pr in sd.primitives:
         sh = pr.shape
@@ -105,21 +105,51 @@ def _check_slice(sd: SceneDescription) -> None:
 
 INTEGRATORS = ("path", "volpath", "rpf", "directlighting", "whitted", "ao",
                "bdpt", "mlt", "sppm")
+ACCELERATORS = ("bvh", "kdtree")
 # the integrators whose film carries splats (Film::AddSplat)
 SPLAT_INTEGRATORS = ("bdpt", "mlt")
 SHAPES = ("trianglemesh", "sphere", "cylinder", "disk", "cone", "paraboloid",
           "hyperboloid", "curve")
 
 
-def make_integrator_config(sd: SceneDescription) -> IntegratorConfig:
+SPECTRA = ("rgb", "sampled")
+# the integrators that carry the 60-bin axis end to end under
+# --spectrum sampled (pbrt.h:126-130 switches every integrator)
+SPECTRAL_INTEGRATORS = ("path", "volpath", "directlighting", "whitted",
+                        "bdpt", "mlt", "sppm")
+
+
+def spectral_mode(name: str, spectrum: str) -> bool:
+    """True when ``spectrum`` "sampled" applies to integrator ``name``
+    (tpurt's _spectral_mode, driver.py:58-78).  rpf renders in RGB and
+    says so, since the reference's SampleData is 3-double RGB
+    (custom/sd.h:43); ao is colourless and renders as it is."""
+    if spectrum not in SPECTRA:
+        raise ValueError(f"spectrum {spectrum!r}: not one of {SPECTRA}")
+    if spectrum != "sampled":
+        return False
+    if name in SPECTRAL_INTEGRATORS:
+        return True
+    if name != "ao":
+        log.warning('spectrum_mode "sampled": integrator "%s" renders in '
+                    "RGB mode (sampled spectra cover path/volpath/"
+                    "directlighting/whitted/bdpt/mlt/sppm)", name)
+    return False
+
+
+def make_integrator_config(sd: SceneDescription,
+                           spectrum: str = "rgb") -> IntegratorConfig:
     """Integrator parameters with the reference defaults (tpurt's
     driver.py:60-129).  tpurt also parses directlighting's "strategy" and
-    reads it nowhere; it is not carried here."""
+    reads it nowhere; it is not carried here.  ``spectrum`` "sampled"
+    sets ``spectral`` on the integrators that carry the bins."""
     ps = sd.integrator_params
     name = sd.integrator_name
+    spectral = spectral_mode(name, spectrum)
     if name in ("directlighting", "whitted"):
         return IntegratorConfig(name=name,
-                                max_depth=ps.find_one_int("maxdepth", 5))
+                                max_depth=ps.find_one_int("maxdepth", 5),
+                                spectral=spectral)
     if name == "ao":
         return IntegratorConfig(
             name=name, ao_samples=ps.find_one_int("nsamples", 64),
@@ -128,7 +158,8 @@ def make_integrator_config(sd: SceneDescription) -> IntegratorConfig:
         # the iteration driver is render/sppm.py:render_sppm (tpurt's
         # driver.py:124-128)
         return IntegratorConfig(name=name,
-                                max_depth=ps.find_one_int("maxdepth", 5))
+                                max_depth=ps.find_one_int("maxdepth", 5),
+                                spectral=spectral)
     if name in ("bdpt", "mlt"):
         # tpurt parses bdpt's lightsamplestrategy and samples by power
         # whatever it says; its mlt config fixes "power" (MLT's own
@@ -137,12 +168,13 @@ def make_integrator_config(sd: SceneDescription) -> IntegratorConfig:
             name=name, max_depth=ps.find_one_int("maxdepth", 5),
             light_strategy=(ps.find_one_string("lightsamplestrategy",
                                                "power")
-                            if name == "bdpt" else "power"))
+                            if name == "bdpt" else "power"),
+            spectral=spectral)
     cfg = IntegratorConfig(
         name=name, max_depth=ps.find_one_int("maxdepth", 5),
         rr_threshold=ps.find_one_float("rrthreshold", 1.0),
         light_strategy=ps.find_one_string("lightsamplestrategy", "spatial"),
-        capture_features=name == "rpf")
+        capture_features=name == "rpf", spectral=spectral)
     if cfg.light_strategy not in ("spatial", "power", "uniform"):
         raise NotImplementedError(
             f'lightsamplestrategy "{cfg.light_strategy}"')
@@ -224,7 +256,7 @@ def media_tables(sd: SceneDescription, geo_h, kinds) -> dict:
 
 
 def host_tables(sd: SceneDescription, quick: bool = False,
-                crop_override=None) -> dict:
+                crop_override=None, spectrum: str = "rgb") -> dict:
     """All host-side tables of a render job (numpy arrays and Python
     values), before upload.  tpurt_torch.convert builds the same dict from
     a tpurt RenderJob."""
@@ -253,7 +285,8 @@ def host_tables(sd: SceneDescription, quick: bool = False,
         max_prims_per_leaf=(sd.accelerator_params.find_one_int(
             "maxnodeprims", 4) if sd.accelerator_params else 4),
         medium_index=medium_index)
-    geo = DeviceGeometry.host_tables(geo_h)
+    geo = DeviceGeometry.host_tables(geo_h, accel=sd.accelerator_name,
+                                     accel_params=sd.accelerator_params)
     # tpurt's counters at build (driver.py:181-187)
     STATS.phase_times["Scene flatten + BVH build"] += time.time() - t0
     STATS.counter("Scene/Primitives", geo_h.n_prims)
@@ -290,7 +323,7 @@ def host_tables(sd: SceneDescription, quick: bool = False,
         sampler=sampler_tables(sd.sampler_name, sd.sampler_params,
                                film.full_x, film.full_y, quick=quick,
                                sample_bounds=film.sample_bounds()),
-        film=film, cfg=make_integrator_config(sd))
+        film=film, cfg=make_integrator_config(sd, spectrum))
 
 
 def job_from_tables(tab: dict, device) -> RenderJob:
@@ -320,8 +353,8 @@ def job_from_tables(tab: dict, device) -> RenderJob:
 
 
 def build_job(sd: SceneDescription, device, quick: bool = False,
-              crop_override=None) -> RenderJob:
-    return job_from_tables(host_tables(sd, quick, crop_override),
+              crop_override=None, spectrum: str = "rgb") -> RenderJob:
+    return job_from_tables(host_tables(sd, quick, crop_override, spectrum),
                            resolve_device(device))
 
 
@@ -402,8 +435,10 @@ def render_job(job: RenderJob, traverse=None) -> np.ndarray:
 
     def bank(st, sel):
         pick = (lambda v: v) if sel is None else (lambda v: v[sel])
-        film.add_samples(state, pick(st["p_film_crop"]), pick(st["L"]),
-                         pick(st["ray_w"]))
+        # spectral radiance becomes RGB before the film (tpurt's
+        # driver.py:575-620)
+        film.add_samples(state, pick(st["p_film_crop"]),
+                         to_rgb_maybe(pick(st["L"])), pick(st["ray_w"]))
         if "splat_p" in st:
             film.add_splats(state, st["splat_p"], st["splat_L"])
 
@@ -428,22 +463,26 @@ def render_job(job: RenderJob, traverse=None) -> np.ndarray:
 
 
 def render(sd: SceneDescription, device="cuda", quick: bool = False,
-           crop_override=None, traverse=None):
+           crop_override=None, traverse=None, spectrum: str = "rgb"):
     """Render a scene description on ``device``; returns (image, job).
     Writes no files (the CLI writes the image).  ``Integrator "mlt"``
     renders through render/mlt.py:render_mlt, ``"sppm"`` through
-    render/sppm.py:render_sppm (tpurt's driver.py:455-463)."""
+    render/sppm.py:render_sppm (tpurt's driver.py:455-463).  ``spectrum``
+    "sampled" renders with 60-bin spectra (spectral_mode)."""
     if sd.integrator_name == "mlt":
         from tpurt_torch.render.mlt import render_mlt
 
         return render_mlt(sd, device, quick=quick,
-                          crop_override=crop_override, traverse=traverse)
+                          crop_override=crop_override, traverse=traverse,
+                          spectrum=spectrum)
     if sd.integrator_name == "sppm":
         from tpurt_torch.render.sppm import render_sppm
 
         return render_sppm(sd, device, quick=quick,
-                           crop_override=crop_override, traverse=traverse)
-    job = build_job(sd, device, quick=quick, crop_override=crop_override)
+                           crop_override=crop_override, traverse=traverse,
+                           spectrum=spectrum)
+    job = build_job(sd, device, quick=quick, crop_override=crop_override,
+                    spectrum=spectrum)
     t0 = time.time()
     img = render_job(job, traverse)
     log.info("render complete: %.2fs", time.time() - t0)

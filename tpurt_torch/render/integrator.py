@@ -59,6 +59,8 @@ from tpurt_torch.render.sampling_warps import (build_onb,
                                                cross, dot, norm,
                                                power_heuristic, to_local,
                                                to_world)
+from tpurt_torch.spectrum_sampled import (N_BINS, lift_illum, lift_refl,
+                                          lift_refl_raw, to_rgb)
 
 INF = float("inf")
 SHADOW_EPS = 1e-4  # pbrt ShadowEpsilon (pbrt.h:195)
@@ -77,6 +79,13 @@ class IntegratorConfig:
     # ao: occlusion rays a camera hit, cosine-weighted or uniform
     ao_samples: int = 64
     ao_cos_sample: bool = True
+    # sampled-spectrum mode: colours carry 60 bins (spectrum_sampled.py)
+    spectral: bool = False
+
+    @property
+    def nch(self) -> int:
+        """Colour channels of the lane state: 60 bins or RGB's 3."""
+        return N_BINS if self.spectral else 3
 
     @property
     def specular_only(self) -> bool:
@@ -128,6 +137,33 @@ class SceneData:
         """An animated mesh or quadric: rays carry their shutter time."""
         return (self.geo.wnodes_delta is not None
                 or self.geo.quad_trs is not None)
+
+
+def lift_illum_maybe(L, nch: int):
+    """RGB light radiance as ``nch`` channels: through the illuminant
+    basis when rendering spectrally (tpurt's _lift_illum_maybe,
+    integrator.py:146-155; light and area-light colours and env-map texels
+    promote as illuminants)."""
+    return L if nch == 3 else lift_illum(L)
+
+
+def lift_f_maybe(f, nch: int):
+    """A BSDF value evaluated in 3 channels (the hair model) as ``nch``
+    channels, without the 0.94 reflectance scale (integrator.py:158)."""
+    return f if nch == 3 else lift_refl_raw(f)
+
+
+def lift_refl_maybe(v, nch: int):
+    """An RGB scene parameter (a medium's sigmas) as ``nch`` channels
+    through the reflectance basis with its 0.94 scale
+    (integrator.py:169)."""
+    return v if nch == 3 else lift_refl(v)
+
+
+def to_rgb_maybe(L):
+    """Radiance of 60 bins as RGB, at the integrator's exit; the film
+    stays 3-channel (tpurt's _to_rgb_maybe, integrator.py:180-187)."""
+    return L if L.shape[-1] == 3 else to_rgb(L)
 
 
 def _shading_frame(si: SurfaceInteraction):
@@ -200,22 +236,24 @@ class ShadeCtx(NamedTuple):
 
 
 def make_shade_ctx(scene: SceneData, si: SurfaceInteraction,
-                   texture_eval=None) -> ShadeCtx:
+                   texture_eval=None, channels: int = 3) -> ShadeCtx:
     overrides = texture_eval(si) if texture_eval is not None else None
     lobes = fetch_lobes(scene.mt_table, si.material_id, overrides,
-                        scene.lobe_slots)
+                        scene.lobe_slots, channels=channels)
     t, b = _shading_frame(si)
     return ShadeCtx(lobes=lobes, t=t, b=b, hair=_hair_ctx(scene, si))
 
 
-def zero_shade_ctx(scene: SceneData, n: int, device) -> ShadeCtx:
+def zero_shade_ctx(scene: SceneData, n: int, device,
+                   channels: int = 3) -> ShadeCtx:
     """An all-dark context of the same structure as make_shade_ctx's on
     this scene, hair included (tpurt's zero_shade_ctx, integrator.py:347):
     bdpt's endpoint vertices.  Its lobes are those of a lane with no
-    material."""
+    material, in ``channels`` colour channels."""
     lobes = fetch_lobes(scene.mt_table,
                         torch.full((n,), -1, dtype=torch.int32,
-                                   device=device), None, scene.lobe_slots)
+                                   device=device), None, scene.lobe_slots,
+                        channels=channels)
     t = torch.zeros((n, 3), dtype=torch.float32, device=device)
     b = torch.zeros_like(t)
     t[:, 0] = 1.0
@@ -238,7 +276,8 @@ def shade_f(scene: SceneData, ctx: ShadeCtx, ns, w_out, w_in):
     pdf = bsdf_pdf(ctx.lobes, wo_l, wi_l, scene.lobe_slots)
     if ctx.hair is not None:
         is_hair, hp = ctx.hair
-        f = torch.where(is_hair[:, None], hair_f(hp, wo_l, wi_l), f)
+        f = torch.where(is_hair[:, None],
+                        lift_f_maybe(hair_f(hp, wo_l, wi_l), f.shape[-1]), f)
         pdf = torch.where(is_hair, hair_pdf(hp, wo_l, wi_l), pdf)
     return f, pdf
 
@@ -255,7 +294,7 @@ def shade_sample(scene: SceneData, ctx: ShadeCtx, ns, w_out, u_lobe, u1,
         is_hair, hp = ctx.hair
         wi_h, f_h, pdf_h = hair_sample(hp, wo_l, u1, u2)
         wi_l = torch.where(is_hair[:, None], wi_h, wi_l)
-        f = torch.where(is_hair[:, None], f_h, f)
+        f = torch.where(is_hair[:, None], lift_f_maybe(f_h, f.shape[-1]), f)
         pdf = torch.where(is_hair, pdf_h, pdf)
         is_spec = is_spec & ~is_hair
         is_trans = is_trans & ~is_hair
@@ -287,7 +326,8 @@ def _nee_prepare(scene: SceneData, si: SurfaceInteraction, ctx: ShadeCtx,
     o_sh = offset_ray_origin(si.p, si.ng, ls.wi, si.p_eps)
     w = torch.where(ls.is_delta, 1.0,
                     power_heuristic(1.0, ls.pdf, 1.0, scatter_pdf))
-    contrib = f * ls.li * (w / torch.clamp(ls.pdf * pmf, min=1e-20))[:, None]
+    contrib = (f * lift_illum_maybe(ls.li, f.shape[-1])
+               * (w / torch.clamp(ls.pdf * pmf, min=1e-20))[:, None])
     return (contrib, o_sh, ls.wi,
             shadow_t_max(ls, norm(ls.p_light - o_sh), usable), usable)
 
@@ -390,12 +430,13 @@ def path_bounce_init(scene: SceneData, sampler, camera, px, py, sidx,
     hit0 = intersect_closest(scene.geo, o, d, INF, traverse, time=time)
     z1 = torch.zeros(n, dtype=torch.float32, device=o.device)
     z3 = torch.zeros((n, 3), dtype=torch.float32, device=o.device)
+    zc = torch.zeros((n, cfg.nch), dtype=torch.float32, device=o.device)
     st = dict(
         px=px, py=py, sidx=sidx, sctx=sctx, time=time,
         p_film_crop=p_film_crop,
         p_lens=p_lens, ray_w=ray_w, o=o, d=d, hit_t=hit0.t,
         hit_prim=hit0.prim, hit_b0=hit0.b0, hit_b1=hit0.b1,
-        beta=z3 + 1.0, L=z3.clone(), alive=torch.ones_like(px, dtype=torch.bool),
+        beta=zc + 1.0, L=zc, alive=torch.ones_like(px, dtype=torch.bool),
         prev_pdf=z1 + 1.0, prev_p=o,
         specular=torch.zeros_like(px, dtype=torch.bool), eta_scale=z1 + 1.0)
     if scene.has_texfilter:
@@ -479,7 +520,8 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
         if SLOT_MIRROR in scene.lobe_slots or SLOT_FS in scene.lobe_slots:
             w_emit = torch.where(state["specular"], 1.0, w_emit)
     L = L + torch.where((alive & si.valid)[:, None],
-                        beta * Le * w_emit[:, None], 0.0)
+                        beta * lift_illum_maybe(Le, cfg.nch)
+                        * w_emit[:, None], 0.0)
 
     # escaped rays -> infinite lights (integrator.py:951-964)
     lt = scene.lights
@@ -495,11 +537,12 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
                                     _escape_pdf(lt, d) * pmf_inf)
             w_inf = torch.where(state["specular"], 1.0, w_inf)
         L = L + torch.where((alive & ~si.valid)[:, None],
-                            beta * _escape_radiance(lt, d) * w_inf[:, None],
-                            0.0)
+                            beta * lift_illum_maybe(_escape_radiance(lt, d),
+                                                    cfg.nch)
+                            * w_inf[:, None], 0.0)
 
     alive = alive & si.valid & (bounce < cfg.max_depth)
-    ctx = make_shade_ctx(scene, si, texture_eval)
+    ctx = make_shade_ctx(scene, si, texture_eval, channels=cfg.nch)
     lobes = ctx.lobes
     any_lobe = lobes.active.any(dim=-1)
     has_smooth = lobes.active[:, 0] | lobes.active[:, 1]

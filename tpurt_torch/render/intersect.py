@@ -163,6 +163,16 @@ class DeviceGeometry:
     leaves of WIDTH spans), cnodes_aux (Mc, 64) its ribbon table (None
     without ribbons); cinodes, cleaves, cleaves_aux, croot_ref its kernel
     tables; cstack_depth its stack slots.
+
+    The kd-tree (``Accelerator "kdtree"``; None under the wide BVH, as in
+    tpurt): accel "kdtree"; knodes (Mk, 128) the kd record table
+    (geom/kdtree.py: interior rows hold split, axis, below and above in
+    slots 120-123, leaf rows the BVH leaf's 12-triangle bundle and their
+    continuation row in slot 124), which the twin and the kernel both
+    read; knodes_delta (Mk, 128) its motion delta rows; kbounds (2, 3)
+    the root's clip box; kstack_depth the walk's interval-stack slots.
+    Triangle rays walk it; curves keep their tree and quadrics their
+    passes.
     """
 
     wnodes: torch.Tensor
@@ -195,16 +205,26 @@ class DeviceGeometry:
     quad_animated_host: tuple = ()
     # a mesh carries shading tangents or the scene holds curves
     has_tangents: bool = False
+    accel: str = "bvh"
+    knodes: torch.Tensor = None
+    knodes_delta: torch.Tensor = None
+    kbounds: torch.Tensor = None
+    kstack_depth: int = 32
 
     @property
     def device(self) -> torch.device:
         return self.wnodes.device
 
     @staticmethod
-    def host_tables(g: GeometryArrays) -> dict:
+    def host_tables(g: GeometryArrays, accel: str = "bvh",
+                    accel_params=None) -> dict:
         """numpy tables of the geometry (the host half of tpurt's
         DeviceGeometry.from_host, intersect.py:141-287); from_tables
-        uploads them."""
+        uploads them.  ``accel`` "kdtree" adds the kd tables, built over
+        the triangles with the Accelerator's intersectcost,
+        traversalcost, emptybonus, maxprims and maxdepth
+        (``accel_params``, tpurt's :169-189); the wide BVH is built as
+        well, as tpurt does."""
         bad = set(np.unique(g.prim_type).tolist()) - {
             PT_TRIANGLE, PT_CURVE, *_QUADRIC_TESTS}
         if bad:
@@ -278,6 +298,8 @@ class DeviceGeometry:
         if g.has_quad_motion:
             out.update(quad_trs=g.quad_trs.astype(np.float32),
                        quad_animated=g.quad_animated.astype(bool))
+        if accel == "kdtree":
+            out.update(_kd_tables(g, accel_params))
         if nt and len(g.vert_s) and (g.flags & FLAG_HAS_TANGENTS).any():
             ss = np.zeros((p, 9), np.float32)
             ss[:nt] = g.vert_s[g.tri_vi[:nt]].reshape(nt, 9)
@@ -311,6 +333,31 @@ class DeviceGeometry:
                   if isinstance(v, np.ndarray) else v)
               for k, v in tables.items()}
         return DeviceGeometry(**kw)
+
+
+def _kd_tables(g: GeometryArrays, p) -> dict:
+    """The kd-tree tables over the triangles of ``g`` (tpurt's kdtree
+    branch of DeviceGeometry.from_host, intersect.py:169-189): the record
+    table, its motion delta rows (None on a static mesh), the clip bounds
+    and the stack depth."""
+    from tpurt_torch.geom.kdtree import build_kd_table
+
+    nt = g.n_tris
+    kw = dict(
+        isect_cost=p.find_one_int("intersectcost", 80) if p else 80,
+        trav_cost=p.find_one_int("traversalcost", 1) if p else 1,
+        empty_bonus=p.find_one_float("emptybonus", 0.5) if p else 0.5,
+        max_prims=(p.find_one_int("maxprims", 0) or None) if p else None,
+        max_depth=p.find_one_int("maxdepth", -1) if p else -1)
+    ends = ((g.tri_e0[:nt], g.tri_e1[:nt], g.tri_e2[:nt]) if g.has_motion
+            else ())
+    knodes, kdelta, kbounds, kdepth = build_kd_table(
+        g.tri_v0[:nt], g.tri_v1[:nt], g.tri_v2[:nt], *ends, **kw)
+    out = dict(accel="kdtree", knodes=knodes, kbounds=kbounds,
+               kstack_depth=int(kdepth))
+    if kdelta is not None:
+        out["knodes_delta"] = kdelta
+    return out
 
 
 class Hit(NamedTuple):

@@ -35,6 +35,7 @@ from tpurt_torch.render.hair import (sigma_a_from_concentration,
                                      sigma_a_from_reflectance)
 from tpurt_torch.render.materials import COPPER_ETA_RGB, COPPER_K_RGB
 from tpurt_torch.scene.records import MaterialRecord
+from tpurt_torch.spectrum_sampled import lift_refl
 
 log = logging.getLogger("tpurt_torch.render")
 
@@ -323,9 +324,14 @@ def lobe_slots(mt_table: np.ndarray) -> LobeSet:
                    hair=MAT_HAIR in kinds)
 
 
+# the colour fields of LobeParams, promoted to bins in spectral mode
+_LOBE_COLOR_FIELDS = ("kd", "ks", "eta3", "k3", "kr", "kt", "fs_kr",
+                      "kt_g", "kd_t", "r0", "sheen", "retro", "kd_ss")
+
+
 def fetch_lobes(mt_table: torch.Tensor, mat_id: torch.Tensor,
                 texture_overrides: Optional[Dict[str, torch.Tensor]] = None,
-                slots=ALL_SLOTS) -> LobeParams:
+                slots=ALL_SLOTS, channels: int = 3) -> LobeParams:
     """Per-lane lobe parameters from the fused material table (tpurt's
     fetch_lobes, materials_build.py:435-491).  mat_id (N,) i32, -1 = no
     material -> all lobes inactive.  texture_overrides: {slot: per-lane
@@ -335,7 +341,13 @@ def fetch_lobes(mt_table: torch.Tensor, mat_id: torch.Tensor,
     Mix lanes blend their two sub-rows' parameters by "amount" as tpurt
     does: exact for the linear scale fields, the dominant side's value
     for the distribution shapes and flags (tpurt's documented
-    approximation); the sub-rows take no texture overrides."""
+    approximation); the sub-rows take no texture overrides.
+
+    channels 60: every colour field, textured ones included, is promoted
+    to the bins through the reflectance basis after the mix blend
+    (tpurt's _lift_lobeparams, materials_build.py:422-491; conductor eta
+    and k given as RGB promote the same way), and the lobe activity is
+    read from the promoted fields, as tpurt's LobeParams.active is."""
     idx = mat_id.clamp(min=0).long()
     row = mt_table[idx]
     kind = torch.where(mat_id >= 0, row[:, C_KIND].to(torch.int32), MAT_NONE)
@@ -366,6 +378,10 @@ def fetch_lobes(mt_table: torch.Tensor, mat_id: torch.Tensor,
                                     p, q)
             lp[f] = torch.where(is_mix[:, None] if b.dim() == 2 else is_mix,
                                 mixed, b)
+    if channels != 3:
+        for f in _LOBE_COLOR_FIELDS:
+            if lp.get(f) is not None:
+                lp[f] = lift_refl(lp[f])
     act = lobe_activity(slots=slots, **{
         k: lp.get(k) for k in ("kd", "ks", "kr", "fs_kr", "kt", "kt_g", "cc",
                                "kd_t", "retro", "sheen", "kd_ss")})

@@ -301,12 +301,15 @@ def render_mlt_job(job, params, quick: bool = False, traverse=None,
 def render_mlt(sd, device="cuda", quick: bool = False, crop_override=None,
                traverse=None, n_chains: Optional[int] = None,
                n_bootstrap: Optional[int] = None,
-               stats: Optional[dict] = None):
+               stats: Optional[dict] = None, spectrum: str = "rgb"):
     """Build the job of ``sd`` on ``device`` and render it through MLT;
-    returns (image, job)."""
+    returns (image, job).  ``spectrum`` "sampled": the bdpt evaluations
+    carry 60 bins and deposit RGB, from which the chains take their scalar
+    contribution."""
     from tpurt_torch.render.driver import build_job
 
-    job = build_job(sd, device, quick=quick, crop_override=crop_override)
+    job = build_job(sd, device, quick=quick, crop_override=crop_override,
+                    spectrum=spectrum)
     img = render_mlt_job(job, sd.integrator_params, quick=quick,
                          traverse=traverse, n_chains=n_chains,
                          n_bootstrap=n_bootstrap, stats=stats)

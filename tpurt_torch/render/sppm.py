@@ -56,8 +56,9 @@ from tpurt_torch.render.integrator import (CAMERA_DIMS, DIMS_PER_BOUNCE, INF,
                                            _camera_setup, _emitted,
                                            _escape_pdf, _escape_radiance,
                                            _nee_prepare, _nee_resolve,
-                                           make_shade_ctx, shade_f,
-                                           shade_sample, zero_shade_ctx)
+                                           lift_illum_maybe, make_shade_ctx,
+                                           shade_f, shade_sample,
+                                           to_rgb_maybe, zero_shade_ctx)
 from tpurt_torch.render.interaction import (compute_interaction,
                                             offset_ray_origin)
 from tpurt_torch.render.intersect import (Hit, intersect_any,
@@ -69,6 +70,7 @@ from tpurt_torch.sampling import lowdiscrepancy as ld
 from tpurt_torch.sampling.samplers import (ONE_MINUS_EPS, _digits_needed,
                                            _fma32, halton_from_tables,
                                            halton_tables)
+from tpurt_torch.spectrum_sampled import luminance_bins
 from tpurt_torch.utils.stats import STATS, ProgressReporter
 
 log = logging.getLogger("tpurt_torch.sppm")
@@ -85,7 +87,10 @@ _OFFS = [(i, j, k) for i in range(3) for j in range(3) for k in range(3)]
 
 
 def _lum(c):
-    """Spectrum::y() of RGB (spectrum.h:440)."""
+    """Spectrum::y(): RGB's weights (spectrum.h:440), or the CIE-Y bin
+    quadrature of 60 bins (spectrum.h:315; tpurt's sppm.py:75-85)."""
+    if c.shape[-1] != 3:
+        return luminance_bins(c)
     return 0.212671 * c[:, 0] + 0.715160 * c[:, 1] + 0.072169 * c[:, 2]
 
 
@@ -108,32 +113,34 @@ def _ctx_map(fn, *ctxs):
 @dataclasses.dataclass
 class SPPMPixels:
     radius: torch.Tensor  # (P,)
-    Ld: torch.Tensor  # (P, 3) direct light summed over the iterations
+    Ld: torch.Tensor  # (P, C) direct light summed over the iterations
     N: torch.Tensor  # (P,) photon count, gamma-weighted
-    tau: torch.Tensor  # (P, 3)
-    Phi: torch.Tensor  # (P, 3) this iteration's photon sum
+    tau: torch.Tensor  # (P, C)
+    Phi: torch.Tensor  # (P, C) this iteration's photon sum
     M: torch.Tensor  # (P,) this iteration's photon count
     vp_valid: torch.Tensor  # (P,) bool
     vp_p: torch.Tensor  # (P, 3)
     vp_wo: torch.Tensor  # (P, 3) world space
     vp_ns: torch.Tensor  # (P, 3) shading normal
-    vp_beta: torch.Tensor  # (P, 3)
+    vp_beta: torch.Tensor  # (P, C)
     vp_shade: ShadeCtx  # the visible point's full material context
+    # C: the colour channels, 3 or the 60 bins of spectral mode
 
 
 def _init_pixels(n_pix: int, initial_radius: float, scene: SceneData,
-                 device) -> SPPMPixels:
-    """The pixel state of an SPPM render on ``device`` (tpurt's
-    _init_pixels, sppm.py:108-125; 3 channels only)."""
+                 device, nch: int = 3) -> SPPMPixels:
+    """The pixel state of an SPPM render on ``device`` with ``nch``
+    colour channels (tpurt's _init_pixels, sppm.py:108-125)."""
     def z(*shape):
         return torch.zeros((n_pix,) + shape, dtype=torch.float32,
                            device=device)
 
     return SPPMPixels(
-        radius=z() + initial_radius, Ld=z(3), N=z(), tau=z(3), Phi=z(3),
-        M=z(), vp_valid=torch.zeros(n_pix, dtype=torch.bool, device=device),
-        vp_p=z(3), vp_wo=z(3), vp_ns=z(3), vp_beta=z(3),
-        vp_shade=zero_shade_ctx(scene, n_pix, device))
+        radius=z() + initial_radius, Ld=z(nch), N=z(), tau=z(nch),
+        Phi=z(nch), M=z(),
+        vp_valid=torch.zeros(n_pix, dtype=torch.bool, device=device),
+        vp_p=z(3), vp_wo=z(3), vp_ns=z(3), vp_beta=z(nch),
+        vp_shade=zero_shade_ctx(scene, n_pix, device, channels=nch))
 
 
 # ---------------------------------------------------------------------------
@@ -141,9 +148,10 @@ def _init_pixels(n_pix: int, initial_radius: float, scene: SceneData,
 # ---------------------------------------------------------------------------
 
 def _camera_chunk(scene: SceneData, camera, smplr, px, py, sidx,
-                  max_depth: int, traverse, texture_eval=None):
+                  max_depth: int, traverse, texture_eval=None,
+                  nch: int = 3):
     """One wavefront of camera paths (tpurt's _camera_chunk,
-    sppm.py:132-302): returns each lane's direct light Ld (N, 3) and its
+    sppm.py:132-302): returns each lane's direct light Ld (N, nch) and its
     visible point, a dict of (N, ...) tensors valid, p, wo, ns, beta and
     shade (zeros where the lane stored none).  The visible point is the
     first diffuse vertex, or a glossy one at the last bounce
@@ -157,15 +165,17 @@ def _camera_chunk(scene: SceneData, camera, smplr, px, py, sidx,
         smplr, camera, px, py, sidx, (0, 0),
         draw_time=camera.animated or scene.has_motion)
     z3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    zc = torch.zeros((n, nch), dtype=torch.float32, device=dev)
     zb = torch.zeros(n, dtype=torch.bool, device=dev)
-    Ld_out = z3.clone()
+    Ld_out = zc.clone()
     vp = dict(valid=zb.clone(), p=z3.clone(), wo=z3.clone(), ns=z3.clone(),
-              beta=z3.clone(), shade=zero_shade_ctx(scene, n, dev))
+              beta=zc.clone(),
+              shade=zero_shade_ctx(scene, n, dev, channels=nch))
     hit = intersect_closest(scene.geo, o, d, INF, traverse, time=l_time)
     st = dict(lane=torch.arange(n, device=dev), px=px, py=py, sidx=sidx,
               sctx=sctx, time=l_time, o=o, d=d, hit_t=hit.t,
               hit_prim=hit.prim, hit_b0=hit.b0, hit_b1=hit.b1,
-              beta=z3 + ray_w[:, None], Ld=z3.clone(), alive=~zb,
+              beta=zc + ray_w[:, None], Ld=zc.clone(), alive=~zb,
               specular=zb.clone(), prev_pdf=torch.ones_like(ray_w), prev_p=o,
               vp_taken=zb.clone(), probe=zb.clone())
     for bounce in range(max_depth + 1):
@@ -194,6 +204,7 @@ def _camera_step(scene: SceneData, smplr, st, bounce: int, max_depth: int,
     o, d, beta, Ld = st["o"], st["d"], st["beta"], st["Ld"]
     prev_pdf, prev_p, probe = st["prev_pdf"], st["prev_p"], st["probe"]
     specular, l_time = st["specular"], st["time"]
+    nch = beta.shape[-1]
     hit = Hit(t=st["hit_t"], prim=st["hit_prim"], b0=st["hit_b0"],
               b1=st["hit_b1"])
     si = compute_interaction(scene.geo, hit, o, d,
@@ -213,7 +224,8 @@ def _camera_step(scene: SceneData, smplr, st, bounce: int, max_depth: int,
                                              light_pdf * pmf))
     emit_ok = probe | (bounce < max_depth)
     Ld = Ld + torch.where((emit_ok & si.valid)[:, None],
-                          beta * Le * w_emit[:, None], 0.0)
+                          beta * lift_illum_maybe(Le, nch) * w_emit[:, None],
+                          0.0)
     if lt.has_infinite:
         if bounce == 0:
             w_inf = torch.ones(m, dtype=torch.float32, device=o.device)
@@ -223,7 +235,8 @@ def _camera_step(scene: SceneData, smplr, st, bounce: int, max_depth: int,
                 power_heuristic(1.0, prev_pdf, 1.0,
                                 _escape_pdf(lt, d) * (1.0 / lt.n_lights)))
         Ld = Ld + torch.where((emit_ok & ~si.valid)[:, None],
-                              beta * _escape_radiance(lt, d)
+                              beta * lift_illum_maybe(_escape_radiance(lt, d),
+                                                      nch)
                               * w_inf[:, None], 0.0)
     out = dict(st, Ld=Ld)
     if bounce == max_depth:
@@ -232,7 +245,7 @@ def _camera_step(scene: SceneData, smplr, st, bounce: int, max_depth: int,
         return out
 
     alive = si.valid & ~probe
-    shade = make_shade_ctx(scene, si, texture_eval)
+    shade = make_shade_ctx(scene, si, texture_eval, channels=nch)
     act = shade.lobes.active
     any_lobe = act.any(dim=-1)
     is_diffuse = act[:, 0]
@@ -412,7 +425,7 @@ def _wrap_i32(x):
 
 
 def _photon_walk(scene: SceneData, hidx, max_depth: int, traverse,
-                 texture_eval=None):
+                 texture_eval=None, nch: int = 3):
     """Trace the photons of Halton indices ``hidx`` (int64 lanes holding
     tpurt's int32 values; tpurt's _photon_chunk up to its deposit,
     sppm.py:398-449): returns the records (p, wi, beta) of their surface
@@ -424,9 +437,9 @@ def _photon_walk(scene: SceneData, hidx, max_depth: int, traverse,
     lidx, lpmf = choose_light(lt, u[0], "power")
     le = sample_le(lt, lidx, u[1], u[2], u[3], u[4])
     ok0 = (le.pdf_pos > 0) & (le.pdf_dir > 0) & (le.le > 0).any(dim=-1)
-    beta = le.le * (dot(le.n, le.d).abs()
-                    / torch.clamp(lpmf * le.pdf_pos * le.pdf_dir,
-                                  min=1e-20))[:, None]
+    beta = lift_illum_maybe(le.le, nch) * (
+        dot(le.n, le.d).abs()
+        / torch.clamp(lpmf * le.pdf_pos * le.pdf_dir, min=1e-20))[:, None]
     alive = ok0 & (beta > 0).any(dim=-1)
     o = torch.where((le.is_delta_pos | le.is_infinite)[:, None], le.p,
                     offset_ray_origin(le.p, le.n, le.d))
@@ -444,7 +457,7 @@ def _photon_walk(scene: SceneData, hidx, max_depth: int, traverse,
         valid = si.valid
         if b > 0:
             recs.append((si.p[valid], -d[valid], beta[valid]))
-        shade = make_shade_ctx(scene, si, texture_eval)
+        shade = make_shade_ctx(scene, si, texture_eval, channels=nch)
         d0 = 6 + 4 * b
         u_lobe, u1, u2, u_rr = (_ri_dyn(hidx, int(ld.PRIMES[d0 + k]),
                                         n_digits) for k in range(4))
@@ -465,7 +478,8 @@ def _photon_walk(scene: SceneData, hidx, max_depth: int, traverse,
         d = wi
     if not recs:
         z = torch.zeros((0, 3), dtype=torch.float32, device=hidx.device)
-        return z, z, z
+        return z, z, torch.zeros((0, nch), dtype=torch.float32,
+                                 device=hidx.device)
     return tuple(torch.cat(parts) for parts in zip(*recs))
 
 
@@ -527,7 +541,8 @@ def _photon_chunk(scene: SceneData, pix: SPPMPixels, grid, hidx,
     ``lap(stage)``, when given, is called at the end of each stage
     ("photons_s", "deposit_s")."""
     with torch.profiler.record_function(PHOTON_RANGE):
-        recs = _photon_walk(scene, hidx, max_depth, traverse, texture_eval)
+        recs = _photon_walk(scene, hidx, max_depth, traverse, texture_eval,
+                            pix.Ld.shape[-1])
     if lap is not None:
         lap("photons_s")
     with torch.profiler.record_function(DEPOSIT_RANGE):
@@ -605,7 +620,8 @@ def _camera_pass(job, pix: SPPMPixels, smplr, it: int, max_depth: int,
         pid = torch.arange(c0, min(c0 + WAVEFRONT_SIZE, n_pix), device=dev)
         Ld, vp = _camera_chunk(job.scene, job.camera, smplr, x0 + pid % w,
                                y0 + pid // w, torch.full_like(pid, it),
-                               max_depth, traverse, job.texture_eval)
+                               max_depth, traverse, job.texture_eval,
+                               job.cfg.nch)
         pix.Ld.index_add_(0, pid, Ld)
         for k in ("valid", "p", "wo", "ns", "beta"):
             getattr(pix, "vp_" + k)[pid] = vp[k]
@@ -643,7 +659,7 @@ def render_sppm_job(job, params, quick: bool = False, traverse=None,
     stats = {} if stats is None else stats
     stats.update(camera_s=0.0, grid_s=0.0, photons_s=0.0, deposit_s=0.0,
                  max_occ=[], pairs=[])
-    pix = _init_pixels(n_pix, cfg["radius"], scene, dev)
+    pix = _init_pixels(n_pix, cfg["radius"], scene, dev, job.cfg.nch)
     reporter = ProgressReporter(2 * n_iters, "Rendering (sppm)",
                                 quiet=not log.isEnabledFor(logging.INFO))
     t_start = time.time()
@@ -685,11 +701,12 @@ def render_sppm_job(job, params, quick: bool = False, traverse=None,
     STATS.phase_times["Render (sppm)"] += time.time() - t_start
 
     # L = Ld / nIterations + tau / (Np pi r^2) (sppm.cpp:450-461), as
-    # film splats resolved at scale 1
+    # film splats resolved at scale 1; spectral bins become RGB here
     np_total = float(n_iters) * float(n_photons)
     L = (pix.Ld / torch.full((), float(n_iters), device=dev)
          + pix.tau / (np_total * np.pi
                       * torch.clamp(pix.radius, min=1e-20)[:, None] ** 2))
+    L = to_rgb_maybe(L)
     z = torch.zeros((h, w), dtype=torch.float32, device=dev)
     state = FilmState(rgb=z[..., None].expand(h, w, 3), weight=z,
                       splat=L.reshape(h, w, 3))
@@ -697,12 +714,15 @@ def render_sppm_job(job, params, quick: bool = False, traverse=None,
 
 
 def render_sppm(sd, device="cuda", quick: bool = False, crop_override=None,
-                traverse=None, stats: Optional[dict] = None):
+                traverse=None, stats: Optional[dict] = None,
+                spectrum: str = "rgb"):
     """Build the job of ``sd`` on ``device`` and render it through SPPM;
-    returns (image, job)."""
+    returns (image, job).  ``spectrum`` "sampled" carries 60 bins through
+    Phi, tau and Ld, RGB at the end."""
     from tpurt_torch.render.driver import build_job
 
-    job = build_job(sd, device, quick=quick, crop_override=crop_override)
+    job = build_job(sd, device, quick=quick, crop_override=crop_override,
+                    spectrum=spectrum)
     img = render_sppm_job(job, sd.integrator_params, quick=quick,
                           traverse=traverse, stats=stats)
     return img, job

@@ -43,8 +43,9 @@ import torch
 from tpurt_torch.config import GRID_TRACK_STEPS, SHADOW_WALK_STEPS
 from tpurt_torch.render.integrator import (
     CAMERA_DIMS, INF, IntegratorConfig, SceneData, _emitted, _escape_pdf,
-    _escape_radiance, carried_interaction, make_shade_ctx,
-    path_bounce_init, shade_f, shade_sample, shadow_t_max)
+    _escape_radiance, carried_interaction, lift_illum_maybe,
+    lift_refl_maybe, make_shade_ctx, path_bounce_init, shade_f,
+    shade_sample, shadow_t_max)
 from tpurt_torch.render.interaction import (compute_interaction,
                                             offset_ray_origin)
 from tpurt_torch.render.intersect import intersect_any, intersect_closest
@@ -325,7 +326,8 @@ def _grid_tr(scene: SceneData, med, lane, bounce, o, d, dist, salt: int):
 
 
 def _sample_medium_distance(scene: SceneData, med, o, d, t_surf, u_ch,
-                            u_dist, lane, bounce, salt: int = 0x6A1D):
+                            u_dist, lane, bounce, nch: int = 3,
+                            salt: int = 0x6A1D):
     """Distance-sample each lane's medium along [0, t_surf) (tpurt :1371):
     homogeneous media in closed form on a channel chosen by u_ch
     (homogeneous.cpp Sample), grid media by delta tracking, run on the
@@ -334,13 +336,17 @@ def _sample_medium_distance(scene: SceneData, med, o, d, t_surf, u_ch,
     Returns (scattered, t_min, thru, g_med): ``scattered`` without any
     aliveness mask, ``t_min`` the vertex distance (scatter point or
     surface, capped at 3.4e37), ``thru`` the throughput factor of the
-    lanes in a medium, ``g_med`` the HG asymmetry of the lane's medium."""
+    lanes in a medium, ``g_med`` the HG asymmetry of the lane's medium.
+    With ``nch`` 60 the sigmas are promoted to bins, the channel is drawn
+    over all of them (homogeneous.cpp picks one of Spectrum::nSamples),
+    the pdf is the mean over the bins and a grid's albedo is the ratio
+    of the promoted sigmas, bin by bin (tpurt :1384-1412)."""
     in_med = med >= 0
     med_c = med.clamp(min=0).long()
-    sig_t = scene.med_sigma_t[med_c]
-    sig_s = scene.med_sigma_s[med_c]
+    sig_t = lift_refl_maybe(scene.med_sigma_t[med_c], nch)
+    sig_s = lift_refl_maybe(scene.med_sigma_s[med_c], nch)
     g_med = scene.med_g[med_c]
-    ch = torch.clamp((u_ch * 3).to(torch.int32), max=2)
+    ch = torch.clamp((u_ch * nch).to(torch.int32), max=nch - 1)
     sig_ch = torch.gather(sig_t, 1, ch[:, None].long())[:, 0]
     dist = -torch.log(torch.clamp(1.0 - u_dist, min=1e-20)) \
         / torch.clamp(sig_ch, min=1e-20)
@@ -373,15 +379,16 @@ def _sample_medium_distance(scene: SceneData, med, o, d, t_surf, u_ch,
 
 
 def _medium_tr(scene: SceneData, med, dist, o=None, d=None, lane=None,
-               bounce=None, live=None):
+               bounce=None, live=None, channels: int = 3):
     """Transmittance through each lane's medium over dist (tpurt :1416):
     Beer-Lambert for homogeneous media (homogeneous.cpp Tr), ratio
     tracking for grid media, 1 in vacuum.  Grid lanes outside ``live``
     (when given) are not tracked and read their Beer-Lambert value: the
-    caller drops them."""
+    caller drops them.  ``channels`` 60: sigma_t promoted to bins; a
+    grid's scalar ratio-tracking value fills every bin."""
     in_med = med >= 0
     med_c = med.clamp(min=0).long()
-    tr = torch.exp(-scene.med_sigma_t[med_c]
+    tr = torch.exp(-lift_refl_maybe(scene.med_sigma_t[med_c], channels)
                    * torch.clamp(dist, max=3.4e37)[:, None])
     if scene.has_grid_media and o is not None:
         want = in_med & scene.med_is_grid[med_c]
@@ -391,21 +398,22 @@ def _medium_tr(scene: SceneData, med, dist, o=None, d=None, lane=None,
         if sel.numel():
             tr_g = _grid_tr(scene, med[sel], lane[sel], bounce, o[sel],
                             d[sel], dist[sel], salt=0x51AD)
-            tr = tr.index_put((sel,), tr_g[:, None].expand(-1, 3))
+            tr = tr.index_put((sel,), tr_g[:, None].expand(-1, channels))
     return torch.where(in_med[:, None], tr, 1.0)
 
 
 @torch.profiler.record_function(WALK_RANGE)
 def _shadow_tr_walk(scene: SceneData, o, d, dist, med0, lane, bounce: int,
-                    usable, traverse, time=None):
+                    usable, traverse, time=None, channels: int = 3):
     """VisibilityTester::Tr (core/light.cpp:47-63; tpurt :1433): march the
     shadow segment through null-material boundaries, up to
     SHADOW_WALK_STEPS closest-hit crossings, multiplying each
     sub-segment's transmittance in; a real material occludes, and so does
     the budget's end (counted in TRACK_STATS).  Only the lanes still
-    walking are traced at each crossing.  Returns (occluded, tr3)."""
+    walking are traced at each crossing.  Returns (occluded, tr) with
+    ``channels`` colour channels."""
     n = o.shape[0]
-    tr = torch.ones((n, 3), dtype=torch.float32, device=o.device)
+    tr = torch.ones((n, channels), dtype=torch.float32, device=o.device)
     occ = torch.zeros(n, dtype=torch.bool, device=o.device)
     idx = torch.nonzero(usable).squeeze(1)
     o_w, d_w, med = o[idx], d[idx], med0[idx]
@@ -425,7 +433,8 @@ def _shadow_tr_walk(scene: SceneData, o, d, dist, med0, lane, bounce: int,
             kinds[si.material_id.clamp(min=0).long()] != MAT_NONE)
         seg = torch.where(hv, hit.t, rem)
         seg_tr = _medium_tr(scene, med, seg, o_w, d_w, lane_w,
-                            bounce * SHADOW_WALK_STEPS + k)
+                            bounce * SHADOW_WALK_STEPS + k,
+                            channels=channels)
         tr = tr.index_put((idx,), tr[idx] * seg_tr)
         occ = occ.index_put((idx,), blocker)
         crossed = hv & ~blocker
@@ -459,9 +468,10 @@ def _nee_from(scene: SceneData, si, ctx, u_choice, u_light, alive, med,
     ls = sample_li(lt, lidx, si.p, u_light)
     f_surf, pdf_surf = shade_f(scene, ctx, si.ns, si.wo, ls.wi)
     f_surf = f_surf * dot(ls.wi, si.ns).abs()[:, None]
+    nch = f_surf.shape[-1]
     # si.wo = -ray.d: the propagation direction is -wo
     ph = _hg_phase(dot(-si.wo, ls.wi), g_med)
-    f = torch.where(is_medium[:, None], ph[:, None].expand(-1, 3), f_surf)
+    f = torch.where(is_medium[:, None], ph[:, None].expand(-1, nch), f_surf)
     scatter_pdf = torch.where(is_medium, ph, pdf_surf)
     usable = (alive & (ls.pdf > 0) & (ls.li > 0).any(dim=-1)
               & (f > 0).any(dim=-1))
@@ -471,15 +481,16 @@ def _nee_from(scene: SceneData, si, ctx, u_choice, u_light, alive, med,
     t_max = shadow_t_max(ls, dist, usable)
     if scene.has_null_boundaries:
         occluded, tr = _shadow_tr_walk(scene, o_sh, ls.wi, t_max, med, lane,
-                                       bounce, usable, traverse, time)
+                                       bounce, usable, traverse, time,
+                                       channels=nch)
     else:
         occluded = intersect_any(scene.geo, o_sh, ls.wi, t_max, traverse,
                                  time)
         tr = _medium_tr(scene, med, dist, o_sh, ls.wi, lane, bounce,
-                        live=usable & ~occluded)
+                        live=usable & ~occluded, channels=nch)
     w = torch.where(ls.is_delta, 1.0,
                     power_heuristic(1.0, ls.pdf, 1.0, scatter_pdf))
-    contrib = (f * ls.li * tr
+    contrib = (f * lift_illum_maybe(ls.li, nch) * tr
                * (w / torch.clamp(ls.pdf * pmf, min=1e-20))[:, None])
     return torch.where((usable & ~occluded)[:, None], contrib, 0.0)
 
@@ -530,7 +541,7 @@ def volpath_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
     d0 = CAMERA_DIMS + bounce * DIMS_PER_BOUNCE_VOL
     in_med = med >= 0
     scattered, t_min, thru, g_med = _sample_medium_distance(
-        scene, med, o, d, t_surf, dim(0), dim(1), lane, bounce)
+        scene, med, o, d, t_surf, dim(0), dim(1), lane, bounce, cfg.nch)
     sampled_med = alive & scattered
     beta = torch.where((alive & in_med)[:, None], beta * thru, beta)
 
@@ -547,7 +558,8 @@ def volpath_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
         w_emit = torch.where(specular, 1.0, power_heuristic(
             1.0, prev_pdf, 1.0, light_pdf * pmf))
     L = L + torch.where((alive & si.valid & ~sampled_med)[:, None],
-                        beta * Le * w_emit[:, None], 0.0)
+                        beta * lift_illum_maybe(Le, cfg.nch)
+                        * w_emit[:, None], 0.0)
     lt = scene.lights
     if lt.has_infinite:
         pmf_inf = (lt.inf_power_pmf
@@ -559,8 +571,9 @@ def volpath_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
             w_inf = torch.where(specular, 1.0, power_heuristic(
                 1.0, prev_pdf, 1.0, _escape_pdf(lt, d) * pmf_inf))
         L = L + torch.where((alive & ~si.valid & ~sampled_med)[:, None],
-                            beta * _escape_radiance(lt, d) * w_inf[:, None],
-                            0.0)
+                            beta * lift_illum_maybe(_escape_radiance(lt, d),
+                                                    cfg.nch)
+                            * w_inf[:, None], 0.0)
 
     alive = alive & (si.valid | sampled_med) & (bounce < cfg.max_depth)
 
@@ -569,7 +582,7 @@ def volpath_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
     si_eff = si._replace(p=torch.where(sampled_med[:, None], p_med, si.p),
                          wo=torch.where(sampled_med[:, None], -d, si.wo))
 
-    ctx = make_shade_ctx(scene, si, texture_eval)
+    ctx = make_shade_ctx(scene, si, texture_eval, channels=cfg.nch)
     any_lobe = ctx.lobes.active.any(dim=-1)
     if ctx.hair is not None:
         any_lobe = any_lobe | ctx.hair[0]

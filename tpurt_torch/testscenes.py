@@ -188,14 +188,105 @@ WorldEnd
 """
 
 
+def with_accelerator(scene: str, accelerator: str = None, **params) -> str:
+    """``scene`` with an ``Accelerator`` directive first (none when
+    ``accelerator`` is None); ``params`` become its integer parameters,
+    e.g. with_accelerator(text, "kdtree", maxprims=24, maxdepth=8)."""
+    if accelerator is None:
+        return scene
+    ps = "".join(f' "integer {k}" [{int(v)}]' for k, v in params.items())
+    return f'Accelerator "{accelerator}"{ps}\n' + scene
+
+
+def box_mesh(lo, hi) -> str:
+    """A closed axis-aligned box as a ``Shape "trianglemesh"``: 12
+    triangles wound counter-clockwise seen from outside, so that its
+    geometric normals point out (a MediumInterface's inside is inside)."""
+    (x0, y0, z0), (x1, y1, z1) = lo, hi
+    v = [(x0, y0, z0), (x1, y0, z0), (x1, y1, z0), (x0, y1, z0),
+         (x0, y0, z1), (x1, y0, z1), (x1, y1, z1), (x0, y1, z1)]
+    pts = "  ".join("%g %g %g" % p for p in v)
+    return (f'Shape "trianglemesh" "point P" [{pts}]\n'
+            '  "integer indices" [0 3 2 0 2 1  4 5 6 4 6 7  0 1 5 0 5 4  '
+            '3 7 6 3 6 2  0 4 7 0 7 3  1 2 6 1 6 5]\n')
+
+
+def spectral_scene(integrator: str, maxdepth: int = 3, extra: str = "",
+                   world: str = "", res: int = 16, spp: int = 4) -> str:
+    """The small scene of the sampled-spectrum checks: a matte box and a
+    plastic floor under a two-sided quad area light, triangles only (a
+    quadric in the scene doubles tpurt's compile time of a render),
+    ``Integrator`` with ``extra`` parameters, ``world`` inserted after
+    WorldBegin."""
+    return f"""
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]
+Sampler "halton" "integer pixelsamples" [{spp}]
+Integrator "{integrator}" "integer maxdepth" [{maxdepth}]{extra}
+Camera "perspective" "float fov" [55]
+WorldBegin
+{world}
+AttributeBegin
+  AreaLightSource "area" "color L" [30 25 20] "bool twosided" "true"
+  Shape "trianglemesh" "point P" [-1 3 3  1 3 3  1 3 5  -1 3 5]
+    "integer indices" [0 1 2 0 2 3]
+AttributeEnd
+Material "matte" "color Kd" [.6 .4 .3]
+{box_mesh((-0.8, -1.6, 3.6), (0.2, -0.6, 4.6))}
+Material "plastic" "color Kd" [.2 .5 .3] "color Ks" [.3 .3 .3]
+Shape "trianglemesh" "point P" [-8 -1.6 -4  8 -1.6 -4  8 -1.6 12  -8 -1.6 12]
+  "integer indices" [0 1 2 2 3 0]
+WorldEnd
+"""
+
+
+# the sampled-spectrum checks' extra worlds: a glass box and a coloured
+# mirror (whitted), and a homogeneous and a grid medium each in a
+# Material "none" box (volpath)
+SPECTRAL_SPECULAR_WORLD = f"""
+AttributeBegin
+  Material "glass"
+  {box_mesh((0.7, -1.3, 2.6), (1.5, -0.5, 3.4))}AttributeEnd
+AttributeBegin
+  Material "mirror" "color Kr" [.8 .7 .9]
+  Shape "trianglemesh" "point P" [-3 -1.6 7  -1 -1.6 7  -1 1 7  -3 1 7]
+    "integer indices" [0 1 2 0 2 3]
+AttributeEnd
+"""
+
+
+def spectral_media_world() -> str:
+    dens = np.random.default_rng(5).uniform(0, 1, (5, 4, 3))
+    values = " ".join("%g" % v for v in dens.astype(np.float32).ravel())
+    return f"""
+MakeNamedMedium "fog" "string type" "homogeneous"
+  "color sigma_a" [.2 .3 .4] "color sigma_s" [.6 .5 .4]
+MakeNamedMedium "smoke" "string type" "heterogeneous"
+  "integer nx" [3] "integer ny" [4] "integer nz" [5]
+  "float density" [{values}]
+  "point p0" [0.3 -1.3 2.5] "point p1" [2.1 0.5 4.3]
+  "rgb sigma_a" [0.3 0.5 0.2] "rgb sigma_s" [1.5 1.0 1.2]
+AttributeBegin
+  Material "none"
+  MediumInterface "fog" ""
+  {box_mesh((-2.6, -1.3, 2.6), (-1.2, 0.1, 4.0))}AttributeEnd
+AttributeBegin
+  Material "none"
+  MediumInterface "smoke" ""
+  {box_mesh((0.3, -1.3, 2.5), (2.1, 0.5, 4.3))}AttributeEnd
+"""
+
+
 def write_standin(path: str, size: str = "full", filename: str = None,
                   seed: int = 0, integrator: str = "path",
-                  sampler: str = "halton", **kw) -> str:
+                  sampler: str = "halton", accelerator: str = None,
+                  **kw) -> str:
     """Write the stand-in scene to ``path``; returns ``path``.  kw:
-    standin_scene's ``res``, ``spp``, ``maxdepth`` and ``mutations``."""
+    standin_scene's ``res``, ``spp``, ``maxdepth`` and ``mutations``;
+    ``accelerator`` "kdtree" adds the directive (frame K)."""
     with open(path, "w") as f:
-        f.write(standin_scene(size, filename or path.rsplit(".", 1)[0]
-                              + ".exr", seed, integrator, sampler, **kw))
+        f.write(with_accelerator(standin_scene(
+            size, filename or path.rsplit(".", 1)[0] + ".exr", seed,
+            integrator, sampler, **kw), accelerator))
     return path
 
 
@@ -716,11 +807,13 @@ WorldEnd
 
 def write_motion_hair(path: str, size: str = "full", **kw) -> str:
     """Write frame E to ``path``; returns ``path``.  kw: ``integrator``
-    ("path", "rpf" or "bdpt"), ``res``, ``filename``."""
+    ("path", "rpf" or "bdpt"), ``res``, ``filename``, ``accelerator``
+    ("kdtree": the moving meshes walk the kd-tree)."""
     base = path.rsplit(".", 1)[0]
+    accel = kw.pop("accelerator", None)
     with open(path, "w") as f:
-        f.write(motion_hair_scene(size, kw.pop("filename", base + ".exr"),
-                                  **kw))
+        f.write(with_accelerator(motion_hair_scene(
+            size, kw.pop("filename", base + ".exr"), **kw), accel))
     return path
 
 
