@@ -246,17 +246,24 @@ K1M_OPS_LERP = 9 * 2
 # the twin's _curve_bundle_test: its ray frame and projection (~90), then
 # per sub-segment the blossom (3 x 4 x 7), the culling, chord and width
 # terms (~30), the de Casteljau evaluation (3 x 18), the distance, t and v
-# tests (~20): ~190 a sub-segment, 8 sub-segments
+# tests (~20): ~190 a sub-segment, 8 sub-segments.  The work the algorithm
+# needs, which is the bound: every live span's frame, projection and hull
+# cull (curve_span_cull: ~70 more), and the 8 sub-segments only of the spans
+# that pass it (the twin's "spans_near"); K1C_OPS_SPAN charges the 8
+# sub-segments to every span (the bound without the cull, printed beside it)
 K1C_BYTES_LEAF = 112 * 4
 K1C_BYTES_AUX = 64 * 4
 K1C_BYTES_PRIMS = 8 * 4
 K1C_OPS_SPAN = 90 + 8 * 190
-# K1k / K1km, the kd walk: an interior row is read as two float4 (its
-# split, axis and children, and its kind), a leaf as its 108 vertex floats
-# and its kind and continuation; an interior step is the plane's t (a
+K1C_OPS_CULL = 90 + 70
+K1C_OPS_SUBSEGMENTS = 8 * 190
+# K1k / K1km, the kd walk: an interior node is one float4 of the derived
+# table (its split, axis and children's references; read from the record
+# table's row, it would be two), a leaf its 108 vertex floats and
+# the float4 with its continuation; an interior step is the plane's t (a
 # difference and a product) and 6 comparisons; a ray's root clip 6
 # differences, 6 products and 12 min / max
-K1K_BYTES_INTERIOR = 2 * 16
+K1K_BYTES_INTERIOR = 16
 K1K_BYTES_LEAF = 108 * 4 + 16
 K1K_OPS_INTERIOR = 8
 K1K_OPS_RAY = 24
@@ -429,8 +436,11 @@ def k1_work(geo, rays, w=None):
     aux row beside it), the rays in (with their times, K1m) and the hits
     out once; the twin's arithmetic on the present children and non-pad
     triangles or curve spans of every record read, and a sort only where
-    two or more children were hit.  ``w``: the plain version's counts of
-    these rays when the caller has them, else they are counted here."""
+    two or more children were hit; for curve spans the frame and cull of
+    every span and the sub-segments only of those that pass the cull (the
+    text also gives the bound with the sub-segments of every span).
+    ``w``: the plain version's counts of these rays when the caller has
+    them, else they are counted here."""
     from tpurt_torch.kernels.traverse import leaf_kind, traverse_reference
 
     o, d, tm, any_hit, time_, tree = rays
@@ -445,7 +455,7 @@ def k1_work(geo, rays, w=None):
     if kind == "curve":
         leaf_b = K1C_BYTES_LEAF + (0 if geo.cleaves_aux is None
                                    else K1C_BYTES_AUX)
-        prim_b, prim_ops = K1C_BYTES_PRIMS, K1C_OPS_SPAN
+        prim_b, prim_ops = K1C_BYTES_PRIMS, K1C_OPS_CULL
     else:
         leaf_b = K1_BYTES_LEAF * (2 if kind == "motion" else 1)
         prim_b = K1_BYTES_PRIMS
@@ -456,6 +466,16 @@ def k1_work(geo, rays, w=None):
               + n * (7 * 4 + 4 * 4 + (4 if kind == "motion" else 0)))
     ops = (w["children"] * K1_OPS_CHILD + w["triangles"] * prim_ops
            + w["sorts"] * K1_OPS_SORT)
+    curve_note = ""
+    if kind == "curve":
+        ops_all = ops + w["triangles"] * (K1C_OPS_SPAN - K1C_OPS_CULL)
+        ops += w["spans_near"] * K1C_OPS_SUBSEGMENTS
+        all_ms, all_by = bound(nbytes, ops_all)
+        curve_note = (
+            f"; {w['spans_near']} spans pass the cull "
+            f"({w['spans_near'] / max(w['triangles'], 1):.4f} of the live "
+            f"spans); with every span's sub-segments {ops_all / 1e9:.3f} Gop,"
+            f" bound {all_ms:.4f} ms ({all_by})")
     b_ms, o_ms = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
     bound_ms, bound_by = bound(nbytes, ops)
     steps = w["interior_steps"] + w["leaf_steps"]
@@ -469,7 +489,8 @@ def k1_work(geo, rays, w=None):
         f"{'spans' if kind == 'curve' else 'triangles'} "
         f"({w['triangles'] / max(w['leaf_steps'], 1):.2f} a leaf); "
         f"{nbytes / 1e6:.2f} MB ({b_ms:.4f} ms), {ops / 1e9:.3f} Gop "
-        f"({o_ms:.4f} ms); bound {bound_ms:.4f} ms ({bound_by})")
+        f"({o_ms:.4f} ms); bound {bound_ms:.4f} ms ({bound_by})"
+        f"{curve_note}")
 
 
 def kd_work(kind: str, n: int, w: dict):
@@ -2195,7 +2216,10 @@ def phase_kdtree(gpu: str, job_a, profile_all: bool):
           f"{int((kind == 0).sum())} interior, {int((kind > 0).sum())} leaf "
           f"(continued {int((cont >= 0).sum())}), triangles a leaf row "
           f"{tris.float().mean().item():.2f} of 12, stack depth "
-          f"{g.kstack_depth}; scene build {build_s:.2f}s")
+          f"{g.kstack_depth}; the kernel's tables {g.kinodes.shape[0]} "
+          f"interior nodes of 16 B + {g.kleaves.shape[0]} leaf rows "
+          f"({(g.kinodes.numel() + g.kleaves.numel()) * 4 / 1e6:.2f} MB); "
+          f"scene build {build_s:.2f}s")
     calls = frame_ray_calls(job, 2)
     assert [c[3] for c in calls] == [False, True, False, True, False]
     k1_k = k1_on_calls("K kdtree", g, calls)

@@ -19,14 +19,17 @@
 //   K1c (TPURT_LEAF_CURVE): 8 cubic Bezier spans a leaf of the curve tree,
 //     each split into 8 sub-segments by constant blossom weights and run
 //     through pbrt's depth-0 width test (tpurt's _curve_bundle_test,
-//     intersect.py:751-897), ribbons scaled by the aux rows.
+//     intersect.py:751-897), ribbons scaled by the aux rows.  A curve leaf
+//     turn is the whole warp's (curve_leaf_turn, below): the spans of all
+//     leaf lanes are culled by their hull a lane each, and the survivors
+//     tested (span, sub-segment) a lane.
 // The interior records, the stack, the schedule and the body choice are
 // the same for all three.
 // Under Accelerator "kdtree" the triangle rays take the kd walk instead
 // (traverse_kd_kernel, at the end of this file): K1k and K1km, which replace
 // tpurt's jnp kd traversal (_kd_step_fns, intersect.py:1038, the kd branch
 // of _traverse_wide, which stands in for traverse.py:54 there) and share
-// K1's ray setup and watertight leaf test.
+// K1's ray setup, scheduler and watertight leaf test.
 //
 // Tables (derived at upload from the host record table of
 // tpurt/geom/wbvh.py by render/intersect.py:derive_traversal_tables):
@@ -102,7 +105,8 @@
 // (4 gives 96 registers and the same times, 8 spills)
 #define K1_MINBLOCKS 6
 // the motion body holds a leaf group's delta rows beside its vertices, the
-// curve body a span's ray frame and projected control points
+// curve body a span's ray frame and projected control points (and 31 KB of
+// shared memory a block: its warps' job lists, span queues and results)
 #define K1M_MINBLOCKS 5
 #define K1C_MINBLOCKS 4
 
@@ -115,7 +119,6 @@
 #define TPURT_LEAF_K 12
 #define TPURT_STACK_MAX 256    // must equal STACK_MAX in kernels/traverse.py
 #define TPURT_KD_STACK_MAX 128  // must equal KD_STACK_MAX there
-#define TPURT_KD_BLOCK 128
 #define TPURT_BLOCK 128
 #define TPURT_INT_ROW4 16      // float4 per interior-table row (256 B)
 #define TPURT_LEAF_ROW4 32     // float4 per leaf-table row (512 B)
@@ -152,7 +155,7 @@ struct Ray {
   float sx, sy, sz;     // its shear
   int kx, ky, kz;       // float4 offset of the permuted x, y, z vertex rows
   float time;           // shutter time (K1m)
-  float dx, dy, dz;     // direction as given (K1c)
+  float dx, dy, dz;     // direction as given (K1c, the kd walk)
   float dl, hx, hy, hz; // |d| and d / |d| (K1c)
 };
 
@@ -201,10 +204,10 @@ __device__ __forceinline__ void load_ray(Ray& r,
   r.sy = -dpy / dpz;
   r.sz = 1.f / dpz;
   if (LEAF == TPURT_LEAF_MOTION) r.time = time_in[ray];
+  r.dx = dx;  // read by the curve body and the kd walk, else dead
+  r.dy = dy;
+  r.dz = dz;
   if (LEAF == TPURT_LEAF_CURVE) {
-    r.dx = dx;
-    r.dy = dy;
-    r.dz = dz;
     r.dl = sqrtf(dx * dx + dy * dy + dz * dz);
     r.hx = dx / r.dl;
     r.hy = dy / r.dl;
@@ -363,166 +366,405 @@ __device__ __forceinline__ void leaf_test(const float4* __restrict__ rec,
   }
 }
 
-// 8 fused curve spans of a curve leaf record, each tested as 8 blossomed
-// sub-segments in the ray's frame (curve.cpp:162-174, :289-373), op for op
-// as the twin's _curve_bundle_test: within a span the closest sub-segment
-// wins (tpurt's documented deviation), across spans the lowest slot wins a
-// tie.  cw holds the (8, 4, 4) blossom weights.  aux is the leaf's ribbon
-// row, or null.  bb0 / bb1 return the span-local s and the width v.
-__device__ __forceinline__ void curve_leaf_test(
-    const float4* __restrict__ rec, const float4* __restrict__ aux,
-    const float* __restrict__ cw, const Ray& r, float t_best, float& t_min,
-    int& k_best, float& bb0, float& bb1) {
+// ---- K1c: the curve leaf turn, spread over the warp ----
+// A curve leaf turn enumerates the (ray, live span) jobs of every lane that
+// sits on a leaf, runs each job's ray frame, projection and cull on a lane
+// of its own, queues the spans that pass in per-warp shared memory and
+// tests them (span, sub-segment) a lane, 4 spans a warp pass; a segmented
+// minimum returns each span's result to its owner, which keeps the closest
+// in slot order.
+// Why: the body it replaces ran, on each leaf lane alone, all 8 spans' 8
+// sub-segments (~13,000 operations a leaf) while the warp's other lanes
+// waited, though on frame E's rays only 14-17% of the live spans pass the
+// hull cull (span_near below, the test pbrt makes before its depth-0
+// branch) and can be hit at all; culled or not, a span's frame and cull
+// cost ~160 operations, its sub-segments ~1,500.  The queue keeps full
+// warps on the sub-segment tests, 4 spans a pass, so a leaf turn costs ~2
+// passes of the frame and cull and a pass of sub-segments per 4 surviving
+// spans.
+// Measured (NVIDIA H100 80GB HBM3, 700 W, tpurt_torch/kernels/k1_ab.py on
+// frame E's five curve calls, per launch in bursts; PERF.md section 6): this
+// design 0.7275 / 0.7544 / 0.9236 / 0.5834 / 0.7996 ms; the variant that
+// queues 32 spans and runs each span's 8 sub-segments on one lane, with the
+// weights compile-time constants (104 registers), 2.5541 / 2.1972 / 3.3232
+// / 1.7615 / 2.7825 ms, no faster than the body it replaces: a surviving span's
+// 8 sequential sub-segments on one lane cost a warp pass ~8x as long as
+// the (span, sub-segment) pass, and a turn rarely fills 32 spans.  So the
+// weights are computed in registers from q (exact, below), not loaded.
+#define K1C_QCAP 36  // queued spans: fewer than 4 carried over + 32 new
+#define K1C_QF 29    // floats a queued span, field-major in CurveWarp::q
+#define QF_W0 12     // [0:12] rx[4], ry[4], rz[4]; then w0, w1
+#define QF_W1 13
+#define QF_N0 14     // ribbon normals n0 [14:17], n1 [17:20]
+#define QF_ANG 20
+#define QF_INVSIN 21
+#define QF_D 22      // the owner ray's d [22:25], |d|, z limit
+#define QF_DL 25
+#define QF_ZLIM 26
+#define QF_CODE 27   // (owner lane << 3) | slot, as int bits
+#define QF_HASN 28   // 1 when the span's ribbon normal is set
+
+struct CurveWarp {
+  float q[K1C_QF][K1C_QCAP];
+  // each (slot, owner lane)'s closest sub-segment: t (inf: none), s, v
+  float res_t[TPURT_WIDTH][32], res_s[TPURT_WIDTH][32],
+      res_v[TPURT_WIDTH][32];
+  unsigned short job[TPURT_WIDTH * 32];  // (owner lane << 3) | slot
+};
+
+// the span cull's pads; curve_span_cull in render/intersect.py (its plain
+// copy, op for op) argues why no span the twin hits is dropped: blossom
+// weights are non-negative and sum to 1, so every sub-segment point lies in
+// the hull of the 4 projected control points, ~20 ulps of the span's
+// largest |coordinate| out after rounding (padded by 64, plus 2^-140
+// against subnormal sums); the half-width is at most max(|w0|, |w1|) / 2, a
+// ribbon's factor at most (|n0| + |n1|) (1 on the linear branch, else
+// |1/sin(angle)| if larger); the radius is padded by 2^-16 relative and
+// 2^-61 absolute (dist^2 <= hw^2 / 4 rounding or underflowing)
+#define CULL_HULL_REL 0x1p-18f
+#define CULL_HULL_ABS 0x1p-140f
+#define CULL_R_REL (1.f + 0x1p-16f)
+#define CULL_R_ABS 0x1p-61f
+
+// pbrt's bounding test ahead of recursiveIntersect's depth-0 branch
+// (curve.cpp), which tpurt's jnp code omits: can a sub-segment of this
+// span pass the width and depth tests below z_lim?  n0 / n1: the ribbon
+// normals' squared lengths (has_n when n0 > 0.5).
+__device__ __forceinline__ bool span_near(const float* rx, const float* ry,
+                                          const float* rz, float w0,
+                                          float w1, bool ribbon, float n0,
+                                          float n1, float ang,
+                                          float inv_sin, float z_lim) {
+  float big = fabsf(rx[0]);
+#pragma unroll
+  for (int i = 1; i < 4; ++i) big = max_nan(big, fabsf(rx[i]));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) big = max_nan(big, fabsf(ry[i]));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) big = max_nan(big, fabsf(rz[i]));
+  const float pad = big * CULL_HULL_REL + CULL_HULL_ABS;
+  const float xlo = min_nan(min_nan(rx[0], rx[1]), min_nan(rx[2], rx[3])) - pad;
+  const float xhi = max_nan(max_nan(rx[0], rx[1]), max_nan(rx[2], rx[3])) + pad;
+  const float ylo = min_nan(min_nan(ry[0], ry[1]), min_nan(ry[2], ry[3])) - pad;
+  const float yhi = max_nan(max_nan(ry[0], ry[1]), max_nan(ry[2], ry[3])) + pad;
+  const float zlo = min_nan(min_nan(rz[0], rz[1]), min_nan(rz[2], rz[3])) - pad;
+  const float zhi = max_nan(max_nan(rz[0], rz[1]), max_nan(rz[2], rz[3])) + pad;
+  const float gx = max_nan(max_nan(xlo, -xhi), 0.f);
+  const float gy = max_nan(max_nan(ylo, -yhi), 0.f);
+  float half = max_nan(fabsf(w0), fabsf(w1)) * 0.5f;
+  if (ribbon && n0 > 0.5f) {
+    const float slerp = ang < 1e-4f ? 1.f : max_nan(fabsf(inv_sin), 1.f);
+    half = half * ((sqrtf(n0) + sqrtf(n1)) * slerp);
+  }
+  const float rad = half * CULL_R_REL + CULL_R_ABS;
+  return gx <= rad && gy <= rad && gx * gx + gy * gy <= rad * rad &&
+         zhi > 0.f && zlo < z_lim;
+}
+
+// BlossomBezier's weights of the 4 control points at (u1, u2, u3)
+// (curve.cpp:43-53).  For the sub-segment ends a = q / 8 and b = a + 1 / 8
+// every product and sum is a multiple of 2^-9 below 4, so each weight is
+// exact and equal to the twin's CURVE_W rounded to f32.
+__device__ __forceinline__ void blossom_w(float u1, float u2, float u3,
+                                          float* w) {
+  const float v1 = 1.f - u1, v2 = 1.f - u2, v3 = 1.f - u3;
+  w[0] = v1 * v2 * v3;
+  w[1] = u1 * v2 * v3 + v1 * u2 * v3 + v1 * v2 * u3;
+  w[2] = u1 * u2 * v3 + u1 * v2 * u3 + v1 * u2 * u3;
+  w[3] = u1 * u2 * u3;
+}
+
+// sub-segment q of queued span e through pbrt's depth-0 width test
+// (curve.cpp:289-373), op for op as the twin's _curve_bundle_test; t is
+// inf when it is not hit
+__device__ __forceinline__ void sub_segment_test(const CurveWarp& sh, int e,
+                                                 int q, float& t_out,
+                                                 float& s_out, float& v_out) {
   const float inf = __int_as_float(0x7f800000);
-  const float z_lim = r.dl * t_best;
-#pragma unroll 1
-  for (int h = 0; h < 2; ++h) {  // spans 4h .. 4h+3
-    if (h == 1) {
-      const float4 x = rec[1];  // cp0.x of spans 4 .. 7: pads are NaN
-      if (x.x != x.x && x.y != x.y && x.z != x.z && x.w != x.w) break;
+  float rx[4], ry[4], rz[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    rx[i] = sh.q[i][e];
+    ry[i] = sh.q[4 + i][e];
+    rz[i] = sh.q[8 + i][e];
+  }
+  const float a = q * (1.f / TPURT_CURVE_SUB);
+  const float b = (q + 1) * (1.f / TPURT_CURVE_SUB);
+  float w[4][4];
+  blossom_w(a, a, a, w[0]);
+  blossom_w(a, a, b, w[1]);
+  blossom_w(a, b, b, w[2]);
+  blossom_w(b, b, b, w[3]);
+  float sx[4], sy[4], sz[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    // sum(w[k][m] * r[m]) from the left, as the twin's sum()
+    float ax = w[k][0] * rx[0], ay = w[k][0] * ry[0], az = w[k][0] * rz[0];
+#pragma unroll
+    for (int m = 1; m < 4; ++m) {
+      ax = ax + w[k][m] * rx[m];
+      ay = ay + w[k][m] * ry[m];
+      az = az + w[k][m] * rz[m];
     }
-#pragma unroll 1
-    for (int j = 0; j < 4; ++j) {
+    sx[k] = ax;
+    sy[k] = ay;
+    sz[k] = az;
+  }
+  // endpoint tangent-perpendicular culling (curve.cpp:294-301)
+  const bool e_ok0 =
+      (sy[1] - sy[0]) * (-sy[0]) + sx[0] * (sx[0] - sx[1]) >= 0.f;
+  const bool e_ok1 =
+      (sy[2] - sy[3]) * (-sy[3]) + sx[3] * (sx[3] - sx[2]) >= 0.f;
+  // closest-point parameter on the chord (curve.cpp:303-307)
+  const float cdx = sx[3] - sx[0], cdy = sy[3] - sy[0];
+  const float denom = cdx * cdx + cdy * cdy;
+  const bool den_ok = denom > 0.f;
+  const float wp = -(sx[0] * cdx + sy[0] * cdy) / (den_ok ? denom : 1.f);
+  const float s = min_nan(max_nan(a + (1.f / TPURT_CURVE_SUB) * wp, a), b);
+  const float w0 = sh.q[QF_W0][e], w1 = sh.q[QF_W1][e];
+  const float dl = sh.q[QF_DL][e];
+  float hw = w0 + (w1 - w0) * s;
+  if (sh.q[QF_HASN][e] != 0.f) {
+    // ribbon: the slerped normal's projection on the ray (curve.cpp:313-321)
+    const float ang = sh.q[QF_ANG][e], inv_sin = sh.q[QF_INVSIN][e];
+    const bool small = ang < 1e-4f;
+    const float s0 = small ? 1.f - s : sinf((1.f - s) * ang) * inv_sin;
+    const float s1 = small ? s : sinf(s * ang) * inv_sin;
+    const float nhx = s0 * sh.q[QF_N0][e] + s1 * sh.q[QF_N0 + 3][e];
+    const float nhy = s0 * sh.q[QF_N0 + 1][e] + s1 * sh.q[QF_N0 + 4][e];
+    const float nhz = s0 * sh.q[QF_N0 + 2][e] + s1 * sh.q[QF_N0 + 5][e];
+    hw = hw * (fabsf(nhx * sh.q[QF_D][e] + nhy * sh.q[QF_D + 1][e] +
+                     nhz * sh.q[QF_D + 2][e]) / dl);
+  }
+  // the sub-segment at clamp(wp, 0, 1), with its derivative
+  const float ww = min_nan(max_nan(wp, 0.f), 1.f);
+  float c1x[3], c1y[3], c1z[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    c1x[i] = sx[i] + ww * (sx[i + 1] - sx[i]);
+    c1y[i] = sy[i] + ww * (sy[i + 1] - sy[i]);
+    c1z[i] = sz[i] + ww * (sz[i + 1] - sz[i]);
+  }
+  const float c2x0 = c1x[0] + ww * (c1x[1] - c1x[0]);
+  const float c2x1 = c1x[1] + ww * (c1x[2] - c1x[1]);
+  const float c2y0 = c1y[0] + ww * (c1y[1] - c1y[0]);
+  const float c2y1 = c1y[1] + ww * (c1y[2] - c1y[1]);
+  const float c2z0 = c1z[0] + ww * (c1z[1] - c1z[0]);
+  const float c2z1 = c1z[1] + ww * (c1z[2] - c1z[1]);
+  const float pcx = c2x0 + ww * (c2x1 - c2x0);
+  const float pcy = c2y0 + ww * (c2y1 - c2y0);
+  const float pcz = c2z0 + ww * (c2z1 - c2z0);
+  float dvx = c2x1 - c2x0, dvy = c2y1 - c2y0;
+  if (dvx * dvx + dvy * dvy == 0.f) {  // EvalBezier fallback
+    dvx = sx[3] - sx[0];
+    dvy = sy[3] - sy[0];
+  }
+  const float dist2 = pcx * pcx + pcy * pcy;
+  const bool ok = e_ok0 && e_ok1 && den_ok && dist2 <= hw * hw * 0.25f &&
+                  pcz > 0.f && pcz < sh.q[QF_ZLIM][e];
+  const float t_q = pcz / dl;
+  t_out = ok ? t_q : inf;
+  s_out = s;
+  const float dist = sqrtf(dist2);
+  const float hwc = max_nan(hw, 1e-20f);
+  const float edge_f = dvx * (-pcy) + pcx * dvy;
+  v_out = edge_f > 0.f ? 0.5f + dist / hwc : 0.5f - dist / hwc;
+}
+
+// queued spans base .. base+count-1 (count <= 4), a span to each 8 lanes,
+// sub-segment q = lane & 7; the closest sub-segment wins, the lowest q on a
+// tie (the twin's strict < in q order), and goes to the span's owner slot
+__device__ __forceinline__ void test_queued(CurveWarp& sh, int base,
+                                            int count, int lane) {
+  const float inf = __int_as_float(0x7f800000);
+  const int g = lane >> 3, q = lane & 7;
+  const bool act = g < count;
+  const int e = base + (act ? g : 0);
+  float t = inf, s = 0.f, v = 0.f;
+  if (act) sub_segment_test(sh, e, q, t, s, v);
+  int qq = q;
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1) {
+    const float t2 = __shfl_xor_sync(FULL, t, off);
+    const int q2 = __shfl_xor_sync(FULL, qq, off);
+    const float s2 = __shfl_xor_sync(FULL, s, off);
+    const float v2 = __shfl_xor_sync(FULL, v, off);
+    if (t2 < t || (t2 == t && q2 < qq)) {
+      t = t2;
+      qq = q2;
+      s = s2;
+      v = v2;
+    }
+  }
+  if (act && q == 0) {
+    const int code = __float_as_int(sh.q[QF_CODE][e]);
+    sh.res_t[code & 7][code >> 3] = t;
+    sh.res_s[code & 7][code >> 3] = s;
+    sh.res_v[code & 7][code >> 3] = v;
+  }
+  __syncwarp();
+}
+
+// One curve leaf turn of the warp (every lane calls it): on_leaf lanes hold
+// the leaf row `row` of `leaves` (ribbon rows in `aux`, or null).  Returns on
+// each such lane the closest span hit below t_best as the twin's
+// _curve_bundle_test + argmin would: t_min, its slot, and s / v in bb0 / bb1.
+__device__ __forceinline__ void curve_leaf_turn(
+    bool on_leaf, int row, const float4* __restrict__ leaves,
+    const float4* __restrict__ aux, const Ray& r, float t_best, int lane,
+    CurveWarp& sh, float& t_min, int& k_best, float& bb0, float& bb1) {
+  const float inf = __int_as_float(0x7f800000);
+  // this lane's live spans (pads: cp0.x is NaN; such a span never hits)
+  unsigned live = 0;
+  if (on_leaf) {
+    const float4* rec = leaves + (size_t)row * TPURT_LEAF_ROW4;
+    const float4 x0 = rec[0], x1 = rec[1];
+    live = (x0.x == x0.x ? 1u : 0u) | (x0.y == x0.y ? 2u : 0u) |
+           (x0.z == x0.z ? 4u : 0u) | (x0.w == x0.w ? 8u : 0u) |
+           (x1.x == x1.x ? 16u : 0u) | (x1.y == x1.y ? 32u : 0u) |
+           (x1.z == x1.z ? 64u : 0u) | (x1.w == x1.w ? 128u : 0u);
+#pragma unroll
+    for (int k = 0; k < TPURT_WIDTH; ++k) sh.res_t[k][lane] = inf;
+  }
+  const int cnt = __popc(live);
+  int incl = cnt;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += v;
+  }
+  const int total = __shfl_sync(FULL, incl, 31);
+  {
+    int at = incl - cnt;
+    for (unsigned m = live; m; m &= m - 1)
+      sh.job[at++] = (unsigned short)((lane << 3) | (__ffs(m) - 1));
+  }
+  const float z_lim = r.dl * t_best;
+  __syncwarp();
+  int nq = 0;  // queued spans (warp-uniform)
+  for (int j0 = 0; j0 < total; j0 += 32) {
+    const int j = j0 + lane;
+    const bool valid = j < total;
+    const int code = valid ? sh.job[j] : 0;
+    const int owner = code >> 3, slot = code & 7;
+    // the owner's ray
+    const float ox = __shfl_sync(FULL, r.ox, owner);
+    const float oy = __shfl_sync(FULL, r.oy, owner);
+    const float oz = __shfl_sync(FULL, r.oz, owner);
+    const float dx = __shfl_sync(FULL, r.dx, owner);
+    const float dy = __shfl_sync(FULL, r.dy, owner);
+    const float dz = __shfl_sync(FULL, r.dz, owner);
+    const float dl = __shfl_sync(FULL, r.dl, owner);
+    const float hx = __shfl_sync(FULL, r.hx, owner);
+    const float hy = __shfl_sync(FULL, r.hy, owner);
+    const float hz = __shfl_sync(FULL, r.hz, owner);
+    const float zl = __shfl_sync(FULL, z_lim, owner);
+    const int orow = __shfl_sync(FULL, row, owner);
+    bool keep = false;
+    float rx[4], ry[4], rz[4], w0 = 0.f, w1 = 0.f;
+    float nv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    bool has_n = false;
+    if (valid) {
+      const float* f = reinterpret_cast<const float*>(
+          leaves + (size_t)orow * TPURT_LEAF_ROW4);
       float c[12];
 #pragma unroll
-      for (int i = 0; i < 12; ++i) c[i] = comp(rec[2 * i + h], j);
-      const float w0 = comp(rec[24 + h], j), w1 = comp(rec[26 + h], j);
+      for (int i = 0; i < 12; ++i) c[i] = f[TPURT_WIDTH * i + slot];
+      w0 = f[12 * TPURT_WIDTH + slot];
+      w1 = f[13 * TPURT_WIDTH + slot];
       // "up" = cross(d, cp3 - cp0); degenerate -> CoordinateSystem(d)
       const float v30x = c[9] - c[0], v30y = c[10] - c[1],
                   v30z = c[11] - c[2];
-      float ux = r.dy * v30z - r.dz * v30y;
-      float uy = r.dz * v30x - r.dx * v30z;
-      float uz = r.dx * v30y - r.dy * v30x;
+      float ux = dy * v30z - dz * v30y;
+      float uy = dz * v30x - dx * v30z;
+      float uz = dx * v30y - dy * v30x;
       if (ux * ux + uy * uy + uz * uz < 1e-18f) {
-        const bool pick = fabsf(r.dx) > fabsf(r.dy);
-        ux = pick ? -r.dz : 0.f;
-        uy = pick ? 0.f : r.dz;
-        uz = pick ? r.dx : -r.dy;
+        const bool pick = fabsf(dx) > fabsf(dy);
+        ux = pick ? -dz : 0.f;
+        uy = pick ? 0.f : dz;
+        uz = pick ? dx : -dy;
       }
       // x = normalize(cross(up, dhat)); y = cross(dhat, x)
-      float xx = uy * r.hz - uz * r.hy;
-      float xy = uz * r.hx - ux * r.hz;
-      float xz = ux * r.hy - uy * r.hx;
+      float xx = uy * hz - uz * hy;
+      float xy = uz * hx - ux * hz;
+      float xz = ux * hy - uy * hx;
       const float xl = max_nan(sqrtf(xx * xx + xy * xy + xz * xz), 1e-20f);
       xx = xx / xl;
       xy = xy / xl;
       xz = xz / xl;
-      const float yx = r.hy * xz - r.hz * xy;
-      const float yy = r.hz * xx - r.hx * xz;
-      const float yz = r.hx * xy - r.hy * xx;
-      float rx[4], ry[4], rz[4];
+      const float yx = hy * xz - hz * xy;
+      const float yy = hz * xx - hx * xz;
+      const float yz = hx * xy - hy * xx;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float qx = c[3 * i] - r.ox, qy = c[3 * i + 1] - r.oy,
-                    qz = c[3 * i + 2] - r.oz;
+        const float qx = c[3 * i] - ox, qy = c[3 * i + 1] - oy,
+                    qz = c[3 * i + 2] - oz;
         rx[i] = qx * xx + qy * xy + qz * xz;
         ry[i] = qx * yx + qy * yy + qz * yz;
-        rz[i] = qx * r.hx + qy * r.hy + qz * r.hz;
+        rz[i] = qx * hx + qy * hy + qz * hz;
       }
-      bool has_n = false;
-      float n0x = 0.f, n0y = 0.f, n0z = 0.f, n1x = 0.f, n1y = 0.f, n1z = 0.f,
-            ang = 0.f, inv_sin = 0.f;
+      float n0 = 0.f, n1 = 0.f;
       if (aux != nullptr) {
-        n0x = comp(aux[0 + h], j);
-        n0y = comp(aux[2 + h], j);
-        n0z = comp(aux[4 + h], j);
-        n1x = comp(aux[6 + h], j);
-        n1y = comp(aux[8 + h], j);
-        n1z = comp(aux[10 + h], j);
-        ang = comp(aux[12 + h], j);
-        inv_sin = comp(aux[14 + h], j);
-        has_n = n0x * n0x + n0y * n0y + n0z * n0z > 0.5f;
+        const float* fa = reinterpret_cast<const float*>(
+            aux + (size_t)orow * TPURT_AUX_ROW4);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) nv[i] = fa[TPURT_WIDTH * i + slot];
+        n0 = nv[0] * nv[0] + nv[1] * nv[1] + nv[2] * nv[2];
+        n1 = nv[3] * nv[3] + nv[4] * nv[4] + nv[5] * nv[5];
+        has_n = n0 > 0.5f;
       }
-      float t_span = inf, s_span = 0.f, v_span = 0.f;
-#pragma unroll 1
-      for (int q = 0; q < TPURT_CURVE_SUB; ++q) {
-        const float* wq = cw + 16 * q;
-        float sx[4], sy[4], sz[4];
+      keep = span_near(rx, ry, rz, w0, w1, aux != nullptr, n0, n1, nv[6],
+                       nv[7], zl);
+    }
+    const unsigned km = __ballot_sync(FULL, keep);
+    if (keep) {
+      const int e = nq + __popc(km & ((1u << lane) - 1u));
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          // sum(w[k][m] * r[m]) from the left, as the twin's sum()
-          float ax = wq[4 * k] * rx[0], ay = wq[4 * k] * ry[0],
-                az = wq[4 * k] * rz[0];
-#pragma unroll
-          for (int m = 1; m < 4; ++m) {
-            ax = ax + wq[4 * k + m] * rx[m];
-            ay = ay + wq[4 * k + m] * ry[m];
-            az = az + wq[4 * k + m] * rz[m];
-          }
-          sx[k] = ax;
-          sy[k] = ay;
-          sz[k] = az;
-        }
-        // endpoint tangent-perpendicular culling (curve.cpp:294-301)
-        const bool e_ok0 =
-            (sy[1] - sy[0]) * (-sy[0]) + sx[0] * (sx[0] - sx[1]) >= 0.f;
-        const bool e_ok1 =
-            (sy[2] - sy[3]) * (-sy[3]) + sx[3] * (sx[3] - sx[2]) >= 0.f;
-        // closest-point parameter on the chord (curve.cpp:303-307)
-        const float cdx = sx[3] - sx[0], cdy = sy[3] - sy[0];
-        const float denom = cdx * cdx + cdy * cdy;
-        const bool den_ok = denom > 0.f;
-        const float wp = -(sx[0] * cdx + sy[0] * cdy) / (den_ok ? denom : 1.f);
-        const float a = q * (1.f / TPURT_CURVE_SUB);
-        const float b = (q + 1) * (1.f / TPURT_CURVE_SUB);
-        const float s =
-            min_nan(max_nan(a + (1.f / TPURT_CURVE_SUB) * wp, a), b);
-        float hw = w0 + (w1 - w0) * s;
-        if (has_n) {
-          // ribbon: the slerped normal's projection on the ray
-          // (curve.cpp:313-321)
-          const bool small = ang < 1e-4f;
-          const float s0 = small ? 1.f - s : sinf((1.f - s) * ang) * inv_sin;
-          const float s1 = small ? s : sinf(s * ang) * inv_sin;
-          const float nhx = s0 * n0x + s1 * n1x;
-          const float nhy = s0 * n0y + s1 * n1y;
-          const float nhz = s0 * n0z + s1 * n1z;
-          hw = hw * (fabsf(nhx * r.dx + nhy * r.dy + nhz * r.dz) / r.dl);
-        }
-        // the sub-segment at clamp(wp, 0, 1), with its derivative
-        const float ww = min_nan(max_nan(wp, 0.f), 1.f);
-        float c1x[3], c1y[3], c1z[3];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          c1x[i] = sx[i] + ww * (sx[i + 1] - sx[i]);
-          c1y[i] = sy[i] + ww * (sy[i + 1] - sy[i]);
-          c1z[i] = sz[i] + ww * (sz[i + 1] - sz[i]);
-        }
-        const float c2x0 = c1x[0] + ww * (c1x[1] - c1x[0]);
-        const float c2x1 = c1x[1] + ww * (c1x[2] - c1x[1]);
-        const float c2y0 = c1y[0] + ww * (c1y[1] - c1y[0]);
-        const float c2y1 = c1y[1] + ww * (c1y[2] - c1y[1]);
-        const float c2z0 = c1z[0] + ww * (c1z[1] - c1z[0]);
-        const float c2z1 = c1z[1] + ww * (c1z[2] - c1z[1]);
-        const float pcx = c2x0 + ww * (c2x1 - c2x0);
-        const float pcy = c2y0 + ww * (c2y1 - c2y0);
-        const float pcz = c2z0 + ww * (c2z1 - c2z0);
-        float dvx = c2x1 - c2x0, dvy = c2y1 - c2y0;
-        if (dvx * dvx + dvy * dvy == 0.f) {  // EvalBezier fallback
-          dvx = sx[3] - sx[0];
-          dvy = sy[3] - sy[0];
-        }
-        const float dist2 = pcx * pcx + pcy * pcy;
-        const bool ok = e_ok0 && e_ok1 && den_ok &&
-                        dist2 <= hw * hw * 0.25f && pcz > 0.f && pcz < z_lim;
-        const float t_q = pcz / r.dl;
-        if (ok && t_q < t_span) {
-          const float dist = sqrtf(dist2);
-          const float hwc = max_nan(hw, 1e-20f);
-          const float edge_f = dvx * (-pcy) + pcx * dvy;
-          t_span = t_q;
-          s_span = s;
-          v_span = edge_f > 0.f ? 0.5f + dist / hwc : 0.5f - dist / hwc;
-        }
+      for (int i = 0; i < 4; ++i) {
+        sh.q[i][e] = rx[i];
+        sh.q[4 + i][e] = ry[i];
+        sh.q[8 + i][e] = rz[i];
       }
-      if (t_span < t_min) {  // strict: the lowest slot wins a tie
-        t_min = t_span;
-        k_best = 4 * h + j;
-        bb0 = s_span;
-        bb1 = v_span;
+      sh.q[QF_W0][e] = w0;
+      sh.q[QF_W1][e] = w1;
+      sh.q[QF_HASN][e] = has_n ? 1.f : 0.f;
+      if (has_n) {
+#pragma unroll
+        for (int i = 0; i < 6; ++i) sh.q[QF_N0 + i][e] = nv[i];
+        sh.q[QF_ANG][e] = nv[6];
+        sh.q[QF_INVSIN][e] = nv[7];
+        sh.q[QF_D][e] = dx;
+        sh.q[QF_D + 1][e] = dy;
+        sh.q[QF_D + 2][e] = dz;
+      }
+      sh.q[QF_DL][e] = dl;
+      sh.q[QF_ZLIM][e] = zl;
+      sh.q[QF_CODE][e] = __int_as_float(code);
+    }
+    nq += __popc(km);
+    __syncwarp();
+    // test full passes of 4 spans from the top of the queue; fewer than 4
+    // wait for the next round
+    while (nq >= 4) {
+      nq -= 4;
+      test_queued(sh, nq, 4, lane);
+    }
+  }
+  if (nq > 0) test_queued(sh, 0, nq, lane);
+  if (on_leaf) {
+    // strict <: the lowest slot wins a tie, as the twin's argmin
+#pragma unroll
+    for (int k = 0; k < TPURT_WIDTH; ++k) {
+      const float t = sh.res_t[k][lane];
+      if (t < t_min) {
+        t_min = t;
+        k_best = k;
+        bb0 = sh.res_s[k][lane];
+        bb1 = sh.res_v[k][lane];
       }
     }
   }
+  __syncwarp();  // the next turn rewrites the warp's job list
 }
 
 template <int LEAF>
@@ -537,21 +779,16 @@ traverse_wide_kernel(const float4* __restrict__ inodes, int n_inodes,
                      int step_limit,
                      const float* __restrict__ o_in,
                      const float* __restrict__ d_in,
-                     const float* __restrict__ t_max_in,
-                     const float* __restrict__ curve_w, int n,
+                     const float* __restrict__ t_max_in, int n,
                      int stack_depth, int any_hit, float box_scale,
                      float* __restrict__ t_out, int* __restrict__ prim_out,
                      float* __restrict__ b0_out, float* __restrict__ b1_out,
                      int* __restrict__ counter) {
   int stack[TPURT_STACK_MAX];  // local memory; only touched slots cost
   const int lane = threadIdx.x & 31;
-  // the curve body's blossom weights, read by every lane: one copy a block
-  __shared__ float cw[LEAF == TPURT_LEAF_CURVE ? 16 * TPURT_CURVE_SUB : 1];
-  if (LEAF == TPURT_LEAF_CURVE) {
-    for (int i = threadIdx.x; i < 16 * TPURT_CURVE_SUB; i += blockDim.x)
-      cw[i] = curve_w[i];
-    __syncthreads();
-  }
+  // the curve body's per-warp job lists, span queues and results: dynamic
+  // shared memory, launched only with the curve body (K1 and K1m get none)
+  extern __shared__ float4 dyn_smem[];
   const float inf = __int_as_float(0x7f800000);
 
   Ray r;
@@ -647,8 +884,37 @@ traverse_wide_kernel(const float4* __restrict__ inodes, int n_inodes,
           cur = nxt;
         }
       }
+    } else if (LEAF == TPURT_LEAF_CURVE) {
+      // curve leaf records: the whole warp tests the leaf lanes' spans
+      if (cur >= 0 && (cur & 1) && (cur >> 1) >= n_leaves) cur = -1;
+      const bool on_leaf = cur >= 0 && (cur & 1);
+      const int row = on_leaf ? (cur >> 1) : 0;
+      float t_min = inf, bb0 = 0.f, bb1 = 0.f;
+      int k_best = 0;
+      curve_leaf_turn(on_leaf, row, leaves, side, r, t_best, lane,
+                      reinterpret_cast<CurveWarp*>(dyn_smem)[threadIdx.x >> 5],
+                      t_min, k_best, bb0, bb1);
+      if (on_leaf) {
+        if (t_min < t_best) {
+          t_best = t_min;
+          prim_best = reinterpret_cast<const int*>(
+              leaves + (size_t)row * TPURT_LEAF_ROW4)[112 + k_best];
+          b0_best = bb0;
+          b1_best = bb1;
+        }
+        int nxt;
+        if (sp > 0) {
+          nxt = (sp - 1 < stack_depth) ? stack[sp - 1] : root_ref;
+          --sp;
+        } else {
+          nxt = -1;
+        }
+        if (any_hit && prim_best >= 0) nxt = -1;
+        if (++steps > step_limit) nxt = -1;
+        cur = nxt;
+      }
     } else if (cur >= 0 && (cur & 1)) {
-      // leaf records: the 12-triangle test, or the 8-span curve test
+      // leaf records: the 12-triangle test
       if ((cur >> 1) >= n_leaves) {  // malformed table
         cur = -1;
       } else {
@@ -656,20 +922,14 @@ traverse_wide_kernel(const float4* __restrict__ inodes, int n_inodes,
         const float4* rec = leaves + row * TPURT_LEAF_ROW4;
         float t_min = inf, bb0 = 0.f, bb1 = 0.f;
         int k_best = 0;
-        if (LEAF == TPURT_LEAF_CURVE) {
-          curve_leaf_test(rec, side ? side + row * TPURT_AUX_ROW4 : nullptr,
-                          cw, r, t_best, t_min, k_best, bb0, bb1);
-        } else {
-          leaf_test<LEAF == TPURT_LEAF_MOTION>(
-              rec,
-              LEAF == TPURT_LEAF_MOTION ? side + row * TPURT_LEAF_ROW4
-                                        : nullptr,
-              r, t_best, t_min, k_best, bb0, bb1);
-        }
+        leaf_test<LEAF == TPURT_LEAF_MOTION>(
+            rec,
+            LEAF == TPURT_LEAF_MOTION ? side + row * TPURT_LEAF_ROW4
+                                      : nullptr,
+            r, t_best, t_min, k_best, bb0, bb1);
         if (t_min < t_best) {
           t_best = t_min;
-          prim_best = reinterpret_cast<const int*>(rec)[
-              (LEAF == TPURT_LEAF_CURVE ? 112 : 108) + k_best];
+          prim_best = reinterpret_cast<const int*>(rec)[108 + k_best];
           b0_best = bb0;
           b1_best = bb1;
         }
@@ -688,19 +948,12 @@ traverse_wide_kernel(const float4* __restrict__ inodes, int n_inodes,
   }
 }
 
-template <int LEAF>
-static int launch(const float* inodes, int n_inodes, const float* leaves,
-                  int n_leaves, const float* side, const float* time,
-                  int root_ref, int step_limit, const float* o,
-                  const float* d, const float* t_max, const float* curve_w,
-                  int n, int stack_depth, int any_hit, float box_scale,
-                  float* t_out, int* prim_out, float* b0_out, float* b1_out,
-                  int* counter, cudaStream_t s) {
-  int blocks = (n + TPURT_BLOCK - 1) / TPURT_BLOCK;
-  // as many blocks as the card holds at once; they share the ray counter.
-  // The count is asked once per device and body (a benign race: every
-  // thread writes the same value).
-  static int resident[64] = {0};
+// as many blocks as the card holds at once (they share the ray counter),
+// asked once per device and kernel (a benign race: every thread writes the
+// same value); returns a cudaError_t
+static int fit_grid(const void* kernel, int* resident, int n, size_t smem,
+                    int* blocks) {
+  *blocks = (n + TPURT_BLOCK - 1) / TPURT_BLOCK;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -709,28 +962,47 @@ static int launch(const float* inodes, int n_inodes, const float* leaves,
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, traverse_wide_kernel<LEAF>, TPURT_BLOCK, 0);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          TPURT_BLOCK, smem);
     if (err != cudaSuccess) return (int)err;
     resident[dev] = sms * (per_sm < 1 ? 1 : per_sm);
   }
-  if (blocks > resident[dev]) blocks = resident[dev];
-  err = cudaMemsetAsync(counter, 0, sizeof(int), s);
-  if (err != cudaSuccess) return (int)err;
-  traverse_wide_kernel<LEAF><<<blocks, TPURT_BLOCK, 0, s>>>(
+  if (*blocks > resident[dev]) *blocks = resident[dev];
+  return (int)cudaSuccess;
+}
+
+template <int LEAF>
+static int launch(const float* inodes, int n_inodes, const float* leaves,
+                  int n_leaves, const float* side, const float* time,
+                  int root_ref, int step_limit, const float* o,
+                  const float* d, const float* t_max, int n,
+                  int stack_depth, int any_hit, float box_scale,
+                  float* t_out, int* prim_out, float* b0_out, float* b1_out,
+                  int* counter, cudaStream_t s) {
+  static int resident[64] = {0};
+  // the curve body's shared scratch: a CurveWarp a warp
+  const size_t smem =
+      LEAF == TPURT_LEAF_CURVE ? (TPURT_BLOCK / 32) * sizeof(CurveWarp) : 0;
+  int blocks = 0;
+  int err = fit_grid((const void*)traverse_wide_kernel<LEAF>, resident, n,
+                     smem, &blocks);
+  if (err != 0) return err;
+  err = (int)cudaMemsetAsync(counter, 0, sizeof(int), s);
+  if (err != 0) return err;
+  traverse_wide_kernel<LEAF><<<blocks, TPURT_BLOCK, smem, s>>>(
       reinterpret_cast<const float4*>(inodes), n_inodes,
       reinterpret_cast<const float4*>(leaves), n_leaves,
       reinterpret_cast<const float4*>(side), time, root_ref, step_limit, o,
-      d, t_max, curve_w, n, stack_depth, any_hit, box_scale, t_out,
+      d, t_max, n, stack_depth, any_hit, box_scale, t_out,
       prim_out, b0_out, b1_out, counter);
   return (int)cudaGetLastError();
 }
 
 // C entry point for ctypes.  leaf_kind picks the body (TPURT_LEAF_*):
 // side is the delta table (K1m, required, with time) or the ribbon aux
-// table (K1c, null without ribbons); curve_w is K1c's (8, 4, 4) blossom
-// weights.  Launches on `stream`, does not synchronise, allocates nothing
-// (`counter` is one int of scratch, zeroed here on the stream); returns
+// table (K1c, null without ribbons).  Launches on `stream`, does not
+// synchronise, allocates nothing (`counter` is one int of scratch, zeroed
+// here on the stream); returns
 // cudaGetLastError() (0 = launched).  step_limit is the host table's row
 // count, the bound the plain twin uses.
 extern "C" int tpurt_traverse_wide(int leaf_kind, const float* inodes,
@@ -739,8 +1011,7 @@ extern "C" int tpurt_traverse_wide(int leaf_kind, const float* inodes,
                                    const float* time, int root_ref,
                                    int step_limit, const float* o,
                                    const float* d, const float* t_max,
-                                   const float* curve_w, int n,
-                                   int stack_depth, int any_hit,
+                                   int n, int stack_depth, int any_hit,
                                    float box_scale, float* t_out,
                                    int* prim_out, float* b0_out,
                                    float* b1_out, int* counter,
@@ -753,7 +1024,7 @@ extern "C" int tpurt_traverse_wide(int leaf_kind, const float* inodes,
     case TPURT_LEAF_TRI:
       return launch<TPURT_LEAF_TRI>(inodes, n_inodes, leaves, n_leaves,
                                     nullptr, nullptr, root_ref, step_limit,
-                                    o, d, t_max, curve_w, n, stack_depth,
+                                    o, d, t_max, n, stack_depth,
                                     any_hit, box_scale, t_out, prim_out,
                                     b0_out, b1_out, counter, s);
     case TPURT_LEAF_MOTION:
@@ -761,14 +1032,13 @@ extern "C" int tpurt_traverse_wide(int leaf_kind, const float* inodes,
         return (int)cudaErrorInvalidValue;
       return launch<TPURT_LEAF_MOTION>(inodes, n_inodes, leaves, n_leaves,
                                        side, time, root_ref, step_limit, o,
-                                       d, t_max, curve_w, n, stack_depth,
+                                       d, t_max, n, stack_depth,
                                        any_hit, box_scale, t_out, prim_out,
                                        b0_out, b1_out, counter, s);
     case TPURT_LEAF_CURVE:
-      if (curve_w == nullptr) return (int)cudaErrorInvalidValue;
       return launch<TPURT_LEAF_CURVE>(inodes, n_inodes, leaves, n_leaves,
                                       side, nullptr, root_ref, step_limit,
-                                      o, d, t_max, curve_w, n, stack_depth,
+                                      o, d, t_max, n, stack_depth,
                                       any_hit, box_scale, t_out, prim_out,
                                       b0_out, b1_out, counter, s);
     default:
@@ -782,13 +1052,15 @@ extern "C" int tpurt_traverse_wide(int leaf_kind, const float* inodes,
 // tpurt's kd traversal (_kd_init_state and _kd_step_fns,
 // tpurt/render/intersect.py:1038-1162, the kd branch of _traverse_wide at
 // :1236-1240) is jnp code, not a Pallas kernel; it runs under
-// Accelerator "kdtree".  One thread walks one ray over the kd record table
-// of tpurt_torch/geom/kdtree.py as it is (rows of 128 f32):
-//   interior: [120] split, [121] axis (i32), [122] below row, [123] above
-//     row (i32): one float4, 16 bytes, the only part of the row it reads;
+// Accelerator "kdtree".  Tables (render/intersect.py:derive_kd_tables, from
+// the record table of tpurt_torch/geom/kdtree.py, which the twin reads):
+//   interior: one float4 a node, split, axis (i32), below and above
+//     references (i32), in the builder's depth-first order;
 //   leaf: the BVH leaf's 12-triangle bundle in [0:120] (K1's leaf_test
-//     reads it unchanged), [124] the continuation row (i32, -1 = none);
-//   [126] kind (0 interior, 1 leaf).
+//     reads it), [124] the continuation's reference (i32, -1 = none), with
+//     the motion delta rows beside them in the same order (K1km);
+//   a reference is 2 * row + (1 for a leaf), so a lane knows a node's kind
+//     before it reads it; root_ref is the root's.
 // The root-bounds clip (its far t scaled by box_scale, _BOX_T_SCALE), then
 // binary descent with a (node, tmin, tmax) interval stack of stack_depth
 // slots: near child first (below when o < split, or o == split and
@@ -798,79 +1070,147 @@ extern "C" int tpurt_traverse_wide(int leaf_kind, const float* inodes,
 // updates come in the twin's order (kernels/traverse.py:
 // traverse_kd_reference), so ties resolve as tpurt's do: tplane rounds as
 // its (split - o) * inv_d, no FMA (-fmad=false).
-// What bounds it: not bytes (a ray reads one 16-byte interior row a level
-// it descends and a few leaf rows, from L1 or L2) but the chain of
-// dependent reads and the divergence: measured on an H100, a primary ray
-// of frame A's stand-in takes 16.6 steps (12.3 interior, 4.3 leaf rows of
-// 2.4 triangles), and the walk runs ~38x its byte bound (PERF.md).
-// The design is the simple one: a thread a ray, the interval stack in
-// local memory, no persistent warps, the tables as the host built them;
-// chip_smoke.py reports its time against its bound on every driven call.
+// What bounds it: the chain of dependent reads and the divergence, not the
+// bytes (a primary ray of frame A's stand-in takes 16.6 steps, 12.3 of them
+// interior, over leaves of 2.4 triangles).  So it runs on K1's scheduler:
+// persistent warps taking K1_CHUNK rays from a counter and refilling dead
+// lanes at K1_REFILL; the interval stack and (tmin, tmax) travel with the
+// lane, d stays in its registers, and an interior step is one 16-byte read,
+// its kind known from the reference.  An interior step is ~20 operations, a
+// leaf step the 12-triangle test, so leaf turns wait for company, by a rule
+// set by the leaf body's cost: K1k runs one body a turn, the interior step
+// unless the lanes on leaves outnumber K1K_INTERIOR_WEIGHT times those on
+// interior nodes; K1km's leaf body (the lerp and twice the rows, 8.3
+// triangles a row on frame E's moving meshes) costs more, so its interior
+// lanes step every turn and its leaf lanes when K1KM_LEAF_LANES of them wait
+// or no lane is on an interior node.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; tpurt_torch/kernels/k1_ab.py, per
+// launch in bursts, on K's five calls and E-under-kd's three; PERF.md
+// section 6) and not used: refilling at 0 live lanes (whole chunks: K's camera
+// rays and their shadow rays 10-13% faster, its bounce calls 43-65% slower)
+// or at 8 (K1k 9-32% slower); K1k at weights 1 and 16 (0-12% slower); for
+// K1k both bodies every turn (20-39% slower) or the interior every turn with
+// the leaves at n_leaf >= n_int / 4, >= n_int, >= 8 or >= 16 lanes (up to
+// 24% slower, the last within -1% and +5%); K1km with one body a turn at
+// weight 4 (E's camera rays 2.62 ms against 2.30, its other rays 1% faster),
+// weight 1 (3.90 ms) or 16 (2.49 ms).  The previous design (a thread a ray
+// over the record table: the 16-byte node read after the row's kind, both
+// bodies in one loop) and its times are in PERF.md's section 6.
+#define K1K_INTERIOR_WEIGHT 4
+#define K1KM_LEAF_LANES 16
+// blocks per SM the register budget is set for: as K1's and K1m's (the
+// motion walk spills at 80 registers)
+#define K1K_MINBLOCKS 6
+
 template <int LEAF>
-__global__ void __launch_bounds__(TPURT_KD_BLOCK)
-traverse_kd_kernel(const float4* __restrict__ nodes, int n_rows,
+__global__ void __launch_bounds__(
+    TPURT_BLOCK, LEAF == TPURT_LEAF_MOTION ? K1M_MINBLOCKS : K1K_MINBLOCKS)
+traverse_kd_kernel(const float4* __restrict__ inodes, int n_inodes,
+                   const float4* __restrict__ leaves, int n_leaves,
                    const float4* __restrict__ delta,
                    const float* __restrict__ time_in,
-                   const float* __restrict__ bounds,
-                   const float* __restrict__ o_in,
+                   const float* __restrict__ bounds, int root_ref,
+                   int step_limit, const float* __restrict__ o_in,
                    const float* __restrict__ d_in,
                    const float* __restrict__ t_max_in, int n,
                    int stack_depth, int any_hit, float box_scale,
                    float* __restrict__ t_out, int* __restrict__ prim_out,
-                   float* __restrict__ b0_out, float* __restrict__ b1_out) {
-  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ray >= n) return;
-  const float inf = __int_as_float(0x7f800000);
-  Ray r;
-  load_ray<LEAF>(r, o_in, d_in, time_in, ray);
-  const float t_max = t_max_in[ray];
-  // root clip: jnp's minimum / maximum and max / min reductions propagate
-  // NaN, so a ray in the plane of a face (0 * inf) misses the box
-  const float tx0 = (bounds[0] - r.ox) * r.ix, tx1 = (bounds[3] - r.ox) * r.ix;
-  const float ty0 = (bounds[1] - r.oy) * r.iy, ty1 = (bounds[4] - r.oy) * r.iy;
-  const float tz0 = (bounds[2] - r.oz) * r.iz, tz1 = (bounds[5] - r.oz) * r.iz;
-  const float t_near = max_nan(max_nan(min_nan(tx0, tx1), min_nan(ty0, ty1)),
-                               min_nan(tz0, tz1));
-  const float t_far = min_nan(min_nan(max_nan(tx0, tx1), max_nan(ty0, ty1)),
-                              max_nan(tz0, tz1)) * box_scale;
-  float tmin = max_nan(t_near, 0.f);
-  float tmax = min_nan(t_far, t_max);
-  float t_best = t_max, b0_best = 0.f, b1_best = 0.f;
-  int prim_best = -1;
-  int cur = (t_max > 0.f && tmin <= tmax) ? 0 : -1;
-  int st_node[TPURT_KD_STACK_MAX];
+                   float* __restrict__ b0_out, float* __restrict__ b1_out,
+                   int* __restrict__ counter) {
+  int st_node[TPURT_KD_STACK_MAX];  // local memory; only touched slots cost
   float st_tmin[TPURT_KD_STACK_MAX], st_tmax[TPURT_KD_STACK_MAX];
+  const int lane = threadIdx.x & 31;
+  const float inf = __int_as_float(0x7f800000);
+
+  Ray r;
+  float tmin = 0.f, tmax = 0.f;
+  float t_best = 0.f, b0_best = 0.f, b1_best = 0.f;
+  int prim_best = -1;
+  int ray = -1;   // the ray this lane holds, -1 when none
+  int cur = -1;   // its current reference, -1 when it is done
   int sp = 0, steps = 0;
-  while (cur >= 0) {
-    if (cur >= n_rows) break;  // malformed table
-    const float4* rec = nodes + (size_t)cur * (TPURT_LEAF_ROW4);
-    const float4 tail = rec[31];  // [124] cont, [126] kind
+  int pool = 0, pool_end = 0;  // as traverse_wide_kernel's
+  bool more = true;
+
+  for (;;) {
+    // ---- retire finished rays, fetch new ones ----
+    if (cur < 0 && ray >= 0) {
+      t_out[ray] = t_best;
+      prim_out[ray] = prim_best;
+      b0_out[ray] = b0_best;
+      b1_out[ray] = b1_best;
+      ray = -1;
+    }
+    unsigned alive = __ballot_sync(FULL, cur >= 0);
+    if ((more || pool < pool_end) && __popc(alive) <= K1_REFILL) {
+      const unsigned dead = ~alive;
+      if (pool >= pool_end) {
+        int base = 0;
+        if (lane == 0) base = atomicAdd(counter, K1_CHUNK);
+        base = __shfl_sync(FULL, base, 0);
+        more = base < n;
+        pool = more ? base : 0;
+        pool_end = more ? min(base + K1_CHUNK, n) : 0;
+      }
+      const int mine = pool + __popc(dead & ((1u << lane) - 1u));
+      if (cur < 0 && mine < pool_end) {
+        ray = mine;
+        load_ray<LEAF>(r, o_in, d_in, time_in, ray);
+        const float t_max = t_max_in[ray];
+        // root clip: jnp's minimum / maximum and max / min reductions
+        // propagate NaN, so a ray in the plane of a face (0 * inf) misses
+        const float tx0 = (bounds[0] - r.ox) * r.ix;
+        const float tx1 = (bounds[3] - r.ox) * r.ix;
+        const float ty0 = (bounds[1] - r.oy) * r.iy;
+        const float ty1 = (bounds[4] - r.oy) * r.iy;
+        const float tz0 = (bounds[2] - r.oz) * r.iz;
+        const float tz1 = (bounds[5] - r.oz) * r.iz;
+        const float t_near = max_nan(
+            max_nan(min_nan(tx0, tx1), min_nan(ty0, ty1)), min_nan(tz0, tz1));
+        const float t_far = min_nan(min_nan(max_nan(tx0, tx1),
+                                            max_nan(ty0, ty1)),
+                                    max_nan(tz0, tz1)) * box_scale;
+        tmin = max_nan(t_near, 0.f);
+        tmax = min_nan(t_far, t_max);
+        t_best = t_max;
+        prim_best = -1;
+        b0_best = 0.f;
+        b1_best = 0.f;
+        sp = 0;
+        steps = 0;
+        cur = (t_max > 0.f && tmin <= tmax) ? root_ref : -1;
+      }
+      pool = min(pool + __popc(dead), pool_end);
+      alive = __ballot_sync(FULL, cur >= 0);
+    }
+    if (!alive) {
+      if (!more && pool >= pool_end && !__any_sync(FULL, ray >= 0)) break;
+      continue;
+    }
+
+    // ---- one turn: leaf turns wait for company (the source note) ----
+    const int n_int = __popc(__ballot_sync(FULL, cur >= 0 && !(cur & 1)));
+    const int n_leaf = __popc(__ballot_sync(FULL, cur >= 0 && (cur & 1)));
+    const bool run_leaf = LEAF == TPURT_LEAF_MOTION
+                              ? n_leaf >= K1KM_LEAF_LANES || n_int == 0
+                              : n_int * K1K_INTERIOR_WEIGHT < n_leaf;
+    const bool run_interior = LEAF == TPURT_LEAF_MOTION || !run_leaf;
+    if (cur < 0 || ((cur & 1) ? !run_leaf : !run_interior)) continue;
+    const bool do_interior = !(cur & 1);
+    if ((cur >> 1) >= (do_interior ? n_inodes : n_leaves)) {
+      cur = -1;  // malformed table
+      continue;
+    }
     int nxt = -1;
     bool pop = false;
-    if (tail.z > 0.f) {
-      float t_min = inf, bb0 = 0.f, bb1 = 0.f;
-      int k_best = 0;
-      leaf_test<LEAF == TPURT_LEAF_MOTION>(
-          rec,
-          LEAF == TPURT_LEAF_MOTION ? delta + (size_t)cur * TPURT_LEAF_ROW4
-                                    : nullptr,
-          r, t_best, t_min, k_best, bb0, bb1);
-      if (t_min < t_best) {
-        t_best = t_min;
-        prim_best = reinterpret_cast<const int*>(rec)[108 + k_best];
-        b0_best = bb0;
-        b1_best = bb1;
-      }
-      nxt = __float_as_int(tail.x);
-      pop = nxt < 0;
-    } else {
-      const float4 node = rec[30];  // split, axis, below, above
+    if (do_interior) {
+      const float4 node = inodes[cur >> 1];  // split, axis, below, above
       const float split = node.x;
       const int axis = __float_as_int(node.y);
       const int below = __float_as_int(node.z), above = __float_as_int(node.w);
       const float o_a = axis == 0 ? r.ox : (axis == 1 ? r.oy : r.oz);
       const float inv_a = axis == 0 ? r.ix : (axis == 1 ? r.iy : r.iz);
-      const float d_a = d_in[3 * ray + (axis == 0 ? 0 : (axis == 1 ? 1 : 2))];
+      const float d_a = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
       const float tplane = (split - o_a) * inv_a;
       const bool below_first = (o_a < split) || (o_a == split && d_a <= 0.f);
       const int near = below_first ? below : above;
@@ -891,62 +1231,101 @@ traverse_kd_kernel(const float4* __restrict__ nodes, int n_rows,
           tmax = tplane;
         }
       }
+    } else {
+      const size_t row = (size_t)(cur >> 1);
+      const float4* rec = leaves + row * TPURT_LEAF_ROW4;
+      float t_min = inf, bb0 = 0.f, bb1 = 0.f;
+      int k_best = 0;
+      leaf_test<LEAF == TPURT_LEAF_MOTION>(
+          rec,
+          LEAF == TPURT_LEAF_MOTION ? delta + row * TPURT_LEAF_ROW4 : nullptr,
+          r, t_best, t_min, k_best, bb0, bb1);
+      if (t_min < t_best) {
+        t_best = t_min;
+        prim_best = reinterpret_cast<const int*>(rec)[108 + k_best];
+        b0_best = bb0;
+        b1_best = bb1;
+      }
+      nxt = reinterpret_cast<const int*>(rec)[124];  // the continuation
+      pop = nxt < 0;
     }
     if (pop && sp > 0) {
-      // slots past stack_depth read as (0, 0, 0), like the twin's
+      // slots past stack_depth read as (0, 0, 0), like the twin's: the
+      // twin's row 0 is the root
       const bool ok = sp - 1 < stack_depth;
-      nxt = ok ? st_node[sp - 1] : 0;
+      nxt = ok ? st_node[sp - 1] : root_ref;
       tmin = ok ? st_tmin[sp - 1] : 0.f;
       tmax = ok ? st_tmax[sp - 1] : 0.f;
       --sp;
     }
     if (any_hit && prim_best >= 0) nxt = -1;
-    // a walk reads each row at most once; the bound guards against a
-    // malformed table hanging the card
-    if (++steps > n_rows) nxt = -1;
+    // a walk reads each row at most once; the bound (the record table's
+    // row count, as the twin's) guards against a malformed table
+    if (++steps > step_limit) nxt = -1;
     cur = nxt;
   }
-  t_out[ray] = t_best;
-  prim_out[ray] = prim_best;
-  b0_out[ray] = b0_best;
-  b1_out[ray] = b1_best;
+}
+
+template <int LEAF>
+static int launch_kd(const float* inodes, int n_inodes, const float* leaves,
+                     int n_leaves, const float* delta, const float* time,
+                     const float* bounds, int root_ref, int step_limit,
+                     const float* o, const float* d, const float* t_max,
+                     int n, int stack_depth, int any_hit, float box_scale,
+                     float* t_out, int* prim_out, float* b0_out,
+                     float* b1_out, int* counter, cudaStream_t s) {
+  static int resident[64] = {0};
+  int blocks = 0;
+  int err = fit_grid((const void*)traverse_kd_kernel<LEAF>, resident, n, 0,
+                     &blocks);
+  if (err != 0) return err;
+  err = (int)cudaMemsetAsync(counter, 0, sizeof(int), s);
+  if (err != 0) return err;
+  traverse_kd_kernel<LEAF><<<blocks, TPURT_BLOCK, 0, s>>>(
+      reinterpret_cast<const float4*>(inodes), n_inodes,
+      reinterpret_cast<const float4*>(leaves), n_leaves,
+      reinterpret_cast<const float4*>(delta), time, bounds, root_ref,
+      step_limit, o, d, t_max, n, stack_depth, any_hit, box_scale, t_out,
+      prim_out, b0_out, b1_out, counter);
+  return (int)cudaGetLastError();
 }
 
 // C entry point for ctypes: the kd walk.  leaf_kind TPURT_LEAF_TRI (K1k)
-// or TPURT_LEAF_MOTION (K1km, with delta and time).  nodes: the (n_rows,
-// 128) kd record table; bounds: the root box lo.xyz, hi.xyz.  Launches on
-// `stream`, does not synchronise, allocates nothing; returns
-// cudaGetLastError() (0 = launched).
-extern "C" int tpurt_traverse_kd(int leaf_kind, const float* nodes,
-                                 int n_rows, const float* delta,
+// or TPURT_LEAF_MOTION (K1km, with delta and time).  inodes (n_inodes, 4)
+// and leaves (n_leaves, 128): the derived tables, delta the leaves' delta
+// rows; bounds: the root box lo.xyz, hi.xyz; step_limit: the record
+// table's row count.  Launches on `stream`, does not synchronise,
+// allocates nothing (`counter`: one int of scratch, zeroed here on the
+// stream); returns cudaGetLastError() (0 = launched).
+extern "C" int tpurt_traverse_kd(int leaf_kind, const float* inodes,
+                                 int n_inodes, const float* leaves,
+                                 int n_leaves, const float* delta,
                                  const float* time, const float* bounds,
+                                 int root_ref, int step_limit,
                                  const float* o, const float* d,
                                  const float* t_max, int n, int stack_depth,
                                  int any_hit, float box_scale, float* t_out,
                                  int* prim_out, float* b0_out,
-                                 float* b1_out, void* stream) {
+                                 float* b1_out, int* counter, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (stack_depth > TPURT_KD_STACK_MAX || stack_depth < 1 || n_rows < 1)
+  if (stack_depth > TPURT_KD_STACK_MAX || stack_depth < 1 || n_inodes < 1 ||
+      n_leaves < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = (n + TPURT_KD_BLOCK - 1) / TPURT_KD_BLOCK;
-  const float4* nd = reinterpret_cast<const float4*>(nodes);
   switch (leaf_kind) {
     case TPURT_LEAF_TRI:
-      traverse_kd_kernel<TPURT_LEAF_TRI><<<blocks, TPURT_KD_BLOCK, 0, s>>>(
-          nd, n_rows, nullptr, nullptr, bounds, o, d, t_max, n, stack_depth,
-          any_hit, box_scale, t_out, prim_out, b0_out, b1_out);
-      break;
+      return launch_kd<TPURT_LEAF_TRI>(
+          inodes, n_inodes, leaves, n_leaves, nullptr, nullptr, bounds,
+          root_ref, step_limit, o, d, t_max, n, stack_depth, any_hit,
+          box_scale, t_out, prim_out, b0_out, b1_out, counter, s);
     case TPURT_LEAF_MOTION:
       if (delta == nullptr || time == nullptr)
         return (int)cudaErrorInvalidValue;
-      traverse_kd_kernel<TPURT_LEAF_MOTION><<<blocks, TPURT_KD_BLOCK, 0, s>>>(
-          nd, n_rows, reinterpret_cast<const float4*>(delta), time, bounds, o,
-          d, t_max, n, stack_depth, any_hit, box_scale, t_out, prim_out,
-          b0_out, b1_out);
-      break;
+      return launch_kd<TPURT_LEAF_MOTION>(
+          inodes, n_inodes, leaves, n_leaves, delta, time, bounds, root_ref,
+          step_limit, o, d, t_max, n, stack_depth, any_hit, box_scale, t_out,
+          prim_out, b0_out, b1_out, counter, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

@@ -29,8 +29,10 @@ Under ``Accelerator "kdtree"`` (``geo.accel``) the triangle rays walk the
 kd-tree instead (tpurt's ``_kd_step_fns`` / ``_kd_init_state``,
 intersect.py:1038-1162): K1k over static triangles, K1km with the motion
 delta rows, both instantiations of the kd walk in traverse.cu, which
-shares K1's leaf test; ``traverse_kd_reference`` is their plain twin.
-Curves keep K1c.
+shares K1's scheduler and leaf test and reads the kd tables derived at
+upload (``render.intersect.derive_kd_tables``: ``geo.kinodes``,
+``geo.kleaves``); ``traverse_kd_reference`` is their plain twin, over the
+record table ``geo.knodes``.  Curves keep K1c.
 """
 
 from __future__ import annotations
@@ -43,9 +45,9 @@ import torch
 from tpurt_torch.geom.wbvh import LEAF_K, REC, SLOT_KIND, WIDTH
 from tpurt_torch.kernels import build
 from tpurt_torch.render.intersect import (
-    _BOX_T_SCALE, CHILD_LO, CURVE_AUX, CURVE_PRIM_LO, CURVE_W, INF,
+    _BOX_T_SCALE, CHILD_LO, CURVE_AUX, CURVE_PRIM_LO, INF,
     INTERIOR_REC, PRIM_LO, SORT8, _box8_test, _curve_bundle_test,
-    _tri_bundle_test, safe_inv_dir)
+    _tri_bundle_test, curve_span_cull, safe_inv_dir)
 
 SOURCE = "traverse.cu"
 # IEEE rounding of every op, in the twin's order: no FMA contraction
@@ -75,12 +77,12 @@ def load_library() -> build.KernelLibrary:
 def _bind(cdll) -> None:
     fn = cdll.tpurt_traverse_wide
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ci, vp, ci, vp, ci, vp, vp, ci, ci, vp, vp, vp, vp,
+    fn.argtypes = [ci, vp, ci, vp, ci, vp, vp, ci, ci, vp, vp, vp,
                    ci, ci, ci, ctypes.c_float, vp, vp, vp, vp, vp, vp]
     fn.restype = ci
     fn = cdll.tpurt_traverse_kd
-    fn.argtypes = [ci, vp, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                   ctypes.c_float, vp, vp, vp, vp, vp]
+    fn.argtypes = [ci, vp, ci, vp, ci, vp, vp, vp, ci, ci, vp, vp, vp, ci,
+                   ci, ci, ctypes.c_float, vp, vp, vp, vp, vp, vp]
     fn.restype = ci
 
 
@@ -100,17 +102,19 @@ def leaf_kind(geo, time, tree: str) -> str:
 
 def _launch_kd(geo, o, d, t_max, any_hit: bool, time, kind: str):
     """Check the inputs and launch the kd walk (K1k, or K1km with the
-    delta rows and ray times) on the current stream; returns (t, prim,
-    b0, b1)."""
+    delta rows and ray times) on the current stream over the tables
+    derived at upload (``geo.kinodes``, ``geo.kleaves``); returns (t,
+    prim, b0, b1)."""
     n = o.shape[0]
     dev = o.device
-    m = geo.knodes.shape[0]
+    mi, ml = geo.kinodes.shape[0], geo.kleaves.shape[0]
     motion = kind == "kd_motion"
-    build.check_tensor("knodes", geo.knodes, torch.float32, (m, REC), dev)
+    build.check_tensor("kinodes", geo.kinodes, torch.float32, (mi, 4), dev)
+    build.check_tensor("kleaves", geo.kleaves, torch.float32, (ml, REC), dev)
     build.check_tensor("kbounds", geo.kbounds, torch.float32, (2, 3), dev)
     if motion:
-        build.check_tensor("knodes_delta", geo.knodes_delta, torch.float32,
-                           (m, REC), dev)
+        build.check_tensor("kleaves_delta", geo.kleaves_delta, torch.float32,
+                           (ml, REC), dev)
         build.check_tensor("time", time, torch.float32, (n,), dev)
     build.check_tensor("o", o, torch.float32, (n, 3), dev)
     build.check_tensor("d", d, torch.float32, (n, 3), dev)
@@ -124,14 +128,17 @@ def _launch_kd(geo, o, d, t_max, any_hit: bool, time, kind: str):
     b1 = torch.empty(n, dtype=torch.float32, device=dev)
     if n == 0:
         return t, prim, b0, b1
+    counter = torch.empty(1, dtype=torch.int32, device=dev)  # ray fetch
     with torch.cuda.device(dev):
         err = load_library().cdll.tpurt_traverse_kd(
-            LEAF_KINDS[kind][0], geo.knodes.data_ptr(), m,
-            geo.knodes_delta.data_ptr() if motion else 0,
+            LEAF_KINDS[kind][0], geo.kinodes.data_ptr(), mi,
+            geo.kleaves.data_ptr(), ml,
+            geo.kleaves_delta.data_ptr() if motion else 0,
             time.data_ptr() if motion else 0, geo.kbounds.data_ptr(),
-            o.data_ptr(), d.data_ptr(), t_max.data_ptr(), n,
-            geo.kstack_depth, int(bool(any_hit)), _BOX_T_SCALE,
-            t.data_ptr(), prim.data_ptr(), b0.data_ptr(), b1.data_ptr(),
+            geo.kroot_ref, geo.knodes.shape[0], o.data_ptr(), d.data_ptr(),
+            t_max.data_ptr(), n, geo.kstack_depth, int(bool(any_hit)),
+            _BOX_T_SCALE, t.data_ptr(), prim.data_ptr(), b0.data_ptr(),
+            b1.data_ptr(), counter.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.raise_on_error(f"traverse_kd_kernel ({LEAF_KINDS[kind][1]})", err)
     return t, prim, b0, b1
@@ -182,24 +189,13 @@ def _launch(geo, o, d, t_max, any_hit: bool, time, kind: str):
             ml, 0 if side is None else side.data_ptr(),
             time.data_ptr() if kind == "motion" else 0,
             geo.croot_ref if curve else geo.root_ref, nodes.shape[0],
-            o.data_ptr(), d.data_ptr(), t_max.data_ptr(), _curve_w(dev),
-            n, depth, int(bool(any_hit)), _BOX_T_SCALE, t.data_ptr(),
-            prim.data_ptr(), b0.data_ptr(), b1.data_ptr(),
-            counter.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            o.data_ptr(), d.data_ptr(), t_max.data_ptr(), n, depth,
+            int(bool(any_hit)), _BOX_T_SCALE, t.data_ptr(), prim.data_ptr(),
+            b0.data_ptr(), b1.data_ptr(), counter.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     build.raise_on_error(f"traverse_wide_kernel ({LEAF_KINDS[kind][1]})",
                          err)
     return t, prim, b0, b1
-
-
-@functools.lru_cache(maxsize=None)
-def _curve_w_tensor(dev: str) -> torch.Tensor:
-    return torch.tensor(CURVE_W, dtype=torch.float32, device=dev)
-
-
-def _curve_w(dev) -> int:
-    """Device pointer to the (8, 4, 4) f32 blossom weights the curve body
-    reads (the twin's CURVE_W, each rounded to f32 once)."""
-    return _curve_w_tensor(str(dev)).data_ptr()
 
 
 def traverse_wide(geo, o, d, t_max, any_hit: bool, time=None,
@@ -264,7 +260,8 @@ def traverse_wide_reference(geo, o, d, t_max, any_hit: bool, time=None,
     more children hit, where an order is needed), and the distinct records
     read: "interior_records", "leaf_records", and "hit_leaves", the leaves
     in which some lane found a closer hit (whose prim rows are then
-    read)."""
+    read).  On the curve tree "spans_near" counts the spans that pass
+    ``curve_span_cull`` (the only ones whose sub-segments K1c tests)."""
     traverse_wide_reference.calls += 1
     kind = leaf_kind(geo, time, tree)
     curve = kind == "curve"
@@ -288,7 +285,7 @@ def traverse_wide_reference(geo, o, d, t_max, any_hit: bool, time=None,
         seen = torch.zeros(nodes.shape[0], dtype=torch.bool, device=dev)
         seen_hit = torch.zeros_like(seen)
         stats.update(leaf_steps=0, interior_steps=0, children=0,
-                     triangles=0, sorts=0)
+                     triangles=0, sorts=0, spans_near=0)
     steps = 0
     while live.numel() and steps <= nodes.shape[0]:
         steps += 1
@@ -328,6 +325,10 @@ def traverse_wide_reference(geo, o, d, t_max, any_hit: bool, time=None,
                 stats["triangles"] += int(
                     (~torch.isnan(lrec[:, :leaf_k])).sum())
                 seen_hit[cur[lanes[better]]] = True
+                if curve:
+                    stats["spans_near"] += int(curve_span_cull(
+                        o[lanes], d[lanes], t_best[lanes], lrec,
+                        None if aux is None else aux[rows]).sum())
             bl = lanes[better]
             kb = kbest[better]
             t_best[bl] = t_min[better]

@@ -113,6 +113,70 @@ def derive_traversal_tables(wnodes: np.ndarray, leaf_side=()) -> dict:
                 irow=irow, lrow=lrow, side=side)
 
 
+def derive_kd_tables(knodes: np.ndarray, delta=None) -> dict:
+    """The tables the kd walk's kernel reads (K1k, K1km), from the kd
+    record table ``knodes`` (geom/kdtree.py), which stays what the plain
+    twin reads.  The rows reachable from row 0 (through child links and
+    leaf continuations) are split by kind, each in row order (the
+    builder's depth-first order, so a node's below child follows it):
+      kinodes (Mi, 4) f32: an interior row's split, axis (i32) and the
+          below and above children's references (i32): 16 bytes a node;
+      kleaves (Ml, 128) f32: the leaf rows as they are (K1's leaf test
+          reads them), slot SLOT_CONT rewritten to the continuation's
+          reference (-1: none);
+      kleaves_delta (Ml, 128): ``delta``'s rows in kleaves order, or None.
+    A reference is ``2 * row + kind``: ``row`` in kinodes (kind 0) or in
+    kleaves (kind 1), so the walk knows a node's kind before it reads it;
+    ``kroot_ref`` is row 0's.  ``kirow`` / ``klrow`` (int32) give each
+    packed row's row in knodes."""
+    from tpurt_torch.geom.kdtree import (SLOT_ABOVE, SLOT_AXIS, SLOT_BELOW,
+                                         SLOT_CONT, SLOT_SPLIT)
+
+    m = knodes.shape[0]
+    is_leaf = knodes[:, SLOT_KIND] > 0
+    ints = np.ascontiguousarray(knodes).view(np.int32)
+    reach = np.zeros(m, bool)
+    reach[0] = True
+    front = np.array([0])
+    while front.size:
+        kids = np.concatenate([
+            ints[front[~is_leaf[front]]][:, [SLOT_BELOW, SLOT_ABOVE]].ravel(),
+            ints[front[is_leaf[front]], SLOT_CONT]])
+        kids = np.unique(kids[(kids >= 0) & (kids < m)])
+        front = kids[~reach[kids]]
+        reach[front] = True
+    irow = np.nonzero(reach & ~is_leaf)[0].astype(np.int32)
+    lrow = np.nonzero(reach & is_leaf)[0].astype(np.int32)
+    ref = np.full(m, -1, np.int32)
+    ref[irow] = 2 * np.arange(len(irow), dtype=np.int32)
+    ref[lrow] = 2 * np.arange(len(lrow), dtype=np.int32) + 1
+
+    def ref_of(rows):
+        return np.where(rows >= 0, ref[np.clip(rows, 0, m - 1)], -1)
+
+    # at least one row each, so the kernel never gets a null table
+    kinodes = np.zeros((max(len(irow), 1), 4), np.float32)
+    kinodes[:len(irow), 0] = knodes[irow, SLOT_SPLIT]
+    kin = kinodes.view(np.int32)
+    kin[:len(irow), 1] = ints[irow, SLOT_AXIS]
+    kin[:len(irow), 2] = ref_of(ints[irow, SLOT_BELOW])
+    kin[:len(irow), 3] = ref_of(ints[irow, SLOT_ABOVE])
+    kleaves = np.zeros((max(len(lrow), 1), knodes.shape[1]), np.float32)
+    kleaves[:, 0:PRIM_LO] = np.nan
+    kleaves[:, PRIM_LO:PRIM_LO + LEAF_K] = np.int32(-1).view(np.float32)
+    kleaves[:, SLOT_KIND] = 1.0
+    kleaves[:len(lrow)] = knodes[lrow]
+    kleaves.view(np.int32)[:, SLOT_CONT] = -1
+    kleaves.view(np.int32)[:len(lrow), SLOT_CONT] = ref_of(
+        ints[lrow, SLOT_CONT])
+    kdelta = None
+    if delta is not None:
+        kdelta = np.zeros(kleaves.shape, np.float32)
+        kdelta[:len(lrow)] = delta[lrow]
+    return dict(kinodes=kinodes, kleaves=kleaves, kleaves_delta=kdelta,
+                kroot_ref=int(ref[0]), kirow=irow, klrow=lrow)
+
+
 def _stack_depth(depth: int) -> int:
     """tpurt's power-of-two stack sizing for a wide tree of ``depth``
     levels: worst-case residency is (W-1) pushes per interior level."""
@@ -170,9 +234,10 @@ class DeviceGeometry:
     slots 120-123, leaf rows the BVH leaf's 12-triangle bundle and their
     continuation row in slot 124), which the twin and the kernel both
     read; knodes_delta (Mk, 128) its motion delta rows; kbounds (2, 3)
-    the root's clip box; kstack_depth the walk's interval-stack slots.
-    Triangle rays walk it; curves keep their tree and quadrics their
-    passes.
+    the root's clip box; kstack_depth the walk's interval-stack slots;
+    kinodes, kleaves, kleaves_delta, kroot_ref the kernel's tables,
+    derived from knodes at upload (``derive_kd_tables``).  Triangle rays
+    walk it; curves keep their tree and quadrics their passes.
     """
 
     wnodes: torch.Tensor
@@ -210,6 +275,10 @@ class DeviceGeometry:
     knodes_delta: torch.Tensor = None
     kbounds: torch.Tensor = None
     kstack_depth: int = 32
+    kinodes: torch.Tensor = None
+    kleaves: torch.Tensor = None
+    kleaves_delta: torch.Tensor = None
+    kroot_ref: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -329,6 +398,11 @@ class DeviceGeometry:
                           croot_ref=ctrav["root_ref"],
                           cleaves_aux=ctrav["side"][0] if aux is not None
                           else None)
+        if tables.get("knodes") is not None:
+            ktrav = derive_kd_tables(tables["knodes"],
+                                     tables.get("knodes_delta"))
+            tables.update({k: ktrav[k] for k in (
+                "kinodes", "kleaves", "kleaves_delta", "kroot_ref")})
         kw = {k: (torch.tensor(v, device=device)
                   if isinstance(v, np.ndarray) else v)
               for k, v in tables.items()}
@@ -479,24 +553,13 @@ def _sqrt_ieee(x):
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
-def _curve_bundle_test(o, d, t_max, rec, aux=None):
-    """Test the WIDTH curve spans fused in a curve leaf record (tpurt's
-    _curve_bundle_test, intersect.py:751-897; curve.cpp:139-374).
-
-    Each span's 4 control points are projected into the per-(lane, span)
-    ray frame (LookAt basis, curve.cpp:162-174), split into
-    2^CURVE_LEAF_SUBDIV sub-segments by constant blossom weights, and
-    each sub-segment runs the depth-0 width test (curve.cpp:289-373).
-    o, d: (N, 3); t_max: (N,); rec: (N, 128); aux: (N, 64) ribbon rows or
-    None.  Returns (hit, t, s, v) each (N, WIDTH): s is the span-local
-    curve parameter, v the width coordinate.  NaN control-point pads
-    never pass a comparison.  tpurt's documented deviation is kept:
-    within one span the closest sub-segment hit wins (the reference keeps
-    the last in u order)."""
+def _curve_project(o, d, rec):
+    """Each (lane, span)'s 4 control points in the lane's ray frame
+    (LookAt basis, curve.cpp:162-174), as tpurt's _curve_bundle_test
+    computes them: returns (rx, ry, rz) (lists of 4 (N, WIDTH) tensors)
+    and (dl, dxx, dyy, dzz), |d| and d's columns (N, 1)."""
     W_ = WIDTH
     c = [rec[:, i * W_:(i + 1) * W_] for i in range(12)]  # (N, W) each
-    w0 = rec[:, 12 * W_:13 * W_]
-    w1 = rec[:, 13 * W_:14 * W_]
 
     ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
     dxx, dyy, dzz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
@@ -534,6 +597,27 @@ def _curve_bundle_test(o, d, t_max, rec, aux=None):
         rx.append(qx * xx + qy * xy + qz * xz)
         ry.append(qx * yx + qy * yy + qz * yz)
         rz.append(qx * hx + qy * hy + qz * hz)
+    return rx, ry, rz, (dl, dxx, dyy, dzz)
+
+
+def _curve_bundle_test(o, d, t_max, rec, aux=None):
+    """Test the WIDTH curve spans fused in a curve leaf record (tpurt's
+    _curve_bundle_test, intersect.py:751-897; curve.cpp:139-374).
+
+    Each span's 4 control points are projected into the per-(lane, span)
+    ray frame (LookAt basis, curve.cpp:162-174), split into
+    2^CURVE_LEAF_SUBDIV sub-segments by constant blossom weights, and
+    each sub-segment runs the depth-0 width test (curve.cpp:289-373).
+    o, d: (N, 3); t_max: (N,); rec: (N, 128); aux: (N, 64) ribbon rows or
+    None.  Returns (hit, t, s, v) each (N, WIDTH): s is the span-local
+    curve parameter, v the width coordinate.  NaN control-point pads
+    never pass a comparison.  tpurt's documented deviation is kept:
+    within one span the closest sub-segment hit wins (the reference keeps
+    the last in u order)."""
+    W_ = WIDTH
+    w0 = rec[:, 12 * W_:13 * W_]
+    w1 = rec[:, 13 * W_:14 * W_]
+    rx, ry, rz, (dl, dxx, dyy, dzz) = _curve_project(o, d, rec)
 
     z_lim = dl * t_max[:, None]
     if aux is not None:
@@ -609,6 +693,79 @@ def _curve_bundle_test(o, d, t_max, rec, aux=None):
         s_best = torch.where(better, s, s_best)
         v_best = torch.where(better, v_j, v_best)
     return torch.isfinite(t_best), t_best, s_best, v_best
+
+
+# the span cull's pads (curve_span_cull): the hull's, 2^6 ulps of the
+# span's largest |coordinate| (2^-18) plus an absolute 2^-140 against
+# subnormal sums; the radius's, a relative 2^-16 plus an absolute 2^-61
+# against squares that underflow
+CULL_HULL_REL = 2.0 ** -18
+CULL_HULL_ABS = 2.0 ** -140
+CULL_R_REL = 1.0 + 2.0 ** -16
+CULL_R_ABS = 2.0 ** -61
+
+
+def curve_span_cull(o, d, t_max, rec, aux=None):
+    """(N, WIDTH) bool: the curve spans of each lane's leaf record that
+    may hold a hit below t_max; _curve_bundle_test can hit no other.  The
+    plain copy of the traversal kernel's span cull (K1c, traverse.cu:
+    ``span_near``), op for op, and the test pbrt's recursiveIntersect makes
+    before its depth-0 branch (curve.cpp): the hull of the span's 4
+    projected control points against the disc the width can reach and
+    against (0, z_lim).
+
+    Why it never drops a hit: blossom weights are non-negative and sum to
+    1, so each sub-segment's control points and the evaluated point pc lie
+    in that hull; rounding moves pc out by at most ~20 ulps of the span's
+    largest |coordinate| (4 products summed, 3 levels of lerps), and the
+    hull is padded by 64.  The half-width is w0 + (w1 - w0) s with s in
+    [0, 1], at most max(|w0|, |w1|) / 2 a few ulps over; a ribbon scales it
+    by |nh . d| / |d| <= |s0| |n0| + |s1| |n1|, where |s0|, |s1| <= 1 on
+    the linear branch (angle < 1e-4) and <= |1/sin(angle)| on the slerp.
+    The radius is padded by 2^-16 relative and 2^-61 absolute, which covers
+    dist^2 <= hw^2 / 4 rounding or underflowing.  pcz > 0 and pcz < z_lim
+    cannot hold when the padded z range lies outside (0, z_lim).  A NaN
+    anywhere (pad slots) fails every comparison: such a span never hits."""
+    W_ = WIDTH
+    w0 = rec[:, 12 * W_:13 * W_]
+    w1 = rec[:, 13 * W_:14 * W_]
+    rx, ry, rz, (dl, dxx, dyy, dzz) = _curve_project(o, d, rec)
+    z_lim = dl * t_max[:, None]
+    big = rx[0].abs()
+    for v in rx[1:] + ry + rz:
+        big = torch.maximum(big, v.abs())
+    pad = big * CULL_HULL_REL + CULL_HULL_ABS
+
+    def lo_hi(r):
+        lo = torch.minimum(torch.minimum(r[0], r[1]),
+                           torch.minimum(r[2], r[3]))
+        hi = torch.maximum(torch.maximum(r[0], r[1]),
+                           torch.maximum(r[2], r[3]))
+        return lo - pad, hi + pad
+
+    xlo, xhi = lo_hi(rx)
+    ylo, yhi = lo_hi(ry)
+    zlo, zhi = lo_hi(rz)
+    zero = torch.zeros_like(xlo)
+    gx = torch.maximum(torch.maximum(xlo, -xhi), zero)
+    gy = torch.maximum(torch.maximum(ylo, -yhi), zero)
+    half = torch.maximum(w0.abs(), w1.abs()) * 0.5
+    if aux is not None:
+        n0x, n0y, n0z = aux[:, 0:W_], aux[:, W_:2 * W_], aux[:, 2 * W_:3 * W_]
+        n1x, n1y, n1z = (aux[:, 3 * W_:4 * W_], aux[:, 4 * W_:5 * W_],
+                         aux[:, 5 * W_:6 * W_])
+        ang = aux[:, 6 * W_:7 * W_]
+        inv_sin = aux[:, 7 * W_:8 * W_]
+        n0 = n0x * n0x + n0y * n0y + n0z * n0z
+        n1 = n1x * n1x + n1y * n1y + n1z * n1z
+        slerp = torch.where(ang < 1e-4, 1.0,
+                            torch.maximum(inv_sin.abs(),
+                                          torch.ones_like(inv_sin)))
+        rib = (_sqrt_ieee(n0) + _sqrt_ieee(n1)) * slerp
+        half = torch.where(n0 > 0.5, half * rib, half)
+    rad = half * CULL_R_REL + CULL_R_ABS
+    return ((gx <= rad) & (gy <= rad) & (gx * gx + gy * gy <= rad * rad)
+            & (zhi > 0) & (zlo < z_lim))
 
 
 def _box8_test(rec, o, inv_d, t_max):
