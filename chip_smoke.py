@@ -102,7 +102,10 @@ Phases (any failure exits non-zero; none is caught):
      must have launched, its static body and the plain traversal not; the
      motion and the hair show against renders with each switched off
      (e_checks); K1m and K1c against their plain versions on every call
-     of E's camera rays and first two bounce steps; one warm-up and the
+     of E's camera rays and first two bounce steps (K1m bit for bit: t,
+     prim, b0 and b1 on every lane; its bound charges the lerps and
+     watertight tests only to the triangle groups that pass its cull, the
+     bound without the cull printed beside it); one warm-up and the
      timed renders (motion_hair_render_s, peak memory); E under
      Integrator "rpf" at 256x256 through the CLI; E at 64x64 on the card
      against the CPU (phase 9's bounds).  Frames A-D must launch only the
@@ -186,7 +189,8 @@ Phases (any failure exits non-zero; none is caught):
      and K's image against A's (phase 9's bounds); frame E under the
      kd-tree at 256x256 through render() (K1km and K1c launched, no other
      body, no plain traversal) and K1km against its twin on E's camera
-     rays and first bounce step; under --profile one profiled frame of K
+     rays and first bounce step, bit for bit; under --profile one
+     profiled frame of K
 K1 on every path: phase 4 holds the kernel to its plain version on path
 A's rays; paths B, C1, C2 and the whitted variant walk other scenes or
 other rays, so each records the calls K1's wrapper receives while 2^20
@@ -238,9 +242,20 @@ K1_OPS_SORT = 19 * 3
 K1_BYTES_INTERIOR = 56 * 4
 K1_BYTES_LEAF = 108 * 4
 K1_BYTES_PRIMS = 12 * 4
-# K1m: the 9 lerps (a product and a sum each) of a triangle's vertex
-# coordinates; its leaf's delta rows are as many bytes again as the leaf's
+# K1m / K1km: the 9 lerps (a product and a sum each) of a triangle's
+# vertex coordinates; a group of 4 triangles' 9 vertex rows and 9 delta
+# rows (16 B each) are read only for the groups that pass the group cull
+# (motion_group_cull: the box lerped to the ray's time, its pad and the
+# slab test, ~70 operations), whose box row is read for every leaf.  The
+# work the algorithm needs, which is the bound: the cull of every live
+# group, the lerps and the 4 watertight tests only of the groups that pass
+# it (the twin's "groups_near"); the bound without the cull, every
+# triangle lerped and tested and the whole delta rows read, is printed
+# beside it
 K1M_OPS_LERP = 9 * 2
+K1M_OPS_CULL = 70
+K1M_BYTES_BOX = 3 * 48
+K1M_BYTES_GROUP = 2 * 9 * 16
 # K1c: a curve leaf's 8 spans of 12 control-point coordinates and 2
 # widths, its ribbon aux row and its 8 prim rows; a span's arithmetic in
 # the twin's _curve_bundle_test: its ray frame and projection (~90), then
@@ -438,7 +453,10 @@ def k1_work(geo, rays, w=None):
     triangles or curve spans of every record read, and a sort only where
     two or more children were hit; for curve spans the frame and cull of
     every span and the sub-segments only of those that pass the cull (the
-    text also gives the bound with the sub-segments of every span).
+    text also gives the bound with the sub-segments of every span); for
+    moving triangles (K1m) the group cull of every live group and the rows,
+    lerps and tests only of the groups that pass it (motion_work; the text
+    also gives the bound without the cull).
     ``w``: the plain version's counts of these rays when the caller has
     them, else they are counted here."""
     from tpurt_torch.kernels.traverse import leaf_kind, traverse_reference
@@ -457,16 +475,17 @@ def k1_work(geo, rays, w=None):
                                    else K1C_BYTES_AUX)
         prim_b, prim_ops = K1C_BYTES_PRIMS, K1C_OPS_CULL
     else:
-        leaf_b = K1_BYTES_LEAF * (2 if kind == "motion" else 1)
+        leaf_b = K1_BYTES_LEAF
         prim_b = K1_BYTES_PRIMS
-        prim_ops = K1_OPS_TRIANGLE + (K1M_OPS_LERP if kind == "motion"
-                                      else 0)
+        prim_ops = K1_OPS_TRIANGLE
     nbytes = (w["interior_records"] * K1_BYTES_INTERIOR
               + w["leaf_records"] * leaf_b + w["hit_leaves"] * prim_b
               + n * (7 * 4 + 4 * 4 + (4 if kind == "motion" else 0)))
     ops = (w["children"] * K1_OPS_CHILD + w["triangles"] * prim_ops
            + w["sorts"] * K1_OPS_SORT)
     curve_note = ""
+    if kind == "motion":
+        nbytes, ops, curve_note = motion_work(w, nbytes, ops)
     if kind == "curve":
         ops_all = ops + w["triangles"] * (K1C_OPS_SPAN - K1C_OPS_CULL)
         ops += w["spans_near"] * K1C_OPS_SUBSEGMENTS
@@ -493,6 +512,31 @@ def k1_work(geo, rays, w=None):
         f"{curve_note}")
 
 
+def motion_work(w: dict, nbytes: float, ops: float):
+    """(bytes, operations, note) of a motion body (K1m, K1km) from its
+    static counterpart's ``nbytes`` and ``ops`` over the same records (a
+    leaf's vertex rows read, every triangle tested) and the twin's counts
+    ``w``: the leaf's box row in place of its vertex rows, the cull of
+    every live group, and the vertex and delta rows, lerps and 4 tests of
+    the groups that pass it.  The note gives the groups and the bound
+    without the cull (every triangle lerped and tested, every leaf's
+    delta rows read)."""
+    all_b = nbytes + w["leaf_records"] * K1_BYTES_LEAF
+    all_ops = ops + w["triangles"] * K1M_OPS_LERP
+    nbytes += (w["leaf_records"] * (K1M_BYTES_BOX - K1_BYTES_LEAF)
+               + w["near_group_records"] * K1M_BYTES_GROUP)
+    ops += (w["groups"] * K1M_OPS_CULL
+            + w["groups_near"] * 4 * (K1_OPS_TRIANGLE + K1M_OPS_LERP)
+            - w["triangles"] * K1_OPS_TRIANGLE)
+    all_ms, all_by = bound(all_b, all_ops)
+    return nbytes, ops, (
+        f"; {w['groups']} live groups, {w['groups_near']} pass the cull "
+        f"({w['groups_near'] / max(w['groups'], 1):.4f}; "
+        f"{w['near_group_records']} distinct); without the cull "
+        f"{all_b / 1e6:.2f} MB, {all_ops / 1e9:.3f} Gop, bound "
+        f"{all_ms:.4f} ms ({all_by})")
+
+
 def kd_work(kind: str, n: int, w: dict):
     """k1_work's (bound_ms, bound_by, text) for the kd walk, from the kd
     twin's counts ``w`` of these n rays: each distinct row's live bytes
@@ -502,13 +546,14 @@ def kd_work(kind: str, n: int, w: dict):
     root clip."""
     motion = kind == "kd_motion"
     nbytes = (w["interior_records"] * K1K_BYTES_INTERIOR
-              + w["leaf_records"] * (K1K_BYTES_LEAF
-                                     + (108 * 4 if motion else 0))
+              + w["leaf_records"] * K1K_BYTES_LEAF
               + w["hit_leaves"] * K1_BYTES_PRIMS
               + n * (7 * 4 + 4 * 4 + (4 if motion else 0)))
     ops = (w["interior_steps"] * K1K_OPS_INTERIOR + n * K1K_OPS_RAY
-           + w["triangles"] * (K1_OPS_TRIANGLE
-                               + (K1M_OPS_LERP if motion else 0)))
+           + w["triangles"] * K1_OPS_TRIANGLE)
+    note = ""
+    if motion:
+        nbytes, ops, note = motion_work(w, nbytes, ops)
     b_ms, o_ms = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
     bound_ms, bound_by = bound(nbytes, ops)
     steps = w["interior_steps"] + w["leaf_steps"]
@@ -519,7 +564,18 @@ def kd_work(kind: str, n: int, w: dict):
         f"a hit); {w['triangles']} triangles "
         f"({w['triangles'] / max(w['leaf_steps'], 1):.2f} a leaf); "
         f"{nbytes / 1e6:.2f} MB ({b_ms:.4f} ms), {ops / 1e9:.3f} Gop "
-        f"({o_ms:.4f} ms); bound {bound_ms:.4f} ms ({bound_by})")
+        f"({o_ms:.4f} ms); bound {bound_ms:.4f} ms ({bound_by}){note}")
+
+
+def bit_unequal(ref, ker) -> int:
+    """The number of lanes on which t, prim, b0 or b1 of the kernel and the
+    plain version differ in any bit (a count: a float32 mean of an
+    all-equal mask can round below 1)."""
+    same = torch.ones_like(ref[1], dtype=torch.bool)
+    for a, b in zip(ref, ker):
+        same &= a.contiguous().view(torch.int32) == b.contiguous().view(
+            torch.int32)
+    return int((~same).sum().item())
 
 
 def k1_agreement(ref, ker, any_hit):
@@ -632,7 +688,10 @@ def k1_on_path(label: str, job, bounces: int, cfg=None):
     rtol 1e-5 on >= 99.99% of common hits), with the work its rays need,
     the bound from it, the kernel's time per launch in bursts of 10 and
     the plain version's.  Returns one record a call for the kernels line;
-    these launches are made outside the counted runs."""
+    these launches are made outside the counted runs.  The motion bodies
+    (K1m, K1km) must equal the plain version bit for bit on every lane
+    (t, prim, b0, b1); every body's count of lanes that differ is
+    printed."""
     calls = frame_ray_calls(job, bounces, cfg)
     assert calls and not calls[0][3], label
     return k1_on_calls(label, job.scene.geo, calls)
@@ -656,6 +715,7 @@ def k1_on_calls(label: str, geo, calls):
         ker = traverse_wide(geo, o, d, tm, **kw)
         torch.cuda.synchronize()
         agree, t_ok, t_err = k1_agreement(ref, ker, any_hit)
+        unequal = bit_unequal(ref, ker)
         b_ms, b_by, text = k1_work(geo, rays, w)
         ms_one = cuda_ms(lambda: traverse_wide(geo, o, d, tm, **kw))
         ms = cuda_ms(lambda: traverse_wide(geo, o, d, tm, **kw), burst=10)
@@ -667,11 +727,17 @@ def k1_on_calls(label: str, geo, calls):
               f"{(tm > 0).float().mean().item():.3f}, hits "
               f"{(ker[1] >= 0).float().mean().item():.3f}): agree "
               f"{agree:.6f}, t within rtol 1e-5 {t_ok:.6f}, max |dt| "
-              f"{t_err:.3e}; kernel {ms_one:.4f} ms one launch, {ms:.4f} ms "
-              f"in bursts, plain {plain:.3f} ms")
+              f"{t_err:.3e}, t prim b0 b1 bit-equal on all but {unequal} "
+              f"of {o.shape[0]} lanes; kernel "
+              f"{ms_one:.4f} ms one launch, {ms:.4f} ms in bursts, plain "
+              f"{plain:.3f} ms")
         assert agree >= 0.9999 and t_ok >= 0.9999, (label, i, agree, t_ok)
+        assert unequal == 0 or body not in ("K1m", "K1km"), (label, i,
+                                                              unequal)
         out.append(dict(body=body, rays=o.shape[0], any_hit=any_hit,
-                        agree=agree, max_abs_err=t_err, ms=ms_one,
+                        agree=agree, bit_unequal_lanes=unequal,
+                        max_abs_err=t_err,
+                        ms=ms_one,
                         ms_burst=ms, plain_ms=plain, bound_ms=b_ms,
                         bound_by=b_by))
     return out
@@ -1313,6 +1379,7 @@ def e_checks(job, img):
 
     from tpurt_torch.render.bsdf import LobeSet
     from tpurt_torch.render.driver import render_job
+    from tpurt_torch.render.intersect import motion_group_boxes
     from tpurt_torch.render.materials_build import C_KIND, MAT_HAIR
 
     geo = job.scene.geo
@@ -1329,9 +1396,11 @@ def e_checks(job, img):
                    == MAT_HAIR) & (mat >= 0)
     hair = (is_hair[h0] & is_hair[h1]).reshape(shape).cpu().numpy()
 
+    dead_delta = torch.zeros_like(geo.leaves_delta)
     dead_geo = dataclasses.replace(
         geo, wnodes_delta=torch.zeros_like(geo.wnodes_delta),
-        leaves_delta=torch.zeros_like(geo.leaves_delta),
+        leaves_delta=dead_delta,
+        leaves_box=motion_group_boxes(geo.leaves, dead_delta),
         shade_delta=torch.zeros_like(geo.shade_delta))
     img_dm = render_job(dataclasses.replace(
         job, scene=dataclasses.replace(job.scene, geo=dead_geo)))

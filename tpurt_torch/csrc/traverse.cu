@@ -15,7 +15,11 @@
 //   K1  (TPURT_LEAF_TRI): 12 static triangles a leaf;
 //   K1m (TPURT_LEAF_MOTION): the same triangles lerped to the ray's time,
 //     v + time * dv, by the per-leaf delta rows that mirror the leaf table
-//     (tpurt's _tri_bundle_test(drec, time), intersect.py:669-725);
+//     (tpurt's _tri_bundle_test(drec, time), intersect.py:669-725).  A
+//     motion leaf turn is the whole warp's (motion_leaf_turn, below): each
+//     group of 4 triangles of every leaf lane is culled by its box at the
+//     ray's time (group_near) a lane each, and the survivors lerped and
+//     tested a group a lane;
 //   K1c (TPURT_LEAF_CURVE): 8 cubic Bezier spans a leaf of the curve tree,
 //     each split into 8 sub-segments by constant blossom weights and run
 //     through pbrt's depth-0 width test (tpurt's _curve_bundle_test,
@@ -104,10 +108,13 @@
 // blocks per SM the register budget is set for: 80 registers, no spills
 // (4 gives 96 registers and the same times, 8 spills)
 #define K1_MINBLOCKS 6
-// the motion body holds a leaf group's delta rows beside its vertices, the
-// curve body a span's ray frame and projected control points (and 31 KB of
-// shared memory a block: its warps' job lists, span queues and results)
-#define K1M_MINBLOCKS 5
+// the motion bodies hold a leaf group's delta rows beside its vertices
+// (K1m also 7 KB of shared memory a block: its warps' job lists and
+// results), the curve body a span's ray frame and projected control points
+// (and 31 KB: its job lists, span queues and results).  At 4 blocks an SM
+// K1m takes 124 registers and K1km 126, no spills; at 5 (96 registers) K1m
+// spilled 90 B and was 2-4% slower, K1km 84 B and 8-15% slower
+#define K1M_MINBLOCKS 4
 #define K1C_MINBLOCKS 4
 
 #define TPURT_LEAF_TRI 0     // LEAF_KINDS in kernels/traverse.py
@@ -285,85 +292,316 @@ __device__ __forceinline__ int interior_test(const float4* __restrict__ rec,
   return n_hit;
 }
 
-// 12 fused watertight triangle tests of a leaf record, 4 per float4 group;
-// the closest hit below t_best, the lowest slot winning a tie as
-// jnp.argmin does.  MOTION lerps every loaded vertex row to the ray's time
-// first (v + time * dv, two roundings, the twin's order); the lerp is per
-// component, so lerping the permuted rows equals permuting the lerped ones.
+// the 4 fused watertight triangle tests of group g (triangles 4g .. 4g+3)
+// of a leaf record: the closest hit below t_best if it beats t_min, the
+// lowest slot winning a tie as jnp.argmin does.  MOTION lerps every loaded
+// vertex row to the ray's time first (v + time * dv, two roundings, the
+// twin's order); the lerp is per component, so lerping the permuted rows
+// equals permuting the lerped ones.
+template <bool MOTION>
+__device__ __forceinline__ void group_test(const float4* __restrict__ rec,
+                                           const float4* __restrict__ drec,
+                                           int g, const Ray& r, float t_best,
+                                           float& t_min, int& k_best,
+                                           float& bb0, float& bb1) {
+  float4 v[9];  // permuted x, y, z rows of v0, v1, v2
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    v[3 * i + 0] = rec[9 * i + r.kx + g];
+    v[3 * i + 1] = rec[9 * i + r.ky + g];
+    v[3 * i + 2] = rec[9 * i + r.kz + g];
+  }
+  if (MOTION) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int at[3] = {9 * i + r.kx + g, 9 * i + r.ky + g,
+                         9 * i + r.kz + g};
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float4 dv = drec[at[c]];
+        float4& w = v[3 * i + c];
+        w.x = w.x + r.time * dv.x;
+        w.y = w.y + r.time * dv.y;
+        w.z = w.z + r.time * dv.z;
+        w.w = w.w + r.time * dv.w;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    // (v - o) permuted equals permuted v minus permuted o, bit for bit
+    const float p0x = reinterpret_cast<const float*>(&v[0])[j] - r.opx;
+    const float p0y = reinterpret_cast<const float*>(&v[1])[j] - r.opy;
+    const float p0z = reinterpret_cast<const float*>(&v[2])[j] - r.opz;
+    const float p1x = reinterpret_cast<const float*>(&v[3])[j] - r.opx;
+    const float p1y = reinterpret_cast<const float*>(&v[4])[j] - r.opy;
+    const float p1z = reinterpret_cast<const float*>(&v[5])[j] - r.opz;
+    const float p2x = reinterpret_cast<const float*>(&v[6])[j] - r.opx;
+    const float p2y = reinterpret_cast<const float*>(&v[7])[j] - r.opy;
+    const float p2z = reinterpret_cast<const float*>(&v[8])[j] - r.opz;
+    const float x0 = p0x + r.sx * p0z, y0 = p0y + r.sy * p0z;
+    const float x1 = p1x + r.sx * p1z, y1 = p1y + r.sy * p1z;
+    const float x2 = p2x + r.sx * p2z, y2 = p2y + r.sy * p2z;
+    const float e0 = x1 * y2 - y1 * x2;
+    const float e1 = x2 * y0 - y2 * x0;
+    const float e2 = x0 * y1 - y0 * x1;
+    const bool same_sign = (e0 >= 0.f && e1 >= 0.f && e2 >= 0.f) ||
+                           (e0 <= 0.f && e1 <= 0.f && e2 <= 0.f);
+    const float det = e0 + e1 + e2;
+    const float t_scaled = (e0 * p0z + e1 * p1z + e2 * p2z) * r.sz;
+    const float tmd = t_best * det;
+    const bool t_ok = det < 0.f ? (t_scaled <= 0.f && t_scaled > tmd)
+                                : (t_scaled >= 0.f && t_scaled < tmd);
+    if (same_sign && det != 0.f && t_ok) {
+      const float inv_det = 1.f / det;
+      const float t = t_scaled * inv_det;
+      if (t < t_min) {  // strict: the lowest slot wins a tie
+        t_min = t;
+        k_best = 4 * g + j;
+        bb0 = e0 * inv_det;
+        bb1 = e1 * inv_det;
+      }
+    }
+  }
+}
+
+// ---- K1m / K1km: the motion leaf's group cull ----
+// The box rows (render/intersect.py:motion_group_boxes, 64 floats a leaf
+// beside its delta rows) hold, for each group of 4 triangles, the min and
+// max of its 12 vertices' start coordinates and of their deltas, by axis:
+// [min v xyz, max v xyz, min dv xyz, max dv xyz] in 3 float4, group g at
+// float4 3g.  A NaN first float marks a group of pads.
+//
+// Why a cull: frame E's meshes move many triangle widths over the shutter
+// and the tree is built over their motion-union boxes, so a ray crosses the
+// swept box of many triangles that sit elsewhere at its own time.  Without
+// it, each live group cost its 18 float4 loads, 36 lerps and 4 watertight
+// tests (~350 operations); the cull (~70 operations, 3 float4) keeps 18% of
+// the live groups on E's camera rays (0.99 of 5.52 a ray, counted by the
+// twin's "groups_near" on 2^15 of them), and none in which the twin hits.
+//
+// Why it never drops a group the twin hits (motion_group_cull, its plain
+// copy op for op, argues each step):
+//   - the lerp: lo(tau) = min v + min(tau * min dv, tau * max dv), hi(tau)
+//     to match, rounded as the twin rounds v + tau * dv (-fmad=false).
+//     Rounding to nearest is monotone, so every lerped vertex the twin
+//     computes lies in [lo, hi] exactly, at any tau: tpurt lerps by the raw
+//     shutter time, which may lie outside [0, 1] (the min and max of the
+//     two products cover a negative tau);
+//   - the watertight test accepts a ray that passes a few ulps of |v - o|
+//     outside the triangle (the permuted differences, the shear and the
+//     edge functions each round once or twice) and places its t a few
+//     ulps of |v - o| along the ray from the point it meets, |v - o| <= B =
+//     the largest |coordinate| of the lerped box plus that of o.  The box
+//     is padded by MCULL_REL * B + MCULL_ABS: 2^12 ulps of B, a wide margin
+//     over both; the ray's point at the twin's t (or at t_best, where that
+//     t rounds below it) lies in the padded box;
+//   - the slab test: a slab t rounds three times (difference, 1/d,
+//     product), within gamma(3) of exact and of the exact sign; the far
+//     limit and t_best are scaled by MCULL_T = 1 + 2^-16, and t_far = 0 is
+//     kept.  A NaN slab value (0 * inf: a zero direction component in the
+//     plane of a face) fails every comparison that drops a group.
+// Out of scope: a cull of interior children by a time-lerped box.  It
+// would skip pushes, so the stack would no longer match the twin's when
+// stack_depth overflows, and bit-equality under a short stack would be lost.
+#define TPURT_GROUPS 3       // groups of 4 triangles a leaf
+#define TPURT_BOX_ROW4 16    // float4 per motion box row (256 B)
+#define MCULL_REL 0x1p-12f   // must equal MCULL_* in render/intersect.py
+#define MCULL_ABS 0x1p-100f
+#define MCULL_T (1.f + 0x1p-16f)
+
+// can group `box` (3 float4) hold a hit of the ray (origin o, 1/d inv)
+// at time tau, over (0, t_best]?  Never for a group of pads.
+__device__ __forceinline__ bool group_near(const float4* __restrict__ box,
+                                           float ox, float oy, float oz,
+                                           float ix, float iy, float iz,
+                                           float tau, float t_best) {
+  const float4 a = box[0], b = box[1], c = box[2];
+  if (a.x != a.x) return false;  // a group of pads: its twin never hits
+  const float tlx = tau * b.z, tly = tau * b.w, tlz = tau * c.x;
+  const float thx = tau * c.y, thy = tau * c.z, thz = tau * c.w;
+  const float lx = a.x + min_nan(tlx, thx), ly = a.y + min_nan(tly, thy),
+              lz = a.z + min_nan(tlz, thz);
+  const float hx = a.w + max_nan(tlx, thx), hy = b.x + max_nan(tly, thy),
+              hz = b.y + max_nan(tlz, thz);
+  const float big = max_nan(
+      max_nan(max_nan(fabsf(lx), fabsf(ly)), fabsf(lz)),
+      max_nan(max_nan(fabsf(hx), fabsf(hy)), fabsf(hz)));
+  const float big_o = max_nan(max_nan(fabsf(ox), fabsf(oy)), fabsf(oz));
+  const float pad = (big + big_o) * MCULL_REL + MCULL_ABS;
+  float t0 = ((lx - pad) - ox) * ix, t1 = ((hx + pad) - ox) * ix;
+  float t_near = min_nan(t0, t1), t_far = max_nan(t0, t1);
+  t0 = ((ly - pad) - oy) * iy;
+  t1 = ((hy + pad) - oy) * iy;
+  t_near = max_nan(t_near, min_nan(t0, t1));
+  t_far = min_nan(t_far, max_nan(t0, t1));
+  t0 = ((lz - pad) - oz) * iz;
+  t1 = ((hz + pad) - oz) * iz;
+  t_near = max_nan(t_near, min_nan(t0, t1));
+  t_far = min_nan(t_far, max_nan(t0, t1));
+  return !(t_near > t_far * MCULL_T || t_far < 0.f ||
+           t_near > t_best * MCULL_T);
+}
+
+// 12 fused watertight triangle tests of a leaf record, 4 per float4 group,
+// on one lane: the closest hit below t_best, the lowest slot winning a tie
+// as jnp.argmin does.  MOTION (K1km) lerps to the ray's time and first
+// skips the groups that group_near rules out (box: the leaf's box row).
 template <bool MOTION>
 __device__ __forceinline__ void leaf_test(const float4* __restrict__ rec,
                                           const float4* __restrict__ drec,
+                                          const float4* __restrict__ box,
                                           const Ray& r, float t_best,
                                           float& t_min, int& k_best,
                                           float& bb0, float& bb1) {
 #pragma unroll 1
   for (int g = 0; g < 3; ++g) {
-    float4 v[9];  // permuted x, y, z rows of v0, v1, v2
-    // triangles fill a leaf from slot 0, so the later groups are often
-    // pads; a triangle whose v0.x is NaN is hit by no ray
-    if (g > 0) {
+    if (MOTION) {
+      if (!group_near(box + 3 * g, r.ox, r.oy, r.oz, r.ix, r.iy, r.iz,
+                      r.time, t_best))
+        continue;
+    } else if (g > 0) {
+      // triangles fill a leaf from slot 0, so the later groups are often
+      // pads; a triangle whose v0.x is NaN is hit by no ray
       const float4 x = rec[g];  // v0.x of triangles 4g .. 4g+3
       if (x.x != x.x && x.y != x.y && x.z != x.z && x.w != x.w) continue;
     }
+    group_test<MOTION>(rec, drec, g, r, t_best, t_min, k_best, bb0, bb1);
+  }
+}
+
+// ---- K1m: the motion leaf turn, spread over the warp ----
+// A motion leaf turn lists the (ray, group) jobs of every lane that sits
+// on a leaf, 3 a lane, runs each job's group_near on a lane of its own
+// (pad groups fail it), lists the jobs that pass in per-warp shared memory
+// and tests them a group a lane (the lerp and 4 watertight tests); each
+// group's result goes to a (group, owner) cell, and the owner keeps the
+// closest in group order, with the twin's strict <.
+// Why: the body it replaces ran, on each leaf lane alone, the lerp and the
+// 4 tests of every live group of its leaf (5.5 groups a camera ray of frame
+// E) while the warp's other lanes waited; after the cull a ray has ~1
+// group to test, and the warp tests its leaf lanes' survivors together.
+// Measured (NVIDIA H100 80GB HBM3, 700 W, tpurt_torch/kernels/k1_ab.py on
+// frame E's triangle calls, camera / bounce / shadow rays, per launch in
+// bursts, medians of 2, each run paired against the parent's body, which
+// took 0.81-0.82 / 0.68 / 0.46-0.47 ms; PERF.md section 6): this design
+// 0.6327 / 0.4961 / 0.3572 ms; the same with a load of each lane's box
+// row first to list only its live groups, 0.6538 / 0.5167 / 0.3698; the
+// cull alone, on each leaf lane in leaf_test<true> (as K1km runs it),
+// 0.6954 / 0.5527 / 0.4131, and at 5 blocks an SM both it and the warp's
+// turn 0.668 / 0.53 / 0.38-0.39.  Turn rules (each against this design's
+// majority rule, 0.6383 / 0.4957 / 0.3644 in the same run): the leaf body
+// only when leaf lanes number twice the interior ones, 0.6489 / 0.5024 /
+// 0.3684, or half, 0.6479 / 0.5130 / 0.3706; the interior lanes every turn
+// and the leaf turn at 16 or 8 leaf lanes (K1km's rule), 0.7215 / 0.5267 /
+// 0.3908 and 0.6596 / 0.5078 / 0.3581.  What remains is the walk: K1's
+// static body on the same tree and rays (their start vertices, every
+// triangle tested) takes 0.7679 / 0.5677 / 0.3713 ms.
+struct MotionWarp {
+  unsigned char job[TPURT_GROUPS * 32];   // (owner lane << 2) | group
+  unsigned char near[TPURT_GROUPS * 32];  // the jobs that pass the cull
+  // each (group, owner lane)'s closest hit: t (inf: none), slot, b0, b1
+  float res_t[TPURT_GROUPS][32], res_b0[TPURT_GROUPS][32],
+      res_b1[TPURT_GROUPS][32];
+  int res_k[TPURT_GROUPS][32];
+};
+
+// One motion leaf turn of the warp (every lane calls it): on_leaf lanes
+// hold the leaf row `row` of `leaves` (its delta rows in `delta`, its box
+// row in `boxes`).  Returns on each such lane the closest hit below t_best
+// as leaf_test<true> would: t_min, its slot, b0 and b1.
+__device__ __forceinline__ void motion_leaf_turn(
+    bool on_leaf, int row, const float4* __restrict__ leaves,
+    const float4* __restrict__ delta, const float4* __restrict__ boxes,
+    const Ray& r, float t_best, int lane, MotionWarp& sh, float& t_min,
+    int& k_best, float& bb0, float& bb1) {
+  const float inf = __int_as_float(0x7f800000);
+  // every group of every leaf lane is a job; the cull drops pad groups
+  // (a load here to skip them first would cost a dependent round trip)
+  const unsigned leaf_lanes = __ballot_sync(FULL, on_leaf);
+  const int total = TPURT_GROUPS * __popc(leaf_lanes);
+  if (on_leaf) {
+    const int at = TPURT_GROUPS * __popc(leaf_lanes & ((1u << lane) - 1u));
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      v[3 * i + 0] = rec[9 * i + r.kx + g];
-      v[3 * i + 1] = rec[9 * i + r.ky + g];
-      v[3 * i + 2] = rec[9 * i + r.kz + g];
+    for (int g = 0; g < TPURT_GROUPS; ++g) {
+      sh.job[at + g] = (unsigned char)((lane << 2) | g);
+      sh.res_t[g][lane] = inf;
     }
-    if (MOTION) {
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const int at[3] = {9 * i + r.kx + g, 9 * i + r.ky + g,
-                           9 * i + r.kz + g};
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float4 dv = drec[at[c]];
-          float4& w = v[3 * i + c];
-          w.x = w.x + r.time * dv.x;
-          w.y = w.y + r.time * dv.y;
-          w.z = w.z + r.time * dv.z;
-          w.w = w.w + r.time * dv.w;
-        }
-      }
+  }
+  __syncwarp();
+  // the cull, a job a lane
+  int nq = 0;  // jobs that pass (warp-uniform)
+  for (int j0 = 0; j0 < total; j0 += 32) {
+    const int j = j0 + lane;
+    const bool valid = j < total;
+    const int code = valid ? sh.job[j] : 0;
+    const int owner = code >> 2;
+    const float ox = __shfl_sync(FULL, r.ox, owner);
+    const float oy = __shfl_sync(FULL, r.oy, owner);
+    const float oz = __shfl_sync(FULL, r.oz, owner);
+    const float ix = __shfl_sync(FULL, r.ix, owner);
+    const float iy = __shfl_sync(FULL, r.iy, owner);
+    const float iz = __shfl_sync(FULL, r.iz, owner);
+    const float tau = __shfl_sync(FULL, r.time, owner);
+    const float tb = __shfl_sync(FULL, t_best, owner);
+    const int orow = __shfl_sync(FULL, row, owner);
+    const bool keep =
+        valid && group_near(boxes + (size_t)orow * TPURT_BOX_ROW4 +
+                                3 * (code & 3),
+                            ox, oy, oz, ix, iy, iz, tau, tb);
+    const unsigned km = __ballot_sync(FULL, keep);
+    if (keep) sh.near[nq + __popc(km & ((1u << lane) - 1u))] = code;
+    nq += __popc(km);
+  }
+  __syncwarp();
+  // the groups that pass, a group a lane
+  for (int j0 = 0; j0 < nq; j0 += 32) {
+    const int j = j0 + lane;
+    const bool valid = j < nq;
+    const int code = valid ? sh.near[j] : 0;
+    const int owner = code >> 2, g = code & 3;
+    Ray q;  // the owner's ray, as group_test reads it
+    q.opx = __shfl_sync(FULL, r.opx, owner);
+    q.opy = __shfl_sync(FULL, r.opy, owner);
+    q.opz = __shfl_sync(FULL, r.opz, owner);
+    q.sx = __shfl_sync(FULL, r.sx, owner);
+    q.sy = __shfl_sync(FULL, r.sy, owner);
+    q.sz = __shfl_sync(FULL, r.sz, owner);
+    const int perm =
+        __shfl_sync(FULL, r.kx | (r.ky << 4) | (r.kz << 8), owner);
+    q.kx = perm & 15;
+    q.ky = (perm >> 4) & 15;
+    q.kz = perm >> 8;
+    q.time = __shfl_sync(FULL, r.time, owner);
+    const float tb = __shfl_sync(FULL, t_best, owner);
+    const int orow = __shfl_sync(FULL, row, owner);
+    if (valid) {
+      float t = inf, b0 = 0.f, b1 = 0.f;
+      int k = 0;
+      group_test<true>(leaves + (size_t)orow * TPURT_LEAF_ROW4,
+                       delta + (size_t)orow * TPURT_LEAF_ROW4, g, q, tb, t,
+                       k, b0, b1);
+      sh.res_t[g][owner] = t;
+      sh.res_k[g][owner] = k;
+      sh.res_b0[g][owner] = b0;
+      sh.res_b1[g][owner] = b1;
     }
+  }
+  __syncwarp();
+  if (on_leaf) {
+    // strict <: the lowest slot wins a tie, as the twin's argmin
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      // (v - o) permuted equals permuted v minus permuted o, bit for bit
-      const float p0x = reinterpret_cast<const float*>(&v[0])[j] - r.opx;
-      const float p0y = reinterpret_cast<const float*>(&v[1])[j] - r.opy;
-      const float p0z = reinterpret_cast<const float*>(&v[2])[j] - r.opz;
-      const float p1x = reinterpret_cast<const float*>(&v[3])[j] - r.opx;
-      const float p1y = reinterpret_cast<const float*>(&v[4])[j] - r.opy;
-      const float p1z = reinterpret_cast<const float*>(&v[5])[j] - r.opz;
-      const float p2x = reinterpret_cast<const float*>(&v[6])[j] - r.opx;
-      const float p2y = reinterpret_cast<const float*>(&v[7])[j] - r.opy;
-      const float p2z = reinterpret_cast<const float*>(&v[8])[j] - r.opz;
-      const float x0 = p0x + r.sx * p0z, y0 = p0y + r.sy * p0z;
-      const float x1 = p1x + r.sx * p1z, y1 = p1y + r.sy * p1z;
-      const float x2 = p2x + r.sx * p2z, y2 = p2y + r.sy * p2z;
-      const float e0 = x1 * y2 - y1 * x2;
-      const float e1 = x2 * y0 - y2 * x0;
-      const float e2 = x0 * y1 - y0 * x1;
-      const bool same_sign = (e0 >= 0.f && e1 >= 0.f && e2 >= 0.f) ||
-                             (e0 <= 0.f && e1 <= 0.f && e2 <= 0.f);
-      const float det = e0 + e1 + e2;
-      const float t_scaled = (e0 * p0z + e1 * p1z + e2 * p2z) * r.sz;
-      const float tmd = t_best * det;
-      const bool t_ok = det < 0.f ? (t_scaled <= 0.f && t_scaled > tmd)
-                                  : (t_scaled >= 0.f && t_scaled < tmd);
-      if (same_sign && det != 0.f && t_ok) {
-        const float inv_det = 1.f / det;
-        const float t = t_scaled * inv_det;
-        if (t < t_min) {  // strict: the lowest slot wins a tie
-          t_min = t;
-          k_best = 4 * g + j;
-          bb0 = e0 * inv_det;
-          bb1 = e1 * inv_det;
-        }
+    for (int g = 0; g < TPURT_GROUPS; ++g) {
+      const float t = sh.res_t[g][lane];
+      if (t < t_min) {
+        t_min = t;
+        k_best = sh.res_k[g][lane];
+        bb0 = sh.res_b0[g][lane];
+        bb1 = sh.res_b1[g][lane];
       }
     }
   }
+  __syncwarp();  // the next turn rewrites the warp's lists and cells
 }
 
 // ---- K1c: the curve leaf turn, spread over the warp ----
@@ -775,6 +1013,7 @@ __global__ void __launch_bounds__(
 traverse_wide_kernel(const float4* __restrict__ inodes, int n_inodes,
                      const float4* __restrict__ leaves,
                      int n_leaves, const float4* __restrict__ side,
+                     const float4* __restrict__ boxes,
                      const float* __restrict__ time_in, int root_ref,
                      int step_limit,
                      const float* __restrict__ o_in,
@@ -786,8 +1025,8 @@ traverse_wide_kernel(const float4* __restrict__ inodes, int n_inodes,
                      int* __restrict__ counter) {
   int stack[TPURT_STACK_MAX];  // local memory; only touched slots cost
   const int lane = threadIdx.x & 31;
-  // the curve body's per-warp job lists, span queues and results: dynamic
-  // shared memory, launched only with the curve body (K1 and K1m get none)
+  // the curve and motion bodies' per-warp job lists, queues and results:
+  // dynamic shared memory, launched only with those bodies (K1 gets none)
   extern __shared__ float4 dyn_smem[];
   const float inf = __int_as_float(0x7f800000);
 
@@ -884,21 +1123,30 @@ traverse_wide_kernel(const float4* __restrict__ inodes, int n_inodes,
           cur = nxt;
         }
       }
-    } else if (LEAF == TPURT_LEAF_CURVE) {
-      // curve leaf records: the whole warp tests the leaf lanes' spans
+    } else if (LEAF != TPURT_LEAF_TRI) {
+      // curve or motion leaf records: the whole warp tests the leaf lanes'
+      // spans or triangle groups
       if (cur >= 0 && (cur & 1) && (cur >> 1) >= n_leaves) cur = -1;
       const bool on_leaf = cur >= 0 && (cur & 1);
       const int row = on_leaf ? (cur >> 1) : 0;
       float t_min = inf, bb0 = 0.f, bb1 = 0.f;
       int k_best = 0;
-      curve_leaf_turn(on_leaf, row, leaves, side, r, t_best, lane,
-                      reinterpret_cast<CurveWarp*>(dyn_smem)[threadIdx.x >> 5],
-                      t_min, k_best, bb0, bb1);
+      if (LEAF == TPURT_LEAF_CURVE)
+        curve_leaf_turn(
+            on_leaf, row, leaves, side, r, t_best, lane,
+            reinterpret_cast<CurveWarp*>(dyn_smem)[threadIdx.x >> 5], t_min,
+            k_best, bb0, bb1);
+      else
+        motion_leaf_turn(
+            on_leaf, row, leaves, side, boxes, r, t_best, lane,
+            reinterpret_cast<MotionWarp*>(dyn_smem)[threadIdx.x >> 5], t_min,
+            k_best, bb0, bb1);
       if (on_leaf) {
         if (t_min < t_best) {
           t_best = t_min;
           prim_best = reinterpret_cast<const int*>(
-              leaves + (size_t)row * TPURT_LEAF_ROW4)[112 + k_best];
+              leaves + (size_t)row * TPURT_LEAF_ROW4)[
+                  (LEAF == TPURT_LEAF_CURVE ? 112 : 108) + k_best];
           b0_best = bb0;
           b1_best = bb1;
         }
@@ -925,6 +1173,8 @@ traverse_wide_kernel(const float4* __restrict__ inodes, int n_inodes,
         leaf_test<LEAF == TPURT_LEAF_MOTION>(
             rec,
             LEAF == TPURT_LEAF_MOTION ? side + row * TPURT_LEAF_ROW4
+                                      : nullptr,
+            LEAF == TPURT_LEAF_MOTION ? boxes + row * TPURT_BOX_ROW4
                                       : nullptr,
             r, t_best, t_min, k_best, bb0, bb1);
         if (t_min < t_best) {
@@ -973,16 +1223,20 @@ static int fit_grid(const void* kernel, int* resident, int n, size_t smem,
 
 template <int LEAF>
 static int launch(const float* inodes, int n_inodes, const float* leaves,
-                  int n_leaves, const float* side, const float* time,
+                  int n_leaves, const float* side, const float* boxes,
+                  const float* time,
                   int root_ref, int step_limit, const float* o,
                   const float* d, const float* t_max, int n,
                   int stack_depth, int any_hit, float box_scale,
                   float* t_out, int* prim_out, float* b0_out, float* b1_out,
                   int* counter, cudaStream_t s) {
   static int resident[64] = {0};
-  // the curve body's shared scratch: a CurveWarp a warp
+  // the curve and motion bodies' shared scratch: a CurveWarp or a
+  // MotionWarp a warp
   const size_t smem =
-      LEAF == TPURT_LEAF_CURVE ? (TPURT_BLOCK / 32) * sizeof(CurveWarp) : 0;
+      LEAF == TPURT_LEAF_CURVE    ? (TPURT_BLOCK / 32) * sizeof(CurveWarp)
+      : LEAF == TPURT_LEAF_MOTION ? (TPURT_BLOCK / 32) * sizeof(MotionWarp)
+                                  : 0;
   int blocks = 0;
   int err = fit_grid((const void*)traverse_wide_kernel<LEAF>, resident, n,
                      smem, &blocks);
@@ -992,23 +1246,25 @@ static int launch(const float* inodes, int n_inodes, const float* leaves,
   traverse_wide_kernel<LEAF><<<blocks, TPURT_BLOCK, smem, s>>>(
       reinterpret_cast<const float4*>(inodes), n_inodes,
       reinterpret_cast<const float4*>(leaves), n_leaves,
-      reinterpret_cast<const float4*>(side), time, root_ref, step_limit, o,
+      reinterpret_cast<const float4*>(side),
+      reinterpret_cast<const float4*>(boxes), time, root_ref, step_limit, o,
       d, t_max, n, stack_depth, any_hit, box_scale, t_out,
       prim_out, b0_out, b1_out, counter);
   return (int)cudaGetLastError();
 }
 
 // C entry point for ctypes.  leaf_kind picks the body (TPURT_LEAF_*):
-// side is the delta table (K1m, required, with time) or the ribbon aux
-// table (K1c, null without ribbons).  Launches on `stream`, does not
-// synchronise, allocates nothing (`counter` is one int of scratch, zeroed
-// here on the stream); returns
-// cudaGetLastError() (0 = launched).  step_limit is the host table's row
-// count, the bound the plain twin uses.
+// side is the delta table (K1m, required, with boxes, its group box rows,
+// and time) or the ribbon aux table (K1c, null without ribbons).  Launches
+// on `stream`, does not synchronise, allocates nothing (`counter` is one
+// int of scratch, zeroed here on the stream); returns cudaGetLastError()
+// (0 = launched).  step_limit is the host table's row count, the bound the
+// plain twin uses.
 extern "C" int tpurt_traverse_wide(int leaf_kind, const float* inodes,
                                    int n_inodes, const float* leaves,
                                    int n_leaves, const float* side,
-                                   const float* time, int root_ref,
+                                   const float* boxes, const float* time,
+                                   int root_ref,
                                    int step_limit, const float* o,
                                    const float* d, const float* t_max,
                                    int n, int stack_depth, int any_hit,
@@ -1023,21 +1279,24 @@ extern "C" int tpurt_traverse_wide(int leaf_kind, const float* inodes,
   switch (leaf_kind) {
     case TPURT_LEAF_TRI:
       return launch<TPURT_LEAF_TRI>(inodes, n_inodes, leaves, n_leaves,
-                                    nullptr, nullptr, root_ref, step_limit,
+                                    nullptr, nullptr, nullptr, root_ref,
+                                    step_limit,
                                     o, d, t_max, n, stack_depth,
                                     any_hit, box_scale, t_out, prim_out,
                                     b0_out, b1_out, counter, s);
     case TPURT_LEAF_MOTION:
-      if (side == nullptr || time == nullptr)
+      if (side == nullptr || boxes == nullptr || time == nullptr)
         return (int)cudaErrorInvalidValue;
       return launch<TPURT_LEAF_MOTION>(inodes, n_inodes, leaves, n_leaves,
-                                       side, time, root_ref, step_limit, o,
+                                       side, boxes, time, root_ref,
+                                       step_limit, o,
                                        d, t_max, n, stack_depth,
                                        any_hit, box_scale, t_out, prim_out,
                                        b0_out, b1_out, counter, s);
     case TPURT_LEAF_CURVE:
       return launch<TPURT_LEAF_CURVE>(inodes, n_inodes, leaves, n_leaves,
-                                      side, nullptr, root_ref, step_limit,
+                                      side, nullptr, nullptr, root_ref,
+                                      step_limit,
                                       o, d, t_max, n, stack_depth,
                                       any_hit, box_scale, t_out, prim_out,
                                       b0_out, b1_out, counter, s);
@@ -1098,8 +1357,8 @@ extern "C" int tpurt_traverse_wide(int leaf_kind, const float* inodes,
 // bodies in one loop) and its times are in PERF.md's section 6.
 #define K1K_INTERIOR_WEIGHT 4
 #define K1KM_LEAF_LANES 16
-// blocks per SM the register budget is set for: as K1's and K1m's (the
-// motion walk spills at 80 registers)
+// blocks per SM the register budget is set for: as K1's (the motion walk,
+// K1km, takes K1m's: K1M_MINBLOCKS)
 #define K1K_MINBLOCKS 6
 
 template <int LEAF>
@@ -1108,6 +1367,7 @@ __global__ void __launch_bounds__(
 traverse_kd_kernel(const float4* __restrict__ inodes, int n_inodes,
                    const float4* __restrict__ leaves, int n_leaves,
                    const float4* __restrict__ delta,
+                   const float4* __restrict__ boxes,
                    const float* __restrict__ time_in,
                    const float* __restrict__ bounds, int root_ref,
                    int step_limit, const float* __restrict__ o_in,
@@ -1239,6 +1499,7 @@ traverse_kd_kernel(const float4* __restrict__ inodes, int n_inodes,
       leaf_test<LEAF == TPURT_LEAF_MOTION>(
           rec,
           LEAF == TPURT_LEAF_MOTION ? delta + row * TPURT_LEAF_ROW4 : nullptr,
+          LEAF == TPURT_LEAF_MOTION ? boxes + row * TPURT_BOX_ROW4 : nullptr,
           r, t_best, t_min, k_best, bb0, bb1);
       if (t_min < t_best) {
         t_best = t_min;
@@ -1268,7 +1529,8 @@ traverse_kd_kernel(const float4* __restrict__ inodes, int n_inodes,
 
 template <int LEAF>
 static int launch_kd(const float* inodes, int n_inodes, const float* leaves,
-                     int n_leaves, const float* delta, const float* time,
+                     int n_leaves, const float* delta, const float* boxes,
+                     const float* time,
                      const float* bounds, int root_ref, int step_limit,
                      const float* o, const float* d, const float* t_max,
                      int n, int stack_depth, int any_hit, float box_scale,
@@ -1284,23 +1546,26 @@ static int launch_kd(const float* inodes, int n_inodes, const float* leaves,
   traverse_kd_kernel<LEAF><<<blocks, TPURT_BLOCK, 0, s>>>(
       reinterpret_cast<const float4*>(inodes), n_inodes,
       reinterpret_cast<const float4*>(leaves), n_leaves,
-      reinterpret_cast<const float4*>(delta), time, bounds, root_ref,
+      reinterpret_cast<const float4*>(delta),
+      reinterpret_cast<const float4*>(boxes), time, bounds, root_ref,
       step_limit, o, d, t_max, n, stack_depth, any_hit, box_scale, t_out,
       prim_out, b0_out, b1_out, counter);
   return (int)cudaGetLastError();
 }
 
 // C entry point for ctypes: the kd walk.  leaf_kind TPURT_LEAF_TRI (K1k)
-// or TPURT_LEAF_MOTION (K1km, with delta and time).  inodes (n_inodes, 4)
-// and leaves (n_leaves, 128): the derived tables, delta the leaves' delta
-// rows; bounds: the root box lo.xyz, hi.xyz; step_limit: the record
-// table's row count.  Launches on `stream`, does not synchronise,
-// allocates nothing (`counter`: one int of scratch, zeroed here on the
-// stream); returns cudaGetLastError() (0 = launched).
+// or TPURT_LEAF_MOTION (K1km, with delta, its group boxes and time).
+// inodes (n_inodes, 4) and leaves (n_leaves, 128): the derived tables,
+// delta the leaves' delta rows, boxes their group box rows; bounds: the
+// root box lo.xyz, hi.xyz; step_limit: the record table's row count.
+// Launches on `stream`, does not synchronise, allocates nothing
+// (`counter`: one int of scratch, zeroed here on the stream); returns
+// cudaGetLastError() (0 = launched).
 extern "C" int tpurt_traverse_kd(int leaf_kind, const float* inodes,
                                  int n_inodes, const float* leaves,
                                  int n_leaves, const float* delta,
-                                 const float* time, const float* bounds,
+                                 const float* boxes, const float* time,
+                                 const float* bounds,
                                  int root_ref, int step_limit,
                                  const float* o, const float* d,
                                  const float* t_max, int n, int stack_depth,
@@ -1315,14 +1580,16 @@ extern "C" int tpurt_traverse_kd(int leaf_kind, const float* inodes,
   switch (leaf_kind) {
     case TPURT_LEAF_TRI:
       return launch_kd<TPURT_LEAF_TRI>(
-          inodes, n_inodes, leaves, n_leaves, nullptr, nullptr, bounds,
+          inodes, n_inodes, leaves, n_leaves, nullptr, nullptr, nullptr,
+          bounds,
           root_ref, step_limit, o, d, t_max, n, stack_depth, any_hit,
           box_scale, t_out, prim_out, b0_out, b1_out, counter, s);
     case TPURT_LEAF_MOTION:
-      if (delta == nullptr || time == nullptr)
+      if (delta == nullptr || boxes == nullptr || time == nullptr)
         return (int)cudaErrorInvalidValue;
       return launch_kd<TPURT_LEAF_MOTION>(
-          inodes, n_inodes, leaves, n_leaves, delta, time, bounds, root_ref,
+          inodes, n_inodes, leaves, n_leaves, delta, boxes, time, bounds,
+          root_ref,
           step_limit, o, d, t_max, n, stack_depth, any_hit, box_scale, t_out,
           prim_out, b0_out, b1_out, counter, s);
     default:

@@ -2,22 +2,24 @@
 call.
 
     python3 tpurt_torch/kernels/k1_ab.py OTHER_ROOT[,ROOT_Q,...]
-        [--body K1,K1c,K1k,K1km] [--order pccppc] [--profile]
+        [--body K1,K1m,K1c,K1k,K1km] [--order pccppc] [--profile]
 
 Each body is timed per launch (bursts of 10, median of 5) on its frame's
 recorded rays (``chip_smoke.py``'s ``frame_ray_calls``, the calls of the
 camera paths and the first bounce steps that launch the body):
   K1: frame A's 2^20 primary rays (the stand-in at 700x700, 8 spp);
-  K1c: frame E's curve calls (700x700, 8 spp, two bounce steps);
+  K1m: frame E's triangle calls (700x700, 8 spp, two bounce steps: the
+    camera rays, then each step's shadow and bounce rays);
+  K1c: frame E's curve calls (the same frame and steps);
   K1k: frame K's calls (A's stand-in under Accelerator "kdtree");
   K1km: frame E under the kd-tree at 256x256 (one bounce step).
 This checkout ("c") and the one at OTHER_ROOT ("p", e.g. the parent commit
 unpacked with ``git archive``; further roots, comma-separated, are "q",
 "r", ... in the order string) run in the given order, each side in a
 process of its own that imports only its own tree.  ``--profile`` also
-traces one frame a side (E for K1c, K for K1k) and prints its device busy
-time with the body's share.  Prints one line a run, body and call, then
-the medians of the runs; needs one CUDA card.
+traces one frame a side (E for K1m and K1c, K for K1k) and prints its
+device busy time with the body's share.  Prints one line a run, body and
+call, then the medians of the runs; needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -31,7 +33,10 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-BODIES = ("K1", "K1c", "K1k", "K1km")
+BODIES = ("K1", "K1m", "K1c", "K1k", "K1km")
+# the kernel each body's profiled frame is read for
+PROFILED = {"K1m": "traverse_wide_kernel<1>", "K1c": "traverse_wide_kernel<2>",
+            "K1k": "traverse_kd_kernel<0>"}
 
 
 def _frame(cs, body: str):
@@ -42,7 +47,7 @@ def _frame(cs, body: str):
     cs.WORK.mkdir(parents=True, exist_ok=True)
     if body == "K1":
         path, bounces = cs.phase_scene("full"), 0
-    elif body == "K1c":
+    elif body in ("K1m", "K1c"):
         path = write_motion_hair(str(cs.WORK / "ab_e.pbrt"), "full")
         bounces = 2
     elif body == "K1k":
@@ -68,6 +73,7 @@ def _one(root: str, label: str, bodies, profile: bool) -> None:
 
     load_library()
     names = {k: v[1] for k, v in LEAF_KINDS.items()}
+    profiled = set()  # frames traced (K1m and K1c share E)
     for body in bodies:
         job, bounces = _frame(cs, body)
         geo = job.scene.geo
@@ -82,17 +88,17 @@ def _one(root: str, label: str, bodies, profile: bool) -> None:
             print(f"AB {body} {label} call {i} "
                   f"({'any-hit' if any_hit else 'closest'}, {o.shape[0]} "
                   f"rays): {ms:.4f} ms per launch in bursts of 10")
-        if profile and body in ("K1c", "K1k"):
+        frame = "E" if body in ("K1m", "K1c") else "K"
+        if profile and body in PROFILED and frame not in profiled:
+            profiled.add(frame)
             render_job(job)
             torch.cuda.synchronize()
             t0 = time.time()
             render_job(job)
             torch.cuda.synchronize()
             wall = time.time() - t0
-            kernel = ("traverse_wide_kernel<2>" if body == "K1c"
-                      else "traverse_kd_kernel<0>")
             print(f"PROFILE {body} {label}: frame {wall:.4f} s unprofiled; "
-                  f"the body is the kernel {kernel}")
+                  f"the body is the kernel {PROFILED[body]}")
             cs.phase_profile(f"{body} frame ({label})",
                              lambda: render_job(job), wall, host=False)
         del job

@@ -20,7 +20,9 @@ from it at upload (``geo.inodes``, ``geo.leaves``, ``geo.root_ref``:
 The walk has three leaf bodies, each its own instantiation of the kernel
 (``LEAF_KINDS``): K1, static triangles; K1m, triangles lerped to each
 ray's time by the per-leaf delta rows (``time`` and ``geo.leaves_delta``;
-tpurt's ``_tri_bundle_test(drec, time)``); K1c, the curve-span tree
+tpurt's ``_tri_bundle_test(drec, time)``), behind a cull of each group of
+4 triangles by its box at the ray's time (``geo.leaves_box``; plain copy
+``render.intersect.motion_group_cull``); K1c, the curve-span tree
 (``tree="curve"``: ``geo.cinodes``, ``geo.cleaves``, ribbons from
 ``geo.cleaves_aux``; tpurt's ``_curve_bundle_test``).  A frame without
 motion or curves launches only K1.
@@ -45,9 +47,10 @@ import torch
 from tpurt_torch.geom.wbvh import LEAF_K, REC, SLOT_KIND, WIDTH
 from tpurt_torch.kernels import build
 from tpurt_torch.render.intersect import (
-    _BOX_T_SCALE, CHILD_LO, CURVE_AUX, CURVE_PRIM_LO, INF,
-    INTERIOR_REC, PRIM_LO, SORT8, _box8_test, _curve_bundle_test,
-    _tri_bundle_test, curve_span_cull, safe_inv_dir)
+    _BOX_T_SCALE, CHILD_LO, CURVE_AUX, CURVE_PRIM_LO, GROUP_BOX, GROUPS, INF,
+    INTERIOR_REC, MOTION_BOX, PRIM_LO, SORT8, _box8_test, _curve_bundle_test,
+    _tri_bundle_test, curve_span_cull, motion_group_boxes, motion_group_cull,
+    safe_inv_dir)
 
 SOURCE = "traverse.cu"
 # IEEE rounding of every op, in the twin's order: no FMA contraction
@@ -77,12 +80,12 @@ def load_library() -> build.KernelLibrary:
 def _bind(cdll) -> None:
     fn = cdll.tpurt_traverse_wide
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ci, vp, ci, vp, ci, vp, vp, ci, ci, vp, vp, vp,
+    fn.argtypes = [ci, vp, ci, vp, ci, vp, vp, vp, ci, ci, vp, vp, vp,
                    ci, ci, ci, ctypes.c_float, vp, vp, vp, vp, vp, vp]
     fn.restype = ci
     fn = cdll.tpurt_traverse_kd
-    fn.argtypes = [ci, vp, ci, vp, ci, vp, vp, vp, ci, ci, vp, vp, vp, ci,
-                   ci, ci, ctypes.c_float, vp, vp, vp, vp, vp, vp]
+    fn.argtypes = [ci, vp, ci, vp, ci, vp, vp, vp, vp, ci, ci, vp, vp, vp,
+                   ci, ci, ci, ctypes.c_float, vp, vp, vp, vp, vp, vp]
     fn.restype = ci
 
 
@@ -115,6 +118,8 @@ def _launch_kd(geo, o, d, t_max, any_hit: bool, time, kind: str):
     if motion:
         build.check_tensor("kleaves_delta", geo.kleaves_delta, torch.float32,
                            (ml, REC), dev)
+        build.check_tensor("kleaves_box", geo.kleaves_box, torch.float32,
+                           (ml, MOTION_BOX), dev)
         build.check_tensor("time", time, torch.float32, (n,), dev)
     build.check_tensor("o", o, torch.float32, (n, 3), dev)
     build.check_tensor("d", d, torch.float32, (n, 3), dev)
@@ -134,6 +139,7 @@ def _launch_kd(geo, o, d, t_max, any_hit: bool, time, kind: str):
             LEAF_KINDS[kind][0], geo.kinodes.data_ptr(), mi,
             geo.kleaves.data_ptr(), ml,
             geo.kleaves_delta.data_ptr() if motion else 0,
+            geo.kleaves_box.data_ptr() if motion else 0,
             time.data_ptr() if motion else 0, geo.kbounds.data_ptr(),
             geo.kroot_ref, geo.knodes.shape[0], o.data_ptr(), d.data_ptr(),
             t_max.data_ptr(), n, geo.kstack_depth, int(bool(any_hit)),
@@ -164,6 +170,8 @@ def _launch(geo, o, d, t_max, any_hit: bool, time, kind: str):
         side = geo.leaves_delta
         build.check_tensor("leaves_delta", side, torch.float32, (ml, REC),
                            dev)
+        build.check_tensor("leaves_box", geo.leaves_box, torch.float32,
+                           (ml, MOTION_BOX), dev)
         build.check_tensor("time", time, torch.float32, (n,), dev)
     elif curve and geo.cleaves_aux is not None:
         side = geo.cleaves_aux
@@ -187,6 +195,7 @@ def _launch(geo, o, d, t_max, any_hit: bool, time, kind: str):
         err = load_library().cdll.tpurt_traverse_wide(
             LEAF_KINDS[kind][0], inodes.data_ptr(), mi, leaves.data_ptr(),
             ml, 0 if side is None else side.data_ptr(),
+            geo.leaves_box.data_ptr() if kind == "motion" else 0,
             time.data_ptr() if kind == "motion" else 0,
             geo.croot_ref if curve else geo.root_ref, nodes.shape[0],
             o.data_ptr(), d.data_ptr(), t_max.data_ptr(), n, depth,
@@ -261,7 +270,12 @@ def traverse_wide_reference(geo, o, d, t_max, any_hit: bool, time=None,
     read: "interior_records", "leaf_records", and "hit_leaves", the leaves
     in which some lane found a closer hit (whose prim rows are then
     read).  On the curve tree "spans_near" counts the spans that pass
-    ``curve_span_cull`` (the only ones whose sub-segments K1c tests)."""
+    ``curve_span_cull`` (the only ones whose sub-segments K1c tests).  On
+    a moving mesh (K1m) "groups" counts the live groups of 4 triangles of
+    the leaves read, "groups_near" those that pass ``motion_group_cull``
+    (the only ones K1m lerps and tests) and "near_group_records" the
+    distinct (leaf, group) pairs among them, whose vertex and delta rows
+    are then read."""
     traverse_wide_reference.calls += 1
     kind = leaf_kind(geo, time, tree)
     curve = kind == "curve"
@@ -284,8 +298,11 @@ def traverse_wide_reference(geo, o, d, t_max, any_hit: bool, time=None,
     if stats is not None:
         seen = torch.zeros(nodes.shape[0], dtype=torch.bool, device=dev)
         seen_hit = torch.zeros_like(seen)
+        seen_near = torch.zeros((nodes.shape[0], GROUPS), dtype=torch.int32,
+                                device=dev)
         stats.update(leaf_steps=0, interior_steps=0, children=0,
-                     triangles=0, sorts=0, spans_near=0)
+                     triangles=0, sorts=0, spans_near=0, groups=0,
+                     groups_near=0)
     steps = 0
     while live.numel() and steps <= nodes.shape[0]:
         steps += 1
@@ -329,6 +346,10 @@ def traverse_wide_reference(geo, o, d, t_max, any_hit: bool, time=None,
                     stats["spans_near"] += int(curve_span_cull(
                         o[lanes], d[lanes], t_best[lanes], lrec,
                         None if aux is None else aux[rows]).sum())
+                elif delta is not None:
+                    _group_stats(stats, seen_near, rows, o[lanes], d[lanes],
+                                 t_best[lanes], time[lanes], lrec,
+                                 delta[rows])
             bl = lanes[better]
             kb = kbest[better]
             t_best[bl] = t_min[better]
@@ -388,11 +409,25 @@ def traverse_wide_reference(geo, o, d, t_max, any_hit: bool, time=None,
         leaf_rows = nodes[:, SLOT_KIND] > 0
         stats.update(interior_records=int((seen & ~leaf_rows).sum()),
                      leaf_records=int((seen & leaf_rows).sum()),
-                     hit_leaves=int(seen_hit.sum()))
+                     hit_leaves=int(seen_hit.sum()),
+                     near_group_records=int((seen_near > 0).sum()))
     return t_best, prim_best, b0_best, b1_best
 
 
 traverse_wide_reference.calls = 0
+
+
+def _group_stats(stats, seen_near, rows, o, d, t_best, time, lrec, drec):
+    """Add the motion leaves' live groups and those that pass
+    ``motion_group_cull`` at the leaf's t_best to ``stats`` ("groups",
+    "groups_near"), and mark the near (row, group) pairs in
+    ``seen_near``."""
+    box = motion_group_boxes(lrec, drec)
+    near = motion_group_cull(o, d, t_best, time, box)
+    stats["groups"] += int((~torch.isnan(box[:, 0:GROUPS * GROUP_BOX:
+                                             GROUP_BOX])).sum())
+    stats["groups_near"] += int(near.sum())
+    seen_near.index_add_(0, rows, near.to(torch.int32))
 
 
 def traverse_kd_reference(geo, o, d, t_max, any_hit: bool, time=None,
@@ -416,7 +451,9 @@ def traverse_kd_reference(geo, o, d, t_max, any_hit: bool, time=None,
     rays need: "interior_steps", "leaf_steps", "triangles" (non-pad
     triangles tested), and the distinct rows read, "interior_records",
     "leaf_records" and "hit_leaves" (leaf rows in which some lane found a
-    closer hit, whose prim rows are then read)."""
+    closer hit, whose prim rows are then read); with the motion rows
+    (K1km) "groups", "groups_near" and "near_group_records" as
+    ``traverse_wide_reference`` counts them."""
     traverse_kd_reference.calls += 1
     from tpurt_torch.geom.kdtree import (SLOT_ABOVE, SLOT_AXIS, SLOT_BELOW,
                                          SLOT_CONT, SLOT_SPLIT)
@@ -448,7 +485,10 @@ def traverse_kd_reference(geo, o, d, t_max, any_hit: bool, time=None,
     if stats is not None:
         seen = torch.zeros(nodes.shape[0], dtype=torch.bool, device=dev)
         seen_hit = torch.zeros_like(seen)
-        stats.update(interior_steps=0, leaf_steps=0, triangles=0)
+        seen_near = torch.zeros((nodes.shape[0], GROUPS), dtype=torch.int32,
+                                device=dev)
+        stats.update(interior_steps=0, leaf_steps=0, triangles=0, groups=0,
+                     groups_near=0)
     steps = 0
     while live.numel() and steps <= nodes.shape[0]:
         steps += 1
@@ -484,6 +524,10 @@ def traverse_kd_reference(geo, o, d, t_max, any_hit: bool, time=None,
                 stats["triangles"] += int((~torch.isnan(lrec[:, :LEAF_K]))
                                           .sum())
                 seen_hit[rows[lpos][better]] = True
+                if delta is not None:
+                    _group_stats(stats, seen_near, rows[lpos], o[lanes],
+                                 d[lanes], t_best[lanes], time[lanes], lrec,
+                                 delta[rows[lpos]])
             bl = lanes[better]
             kb = kbest[better]
             t_best[bl] = t_min[better]
@@ -549,7 +593,8 @@ def traverse_kd_reference(geo, o, d, t_max, any_hit: bool, time=None,
         leaf_rows = nodes[:, SLOT_KIND] > 0
         stats.update(interior_records=int((seen & ~leaf_rows).sum()),
                      leaf_records=int((seen & leaf_rows).sum()),
-                     hit_leaves=int(seen_hit.sum()))
+                     hit_leaves=int(seen_hit.sum()),
+                     near_group_records=int((seen_near > 0).sum()))
     return t_best, prim_best, b0_best, b1_best
 
 

@@ -57,6 +57,12 @@ CURVE_AUX = 8 * WIDTH
 # live slots of an interior record (48 bounds + 8 child references),
 # padded to 256 B
 INTERIOR_REC = 64
+# a motion leaf's triangles in groups of 4 (a float4 of each vertex row);
+# the group box table (motion_group_boxes) holds 12 floats a group, min v
+# xyz, max v xyz, min dv xyz, max dv xyz, in a row of 64 floats a leaf
+GROUPS = LEAF_K // 4
+GROUP_BOX = 12
+MOTION_BOX = 64
 
 
 def derive_traversal_tables(wnodes: np.ndarray, leaf_side=()) -> dict:
@@ -124,7 +130,8 @@ def derive_kd_tables(knodes: np.ndarray, delta=None) -> dict:
       kleaves (Ml, 128) f32: the leaf rows as they are (K1's leaf test
           reads them), slot SLOT_CONT rewritten to the continuation's
           reference (-1: none);
-      kleaves_delta (Ml, 128): ``delta``'s rows in kleaves order, or None.
+      kleaves_delta (Ml, 128): ``delta``'s rows in kleaves order, or None;
+      kleaves_box (Ml, 64): their group boxes (``motion_group_boxes``).
     A reference is ``2 * row + kind``: ``row`` in kinodes (kind 0) or in
     kleaves (kind 1), so the walk knows a node's kind before it reads it;
     ``kroot_ref`` is row 0's.  ``kirow`` / ``klrow`` (int32) give each
@@ -169,12 +176,46 @@ def derive_kd_tables(knodes: np.ndarray, delta=None) -> dict:
     kleaves.view(np.int32)[:, SLOT_CONT] = -1
     kleaves.view(np.int32)[:len(lrow), SLOT_CONT] = ref_of(
         ints[lrow, SLOT_CONT])
-    kdelta = None
+    kdelta = kbox = None
     if delta is not None:
         kdelta = np.zeros(kleaves.shape, np.float32)
         kdelta[:len(lrow)] = delta[lrow]
+        kbox = motion_group_boxes(kleaves, kdelta)
     return dict(kinodes=kinodes, kleaves=kleaves, kleaves_delta=kdelta,
-                kroot_ref=int(ref[0]), kirow=irow, klrow=lrow)
+                kleaves_box=kbox, kroot_ref=int(ref[0]), kirow=irow,
+                klrow=lrow)
+
+
+def motion_group_boxes(leaves, delta):
+    """(M, MOTION_BOX) f32: the box rows of motion leaf records ``leaves``
+    (M, 128) with their delta rows ``delta`` (numpy or torch, the same
+    kind back), which the motion leaf's group cull reads
+    (``motion_group_cull``; K1m and K1km).  Group g (triangles 4g..4g+3)
+    fills [12g, 12g + 12): the min and the max over its live triangles'
+    9 vertex coordinates, by axis, then the min and the max of their
+    deltas; a group of pads only (v NaN) is NaN throughout, the rest of
+    the row 0.  Mins and maxes of stored floats: exact."""
+    as_np = isinstance(leaves, np.ndarray)
+    rec, drec = torch.as_tensor(leaves), torch.as_tensor(delta)
+    m = rec.shape[0]
+    # (M, vertex, axis, group, triangle of the group)
+    v = rec[:, :PRIM_LO].reshape(m, 3, 3, GROUPS, 4)
+    dv = drec[:, :PRIM_LO].reshape(m, 3, 3, GROUPS, 4)
+    live = ~torch.isnan(v[:, 0:1, 0:1])  # a triangle's v0.x
+    v_ok = live & ~torch.isnan(v)
+    box = torch.stack([
+        torch.where(v_ok, v, INF).amin(dim=(1, 4)),
+        torch.where(v_ok, v, -INF).amax(dim=(1, 4)),
+        torch.where(live, dv, INF).amin(dim=(1, 4)),
+        torch.where(live, dv, -INF).amax(dim=(1, 4))], dim=1)
+    # (M, 4, axis, group): NaN where the group holds no live triangle
+    box = torch.where(live.any(dim=4).reshape(m, 1, 1, GROUPS), box,
+                      float("nan"))
+    out = torch.zeros((m, MOTION_BOX), dtype=torch.float32,
+                      device=rec.device)
+    out[:, :GROUPS * GROUP_BOX] = box.permute(0, 3, 1, 2).reshape(
+        m, GROUPS * GROUP_BOX)
+    return out.numpy() if as_np else out
 
 
 def _stack_depth(depth: int) -> int:
@@ -212,7 +253,9 @@ class DeviceGeometry:
     Motion blur (None on a static scene, as in tpurt):
     wnodes_delta (M, 128): per-leaf vertex deltas (end - start) in the
         leaf layout of wnodes, pads 0; leaves_delta (Ml, 128) the same
-        rows in ``leaves`` order, for the kernel.
+        rows in ``leaves`` order, for the kernel, and leaves_box (Ml, 64)
+        their triangle groups' boxes (``motion_group_boxes``), which the
+        kernel's group cull reads.
     shade_delta (P, 18): dv0, dv1, dv2, dn0, dn1, dn2 per prim.
     quad_trs (Q, 2, 16): each quadric's endpoint [t (3), quat wxyz (4),
         S (9)]; quad_animated (Q,) bool.
@@ -235,9 +278,10 @@ class DeviceGeometry:
     continuation row in slot 124), which the twin and the kernel both
     read; knodes_delta (Mk, 128) its motion delta rows; kbounds (2, 3)
     the root's clip box; kstack_depth the walk's interval-stack slots;
-    kinodes, kleaves, kleaves_delta, kroot_ref the kernel's tables,
-    derived from knodes at upload (``derive_kd_tables``).  Triangle rays
-    walk it; curves keep their tree and quadrics their passes.
+    kinodes, kleaves, kleaves_delta, kleaves_box, kroot_ref the kernel's
+    tables, derived from knodes at upload (``derive_kd_tables``).
+    Triangle rays walk it; curves keep their tree and quadrics their
+    passes.
     """
 
     wnodes: torch.Tensor
@@ -255,6 +299,7 @@ class DeviceGeometry:
     quads: tuple = ()
     wnodes_delta: torch.Tensor = None
     leaves_delta: torch.Tensor = None
+    leaves_box: torch.Tensor = None
     shade_delta: torch.Tensor = None
     quad_trs: torch.Tensor = None
     quad_animated: torch.Tensor = None
@@ -278,6 +323,7 @@ class DeviceGeometry:
     kinodes: torch.Tensor = None
     kleaves: torch.Tensor = None
     kleaves_delta: torch.Tensor = None
+    kleaves_box: torch.Tensor = None
     kroot_ref: int = 0
 
     @property
@@ -390,6 +436,8 @@ class DeviceGeometry:
                 bool(a) for a in tables["quad_animated"])
         if delta is not None:
             tables["leaves_delta"] = trav["side"][0]
+            tables["leaves_box"] = motion_group_boxes(trav["leaves"],
+                                                      trav["side"][0])
         if tables.get("cnodes") is not None:
             aux = tables.get("cnodes_aux")
             ctrav = derive_traversal_tables(
@@ -402,7 +450,8 @@ class DeviceGeometry:
             ktrav = derive_kd_tables(tables["knodes"],
                                      tables.get("knodes_delta"))
             tables.update({k: ktrav[k] for k in (
-                "kinodes", "kleaves", "kleaves_delta", "kroot_ref")})
+                "kinodes", "kleaves", "kleaves_delta", "kleaves_box",
+                "kroot_ref")})
         kw = {k: (torch.tensor(v, device=device)
                   if isinstance(v, np.ndarray) else v)
               for k, v in tables.items()}
@@ -766,6 +815,75 @@ def curve_span_cull(o, d, t_max, rec, aux=None):
     rad = half * CULL_R_REL + CULL_R_ABS
     return ((gx <= rad) & (gy <= rad) & (gx * gx + gy * gy <= rad * rad)
             & (zhi > 0) & (zlo < z_lim))
+
+
+# the motion group cull's pads (motion_group_cull): the box's, 2^12 ulps
+# of the largest |coordinate| of the box and of the ray's origin, plus an
+# absolute 2^-100 against zero and subnormal sums; its t limits' relative
+# 2^-16 against the slab test's own rounding
+MCULL_REL = 2.0 ** -12
+MCULL_ABS = 2.0 ** -100
+MCULL_T = 1.0 + 2.0 ** -16
+
+
+def motion_group_cull(o, d, t_max, time, box):
+    """(N, GROUPS) bool: the triangle groups of each lane's motion leaf
+    that may hold a hit below t_max at the lane's time; the lerped
+    _tri_bundle_test(..., drec, time) can hit in no other.  ``box``: the
+    lanes' leaf box rows (N, MOTION_BOX) (``motion_group_boxes``).  The
+    plain copy of the traversal kernel's group cull (K1m and K1km,
+    traverse.cu: ``group_near``), op for op: the group's box lerped to
+    the ray's time, padded, against the ray over (0, t_max].
+
+    Why it never drops a group the twin hits:
+      - the lerp: the box at time tau is lo = min v + min(tau min dv,
+        tau max dv) (hi to match), rounded as the twin rounds v + tau dv.
+        Rounding to nearest is monotone, so every lerped vertex the twin
+        computes lies in [lo, hi] exactly, at any tau, inside [0, 1] or
+        not (tpurt lerps by the raw shutter time);
+      - the watertight test: it accepts a ray that passes at most a few
+        ulps of |v - o| outside the triangle (the permuted vertices'
+        differences and shear round once each, the edge functions'
+        products and differences once more), and its t, which it keeps
+        below t_max, lies the same few ulps of |v - o| along the ray from
+        the point it meets.  |v - o| <= B, the largest |coordinate| of
+        the lerped box plus that of o.  The pad, 2^12 ulps of B, covers
+        both with a wide margin, so the point of the ray at the twin's t,
+        or at t_max when that t rounds below it, lies inside the padded
+        box; its slab interval then meets (0, t_max];
+      - the slab test: each slab t rounds three times (the difference,
+        1/d, the product), within gamma(3) of exact, and keeps the sign
+        of the exact value; the far limit and t_max are scaled by
+        1 + 2^-16 against it, and a ray that leaves the box at t = 0
+        (t_far = 0) is kept;
+      - a NaN (0 * inf of a zero direction component in the plane of a
+        face) fails the comparisons that drop a group, so it keeps it.
+    Groups of pads (NaN boxes) come back False; the kernel skips them
+    before the cull, as the twin's NaN vertices never hit."""
+    inv_d = safe_inv_dir(d)
+    big_o = torch.maximum(torch.maximum(o[:, 0].abs(), o[:, 1].abs()),
+                          o[:, 2].abs())
+    tau = time[:, None]
+    out = []
+    for g in range(GROUPS):
+        b = box[:, GROUP_BOX * g:GROUP_BOX * (g + 1)]
+        t_lo, t_hi = tau * b[:, 6:9], tau * b[:, 9:12]
+        lo = b[:, 0:3] + torch.minimum(t_lo, t_hi)
+        hi = b[:, 3:6] + torch.maximum(t_lo, t_hi)
+        big = torch.maximum(lo.abs().amax(dim=1), hi.abs().amax(dim=1))
+        pad = ((big + big_o) * MCULL_REL + MCULL_ABS)[:, None]
+        t0 = ((lo - pad) - o) * inv_d
+        t1 = ((hi + pad) - o) * inv_d
+        near = torch.minimum(t0, t1)
+        far = torch.maximum(t0, t1)
+        t_near = torch.maximum(torch.maximum(near[:, 0], near[:, 1]),
+                               near[:, 2])
+        t_far = torch.minimum(torch.minimum(far[:, 0], far[:, 1]),
+                              far[:, 2])
+        keep = ~((t_near > t_far * MCULL_T) | (t_far < 0)
+                 | (t_near > t_max * MCULL_T))
+        out.append(keep & ~torch.isnan(b[:, 0]))
+    return torch.stack(out, dim=1)
 
 
 def _box8_test(rec, o, inv_d, t_max):
