@@ -5,7 +5,7 @@
                                       # frame (1 without) and prints a
                                       # torch.profiler breakdown of one
                                       # frame of A, B, C1, D, E, F, AO,
-                                      # G, J and K, of one H chain step
+                                      # G, J, K, L and M, of one H chain step
                                       # and of a 4-iteration I render
                                       # (F's, G's, H's and I's with
                                       # their ranges)
@@ -156,8 +156,9 @@ Phases (any failure exits non-zero; none is caught):
      rows); under --profile one chain step's breakdown
  21. main path I: the CLI renders the caustic frame (testscenes.
      write_caustic "full": a glass sphere over a matte floor under a
-     sphere area light, 700x700, Integrator "sppm", 64 iterations of
-     490,000 photons, maxdepth 5, radius 0.0171) on the card (K1 launched
+     sphere area light, 700x700, Integrator "sppm", SPPM_ITERS (16; the
+     frame's 64 before frames L and M) iterations of 490,000 photons,
+     maxdepth 5, radius 0.0171) on the card (K1 launched
      closest and any-hit, no plain traversal); one timed render of the
      built job (sppm_render_s with its camera, grid, photon and deposit
      seconds summed over the iterations, peak memory, each iteration's
@@ -191,6 +192,31 @@ Phases (any failure exits non-zero; none is caught):
      body, no plain traversal) and K1km against its twin on E's camera
      rays and first bounce step, bit for bit; under --profile one
      profiled frame of K
+ 24. main path L: the CLI renders frame A's stand-in through Camera
+     "realistic" (testscenes.write_realistic "full": tpurt's biconvex
+     test lens, focus 15.2, aperture 8 mm, 35 mm diagonal; 700x700, 8
+     spp, path) on the card (K1 launched closest and any-hit, no plain
+     traversal); the 64-zone exit-pupil build (64 x 2^18 float64 rays)
+     on the card, timed; K1 against its plain version on every call of
+     L's camera rays and first bounce step (the camera rays leave the
+     front element from many origins), its time on L's camera rays beside
+     A's, and the share of vignetted camera lanes; the timed render
+     (realistic_render_s, traversal launches a render, peak memory), A
+     and L timed alternately (A L L A), and L's mean beside A's; L at
+     32x32 on the card against the CPU under path and bdpt (phase 9's
+     bounds)
+ 25. main path M: the CLI renders frame A's stand-in with its meshes
+     under Material "fourier" (a synthetic 3-channel table of up to 8
+     orders a cell, testscenes.glossy_fourier_table) and its ground as 256
+     Ptex faces under a matte Kd (write_ptex_fourier "full", 700x700, 8
+     spp, path) on the card (K1 closest and any-hit, no plain
+     traversal); M's camera hits read >= 12 distinct Ptex faces and > 5%
+     fourier lanes; K1 against its plain version on M's camera rays and
+     first bounce step; the timed render (ptex_fourier_render_s,
+     traversal launches a render, peak memory), A and M timed
+     alternately (A M M A), and M's mean beside A's;
+     M at 32x32 on the card against the CPU under path, bdpt, sppm and
+     path with --spectrum sampled (phase 9's bounds)
 K1 on every path: phase 4 holds the kernel to its plain version on path
 A's rays; paths B, C1, C2 and the whitted variant walk other scenes or
 other rays, so each records the calls K1's wrapper receives while 2^20
@@ -2015,8 +2041,9 @@ ReverseOrientation
 Shape "sphere" "float radius" [1]
 WorldEnd
 """
-# frame I's iterations (pbrt's default); 16 if the run outgrows its time
-SPPM_ITERS = 64
+# frame I's iterations: pbrt's default is 64, cut to 16 when frames L
+# and M took the run past 15 minutes
+SPPM_ITERS = 16
 
 
 def sppm_grid_check(vp_p, vp_valid, radius, ph, hash_size: int):
@@ -2341,6 +2368,176 @@ def phase_kdtree(gpu: str, job_a, profile_all: bool):
                 k1=k1_k, k1_e=k1_ek, vs_k1=vs_k1, profile=prof)
 
 
+def paired_times(job_a, job):
+    """Frame A's job and ``job`` rendered alternately, A X X A: the two
+    pairs of seconds (the shared host's spread moves single runs by
+    tens of percent; PERF.md section 7)."""
+    from tpurt_torch.render.driver import render_job
+
+    runs = {"a": [], "x": []}
+    for key in ("a", "x", "x", "a"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        render_job(job_a if key == "a" else job)
+        torch.cuda.synchronize()
+        runs[key].append(time.time() - t0)
+    return runs["a"], runs["x"]
+
+
+def phase_realistic(gpu: str, k1_a: dict, job_a, path_mean: float,
+                    a_s: float, profile_all: bool = False):
+    """Main path L: frame A's stand-in through Camera "realistic" (the
+    biconvex test lens, focus 15.2, aperture 8 mm, 35 mm diagonal) via
+    the CLI at 700x700, 8 spp (K1 closest and any-hit launched, no plain
+    traversal); the 64-zone lens build on the card, timed; K1 against its
+    plain version on every call of L's camera rays and first bounce step,
+    its time on L's camera rays beside A's; the timed render with its
+    launches and peak memory, its mean beside A's; the small L scene on
+    the card against the CPU under path and bdpt; under --profile one
+    profiled frame."""
+    from tpurt_torch.kernels.traverse import reset_launches, traverse_wide
+    from tpurt_torch.render.driver import (build_job, load_scene, render,
+                                           render_job)
+    from tpurt_torch.render.lenses import N_ZONES, build_lens_system
+    from tpurt_torch.testscenes import write_realistic
+
+    scene = write_realistic(str(WORK / "realistic_full.pbrt"), "full")
+    img, launches, cli_s = cli_counted(
+        scene, WORK / "realistic_out.exr", "main path L (realistic camera)")
+    any_hit = traverse_wide.any_hit_launches
+    assert img.shape == (700, 700, 3) and any_hit > 0, any_hit
+    lens = scene.rsplit(".", 1)[0] + ".dat"
+    build_lens_system(lens, 8.0, 15.2, 0.035, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ls = build_lens_system(lens, 8.0, 15.2, 0.035, device="cuda")
+    torch.cuda.synchronize()
+    lens_s = time.time() - t0
+    print(f"lens build on the card: {N_ZONES} zones x 2^18 rays in "
+          f"{lens_s:.4f}s (rear z {ls.rear_z:.6f} m, zone 0 bound "
+          f"{np.round(ls.exit_pupil[0], 6).tolist()})")
+    job = build_job(load_scene(scene), "cuda")
+    k1_l = k1_on_path("L realistic", job, 1)
+    assert [r["any_hit"] for r in k1_l] == [False, True, False], k1_l
+    vig = float((job.camera.generate_rays(
+        *_film_lens_grid(job))[2] == 0).float().mean())
+    print(f"K1 on L's camera rays: {k1_l[0]['ms_burst']:.4f} ms in bursts "
+          f"(A's camera rays {k1_a['ms_burst']:.4f}), plain "
+          f"{k1_l[0]['plain_ms']:.3f} ms; vignetted camera lanes {vig:.4f}")
+    reset_launches()
+    render_s, runs, peak, img = render_timed(job)
+    per_render = traverse_wide.launches // (1 + TIMED_RUNS)
+    ratio = float(img.mean()) / path_mean
+    pair_a, pair_x = paired_times(job_a, job)
+    print(f"realistic_render_s {render_s:.4f} (runs "
+          f"{['%.4f' % r for r in runs]}; A's {a_s:.4f}; paired A L L A "
+          f"{['%.4f' % r for r in (pair_a[0], *pair_x, pair_a[1])]}) "
+          f"traversal launches a render {per_render}, peak mem "
+          f"{peak / 2**30:.3f} GiB, image mean {img.mean():.5f} = "
+          f"{ratio:.4f} of A's {path_mean:.5f}, CLI first run "
+          f"{cli_s:.2f}s on {gpu}")
+    for integ in ("path", "bdpt"):
+        small = write_realistic(str(WORK / f"realistic_small_{integ}.pbrt"),
+                                "small", integrator=integ)
+        g, _ = render(load_scene(small), "cuda")
+        h, _ = render(load_scene(small), "cpu")
+        _close(g, h, f"small L ({integ})")
+    prof = None
+    if profile_all:
+        prof = phase_profile("realistic frame L", lambda: render_job(job),
+                             render_s)
+    return dict(launches=launches, any_hit_launches=any_hit,
+                render_s=render_s, peak=peak, ratio=ratio, k1=k1_l,
+                lens_build_s=lens_s, vignetted=vig, profile=prof,
+                paired=(pair_a, pair_x))
+
+
+def _film_lens_grid(job, n: int = 1 << 20):
+    """(p_film, p_lens) of n lanes: film points on a grid over the whole
+    film, lens samples from a seeded generator."""
+    w, h = job.film.width, job.film.height
+    i = torch.arange(n, device="cuda")
+    side = int(np.sqrt(n))
+    p_film = torch.stack([(i % side + 0.5) * (w / side),
+                          (i // side + 0.5) * (h / side)], -1).float()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    return p_film, torch.rand((n, 2), device="cuda", generator=gen)
+
+
+def phase_ptex_fourier(gpu: str, job_a, path_mean: float, a_s: float,
+                       profile_all: bool = False):
+    """Main path M: frame A's stand-in with its meshes under Material
+    "fourier" (a synthetic 3-channel table of up to 8 orders) and its
+    ground under a 256-face Ptex Kd, via the CLI at 700x700, 8 spp (K1
+    closest and any-hit launched, no plain traversal); the camera hits
+    read distinct Ptex faces and fourier lanes; K1 against its plain
+    version on M's camera rays and first bounce step; the timed render
+    with its launches and peak memory, its mean beside A's; the small M
+    scene on the card against the CPU under path, bdpt, sppm and path
+    with --spectrum sampled; under --profile one profiled frame."""
+    from tpurt_torch.kernels.traverse import reset_launches, traverse_wide
+    from tpurt_torch.render.driver import (build_job, load_scene, render,
+                                           render_job)
+    from tpurt_torch.render.integrator import INF, make_shade_ctx
+    from tpurt_torch.render.interaction import compute_interaction
+    from tpurt_torch.render.intersect import intersect_closest
+    from tpurt_torch.testscenes import write_ptex_fourier
+
+    scene = write_ptex_fourier(str(WORK / "ptex_fourier_full.pbrt"), "full")
+    img, launches, cli_s = cli_counted(
+        scene, WORK / "ptex_fourier_out.exr",
+        "main path M (ptex and a fourier BSDF)")
+    any_hit = traverse_wide.any_hit_launches
+    assert img.shape == (700, 700, 3) and any_hit > 0, any_hit
+    job = build_job(load_scene(scene), "cuda")
+    assert job.scene.has_ptex and len(job.scene.fr_tables) == 1
+    k1_m = k1_on_path("M ptex fourier", job, 1)
+    # what the camera sees: the ground's Ptex faces and the fourier lanes
+    o, d = _camera_rays(job)
+    si = compute_interaction(job.scene.geo, intersect_closest(
+        job.scene.geo, o, d, INF, traverse_wide), o, d, faces=True)
+    ctx = make_shade_ctx(job.scene, si, job.texture_eval)
+    faces = torch.unique(si.face_index[si.valid & ~ctx.fourier[0]]).numel()
+    f_share = ctx.fourier[0].float().mean().item()
+    print(f"M's camera hits: {faces} distinct Ptex faces, fourier lanes "
+          f"{f_share:.4f}")
+    assert faces >= 12 and f_share > 0.05, (faces, f_share)
+    reset_launches()
+    render_s, runs, peak, img = render_timed(job)
+    per_render = traverse_wide.launches // (1 + TIMED_RUNS)
+    ratio = float(img.mean()) / path_mean
+    pair_a, pair_x = paired_times(job_a, job)
+    print(f"ptex_fourier_render_s {render_s:.4f} (runs "
+          f"{['%.4f' % r for r in runs]}; A's {a_s:.4f}; paired A M M A "
+          f"{['%.4f' % r for r in (pair_a[0], *pair_x, pair_a[1])]}) "
+          f"traversal launches a render {per_render}, peak mem "
+          f"{peak / 2**30:.3f} GiB, image mean {img.mean():.5f} = "
+          f"{ratio:.4f} of A's {path_mean:.5f}, CLI first run "
+          f"{cli_s:.2f}s on {gpu}")
+    for integ, spectrum in (("path", "rgb"), ("bdpt", "rgb"),
+                            ("sppm", "rgb"), ("path", "sampled")):
+        small = write_ptex_fourier(
+            str(WORK / f"ptex_fourier_small_{integ}.pbrt"), "small",
+            integrator=integ)
+        g, _ = render(load_scene(small), "cuda", spectrum=spectrum)
+        h, _ = render(load_scene(small), "cpu", spectrum=spectrum)
+        _close(g, h, f"small M ({integ}, {spectrum})")
+    prof = None
+    if profile_all:
+        prof = phase_profile("ptex and fourier frame M",
+                             lambda: render_job(job), render_s)
+    return dict(launches=launches, any_hit_launches=any_hit,
+                render_s=render_s, peak=peak, ratio=ratio, k1=k1_m,
+                ptex_faces_seen=faces, fourier_share=f_share, profile=prof,
+                paired=(pair_a, pair_x))
+
+
+def _camera_rays(job, n: int = 1 << 20):
+    """(o, d) of n camera rays over the film (_film_lens_grid's)."""
+    o, d, _ = job.camera.generate_rays(*_film_lens_grid(job, n))
+    return o, d
+
+
 LEAF_BODIES = {
     "K1m": ("traverse_wide_motion",
             "tpurt/render/intersect.py:669 (_tri_bundle_test, drec/time)"),
@@ -2454,8 +2651,13 @@ def main(argv=None) -> int:
     stamp("phase 22 (J)")
     kd = phase_kdtree(gpu, job, profile_all)
     stamp("phase 23 (K)")
+    real = phase_realistic(gpu, k1, job, path_mean, render_s, profile_all)
+    stamp("phase 24 (L)")
+    pf = phase_ptex_fourier(gpu, job, path_mean, render_s, profile_all)
+    stamp("phase 25 (M)")
     k1_paths.update(media=media["k1"], ao=ao["k1"], bdpt=bdpt["k1"],
-                    mlt=mlt["k1"], sppm=sppm["k1"], spectral=spectral["k1"])
+                    mlt=mlt["k1"], sppm=sppm["k1"], spectral=spectral["k1"],
+                    realistic=real["k1"], ptex_fourier=pf["k1"])
     conn = bdpt["connection"]
     if profile_all:
         from tpurt_torch.render.driver import render_job
@@ -2480,7 +2682,8 @@ def main(argv=None) -> int:
                        + launches_d_rpf + media["launches"]
                        + ao["launches"] + bdpt["launches"]
                        + mlt["launches"] + mlt["launches_cli"]
-                       + sppm["launches"] + spectral["launches"]),
+                       + sppm["launches"] + spectral["launches"]
+                       + real["launches"] + pf["launches"]),
              launches_by_path={
                  "path": launches_a, "rpf": launches_b,
                  "direct_textured": launches_c1,
@@ -2491,7 +2694,12 @@ def main(argv=None) -> int:
                  "media": media["launches"], "ao": ao["launches"],
                  "bdpt": bdpt["launches"], "mlt": mlt["launches"],
                  "mlt_cli_128": mlt["launches_cli"],
-                 "sppm": sppm["launches"], "spectral": spectral["launches"]},
+                 "sppm": sppm["launches"], "spectral": spectral["launches"],
+                 "realistic": real["launches"],
+                 "ptex_fourier": pf["launches"]},
+             realistic_any_hit_launches=real["any_hit_launches"],
+             ptex_fourier_any_hit_launches=pf["any_hit_launches"],
+             realistic_lens_build_s=real["lens_build_s"],
              bdpt_any_hit_launches=bdpt["any_hit_launches"],
              mlt_any_hit_launches=mlt["any_hit_launches"],
              sppm_any_hit_launches=sppm["any_hit_launches"],

@@ -82,10 +82,15 @@ def test_cli_renders_mlt_and_refuses_sppm(tmp_path, monkeypatch):
         img = read_image(str(out))
         assert img.shape == (16, 16, 3) and np.isfinite(img).all()
         assert img.mean() > 0
+    # the realistic camera renders too; a lens file it cannot read
+    # raises by name (tpurt renders a 45-degree perspective camera)
     realistic = tmp_path / "r.pbrt"
+    lens = tmp_path / "bad.dat"
+    lens.write_text("35.0 4.0 1.5\n")
     realistic.write_text(sppm.read_text().replace(
-        'Camera "perspective"', 'Camera "realistic"'))
-    with pytest.raises(NotImplementedError, match='Camera "realistic"'):
+        'Camera "perspective"',
+        f'Camera "realistic" "string lensfile" "{lens}"'))
+    with pytest.raises(ValueError, match=f'Camera "realistic".*{lens}'):
         cli.main([str(realistic), "--device", "cpu", "--quiet", "--spectrum",
                   "sampled"])
 

@@ -33,14 +33,17 @@ def test_halton_pbrt_scramble_selected_by_environment(monkeypatch):
 
 def test_cli_sampled_spectrum_raises(tmp_path):
     """--spectrum sampled is a rendering mode of the port: the CLI takes
-    it and goes on to the scene, where what raises is a missing file or a
-    feature still outside the port, by name."""
+    it and goes on to the scene, where what raises is a missing file by
+    name: the scene's, or a fourier material's .bsdf file (tpurt renders
+    the material black)."""
     with pytest.raises(FileNotFoundError):
         cli.main([str(tmp_path / "missing.pbrt"), "--device", "cpu",
                   "--spectrum", "sampled"])
     scene = tmp_path / "fourier.pbrt"
-    scene.write_text(BASE.format(**dict(OK, material="fourier")))
-    with pytest.raises(NotImplementedError, match='Material "fourier"'):
+    bsdf = str(tmp_path / "missing.bsdf")
+    scene.write_text(BASE.format(**dict(
+        OK, material="fourier", kd=f'"string bsdffile" "{bsdf}"')))
+    with pytest.raises(ValueError, match=f'Material "fourier".*{bsdf}'):
         cli.main([str(scene), "--device", "cpu", "--quiet", "--spectrum",
                   "sampled"])
 

@@ -73,11 +73,12 @@ def test_compute_interaction_matches_tpurt(jobs):
     hit = tix.intersect_closest(job.scene.geo, o, d, jnp.inf)
     assert 0.3 < float(jnp.mean(hit.prim >= 0)) < 1.0
     want = tint.compute_interaction(job.scene.geo, hit, o, d)
-    # media=True: the port carries the medium ids only when asked (tpurt
-    # always does), so they are compared too
+    # media=True, faces=True: the port carries the medium ids and the
+    # Ptex face index only when asked (tpurt always does), so they are
+    # compared too
     got = pint.compute_interaction(
         pjob.scene.geo, Hit(_t(hit.t), _t(hit.prim), _t(hit.b0), _t(hit.b1)),
-        _t(o), _t(d), media=True)
+        _t(o), _t(d), media=True, faces=True)
     for f in pint.SurfaceInteraction._fields:
         g, w = getattr(got, f), getattr(want, f)
         if g is None:  # derivative / footprint fields: off on both sides

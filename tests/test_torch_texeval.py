@@ -217,12 +217,21 @@ def test_texture_overrides_and_bump_match_tpurt(records):
 
 
 def test_unported_texture_class_raises(records):
+    """A texture class the port does not evaluate raises
+    NotImplementedError by name.  Every class tpurt knows is ported, ptex
+    last: a ptex texture passes the check and, evaluated without its
+    file's table (make_texture_eval loads it a job), raises ValueError
+    naming the texture and the file."""
     rec = records["port"][0]["t_const"]
-    bad = type(rec)("ptex", "spectrum", {"filename": "x.ptx"})
-    with pytest.raises(NotImplementedError, match="ptex"):
+    bad = type(rec)("noise", "spectrum", {})
+    with pytest.raises(NotImplementedError, match="noise"):
         PT.check_texture(bad)
-    with pytest.raises(NotImplementedError, match="ptex"):
+    with pytest.raises(NotImplementedError, match="noise"):
         PT.eval_texture(bad, _pair()[1], True)
+    ptex = type(rec)("ptex", "spectrum", {"filename": "x.ptx", "gamma": 2.2})
+    PT.check_texture(ptex)
+    with pytest.raises(ValueError, match='Texture "ptex".*x.ptx'):
+        PT.eval_texture(ptex, _pair()[1], True)
 
 
 def _footprints(rng, n, max_ratio):

@@ -3,7 +3,8 @@
 ``scene_from_tpurt(job)`` reads every table of a tpurt ``RenderJob``
 (geometry with its motion deltas, animated quadrics, tangents, curve
 tree and kd-tree; lights; the media; materials with their texture records, hair
-columns and ``Material "none"`` rows; the camera, animated or not;
+columns, fourier tables and ``Material "none"`` rows; the camera,
+animated or not, and the realistic camera's lens tables;
 sampler, film, integrator config, volpath's and ao's included, and the
 sampled-spectrum flag) with
 ``np.asarray`` and returns the host-table
@@ -127,7 +128,8 @@ def scene_from_tpurt(job) -> dict:
         raise NotImplementedError("tpurt geometry outside the ported slices")
     lt = job.scene.lights
     cam = job.camera
-    if cam.kind not in ("perspective", "orthographic", "environment"):
+    if cam.kind not in ("perspective", "orthographic", "environment",
+                        "realistic"):
         raise NotImplementedError(f'tpurt camera "{cam.kind}"')
     f = job.film
     a = np.asarray
@@ -155,6 +157,13 @@ def scene_from_tpurt(job) -> dict:
     anim = dict(animated=bool(cam.animated), time0=float(cam.time0),
                 time1=float(cam.time1), anim_t=opt(cam.anim_t),
                 anim_q=opt(cam.anim_q), anim_s=opt(cam.anim_s))
+    if cam.kind == "realistic":
+        anim.update(lens_el=tuple(tuple(float(v) for v in row)
+                                  for row in cam.lens_el),
+                    exit_pupil=a(cam.exit_pupil), rear_z=float(cam.rear_z),
+                    diagonal_m=float(cam.diagonal_m),
+                    simple_weighting=bool(cam.simple_weighting),
+                    epb0_area=float(cam.epb0_area))
     sc = job.scene
     media = dict(sigma_t=a(sc.med_sigma_t), sigma_s=a(sc.med_sigma_s),
                  g=a(sc.med_g), camera_medium=int(sc.camera_medium),
@@ -184,6 +193,9 @@ def scene_from_tpurt(job) -> dict:
                     has_infinite=bool(lt.has_infinite),
                     env_light_row=int(lt.env_light_row)),
         mt_table=a(job.scene.mt_table),
+        fourier=dict(tables=tuple({k: a(getattr(t, k)) for k in t._fields}
+                                  for t in sc.fr_tables),
+                     etas=tuple(float(e) for e in sc.fr_etas)),
         camera=dict(kind=cam.kind, camera_to_world=a(cam.camera_to_world),
                     raster_to_camera=a(cam.raster_to_camera),
                     lens_radius=cam.lens_radius,

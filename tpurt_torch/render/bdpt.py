@@ -211,7 +211,7 @@ def _random_walk_pair(scene: SceneData, texture_eval, sampler, px, py, sidx,
                                 time2)
         si = compute_interaction(scene.geo, hit, o, d,
                                  tangents=scene.has_tangents, time=time2,
-                                 media=has_media)
+                                 media=has_media, faces=scene.has_ptex)
         dc = cam["dim_base"] + dpb * b
         dl = lit["dim_base"] + dpb * b
 
@@ -260,8 +260,8 @@ def _random_walk_pair(scene: SceneData, texture_eval, sampler, px, py, sidx,
         ok_surf = surf_valid & (pdf > 0) & (f > 0).any(dim=-1)
         if has_media:
             any_lobe = shade.lobes.active.any(dim=-1)
-            if shade.hair is not None:
-                any_lobe = any_lobe | shade.hair[0]
+            if shade.special is not None:
+                any_lobe = any_lobe | shade.special
             null_b = (surf_valid & ~any_lobe
                       & ((si.med_in >= 0) | (si.med_out >= 0)))
             wi_m, ph = _hg_sample(d, g_med, u1, u2)

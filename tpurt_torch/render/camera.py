@@ -1,7 +1,9 @@
-"""Perspective and orthographic cameras with thin lens, and the
-environment camera (port of tpurt/render/camera.py: make_camera, as
-camera_tables + camera_from_tables, and Camera.generate_rays for
-"perspective", "orthographic" and "environment").
+"""Perspective and orthographic cameras with thin lens, the environment
+camera and the realistic camera (port of tpurt/render/camera.py:
+make_camera, as camera_tables + camera_from_tables, Camera.generate_rays
+for "perspective", "orthographic", "environment" and "realistic", with
+_generate_rays_realistic; its _trace_lenses_from_film is
+render/lenses.py's trace_lenses_from_film).
 
 Screen-window convention as in tpurt (camera.h:84): [-1,1] in the
 narrower image axis, scaled by the aspect in the wider one.  Ray
@@ -11,14 +13,26 @@ isotropic footprint model of the deeper bounces (``fp_base`` its width at
 the camera, the orthographic camera's).  An animated camera (a transform
 given for the end time with ``ActiveTransform EndTime``) interpolates
 its camera-to-world per lane at the ray's shutter time (``_interp_c2w``).
-The realistic camera is outside the port.
+
+The realistic camera (cameras/realistic.cpp) traces each film ray
+through a lens system that render/lenses.py reads, focuses and bounds:
+the film point picks its exit-pupil zone, the lens sample a point of
+that zone's bound on the rear element, and ``trace_lenses_from_film``
+refracts the ray element by element, over a host list of rows.  A
+vignetted lane keeps weight 0.  As in tpurt, its rays ignore the shutter
+time and an animated transform, its camera-to-screen is the identity,
+and a missing or unreadable lens file (or a focus it cannot reach)
+raises, where tpurt warns and renders a 45-degree perspective camera.
 
 Camera importance for the bidirectional integrators (tpurt's
 camera_screen_area, _camera_frame, camera_we, camera_pdf_we and
 camera_sample_wi, camera.py:426-502; perspective.cpp:150-239) is the
 perspective camera's, thin lens included, and reads the static
-camera-to-world; its constants are computed once, at upload.  As in tpurt the same formulas serve the orthographic
-and environment cameras too, whose importance they do not describe.
+camera-to-world; its constants are computed once, at upload.  As in
+tpurt the same formulas serve the orthographic, environment and
+realistic cameras too, whose importance they do not describe: the
+realistic camera's raster-to-camera maps onto the screen plane z = 0,
+so its screen area is infinite and its We and directional pdf are 0.
 """
 
 from __future__ import annotations
@@ -29,6 +43,8 @@ import numpy as np
 import torch
 
 from tpurt_torch.geom import transform as xf
+from tpurt_torch.render.lenses import (build_lens_system,
+                                       trace_lenses_from_film)
 from tpurt_torch.scene.paramset import ParamSet
 from tpurt_torch.render.sampling_warps import (concentric_sample_disk,
                                                matvec_lanes, norm,
@@ -69,6 +85,7 @@ class Camera:
     fp_base: float = 0.0
     fp_slope: float = 0.0
     kind: str = "perspective"  # perspective | orthographic | environment
+    # | realistic
     # animated camera-to-world (AnimatedTransform, transform.h:412): the
     # decomposed endpoint pair; a static camera leaves animated False
     anim_t: torch.Tensor = None  # (2, 3) translations
@@ -84,6 +101,16 @@ class Camera:
     screen_area: torch.Tensor = None  # () camera_screen_area
     origin: torch.Tensor = None  # (3,) world position (_camera_frame)
     forward: torch.Tensor = None  # (3,) unit world forward
+    # the realistic camera (cameras/realistic.cpp): the element rows
+    # (curvature radius, thickness, eta, aperture radius; m) as a host
+    # tuple, the exit-pupil bounds of each radial film zone, the rear
+    # element's z, the film diagonal and the weighting's constants
+    lens_el: tuple = ()
+    exit_pupil: torch.Tensor = None  # (Z, 4) x0, y0, x1, y1
+    rear_z: float = 0.0
+    diagonal_m: float = 0.035
+    simple_weighting: bool = True
+    epb0_area: float = 1.0
 
     def _interp_c2w(self, time):
         """Per-lane T-lerp, quaternion slerp and S-lerp, composed
@@ -109,7 +136,9 @@ class Camera:
         (N,) the shutter time, read only by an animated camera.
         Returns (o, d, weight); d normalized (tpurt's generate_rays,
         camera.py:129-173: perspective.cpp:79-93, orthographic.cpp,
-        environment.cpp)."""
+        environment.cpp).  The realistic camera reads no time."""
+        if self.kind == "realistic":
+            return self._generate_rays_realistic(p_film, p_lens)
         n = p_film.shape[0]
         p_raster = torch.cat(
             [p_film, torch.zeros((n, 1), dtype=p_film.dtype,
@@ -150,6 +179,58 @@ class Camera:
         return o_w, d_w, torch.ones(n, dtype=p_film.dtype,
                                     device=p_film.device)
 
+    def _generate_rays_realistic(self, p_film, p_lens):
+        """RealisticCamera::GenerateRay (realistic.cpp:679-714; tpurt's
+        camera.py:170-218): film point -> a point of its zone's exit-pupil
+        bound on the rear element -> the element-by-element trace.
+        Vignetted lanes get weight 0."""
+        aspect = self.res_y / self.res_x
+        ext_x = float(np.sqrt(self.diagonal_m ** 2 / (1 + aspect * aspect)))
+        ext_y = aspect * ext_x
+        sx = p_film[:, 0] / self.res_x
+        sy = p_film[:, 1] / self.res_y
+        pfx = -(-ext_x / 2 + sx * ext_x)  # pFilm.x = -physical.x
+        pfy = -ext_y / 2 + sy * ext_y
+
+        # exit-pupil sample (SampleExitPupil, realistic.cpp:613-633)
+        r_film = torch.sqrt(pfx * pfx + pfy * pfy)
+        zones = self.exit_pupil.shape[0]
+        r_idx = torch.clamp((r_film / (self.diagonal_m / 2) * zones).to(
+            torch.int32), max=zones - 1)
+        b = self.exit_pupil[r_idx.long()]  # (N, 4)
+        area = torch.clamp((b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1]),
+                           min=0.0)
+        lx = b[:, 0] + p_lens[:, 0] * (b[:, 2] - b[:, 0])
+        ly = b[:, 1] + p_lens[:, 1] * (b[:, 3] - b[:, 1])
+        r_pos = r_film > 0
+        r_safe = torch.clamp(r_film, min=1e-20)
+        sin_t = torch.where(r_pos, pfy / r_safe, 0.0)
+        cos_t = torch.where(r_pos, pfx / r_safe, 1.0)
+        prx = cos_t * lx - sin_t * ly
+        pry = sin_t * lx + cos_t * ly
+
+        # lens space: film at z=0, rear element at z=-rear_z
+        o = torch.stack([pfx, pfy, torch.zeros_like(pfx)], dim=-1)
+        d = torch.stack([prx - pfx, pry - pfy,
+                         torch.full_like(pfx, -self.rear_z)], dim=-1)
+        cos4 = (self.rear_z ** 2 / torch.clamp(
+            (d * d).sum(dim=-1), min=1e-30)) ** 2
+
+        ok, o, d = trace_lenses_from_film(self.lens_el, o, d)
+
+        # lens -> camera space (flip z) -> world
+        flip = torch.tensor([1.0, 1.0, -1.0], dtype=torch.float32,
+                            device=o.device)
+        o_w = _xform_point_batch(self.camera_to_world, o * flip)
+        d_w = _xform_vector_batch(self.camera_to_world, d * flip)
+        d_w = d_w / torch.clamp(norm(d_w, keepdim=True), min=1e-30)
+        if self.simple_weighting:
+            w = cos4 * area / max(self.epb0_area, 1e-20)
+        else:
+            w = ((self.shutter_close - self.shutter_open) * cos4 * area
+                 / (self.rear_z * self.rear_z))
+        return o_w, d_w, torch.where(ok, w, 0.0).to(p_film.dtype)
+
 
 def _screen_window(res_x: int, res_y: int, ps: ParamSet):
     aspect = res_x / res_y
@@ -179,12 +260,16 @@ def _raster_to_screen_to_camera(camera_to_screen: xf.Transform, sw,
 def camera_tables(name: str, ps: ParamSet, camera_to_world: xf.Transform,
                   res_x: int, res_y: int,
                   camera_to_world_end: xf.Transform = None,
-                  transform_times=(0.0, 1.0)) -> dict:
+                  transform_times=(0.0, 1.0), diagonal_m: float = 0.035,
+                  device="cuda") -> dict:
     """Host-side camera constants (MakeCamera, api.cpp:786-815; tpurt's
     make_camera, camera.py:308-424).  With ``camera_to_world_end`` the
     camera is animated over ``transform_times``: both endpoints are
-    decomposed into translation, rotation and scale."""
-    if name not in ("perspective", "orthographic", "environment"):
+    decomposed into translation, rotation and scale.  ``diagonal_m`` is
+    the film's diagonal; the realistic camera's exit pupil is traced on
+    ``device``."""
+    if name not in ("perspective", "orthographic", "environment",
+                    "realistic"):
         raise NotImplementedError(f'Camera "{name}"')
     anim = dict(anim_t=None, anim_q=None, anim_s=None, animated=False)
     if camera_to_world_end is not None:
@@ -204,6 +289,8 @@ def camera_tables(name: str, ps: ParamSet, camera_to_world: xf.Transform,
         cam_to_screen = xf.orthographic(0.0, 1.0)
     else:
         cam_to_screen = xf.Transform()
+    lens = (_realistic_tables(ps, diagonal_m, device) if name == "realistic"
+            else {})
     sw = _screen_window(res_x, res_y, ps)
     r2c = _raster_to_screen_to_camera(cam_to_screen, sw, res_x, res_y)
 
@@ -222,7 +309,7 @@ def camera_tables(name: str, ps: ParamSet, camera_to_world: xf.Transform,
         fp_slope = float(np.arccos(np.clip(d0 @ d1, -1, 1)) / np.sqrt(2))
     elif name == "orthographic":
         fp_base = float(np.linalg.norm((pb - pa)[:2]) / np.sqrt(2))
-    else:
+    elif name == "environment":
         fp_slope = float(np.pi / res_y)
     return dict(
         kind=name, camera_to_world=camera_to_world.m.astype(np.float32),
@@ -232,7 +319,32 @@ def camera_tables(name: str, ps: ParamSet, camera_to_world: xf.Transform,
         shutter_open=ps.find_one_float("shutteropen", 0.0),
         shutter_close=ps.find_one_float("shutterclose", 1.0),
         res_x=res_x, res_y=res_y, time0=float(transform_times[0]),
-        time1=float(transform_times[1]), **anim)
+        time1=float(transform_times[1]), **anim, **lens)
+
+
+def _realistic_tables(ps: ParamSet, diagonal_m: float, device) -> dict:
+    """The realistic camera's set-up (tpurt's camera.py:333-357): the
+    lens file read, focused and bounded on ``device``.  A missing or
+    unreadable file, or a focus distance the lens cannot reach, raises
+    ValueError naming the camera and the file (tpurt warns and renders a
+    45-degree perspective camera instead)."""
+    lensfile = ps.find_one_string("lensfile", "")
+    if not lensfile:
+        raise ValueError('Camera "realistic": no "string lensfile" given')
+    try:
+        ls = build_lens_system(lensfile,
+                               ps.find_one_float("aperturediameter", 1.0),
+                               ps.find_one_float("focusdistance", 10.0),
+                               diagonal_m, device=device)
+    except (OSError, ValueError) as e:
+        raise ValueError(f'Camera "realistic": lens file "{lensfile}": {e}'
+                         ) from e
+    b0 = ls.exit_pupil[0]
+    return dict(
+        lens_el=tuple(tuple(float(v) for v in row) for row in ls.elements),
+        exit_pupil=ls.exit_pupil, rear_z=ls.rear_z, diagonal_m=diagonal_m,
+        simple_weighting=ps.find_one_bool("simpleweighting", True),
+        epb0_area=float(max((b0[2] - b0[0]) * (b0[3] - b0[1]), 1e-20)))
 
 
 def camera_from_tables(tab: dict, device) -> Camera:

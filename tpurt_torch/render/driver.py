@@ -51,6 +51,7 @@ from tpurt_torch.render.materials_build import (MAT_NONE,
                                                 build_material_table,
                                                 fuse_material_rows,
                                                 lobe_slots)
+from tpurt_torch.render.fourier import table_to_device
 from tpurt_torch.render.texeval import TexEval, make_texture_eval
 from tpurt_torch.sampling.samplers import sampler_from_tables, sampler_tables
 from tpurt_torch.scene.records import TextureRecord
@@ -256,10 +257,12 @@ def media_tables(sd: SceneDescription, geo_h, kinds) -> dict:
 
 
 def host_tables(sd: SceneDescription, quick: bool = False,
-                crop_override=None, spectrum: str = "rgb") -> dict:
+                crop_override=None, spectrum: str = "rgb",
+                device="cuda") -> dict:
     """All host-side tables of a render job (numpy arrays and Python
     values), before upload.  tpurt_torch.convert builds the same dict from
-    a tpurt RenderJob."""
+    a tpurt RenderJob.  ``device`` is where the realistic camera traces
+    its exit pupil: the job's."""
     _check_slice(sd)
     mat_index = MaterialIndexer()
     area_records = []
@@ -313,13 +316,17 @@ def host_tables(sd: SceneDescription, quick: bool = False,
         geo=geo, lights=lights,
         media=media_tables(sd, geo_h, mt.kinds),
         mt_table=fuse_material_rows(mt),
+        fourier=dict(tables=mt.fourier_tables, etas=mt.fourier_etas),
         materials=dict(records=records, textured=mt.textured,
                        has_bump=has_bump(records),
                        has_texfilter=any_imagemap(records)),
         camera=camera_tables(sd.camera_name, sd.camera_params,
                              sd.camera_to_world, film.full_x, film.full_y,
                              camera_to_world_end=sd.camera_to_world_end,
-                             transform_times=sd.transform_times),
+                             transform_times=sd.transform_times,
+                             diagonal_m=sd.film_params.find_one_float(
+                                 "diagonal", 35.0) * 0.001,
+                             device=device),
         sampler=sampler_tables(sd.sampler_name, sd.sampler_params,
                                film.full_x, film.full_y, quick=quick,
                                sample_bounds=film.sample_bounds()),
@@ -338,24 +345,30 @@ def job_from_tables(tab: dict, device) -> RenderJob:
         media.update({k: med[k] for k in (
             "camera_medium", "has_media", "has_grid_media",
             "has_null_boundaries")})
+    fr = tab["fourier"]
     scene = SceneData(
         geo=DeviceGeometry.from_tables(tab["geo"], device),
         lights=light_table_from_tables(tab["lights"], device),
         mt_table=torch.tensor(tab["mt_table"], device=device),
         has_bump=mats["has_bump"], has_texfilter=mats["has_texfilter"],
-        lobe_slots=lobe_slots(tab["mt_table"]), **media)
+        lobe_slots=lobe_slots(tab["mt_table"]),
+        fr_tables=tuple(table_to_device(t, device) for t in fr["tables"]),
+        fr_etas=tuple(fr["etas"]), **media)
+    texture_eval = make_texture_eval(mats["records"], mats["textured"],
+                                     scene.mt_table)
+    scene.has_ptex = texture_eval is not None and texture_eval.has_ptex
     return RenderJob(scene=scene, camera=camera_from_tables(tab["camera"],
                                                             device),
                      sampler=sampler_from_tables(tab["sampler"], device),
                      film=tab["film"], cfg=tab["cfg"],
-                     texture_eval=make_texture_eval(
-                         mats["records"], mats["textured"], scene.mt_table))
+                     texture_eval=texture_eval)
 
 
 def build_job(sd: SceneDescription, device, quick: bool = False,
               crop_override=None, spectrum: str = "rgb") -> RenderJob:
-    return job_from_tables(host_tables(sd, quick, crop_override, spectrum),
-                           resolve_device(device))
+    device = resolve_device(device)
+    return job_from_tables(host_tables(sd, quick, crop_override, spectrum,
+                                       device), device)
 
 
 def trace_lanes(job: RenderJob, cfg: IntegratorConfig, traverse, bank

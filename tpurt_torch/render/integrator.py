@@ -16,8 +16,10 @@ A frame with motion (an animated camera, mesh or quadric) draws dim 2
 as each lane's shutter time and carries it in the lane state to every
 ray query and interaction; a static frame draws none and passes None.
 Hair lanes replace the lobe mixture's f, pdf and sample by the hair
-BSDF (render/hair.py), in the frame of the fiber's tangent; meshes with
-``"vector S"`` and curves align the BSDF frame to their tangent.
+BSDF (render/hair.py), in the frame of the fiber's tangent, and fourier
+lanes by their tabulated BSDF (render/fourier.py, one table a .bsdf
+file); meshes with ``"vector S"`` and curves align the BSDF frame to
+their tangent.
 
 Per bounce: shade the hit carried from the previous bounce (emitted light
 with the folded MIS weight, next-event estimation, BSDF sampling, Russian
@@ -43,6 +45,8 @@ import torch
 from tpurt_torch.render.bsdf import (ALL_SLOTS, SLOT_FS, SLOT_MIRROR,
                                      LobeParams, LobeSet, bsdf_f, bsdf_pdf,
                                      bsdf_sample)
+from tpurt_torch.render.fourier import (fourier_f, fourier_pdf,
+                                        fourier_sample)
 from tpurt_torch.render.hair import HairParams, hair_f, hair_pdf, hair_sample
 from tpurt_torch.render.interaction import (SurfaceInteraction,
                                             compute_interaction,
@@ -52,8 +56,8 @@ from tpurt_torch.render.intersect import (DeviceGeometry, Hit, intersect_any,
 from tpurt_torch.render.lights import (LightTable, choice_pmf_at,
                                        choose_light, env_le, env_pdf,
                                        pdf_li_from_hit, sample_li)
-from tpurt_torch.render.materials_build import (C_HAIR0, C_KIND, MAT_HAIR,
-                                                fetch_lobes)
+from tpurt_torch.render.materials_build import (C_FTIX, C_HAIR0, C_KIND,
+                                                MAT_HAIR, fetch_lobes)
 from tpurt_torch.render.sampling_warps import (build_onb,
                                                cosine_sample_hemisphere,
                                                cross, dot, norm,
@@ -125,6 +129,13 @@ class SceneData:
     # a Material "none" prim carries a MediumInterface: volpath's shadow
     # rays walk the boundaries (VisibilityTester::Tr)
     has_null_boundaries: bool = False
+    # fourier tabulated BSDFs (tpurt's SceneData :119-124): the baked
+    # tables of the scene's .bsdf files (FourierTableDev) and each one's
+    # eta; a fourier row holds its table's index in C_FTIX
+    fr_tables: tuple = ()
+    fr_etas: tuple = ()
+    # a ptex texture: the interactions carry the triangle face index
+    has_ptex: bool = False
 
     @property
     def has_tangents(self) -> bool:
@@ -148,8 +159,9 @@ def lift_illum_maybe(L, nch: int):
 
 
 def lift_f_maybe(f, nch: int):
-    """A BSDF value evaluated in 3 channels (the hair model) as ``nch``
-    channels, without the 0.94 reflectance scale (integrator.py:158)."""
+    """A BSDF value evaluated in 3 channels (the hair and fourier models)
+    as ``nch`` channels, without the 0.94 reflectance scale
+    (integrator.py:158)."""
     return f if nch == 3 else lift_refl_raw(f)
 
 
@@ -174,13 +186,13 @@ def _shading_frame(si: SurfaceInteraction):
     return build_onb(si.ns)
 
 
-def _hair_ctx(scene: SceneData, si: SurfaceInteraction):
+def _hair_ctx(scene: SceneData, si: SurfaceInteraction, mrow):
     """(is_hair, HairParams) of the hair lanes, or None when the scene has
     no hair, so a frame without hair computes none of it (tpurt's
-    _hair_ctx, integrator.py:257-277)."""
+    _hair_ctx, integrator.py:257-277).  mrow: the lanes' fused material
+    rows."""
     if not scene.lobe_slots.hair:
         return None
-    mrow = scene.mt_table[si.material_id.clamp(min=0).long()]
     kind = torch.where(si.material_id >= 0, mrow[:, C_KIND].to(torch.int32),
                        0)
     is_hair = (kind == MAT_HAIR) & si.valid
@@ -224,15 +236,52 @@ def _escape_pdf(lights: LightTable, d):
                       device=d.device)
 
 
+def _fourier_ctx(scene: SceneData, si: SurfaceInteraction, mrow):
+    """(is_fourier, table index) of the fourier lanes, or None when the
+    scene has no fourier table (tpurt's _fourier_ctx,
+    integrator.py:280-291)."""
+    if not scene.fr_tables:
+        return None
+    tix = torch.where(si.material_id >= 0, mrow[:, C_FTIX].to(torch.int32),
+                      -1)
+    return (tix >= 0) & si.valid, tix
+
+
+def _fourier_f_pdf_multi(scene: SceneData, tix, wo_l, wi_l):
+    """(f (N, 3), pdf) of each lane's fourier table, 0 elsewhere (tpurt's
+    _fourier_f_pdf_multi, integrator.py:294-306)."""
+    f = torch.zeros((wo_l.shape[0], 3), dtype=torch.float32,
+                    device=wo_l.device)
+    pdf = torch.zeros(wo_l.shape[0], dtype=torch.float32, device=wo_l.device)
+    for k, tbl in enumerate(scene.fr_tables):
+        m = tix == k
+        f = torch.where(m[:, None], fourier_f(tbl, scene.fr_etas[k], wo_l,
+                                              wi_l), f)
+        pdf = torch.where(m, fourier_pdf(tbl, wo_l, wi_l), pdf)
+    return f, pdf
+
+
 class ShadeCtx(NamedTuple):
     """The surface-shading context of a vertex (tpurt's ShadeCtx,
-    integrator.py:310-324): the lobe mixture, the BSDF's local frame and
-    the hair lanes' (is_hair, HairParams), None on a scene without hair."""
+    integrator.py:310-324): the lobe mixture, the BSDF's local frame, the
+    hair lanes' (is_hair, HairParams), None on a scene without hair, and
+    the fourier lanes' (is_fourier, table index), None on a scene
+    without a fourier table."""
 
     lobes: LobeParams
     t: torch.Tensor  # (N, 3) shading tangent
     b: torch.Tensor  # (N, 3) shading bitangent
     hair: Optional[tuple] = None
+    fourier: Optional[tuple] = None
+
+    @property
+    def special(self):
+        """The lanes whose BSDF replaces the lobe mixture (hair and
+        fourier), or None when the scene has neither."""
+        masks = [c[0] for c in (self.hair, self.fourier) if c is not None]
+        if not masks:
+            return None
+        return masks[0] if len(masks) == 1 else masks[0] | masks[1]
 
 
 def make_shade_ctx(scene: SceneData, si: SurfaceInteraction,
@@ -241,7 +290,12 @@ def make_shade_ctx(scene: SceneData, si: SurfaceInteraction,
     lobes = fetch_lobes(scene.mt_table, si.material_id, overrides,
                         scene.lobe_slots, channels=channels)
     t, b = _shading_frame(si)
-    return ShadeCtx(lobes=lobes, t=t, b=b, hair=_hair_ctx(scene, si))
+    mrow = None
+    if scene.lobe_slots.hair or scene.fr_tables:
+        # one fused row gather serves both contexts
+        mrow = scene.mt_table[si.material_id.clamp(min=0).long()]
+    return ShadeCtx(lobes=lobes, t=t, b=b, hair=_hair_ctx(scene, si, mrow),
+                    fourier=_fourier_ctx(scene, si, mrow))
 
 
 def zero_shade_ctx(scene: SceneData, n: int, device,
@@ -258,18 +312,22 @@ def zero_shade_ctx(scene: SceneData, n: int, device,
     b = torch.zeros_like(t)
     t[:, 0] = 1.0
     b[:, 1] = 1.0
-    hair = None
+    hair = fourier = None
     if scene.lobe_slots.hair:
         z = torch.zeros(n, dtype=torch.float32, device=device)
         hair = (torch.zeros(n, dtype=torch.bool, device=device),
                 HairParams(h=z, eta=z + 1.55, sigma_a=torch.zeros_like(t),
                            beta_m=z + 0.3, beta_n=z + 0.3, alpha=z))
-    return ShadeCtx(lobes=lobes, t=t, b=b, hair=hair)
+    if scene.fr_tables:
+        fourier = (torch.zeros(n, dtype=torch.bool, device=device),
+                   torch.full((n,), -1, dtype=torch.int32, device=device))
+    return ShadeCtx(lobes=lobes, t=t, b=b, hair=hair, fourier=fourier)
 
 
 def shade_f(scene: SceneData, ctx: ShadeCtx, ns, w_out, w_in):
-    """(f, pdf) of the vertex's BSDF for world directions, hair lanes
-    blended in, without the cosine (tpurt's shade_f, integrator.py:378)."""
+    """(f, pdf) of the vertex's BSDF for world directions, hair and
+    fourier lanes blended in, without the cosine (tpurt's shade_f,
+    integrator.py:378)."""
     wo_l = to_local(ctx.t, ctx.b, ns, w_out)
     wi_l = to_local(ctx.t, ctx.b, ns, w_in)
     f = bsdf_f(ctx.lobes, wo_l, wi_l, scene.lobe_slots)
@@ -279,14 +337,20 @@ def shade_f(scene: SceneData, ctx: ShadeCtx, ns, w_out, w_in):
         f = torch.where(is_hair[:, None],
                         lift_f_maybe(hair_f(hp, wo_l, wi_l), f.shape[-1]), f)
         pdf = torch.where(is_hair, hair_pdf(hp, wo_l, wi_l), pdf)
+    if ctx.fourier is not None:
+        is_f, tix = ctx.fourier
+        ff, fpdf = _fourier_f_pdf_multi(scene, tix, wo_l, wi_l)
+        f = torch.where(is_f[:, None], lift_f_maybe(ff, f.shape[-1]), f)
+        pdf = torch.where(is_f, fpdf, pdf)
     return f, pdf
 
 
 def shade_sample(scene: SceneData, ctx: ShadeCtx, ns, w_out, u_lobe, u1,
                  u2):
-    """A continuation direction at the vertex, hair lanes blended in
-    (tpurt's shade_sample, integrator.py:402): (wi world, f, pdf, is_spec,
-    is_trans)."""
+    """A continuation direction at the vertex, hair and fourier lanes
+    blended in (tpurt's shade_sample, integrator.py:402; the path step's
+    :1000-1030): (wi world, f, pdf, is_spec, is_trans).  A fourier lane
+    transmits where wi and wo lie on opposite sides."""
     wo_l = to_local(ctx.t, ctx.b, ns, w_out)
     wi_l, f, pdf, is_spec, is_trans = bsdf_sample(ctx.lobes, wo_l, u_lobe,
                                                   u1, u2, scene.lobe_slots)
@@ -298,6 +362,24 @@ def shade_sample(scene: SceneData, ctx: ShadeCtx, ns, w_out, u_lobe, u1,
         pdf = torch.where(is_hair, pdf_h, pdf)
         is_spec = is_spec & ~is_hair
         is_trans = is_trans & ~is_hair
+    if ctx.fourier is not None:
+        is_f, tix = ctx.fourier
+        wi_f = torch.zeros_like(wi_l)
+        f_f = torch.zeros((wi_l.shape[0], 3), dtype=torch.float32,
+                          device=wi_l.device)
+        pdf_f = torch.zeros_like(pdf)
+        for k, tbl in enumerate(scene.fr_tables):
+            mk = tix == k
+            wi_k, fk, pk = fourier_sample(tbl, scene.fr_etas[k], wo_l, u1,
+                                          u2)
+            wi_f = torch.where(mk[:, None], wi_k, wi_f)
+            f_f = torch.where(mk[:, None], fk, f_f)
+            pdf_f = torch.where(mk, pk, pdf_f)
+        wi_l = torch.where(is_f[:, None], wi_f, wi_l)
+        f = torch.where(is_f[:, None], lift_f_maybe(f_f, f.shape[-1]), f)
+        pdf = torch.where(is_f, pdf_f, pdf)
+        is_spec = is_spec & ~is_f
+        is_trans = torch.where(is_f, wi_l[:, 2] * wo_l[:, 2] < 0, is_trans)
     return to_world(ctx.t, ctx.b, ns, wi_l), f, pdf, is_spec, is_trans
 
 
@@ -460,7 +542,8 @@ def carried_interaction(scene: SceneData, state: Dict[str, Any],
     si = compute_interaction(scene.geo, hit, state["o"], state["d"],
                              tangents=scene.has_tangents,
                              dpduv=scene.has_bump or scene.has_texfilter,
-                             time=state.get("time"), media=media)
+                             time=state.get("time"), media=media,
+                             faces=scene.has_ptex)
     if scene.has_texfilter:
         si = _tex_footprint(si, hit.t, camera)
         # camera hits: ray differentials -> anisotropic EWA derivative
@@ -546,9 +629,10 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
     lobes = ctx.lobes
     any_lobe = lobes.active.any(dim=-1)
     has_smooth = lobes.active[:, 0] | lobes.active[:, 1]
-    if ctx.hair is not None:
-        any_lobe = any_lobe | ctx.hair[0]
-        has_smooth = has_smooth | ctx.hair[0]
+    special = ctx.special
+    if special is not None:
+        any_lobe = any_lobe | special
+        has_smooth = has_smooth | special
     alive = alive & any_lobe
 
     # ---- NEE ----

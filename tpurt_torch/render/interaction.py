@@ -11,8 +11,9 @@ animated quadric's frame is interpolated; the curve terms run only on a
 scene with curves.  With ``tangents=True`` the interaction carries the
 shading tangent ``ss`` (mesh ``"vector S"`` or a curve's dpdu) that the
 BSDF frame aligns to; with ``dpduv=True`` the uv-parameterization
-derivatives that bump mapping and texture filtering need.  The ``tex_*``
-fields are filled in by the integrator.
+derivatives that bump mapping and texture filtering need; with
+``faces=True`` the triangle's Ptex face index.  The ``tex_*`` fields are
+filled in by the integrator.
 """
 
 from __future__ import annotations
@@ -81,18 +82,25 @@ class SurfaceInteraction(NamedTuple):
     # plane with pError = 2 * hitWidth (curve.cpp:342); None without
     # curves
     p_eps: Optional[torch.Tensor] = None  # (N,)
+    # the Ptex face of a triangle hit (triangle.cpp faceIndices; 0 on
+    # other lanes); None unless asked for (compute_interaction's faces)
+    face_index: Optional[torch.Tensor] = None  # (N,) i32
 
 
 def compute_interaction(geo: DeviceGeometry, hit: Hit, o, d,
                         tangents: bool = False, dpduv: bool = False,
-                        time=None, media: bool = False) -> SurfaceInteraction:
+                        time=None, media: bool = False,
+                        faces: bool = False) -> SurfaceInteraction:
     """Shading data for each lane from its Hit (tpurt's
     compute_interaction, interaction.py:77-310).  Invalid lanes get
     benign values (ns=+z) and valid=False.  time (N,): the rays' shutter
     times on a scene with motion, else None.  With ``media`` the
     interaction carries the prim's medium ids ``med_in`` and ``med_out``
     (-1 where the hit is invalid; tpurt's interaction.py:98-99, :306-307),
-    which only a scene with media reads."""
+    which only a scene with media reads.  With ``faces`` it carries the
+    triangle's face index, the bits of shade-row slot 31 (where a curve
+    keeps its 1/sin; tpurt's interaction.py:101-104), which only a scene
+    with a ptex texture reads."""
     n = hit.t.shape[0]
     prim = hit.prim.clamp(min=0).long()
     valid = hit.prim >= 0
@@ -266,6 +274,9 @@ def compute_interaction(geo: DeviceGeometry, hit: Hit, o, d,
         p_eps=p_eps,
         med_in=torch.where(valid, ints[:, 5], -1) if media else None,
         med_out=torch.where(valid, ints[:, 6], -1) if media else None,
+        face_index=(torch.where(is_tri & valid,
+                                rows[:, 31].contiguous().view(torch.int32), 0)
+                    if faces else None),
     )
 
 

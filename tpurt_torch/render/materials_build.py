@@ -9,21 +9,27 @@ slot keeps its default in the table and is listed in ``textured``; the
 texture evaluator (render/texeval.py) overrides the slots fetch_lobes
 reads per lane.  A hair row carries its Marschner parameters in the
 ``C_HAIR0`` columns, which the integrator reads (render/hair.py), and
-tpurt's gray diffuse stand-in in its lobe columns.  ``Material "none"``
-(a medium boundary) is a row of zeros of kind ``MAT_NONE``, which
-activates no lobe.  Fourier, subsurface
-and kdsubsurface, and any material name tpurt does not know, raise
-NotImplementedError (tpurt maps the last to matte with a warning).
+tpurt's gray diffuse stand-in in its lobe columns.  A fourier row
+carries the same stand-in and, in ``C_FTIX``, the index of its baked
+.bsdf table (render/fourier.py; one table per distinct file), which the
+integrators read in its place; a missing or unreadable file raises
+ValueError naming the material and the file, where tpurt logs and
+renders the material black.  ``Material "none"`` (a medium boundary) is
+a row of zeros of kind ``MAT_NONE``, which activates no lobe.
+Subsurface and kdsubsurface, and any material name tpurt does not know,
+raise NotImplementedError (tpurt maps the last to matte with a warning).
 """
 
 from __future__ import annotations
 
 import logging
+import struct
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from tpurt_torch.render.fourier import bake_fourier_table, read_bsdf_file
 from tpurt_torch.render.bsdf import (ALL_SLOTS, FRESNEL_CONDUCTOR,
                                      FRESNEL_DIELECTRIC, FRESNEL_DISNEY,
                                      FRESNEL_NOOP, FRESNEL_SCHLICK,
@@ -68,11 +74,13 @@ MAT_TRANSLUCENT = 8
 MAT_DISNEY = 9
 MAT_MIX = 10
 MAT_HAIR = 11
+MAT_FOURIER = 12
 _KIND_CODES = {"matte": MAT_MATTE, "plastic": MAT_PLASTIC,
                "mirror": MAT_MIRROR, "glass": MAT_GLASS, "metal": MAT_METAL,
                "uber": MAT_UBER, "substrate": MAT_SUBSTRATE,
                "translucent": MAT_TRANSLUCENT, "disney": MAT_DISNEY,
-               "mix": MAT_MIX, "hair": MAT_HAIR, "metal_": MAT_METAL}
+               "mix": MAT_MIX, "hair": MAT_HAIR, "fourier": MAT_FOURIER,
+               "metal_": MAT_METAL}
 
 
 class MaterialTable(NamedTuple):
@@ -87,6 +95,11 @@ class MaterialTable(NamedTuple):
     # hair columns [sigma_a rgb, eta, beta_m, beta_n, alpha]; zero rows
     # for other kinds
     hair: np.ndarray  # (M, 7) f32
+    # fourier rows' table index (-1 = none), the baked tables
+    # (bake_fourier_table's host arrays) and each table's eta
+    fourier_tix: np.ndarray = None  # (M,) i32
+    fourier_tables: tuple = ()
+    fourier_etas: tuple = ()
 
 
 def _const(slot):
@@ -136,6 +149,8 @@ def build_material_table(materials: List[Optional[MaterialRecord]]
     kinds = np.zeros(max(m, 1), np.int32)
     mix = np.full((max(m, 1), 2), -1, np.int32)
     hair = np.zeros((max(m, 1), 7), np.float32)
+    fourier_tix = np.full(max(m, 1), -1, np.int32)
+    fourier_tables, fourier_etas, fourier_keys = [], [], {}
     for i, pair in mix_pairs.items():
         mix[i] = pair
     textured: List[Tuple[int, str]] = []
@@ -207,13 +222,39 @@ def build_material_table(materials: List[Optional[MaterialRecord]]
                                MAT_MIRROR: FRESNEL_NOOP,
                                MAT_DISNEY: FRESNEL_DISNEY}.get(
                                    kind, FRESNEL_DIELECTRIC)
-        if kind == MAT_HAIR:
-            # tpurt's gray diffuse stand-in for integrators without the
-            # hair path; path and direct lighting replace it per lane
+        if kind in (MAT_HAIR, MAT_FOURIER):
+            # tpurt's gray diffuse stand-in in the lobe columns; the
+            # integrators replace it on hair and fourier lanes
             table[i, C_KD0:C_KD0 + 3] = 0.5
+        if kind == MAT_HAIR:
             hair[i] = _hair_columns(s)
+        if kind == MAT_FOURIER:
+            fname = s.get("bsdffile", ("constant", ""))[1]
+            if fname not in fourier_keys:
+                host = _read_fourier(fname)
+                fourier_keys[fname] = len(fourier_tables)
+                fourier_tables.append(bake_fourier_table(host))
+                fourier_etas.append(host.eta)
+            fourier_tix[i] = fourier_keys[fname]
     return MaterialTable(table=table, kinds=kinds, textured=textured, k3=k3,
-                         mix=mix, records=materials, hair=hair)
+                         mix=mix, records=materials, hair=hair,
+                         fourier_tix=fourier_tix,
+                         fourier_tables=tuple(fourier_tables),
+                         fourier_etas=tuple(fourier_etas))
+
+
+def _read_fourier(fname: str):
+    """The SCATFUN table of a fourier material (tpurt's
+    materials_build.py:311-332).  A missing or unreadable file raises
+    ValueError naming the material and the file: tpurt logs and renders
+    the material black."""
+    if not fname:
+        raise ValueError('Material "fourier": no "string bsdffile" given')
+    try:
+        return read_bsdf_file(fname)
+    except (OSError, ValueError, struct.error) as e:
+        raise ValueError(f'Material "fourier": bsdffile "{fname}": {e}'
+                         ) from e
 
 
 def _hair_columns(s) -> np.ndarray:
@@ -258,11 +299,11 @@ def _hair_columns(s) -> np.ndarray:
 def fuse_material_rows(mt: MaterialTable) -> np.ndarray:
     """Append tpurt's side-table columns (kind, conductor k, mix ids, hair,
     fourier index) so rows match tpurt's fused layout."""
-    m = mt.table.shape[0]
     return np.concatenate([
         mt.table, mt.kinds.astype(np.float32)[:, None],
         mt.k3.astype(np.float32), mt.mix.astype(np.float32),
-        mt.hair.astype(np.float32), np.full((m, 1), -1.0, np.float32),
+        mt.hair.astype(np.float32),
+        mt.fourier_tix.astype(np.float32)[:, None],
     ], axis=1)
 
 
@@ -271,7 +312,7 @@ def _row_slots(row: np.ndarray) -> set:
     row, by its kind: a superset where the values come from a texture."""
     kind = int(row[C_KIND])
     if kind in (MAT_MATTE, MAT_PLASTIC, MAT_UBER, MAT_SUBSTRATE,
-                MAT_TRANSLUCENT, MAT_DISNEY, MAT_HAIR):
+                MAT_TRANSLUCENT, MAT_DISNEY, MAT_HAIR, MAT_FOURIER):
         slots = {SLOT_DIFFUSE}
     else:
         slots = set()
@@ -435,10 +476,10 @@ def _fetch_lobes_one(row, kind, texture_overrides, slots) -> dict:
 
     z3 = torch.zeros_like(kd)
     is_matte = is_(MAT_MATTE)
-    # hair exposes tpurt's gray diffuse stand-in (path and direct
-    # lighting replace it on hair lanes)
+    # hair and fourier expose tpurt's gray diffuse stand-in (the
+    # integrators replace it on their lanes)
     lobe_kd = by(is_(MAT_MATTE, MAT_PLASTIC, MAT_UBER, MAT_SUBSTRATE,
-                     MAT_HAIR), kd, z3)
+                     MAT_HAIR, MAT_FOURIER), kd, z3)
     lobe_ks = by(is_(MAT_PLASTIC, MAT_UBER, MAT_SUBSTRATE), ks, z3)
     # metal's glossy slot carries ks=1 with conductor fresnel
     lobe_ks = by(is_(MAT_METAL), torch.ones_like(ks), lobe_ks)

@@ -208,7 +208,8 @@ def _camera_step(scene: SceneData, smplr, st, bounce: int, max_depth: int,
     hit = Hit(t=st["hit_t"], prim=st["hit_prim"], b0=st["hit_b0"],
               b1=st["hit_b1"])
     si = compute_interaction(scene.geo, hit, o, d,
-                             tangents=scene.has_tangents, time=l_time)
+                             tangents=scene.has_tangents, time=l_time,
+                             faces=scene.has_ptex)
 
     # emitted light with path-MIS weights into Ld (sppm.cpp:195-200);
     # past max_depth only the probe lanes collect it
@@ -250,10 +251,10 @@ def _camera_step(scene: SceneData, smplr, st, bounce: int, max_depth: int,
     any_lobe = act.any(dim=-1)
     is_diffuse = act[:, 0]
     is_glossy = act[:, 1]
-    if shade.hair is not None:
-        # HairBSDF is BSDF_GLOSSY in the reference
-        any_lobe = any_lobe | shade.hair[0]
-        is_glossy = is_glossy | shade.hair[0]
+    if shade.special is not None:
+        # HairBSDF and FourierBSDF are BSDF_GLOSSY in the reference
+        any_lobe = any_lobe | shade.special
+        is_glossy = is_glossy | shade.special
     alive = alive & any_lobe
 
     # the visible point: first diffuse vertex, or glossy at the last
@@ -453,7 +454,7 @@ def _photon_walk(scene: SceneData, hidx, max_depth: int, traverse,
             break
         # no ray time, no shading tangents (tpurt's sppm.py:420-421)
         hit = intersect_closest(scene.geo, o, d, INF, traverse)
-        si = compute_interaction(scene.geo, hit, o, d)
+        si = compute_interaction(scene.geo, hit, o, d, faces=scene.has_ptex)
         valid = si.valid
         if b > 0:
             recs.append((si.p[valid], -d[valid], beta[valid]))

@@ -2,7 +2,10 @@
 tpurt/render/texeval.py: Perlin noise, the MIP pyramid with trilinear and
 EWA lookups, the 2D mappings, eval_texture for constant, scale, mix,
 bilerp, uv, checkerboard, dots, imagemap, fbm, wrinkled, windy and
-marble, bump mapping, and make_texture_eval).  Ptex raises.
+marble, ptex (_load_ptex and _ptex_sample, as load_ptex and
+_ptex_sample), bump mapping, and make_texture_eval).  A ptex file's
+texel table is read and uploaded once a job, by make_texture_eval; its
+lookups read the interactions' face index.
 
 TextureRecords form a static DAG, so evaluation unrolls in Python into
 tensor ops over the (N,) lanes.  Unlike tpurt, which evaluates every
@@ -25,6 +28,7 @@ second tier takes every lane that needs it.
 from __future__ import annotations
 
 import logging
+import zlib
 from functools import lru_cache
 from typing import Dict, Optional
 
@@ -409,7 +413,7 @@ def _const3(val, n: int, device):
     return torch.tensor(arr, device=device).expand(n, 3)
 
 
-def _eval_slot(slot, si, want3: bool):
+def _eval_slot(slot, si, want3: bool, ptex=None):
     """A ('constant', v) | ('texture', rec) slot -> (N,) or (N,3)."""
     kind, val = slot
     n = si.p.shape[0]
@@ -418,7 +422,7 @@ def _eval_slot(slot, si, want3: bool):
             return _const3(val, n, si.p.device)
         return torch.full((n,), float(np.asarray(val).reshape(-1)[0]),
                           dtype=torch.float32, device=si.p.device)
-    return eval_texture(val, si, want3)
+    return eval_texture(val, si, want3, ptex)
 
 
 def _bilinear_sample(level: np.ndarray, u, v, wrap: str):
@@ -456,12 +460,95 @@ _MARBLE_C1 = (0.58, 0.58, 0.6)
 _MARBLE_C2 = (0.88, 0.85, 0.82)
 
 TEXTURE_NAMES = ("constant", "scale", "mix", "bilerp", "uv", "checkerboard",
-                 "dots", "imagemap", "fbm", "wrinkled", "windy", "marble")
+                 "dots", "imagemap", "fbm", "wrinkled", "windy", "marble",
+                 "ptex")
 
 
-def eval_texture(rec: TextureRecord, si, want3: bool):
+# ---------------------------------------------------------------------------
+# ptex
+# ---------------------------------------------------------------------------
+
+def load_ptex(filename: str):
+    """A Ptex file as flat host arrays: (texels (T, 3) f32, face offset
+    (F,) i64, face res u (F,) i64, face res v (F,) i64) (tpurt's
+    _load_ptex, texeval.py:730-755).  One- and two-channel files
+    replicate to three (fromResult, ptex.cpp:113-135).  A missing or
+    unreadable file raises ValueError naming the texture and the file:
+    tpurt renders 0.5 gray."""
+    from tpurt_torch.io.ptex import read_ptex
+
+    if not filename:
+        raise ValueError('Texture "ptex": no "string filename" given')
+    try:
+        data = read_ptex(filename)
+    except (OSError, ValueError, RuntimeError, zlib.error) as e:
+        raise ValueError(f'Texture "ptex": file "{filename}": {e}') from e
+    offs = np.zeros(data.nfaces, np.int64)
+    rus = np.zeros(data.nfaces, np.int64)
+    rvs = np.zeros(data.nfaces, np.int64)
+    parts = []
+    t = 0
+    for i, face in enumerate(data.faces):
+        rv, ru, nc = face.shape
+        if nc == 1:
+            face = np.repeat(face, 3, axis=2)
+        elif nc == 2:
+            face = np.concatenate([face, face[:, :, :1]], axis=2)
+        offs[i], rus[i], rvs[i] = t, ru, rv
+        parts.append(face[:, :, :3].reshape(-1, 3))
+        t += ru * rv
+    return (np.concatenate(parts).astype(np.float32), offs, rus, rvs)
+
+
+def _ptex_sample(tab, gamma: float, face_index, u, v):
+    """Per-face bilinear lookup at level 0 with clamped face-local uv
+    (tpurt's _ptex_sample, texeval.py:757-790; the reference filters with
+    Ptex's bspline over the footprint and across faces, tpurt does not).
+    Gamma is applied after filtering, to values in [0, 1]
+    (ptex.cpp:154-158).  tab: load_ptex's arrays on the lanes' device."""
+    texels, offs, rus, rvs = tab
+    fi = torch.clamp(face_index.long(), 0, offs.shape[0] - 1)
+    off = offs[fi]
+    ru = rus[fi]
+    rv = rvs[fi]
+    x = torch.clamp(u, 0.0, 1.0) * ru.to(torch.float32) - 0.5
+    y = torch.clamp(v, 0.0, 1.0) * rv.to(torch.float32) - 0.5
+    x0 = torch.minimum(torch.floor(x).long().clamp(min=0), ru - 1)
+    y0 = torch.minimum(torch.floor(y).long().clamp(min=0), rv - 1)
+    x1 = torch.minimum(x0 + 1, ru - 1)
+    y1 = torch.minimum(y0 + 1, rv - 1)
+    fx = torch.clamp(x - x0.to(torch.float32), 0.0, 1.0)[:, None]
+    fy = torch.clamp(y - y0.to(torch.float32), 0.0, 1.0)[:, None]
+
+    def fetch(xi, yi):
+        return texels[off + yi * ru + xi]
+
+    out = ((1 - fx) * (1 - fy) * fetch(x0, y0)
+           + fx * (1 - fy) * fetch(x1, y0)
+           + (1 - fx) * fy * fetch(x0, y1)
+           + fx * fy * fetch(x1, y1))
+    if gamma != 1.0:
+        out = torch.where((out >= 0) & (out <= 1),
+                          torch.pow(torch.clamp(out, min=1e-10), gamma), out)
+    return out
+
+
+def _ptex_files(rec: TextureRecord, out: set) -> set:
+    """The ptex file names of the texture DAG under ``rec``."""
+    if rec.name == "ptex":
+        out.add(rec.params["filename"])
+    for v in rec.params.values():
+        if isinstance(v, tuple) and len(v) == 2 and isinstance(
+                v[1], TextureRecord):
+            _ptex_files(v[1], out)
+    return out
+
+
+def eval_texture(rec: TextureRecord, si, want3: bool, ptex=None):
     """Evaluate a TextureRecord over the hit lanes ``si`` (p, uv and,
-    where the scene filters textures, tex_wu/tex_wv/tex_dst0/tex_dst1)."""
+    where the scene filters textures, tex_wu/tex_wv/tex_dst0/tex_dst1;
+    face_index where it holds a ptex texture).  ptex: {file name: the
+    device texel table of load_ptex_tables}."""
     n = si.p.shape[0]
     dev = si.p.device
     prm = rec.params
@@ -484,20 +571,20 @@ def eval_texture(rec: TextureRecord, si, want3: bool):
                                                  np.float32).reshape(-1)[0]),
                           dtype=torch.float32, device=dev)
     if name == "scale":
-        return as_out(_eval_slot(prm["tex1"], si, want3)
-                      * _eval_slot(prm["tex2"], si, want3))
+        return as_out(_eval_slot(prm["tex1"], si, want3, ptex)
+                      * _eval_slot(prm["tex2"], si, want3, ptex))
     if name == "mix":
-        amt = _eval_slot(prm["amount"], si, False)
-        t1 = _eval_slot(prm["tex1"], si, want3)
-        t2 = _eval_slot(prm["tex2"], si, want3)
+        amt = _eval_slot(prm["amount"], si, False, ptex)
+        t1 = _eval_slot(prm["tex1"], si, want3, ptex)
+        t2 = _eval_slot(prm["tex2"], si, want3, ptex)
         a = amt[:, None] if want3 else amt
         return t1 * (1 - a) + t2 * a
     if name == "bilerp":
         u, v = _apply_mapping2d(prm["mapping"], si)
-        v00 = _eval_slot(prm["v00"], si, want3)
-        v01 = _eval_slot(prm["v01"], si, want3)
-        v10 = _eval_slot(prm["v10"], si, want3)
-        v11 = _eval_slot(prm["v11"], si, want3)
+        v00 = _eval_slot(prm["v00"], si, want3, ptex)
+        v01 = _eval_slot(prm["v01"], si, want3, ptex)
+        v10 = _eval_slot(prm["v10"], si, want3, ptex)
+        v11 = _eval_slot(prm["v11"], si, want3, ptex)
         uu = u[:, None] if want3 else u
         vv = v[:, None] if want3 else v
         return ((1 - uu) * (1 - vv) * v00 + (1 - uu) * vv * v01
@@ -507,8 +594,8 @@ def eval_texture(rec: TextureRecord, si, want3: bool):
         return as_out(torch.stack([u - torch.floor(u), v - torch.floor(v),
                                    torch.zeros_like(u)], dim=-1))
     if name == "checkerboard":
-        tex1 = _eval_slot(prm["tex1"], si, want3)
-        tex2 = _eval_slot(prm["tex2"], si, want3)
+        tex1 = _eval_slot(prm["tex1"], si, want3, ptex)
+        tex2 = _eval_slot(prm["tex2"], si, want3, ptex)
         if prm["dimension"] == 2:
             u, v = _apply_mapping2d(prm["mapping"], si)
             cell = torch.floor(u) + torch.floor(v)
@@ -574,9 +661,18 @@ def eval_texture(rec: TextureRecord, si, want3: bool):
         cy = sv + 0.35 * perlin_noise(shifted(4.5, 9.8))
         du, dv = u - cx, v - cy
         inside = has_dot & (du * du + dv * dv < 0.35 * 0.35)
-        t1 = _eval_slot(prm["inside"], si, want3)
-        t2 = _eval_slot(prm["outside"], si, want3)
+        t1 = _eval_slot(prm["inside"], si, want3, ptex)
+        t2 = _eval_slot(prm["outside"], si, want3, ptex)
         return torch.where(inside[:, None] if want3 else inside, t1, t2)
+    if name == "ptex":
+        if prm["filename"] not in (ptex or {}):
+            raise ValueError(f'Texture "ptex": file "{prm["filename"]}" is '
+                             "not loaded (make_texture_eval loads it)")
+        face = (si.face_index if si.face_index is not None
+                else torch.zeros(n, dtype=torch.int32, device=dev))
+        return as_out(_ptex_sample(ptex[prm["filename"]],
+                                   float(prm.get("gamma", 2.2)), face,
+                                   si.uv[:, 0], si.uv[:, 1]))
     if name == "imagemap":
         fname = prm["filename"]
         if not fname:
@@ -660,11 +756,12 @@ def _textured_records(records, slot_names):
     return out
 
 
-def make_bump_eval(records):
+def make_bump_eval(records, ptex=None):
     """Material::Bump (material.cpp:50-87) as a wavefront pass: evaluate
     the displacement texture at uv, uv+du and uv+dv (the reference's
     constant fallback du = .0005) and rebuild the shading normal from the
-    displaced dpdu/dpdv.  Returns None when no material has a bump map."""
+    displaced dpdu/dpdv.  Returns None when no material has a bump map.
+    ptex: the job's ptex tables (eval_texture's)."""
     recs = [(i, rec) for i, _n, rec in _textured_records(records,
                                                          ("bumpmap",))]
     if not recs:
@@ -681,13 +778,15 @@ def make_bump_eval(records):
                 continue
             s = _take(si, m)
             dev = s.p.device
-            disp = eval_texture(rec, s, False)
+            disp = eval_texture(rec, s, False, ptex)
             e_u = torch.tensor([5e-4, 0.0], dtype=torch.float32, device=dev)
             e_v = torch.tensor([0.0, 5e-4], dtype=torch.float32, device=dev)
             ud = eval_texture(rec, s._replace(uv=s.uv + e_u,
-                                              p=s.p + du * s.dpdu), False)
+                                              p=s.p + du * s.dpdu), False,
+                              ptex)
             vd = eval_texture(rec, s._replace(uv=s.uv + e_v,
-                                              p=s.p + du * s.dpdv), False)
+                                              p=s.p + du * s.dpdv), False,
+                              ptex)
             dpdu2 = s.dpdu + ((ud - disp) / du)[:, None] * s.ns
             dpdv2 = s.dpdv + ((vd - disp) / du)[:, None] * s.ns
             n2 = cross(dpdu2, dpdv2)
@@ -702,11 +801,13 @@ def make_bump_eval(records):
 
 class TexEval:
     """Per-wavefront texture callbacks: calling it gives the fetch_lobes
-    overrides; ``bump`` (optional) perturbs the shading normals."""
+    overrides; ``bump`` (optional) perturbs the shading normals.
+    ``has_ptex``: a texture reads the interactions' face index."""
 
-    def __init__(self, overrides_fn, bump_fn):
+    def __init__(self, overrides_fn, bump_fn, has_ptex: bool = False):
         self._fn = overrides_fn
         self.bump = bump_fn
+        self.has_ptex = has_ptex
 
     def __call__(self, si):
         return self._fn(si) if self._fn is not None else None
@@ -746,11 +847,20 @@ def make_texture_eval(records, textured, mt_table) -> Optional[TexEval]:
                         records[i].name)
             continue
         slots.append((i, name, rec[1], col))
-    for _i, _name, rec in _textured_records(records, ("bumpmap",)):
+    bumps = [rec for _i, _name, rec in _textured_records(records,
+                                                         ("bumpmap",))]
+    files = set()
+    for rec in bumps:
         check_texture(rec)
-    bump = make_bump_eval(records)
+    for rec in bumps + [rec for _i, _n, rec, _c in slots]:
+        _ptex_files(rec, files)
+    # each ptex file's texel table, uploaded once a job
+    dev = mt_table.device
+    ptex = {f: tuple(torch.tensor(a, device=dev) for a in load_ptex(f))
+            for f in sorted(files)}
+    bump = make_bump_eval(records, ptex)
     if not slots:
-        return TexEval(None, bump) if bump is not None else None
+        return TexEval(None, bump, bool(ptex)) if bump is not None else None
 
     def evaluate(si):
         overrides = {}
@@ -764,7 +874,8 @@ def make_texture_eval(records, textured, mt_table) -> Optional[TexEval]:
                                    else row[:, c]).clone()
             m = si.material_id == mat_idx
             if bool(m.any()):
-                overrides[slot][m] = eval_texture(rec, _take(si, m), want3)
+                overrides[slot][m] = eval_texture(rec, _take(si, m), want3,
+                                                  ptex)
         return overrides
 
-    return TexEval(evaluate, bump)
+    return TexEval(evaluate, bump, bool(ptex))

@@ -132,10 +132,10 @@ def make_texture(tex_class: str, tex_type: str, tex2world: Transform,
         fname = ps.find_one_filename("filename", "")
         if fname and not os.path.isfile(fname):
             # surface the problem at parse time (the reference's Ptex
-            # library errors at texture creation, ptex.cpp:63-70); the
-            # lookup itself degrades to black at render time
-            log.warning('ptex file "%s" not found; texture will render '
-                        "0.5 gray", fname)
+            # library errors at texture creation, ptex.cpp:63-70); a job
+            # that evaluates the texture raises (tpurt renders 0.5 gray)
+            log.warning('ptex file "%s" not found; a render that reads '
+                        "it will raise", fname)
         return TextureRecord("ptex", tex_type, {
             "filename": fname,
             "gamma": ps.find_one_float("gamma", 2.2)})

@@ -584,8 +584,8 @@ def volpath_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
 
     ctx = make_shade_ctx(scene, si, texture_eval, channels=cfg.nch)
     any_lobe = ctx.lobes.active.any(dim=-1)
-    if ctx.hair is not None:
-        any_lobe = any_lobe | ctx.hair[0]
+    if ctx.special is not None:
+        any_lobe = any_lobe | ctx.special
     # a null-material boundary: pass through and switch media (before NEE)
     null_boundary = (alive & si.valid & ~sampled_med & ~any_lobe
                      & ((si.med_in >= 0) | (si.med_out >= 0)))

@@ -99,11 +99,12 @@ def sampler_directive(sampler: str, spp: int) -> str:
 def standin_scene(size: str = "full", filename: str = "standin.exr",
                   seed: int = 0, integrator: str = "path",
                   sampler: str = "halton", res: int = None, spp: int = None,
-                  maxdepth: int = 5, mutations: int = None) -> str:
+                  maxdepth: int = 5, mutations: int = None,
+                  iterations: int = 4, radius: float = 0.25) -> str:
     """The stand-in scene as .pbrt text; integrator is "path", "rpf",
     "ao" (pbrt's defaults: 64 occlusion rays a hit, cosine-weighted),
-    "bdpt" or "mlt"."""
-    if integrator not in ("path", "rpf", "ao", "bdpt", "mlt"):
+    "bdpt", "mlt" or "sppm" (``iterations`` of photons at ``radius``)."""
+    if integrator not in ("path", "rpf", "ao", "bdpt", "mlt", "sppm"):
         raise ValueError(f"integrator {integrator!r}")
     cfg = SIZES[size]
     v, idx = blob_mesh(cfg["mesh_n"], seed)
@@ -115,6 +116,9 @@ def standin_scene(size: str = "full", filename: str = "standin.exr",
              f'Integrator "{integrator}" "integer maxdepth" [{maxdepth}]')
     if integrator == "mlt" and mutations is not None:
         integ += f' "integer mutationsperpixel" [{mutations}]'
+    if integrator == "sppm":
+        integ += (f' "integer numiterations" [{iterations}]'
+                  f' "float radius" [{radius}]')
     return f"""# tpurt_torch stand-in for killeroo-simple ({size})
 LookAt 0 4.5 -15  0 2.2 0  0 1 0
 Camera "perspective" "float fov" [39]
@@ -1004,4 +1008,177 @@ def write_caustic(path: str, size: str = "full", integrator: str = "sppm",
     with open(path, "w") as f:
         f.write(caustic_scene(size, kw.pop("filename", path.rsplit(".", 1)[0]
                                            + ".exr"), integrator, **kw))
+    return path
+
+
+# ---------------------------------------------------------------------------
+# frames L (the realistic camera) and M (ptex and a fourier BSDF)
+# ---------------------------------------------------------------------------
+
+# tpurt's test biconvex lens (tests/test_lenses.py:21-24; f ~ 35 mm), in
+# pbrt's .dat format: rows scene side first, radius, thickness, ior and
+# aperture diameter in mm
+BICONVEX_LENS = """# simple biconvex
+35.0    4.0   1.5   20.0
+-35.0  50.0   1.0   20.0
+"""
+
+
+def write_lens(path: str) -> str:
+    """Write the biconvex test lens to ``path``; returns ``path``."""
+    with open(path, "w") as f:
+        f.write(BICONVEX_LENS)
+    return path
+
+
+def realistic_scene(size: str, lensfile: str, filename: str = "realistic.exr",
+                    integrator: str = "path", focusdistance: float = 15.2,
+                    aperturediameter: float = 8.0, diagonal: float = 35.0,
+                    **kw) -> str:
+    """Frame L: the stand-in (standin_scene at ``size``; kw its ``res``,
+    ``spp``, ``maxdepth``, ``sampler``) seen through ``Camera
+    "realistic"`` with the lens file ``lensfile``, focused at 15.2, the
+    distance from the eye at (0, 4.5, -15) to its target, at aperture
+    8 mm on pbrt's default 35 mm film diagonal (a 35 mm lens: about A's
+    39-degree view)."""
+    text = standin_scene(size, filename, integrator=integrator, **kw)
+    cam = (f'Camera "realistic" "string lensfile" ["{lensfile}"]\n'
+           f'  "float focusdistance" [{focusdistance}]'
+           f' "float aperturediameter" [{aperturediameter}]')
+    text = text.replace('Camera "perspective" "float fov" [39]', cam)
+    return text.replace('"string filename"',
+                        f'"float diagonal" [{diagonal}] "string filename"')
+
+
+def write_realistic(path: str, size: str = "full", **kw) -> str:
+    """Write frame L to ``path`` and the lens beside it (``<base>.dat``);
+    returns ``path``.  kw: realistic_scene's."""
+    base = path.rsplit(".", 1)[0]
+    lens = write_lens(base + ".dat")
+    with open(path, "w") as f:
+        f.write(realistic_scene(size, lens, kw.pop("filename", base + ".exr"),
+                                **kw))
+    return path
+
+
+def glossy_fourier_table(n_mu: int = 48, m_max: int = 8, eta: float = 1.33,
+                         kappa: float = 6.0, width: float = 0.08):
+    """A synthetic three-channel (Y, R, B) Fourier BSDF table: a coloured
+    diffuse term, a white glossy lobe about the mirror direction
+    (mu_i = -mu_o, dphi = 0) whose azimuthal series runs to ``m_max``
+    orders in the cells near it and fewer away from it, and a weak
+    single-order diffuse transmission; the stored values are f * |mu_i|,
+    the cdf integrates a0 over mu_i (integrate_catmull_rom_np).  Returns
+    a render.fourier.FourierTableHost."""
+    from tpurt_torch.render.fourier import FourierTableHost
+    from tpurt_torch.sampling.interpolation import integrate_catmull_rom_np
+
+    mu = np.cos(np.linspace(np.pi, 0.0, n_mu))
+    mu[0], mu[-1] = -1.0, 1.0
+    phi = np.linspace(0.0, np.pi, 1025)
+    lobe = np.exp(kappa * (np.cos(phi) - 1.0))
+    # the lobe's cosine series: a_0 its mean over [0, pi], a_k twice the
+    # mean of lobe * cos(k phi)
+    basis = np.cos(np.outer(np.arange(m_max), phi))
+    f = lobe * basis
+    series = (0.5 * (f[:, 1:] + f[:, :-1]) * np.diff(phi)).sum(-1) / np.pi
+    series[1:] *= 2.0
+    kd = np.asarray([0.25, 0.35, 0.15])  # Y, R, B
+    coeffs, a0 = [], np.zeros((n_mu, n_mu), np.float32)
+    offsets = np.zeros((n_mu, n_mu), np.int32)
+    orders = np.zeros((n_mu, n_mu), np.int32)
+    for o in range(n_mu):
+        for i in range(n_mu):
+            ai = abs(mu[i])
+            if mu[o] * mu[i] < 0:
+                near = np.exp(-(mu[i] + mu[o]) ** 2 / width)
+                m = int(np.clip(1 + round((m_max - 1) * near), 1, m_max))
+                c = np.zeros((3, m))
+                c[:, 0] = kd / np.pi * ai
+                c += 0.6 * near * series[:m] * ai
+            else:
+                m = 1
+                c = np.full((3, 1), 0.05 / np.pi * ai)
+            offsets[o, i] = len(coeffs)
+            orders[o, i] = m
+            coeffs.extend(c.reshape(-1))
+            a0[o, i] = c[0, 0]
+    _, cdf = integrate_catmull_rom_np(mu, a0.astype(np.float64))
+    return FourierTableHost(eta=eta, m_max=m_max, n_channels=3, mu=mu,
+                            cdf=cdf.astype(np.float32), a0=a0, m=orders,
+                            a_offset=offsets,
+                            a=np.asarray(coeffs, np.float32))
+
+
+def ptex_faces(n: int = 256, seed: int = 5):
+    """``n`` Ptex faces of powers-of-two resolutions up to 8x8, each a
+    different colour ramp: face k's texels differ from face j's."""
+    rng = np.random.default_rng(seed)
+    faces = []
+    for k in range(n):
+        ru, rv = 1 << (1 + k % 3), 1 << (1 + (k // 3) % 3)
+        c0, c1 = rng.uniform(0.1, 0.9, (2, 3))
+        t = (np.arange(ru)[None, :] + np.arange(rv)[:, None]) / (ru + rv - 2)
+        faces.append((c0 + t[..., None] * (c1 - c0)).astype(np.float32))
+    return faces
+
+
+def ptex_ground(grid: int = 16, half: float = 30.0) -> str:
+    """The ground as grid x grid quads, each Ptex face k with its own
+    vertices and face-local uv, both of its triangles tagged k through
+    ``"integer faceIndices"``."""
+    pts, uvs, ids, fis = [], [], [], []
+    step = 2 * half / grid
+    for k in range(grid * grid):
+        x0, z0 = -half + (k % grid) * step, -half + (k // grid) * step
+        b = 4 * k
+        pts += [(x0, 0, z0), (x0 + step, 0, z0), (x0 + step, 0, z0 + step),
+                (x0, 0, z0 + step)]
+        uvs += [(0, 0), (1, 0), (1, 1), (0, 1)]
+        ids += [b, b + 2, b + 1, b, b + 3, b + 2]
+        fis += [k, k]
+    j = " ".join
+    return (f'Shape "trianglemesh" "point P" [{j(f"{v:g}" for p in pts for v in p)}]\n'
+            f'    "float uv" [{j(f"{v:g}" for p in uvs for v in p)}]\n'
+            f'    "integer indices" [{j(str(i) for i in ids)}]\n'
+            f'    "integer faceIndices" [{j(str(i) for i in fis)}]\n')
+
+
+def ptex_fourier_scene(size: str, ptx: str, bsdf: str,
+                       filename: str = "ptex_fourier.exr",
+                       integrator: str = "path", **kw) -> str:
+    """Frame M: the stand-in (standin_scene at ``size``; kw its ``res``,
+    ``spp``, ``maxdepth``) with both instances of its mesh under
+    ``Material "fourier"`` (the .bsdf file ``bsdf``) and its ground as
+    16 x 16 quads, each its own of the 256 Ptex faces of the file ``ptx``,
+    under a matte ``"texture Kd"``."""
+    text = standin_scene(size, filename, integrator=integrator, **kw)
+    ground = ('Shape "trianglemesh" "point P" [-30 0 -30  30 0 -30  30 0 30'
+              '  -30 0 30]\n    "integer indices" [0 2 1  0 3 2]\n')
+    assert ground in text
+    text = text.replace(
+        '  Material "matte" "color Kd" [0.5 0.5 0.5]\n  ' + ground,
+        '  Texture "faces" "spectrum" "ptex" "string filename" '
+        f'["{ptx}"]\n  Material "matte" "texture Kd" "faces"\n  '
+        + ptex_ground())
+    plastic = ('Material "plastic" "color Kd" [0.4 0.2 0.2] "color Ks" '
+               '[0.5 0.5 0.5]\n    "float roughness" [0.025]')
+    assert plastic in text
+    return text.replace(plastic,
+                        f'Material "fourier" "string bsdffile" ["{bsdf}"]')
+
+
+def write_ptex_fourier(path: str, size: str = "full", **kw) -> str:
+    """Write frame M to ``path`` with its Ptex file (``<base>.ptx``,
+    ptex_faces) and BSDF table (``<base>.bsdf``, glossy_fourier_table)
+    beside it; returns ``path``.  kw: ptex_fourier_scene's."""
+    from tpurt_torch.io.ptex import write_ptex
+    from tpurt_torch.render.fourier import write_bsdf_file
+
+    base = path.rsplit(".", 1)[0]
+    write_ptex(base + ".ptx", ptex_faces())
+    write_bsdf_file(base + ".bsdf", glossy_fourier_table())
+    with open(path, "w") as f:
+        f.write(ptex_fourier_scene(size, base + ".ptx", base + ".bsdf",
+                                   kw.pop("filename", base + ".exr"), **kw))
     return path
