@@ -217,6 +217,28 @@ Phases (any failure exits non-zero; none is caught):
      alternately (A M M A), and M's mean beside A's;
      M at 32x32 on the card against the CPU under path, bdpt, sppm and
      path with --spectrum sampled (phase 9's bounds)
+ 26. main path N: the CLI renders frame A's stand-in with its first mesh
+     under Material "subsurface" (Skin1, scale 10) and its second under
+     "kdsubsurface" (testscenes.write_subsurface "full", 700x700, 8 spp,
+     path; two diffusion tables, the sampler striding 15 dims a bounce)
+     on the card (K1 closest and any-hit, no plain traversal); K1 against
+     its plain version on every call of N's camera rays and first bounce
+     step: the camera rays, the subsurface hop's 8 probe-chain calls and
+     its exit point's any-hit call, the shadow and bounce rays, with the
+     share of camera hits that took the hop; A and N timed alternately
+     (A N N A), N's two runs its timed runs (subsurface_render_s, peak
+     memory; the CLI run gives the traversal launches a render and the
+     probe-chain overflow count), N's mean beside A's; one profiled
+     frame, device only (launches, busy, idle share); N at 32x32 on the
+     card against the CPU under path, rpf and directlighting (phase 9's
+     bounds); the seconds of each step
+ 27. path O: the multi-device module at world size 1 over NCCL on
+     cuda:0, joined through a file:// rendezvous (one card: NCCL takes
+     one rank a device); render_sharded of the small stand-in (film rows
+     reduce-scattered, then all-reduced) against render on the card, and
+     rpf_filter_sharded of a seeded 64x64x4 buffer against
+     apply_rpf_filter, within 2e-5; the backend and world size printed,
+     the group destroyed
 K1 on every path: phase 4 holds the kernel to its plain version on path
 A's rays; paths B, C1, C2 and the whitted variant walk other scenes or
 other rays, so each records the calls K1's wrapper receives while 2^20
@@ -1521,9 +1543,11 @@ def phase_profile(label: str, frame, wall_s: float, ranges=(),
     profiler ranges in the port (render/volpath.py's) whose kernels'
     device time is reported beside the total; they need the host's
     activity traced too, which on a frame of ~500,000 launches costs
-    minutes: with ``host=False`` only the device is traced and no range
-    is reported.  Returns the launches, the busy seconds, the idle share,
-    K1's kernel seconds and each range's."""
+    minutes: with ``host=False`` only the device is traced, no range is
+    reported, and the device events are summed straight from the
+    profiler's raw records (turning 150,000 of them into the profiler's
+    Python events costs tens of seconds).  Returns the launches, the busy
+    seconds, the idle share, K1's kernel seconds and each range's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1534,14 +1558,23 @@ def phase_profile(label: str, frame, wall_s: float, ranges=(),
             [ProfilerActivity.CPU] if host else [])) as prof:
         frame()
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and e.key not in ranges]
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    launches = sum(e.count for e in kernels)
-    k1 = sum(e.self_device_time_total for e in kernels
-             if "traverse" in e.key) / 1e6
+    # (name, launches, device seconds) of each kernel
+    if host:
+        events = prof.key_averages()
+        kernels = [(e.key, e.count, e.self_device_time_total / 1e6)
+                   for e in events if e.device_type == DeviceType.CUDA
+                   and e.key not in ranges]
+    else:
+        agg = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                n, t = agg.get(e.name(), (0, 0))
+                agg[e.name()] = (n + 1, t + e.duration_ns())
+        kernels = [(k, n, t / 1e9) for k, (n, t) in agg.items()]
+    kernels.sort(key=lambda e: -e[2])
+    busy = sum(e[2] for e in kernels)
+    launches = sum(e[1] for e in kernels)
+    k1 = sum(e[2] for e in kernels if "traverse" in e[0])
     out = dict(launches=launches, busy_s=busy, idle=1 - busy / wall_s,
                k1_s=k1, k1_share=k1 / max(busy, 1e-12))
     print(f"profile {label}: {launches} kernel launches, device busy "
@@ -1557,9 +1590,8 @@ def phase_profile(label: str, frame, wall_s: float, ranges=(),
               f"{dev_s:.4f}s ({dev_s / max(busy, 1e-12):.3f} of busy)"
               + (" (the profiler gave the range no device time: not "
                  "measured)" if calls and not dev_s else ""))
-    for e in kernels[:top]:
-        print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
-              f"{e.key[:100]}")
+    for key, count, sec in kernels[:top]:
+        print(f"  {sec * 1e3:9.2f} ms {count:6d}x {key[:100]}")
     return out
 
 
@@ -2371,17 +2403,22 @@ def phase_kdtree(gpu: str, job_a, profile_all: bool):
 def paired_times(job_a, job):
     """Frame A's job and ``job`` rendered alternately, A X X A: the two
     pairs of seconds (the shared host's spread moves single runs by
-    tens of percent; PERF.md section 7)."""
+    tens of percent; PERF.md section 7) and the peak memory of X's runs
+    in bytes."""
     from tpurt_torch.render.driver import render_job
 
-    runs = {"a": [], "x": []}
+    runs, peak = {"a": [], "x": []}, 0
     for key in ("a", "x", "x", "a"):
+        torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.time()
-        render_job(job_a if key == "a" else job)
+        img = render_job(job_a if key == "a" else job)
         torch.cuda.synchronize()
         runs[key].append(time.time() - t0)
-    return runs["a"], runs["x"]
+        if key == "x":
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            assert np.isfinite(img).all() and img.mean() > 0
+    return runs["a"], runs["x"], peak
 
 
 def phase_realistic(gpu: str, k1_a: dict, job_a, path_mean: float,
@@ -2428,7 +2465,7 @@ def phase_realistic(gpu: str, k1_a: dict, job_a, path_mean: float,
     render_s, runs, peak, img = render_timed(job)
     per_render = traverse_wide.launches // (1 + TIMED_RUNS)
     ratio = float(img.mean()) / path_mean
-    pair_a, pair_x = paired_times(job_a, job)
+    pair_a, pair_x, _ = paired_times(job_a, job)
     print(f"realistic_render_s {render_s:.4f} (runs "
           f"{['%.4f' % r for r in runs]}; A's {a_s:.4f}; paired A L L A "
           f"{['%.4f' % r for r in (pair_a[0], *pair_x, pair_a[1])]}) "
@@ -2506,7 +2543,7 @@ def phase_ptex_fourier(gpu: str, job_a, path_mean: float, a_s: float,
     render_s, runs, peak, img = render_timed(job)
     per_render = traverse_wide.launches // (1 + TIMED_RUNS)
     ratio = float(img.mean()) / path_mean
-    pair_a, pair_x = paired_times(job_a, job)
+    pair_a, pair_x, _ = paired_times(job_a, job)
     print(f"ptex_fourier_render_s {render_s:.4f} (runs "
           f"{['%.4f' % r for r in runs]}; A's {a_s:.4f}; paired A M M A "
           f"{['%.4f' % r for r in (pair_a[0], *pair_x, pair_a[1])]}) "
@@ -2530,6 +2567,141 @@ def phase_ptex_fourier(gpu: str, job_a, path_mean: float, a_s: float,
                 render_s=render_s, peak=peak, ratio=ratio, k1=k1_m,
                 ptex_faces_seen=faces, fourier_share=f_share, profile=prof,
                 paired=(pair_a, pair_x))
+
+
+def phase_subsurface(gpu: str, job_a, path_mean: float, a_s: float,
+                     profile_all: bool = False):
+    """Main path N: frame A's stand-in with its first mesh under Material
+    "subsurface" (Skin1 at scale 10) and its second under "kdsubsurface"
+    (two diffusion tables), via the CLI at 700x700, 8 spp (K1 closest and
+    any-hit launched, no plain traversal; its launches and probe-chain
+    overflow count are a render's); K1 against its plain version on
+    every call of N's camera rays and first bounce step: the camera rays,
+    the 8 probe-chain calls and the exit point's any-hit call of the
+    subsurface hop, the shadow and bounce rays; the share of camera hits
+    that took the hop; A and N timed alternately (A N N A), N's two runs
+    its timed runs (subsurface_render_s their median, peak memory theirs;
+    the CLI run built the kernels); one profiled frame (launches, device
+    busy, idle share); N at 32x32 on the card against the CPU under path,
+    rpf and directlighting.  Prints the seconds of each step."""
+    from tpurt_torch.kernels.traverse import traverse_wide
+    from tpurt_torch.render.driver import build_job, load_scene, render
+    from tpurt_torch.render.driver import render_job
+    from tpurt_torch.rpf.driver import render_rpf
+    from tpurt_torch.testscenes import write_subsurface
+    from tpurt_torch.utils.stats import BSS_OVERFLOW, TRACK_STATS
+
+    steps = [time.time()]
+    scene = write_subsurface(str(WORK / "subsurface_full.pbrt"), "full")
+    img, launches, cli_s = cli_counted(
+        scene, WORK / "subsurface_out.exr", "main path N (subsurface)")
+    any_hit = traverse_wide.any_hit_launches
+    over = TRACK_STATS.read().get(BSS_OVERFLOW, 0)
+    assert img.shape == (700, 700, 3) and any_hit > 0, any_hit
+    job = build_job(load_scene(scene), "cuda")
+    assert job.scene.n_bss_tables == 2 and job.scene.dims_per_bounce == 15
+    steps.append(time.time())
+    calls = frame_ray_calls(job, 1)
+    # camera; the hop's 8 probe calls and exit any-hit; shadow; bounce
+    assert [c[3] for c in calls] == [False] * 9 + [True, True, False], [
+        c[3] for c in calls]
+    k1_n = k1_on_calls("N subsurface", job.scene.geo, calls)
+    cam = traverse_wide(job.scene.geo, *calls[0][:3], any_hit=False)
+    hits = int((cam[1] >= 0).sum())
+    hop_share = calls[1][0].shape[0] / max(hits, 1)
+    probe = k1_n[1]
+    print(f"N's hop: {calls[1][0].shape[0]} of {hits} camera-hit lanes "
+          f"({hop_share:.4f}) took it; K1 on its first probe call "
+          f"{probe['ms_burst']:.4f} ms in bursts, bound "
+          f"{probe['bound_ms']:.4f} ms ({probe['bound_by']}), plain "
+          f"{probe['plain_ms']:.3f} ms; on the exit any-hit call "
+          f"{k1_n[9]['ms_burst']:.4f} ms, bound {k1_n[9]['bound_ms']:.4f}")
+    steps.append(time.time())
+    pair_a, pair_x, peak = paired_times(job_a, job)
+    render_s = statistics.median(pair_x)
+    steps.append(time.time())
+    ratio = float(img.mean()) / path_mean
+    print(f"subsurface_render_s {render_s:.4f} (runs "
+          f"{['%.4f' % r for r in pair_x]}; A's {a_s:.4f}; paired A N N A "
+          f"{['%.4f' % r for r in (pair_a[0], *pair_x, pair_a[1])]}) "
+          f"traversal launches a render {launches}, peak mem "
+          f"{peak / 2**30:.3f} GiB, probe-chain overflow {over} lanes, "
+          f"image mean {img.mean():.5f} = {ratio:.4f} of A's "
+          f"{path_mean:.5f}, CLI first run {cli_s:.2f}s on {gpu}")
+    prof = phase_profile("subsurface frame N", lambda: render_job(job),
+                         render_s, host=False)
+    steps.append(time.time())
+    for integ in ("path", "rpf", "directlighting"):
+        small = write_subsurface(str(WORK / f"subsurface_small_{integ}.pbrt"),
+                                 "small", integrator=integ)
+        if integ == "rpf":
+            g = render_rpf(load_scene(small), "cuda",
+                           write_feature_exrs=False)[0]
+            h = render_rpf(load_scene(small), "cpu",
+                           write_feature_exrs=False)[0]
+        else:
+            g, h = (render(load_scene(small), dev)[0]
+                    for dev in ("cuda", "cpu"))
+        _close(g, h, f"small N ({integ})")
+    steps.append(time.time())
+    print("phase 26 steps (s): " + ", ".join(
+        f"{what} {b - a:.1f}" for what, a, b in zip(
+            ("CLI run and job build", "K1 on 12 calls", "A N N A",
+             "profiled frame", "small N card and CPU"), steps, steps[1:])))
+    return dict(launches=launches, any_hit_launches=any_hit,
+                render_s=render_s, peak=peak, ratio=ratio, k1=k1_n,
+                hop_share=hop_share, overflow=over, profile=prof,
+                paired=(pair_a, pair_x))
+
+
+def phase_multidevice(small_path: str):
+    """Path O: the multi-device module (parallel/mesh.py) at world size 1
+    over NCCL on cuda:0 (one card; NCCL takes one rank a device), its
+    group joined through a file:// rendezvous: render_sharded of the small
+    stand-in, film rows reduce-scattered and then all-reduced, against
+    render on the card, and rpf_filter_sharded of a seeded 64x64x4 buffer
+    against apply_rpf_filter, each within 2e-5; the group is destroyed
+    after."""
+    import torch.distributed as dist
+
+    from tpurt_torch.parallel.mesh import (gather_rows, make_group,
+                                           render_sharded,
+                                           rpf_filter_sharded, shard_rows)
+    from tpurt_torch.render.driver import load_scene, render
+    from tpurt_torch.rpf.filter import apply_rpf_filter
+
+    init = WORK / "dist_init"
+    init.unlink(missing_ok=True)
+    group = make_group("cuda", init_method=f"file://{init}", rank=0,
+                       world_size=1)
+    backend, n = dist.get_backend(group), dist.get_world_size(group)
+    want, _ = render(load_scene(small_path), "cuda")
+    errs = {}
+    for scatter in (True, False):
+        got, _ = render_sharded(load_scene(small_path), group,
+                                scatter_film=scatter, device="cuda")
+        errs[f"render_scatter_{int(scatter)}"] = float(
+            np.abs(got - want).max())
+    gen = torch.Generator().manual_seed(5)
+    h, w, spp = 64, 64, 4
+    buf = torch.zeros((h, w, spp, 19))
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    buf[..., 0] = xx[..., None] + torch.rand((h, w, spp), generator=gen)
+    buf[..., 1] = yy[..., None] + torch.rand((h, w, spp), generator=gen)
+    buf[..., 2:5] = 2 * torch.rand((h, w, spp, 3), generator=gen)
+    buf[..., 5:7] = torch.rand((h, w, spp, 2), generator=gen)
+    buf[..., 7:19] = 0.01 * torch.randn((h, w, spp, 12), generator=gen)
+    buf = buf.to("cuda")
+    got = gather_rows(rpf_filter_sharded(shard_rows(buf, group), 5, h,
+                                         group, sigma_seed=0.5), h, group)
+    single = apply_rpf_filter(buf, 5, sigma_seed=0.5)
+    errs["rpf_filter"] = float((got - single).abs().max())
+    print(f"multi-device: backend {backend}, world size {n}; max |diff| "
+          f"against one device {errs}")
+    dist.destroy_process_group()
+    assert backend == "nccl" and n == 1
+    assert all(e <= 2e-5 for e in errs.values()), errs
+    return dict(backend=backend, world_size=n, max_abs_err=errs)
 
 
 def _camera_rays(job, n: int = 1 << 20):
@@ -2655,9 +2827,14 @@ def main(argv=None) -> int:
     stamp("phase 24 (L)")
     pf = phase_ptex_fourier(gpu, job, path_mean, render_s, profile_all)
     stamp("phase 25 (M)")
+    ss = phase_subsurface(gpu, job, path_mean, render_s, profile_all)
+    stamp("phase 26 (N)")
+    multi = phase_multidevice(small)
+    stamp("phase 27 (O)")
     k1_paths.update(media=media["k1"], ao=ao["k1"], bdpt=bdpt["k1"],
                     mlt=mlt["k1"], sppm=sppm["k1"], spectral=spectral["k1"],
-                    realistic=real["k1"], ptex_fourier=pf["k1"])
+                    realistic=real["k1"], ptex_fourier=pf["k1"],
+                    subsurface=ss["k1"])
     conn = bdpt["connection"]
     if profile_all:
         from tpurt_torch.render.driver import render_job
@@ -2683,7 +2860,8 @@ def main(argv=None) -> int:
                        + ao["launches"] + bdpt["launches"]
                        + mlt["launches"] + mlt["launches_cli"]
                        + sppm["launches"] + spectral["launches"]
-                       + real["launches"] + pf["launches"]),
+                       + real["launches"] + pf["launches"]
+                       + ss["launches"]),
              launches_by_path={
                  "path": launches_a, "rpf": launches_b,
                  "direct_textured": launches_c1,
@@ -2696,7 +2874,12 @@ def main(argv=None) -> int:
                  "mlt_cli_128": mlt["launches_cli"],
                  "sppm": sppm["launches"], "spectral": spectral["launches"],
                  "realistic": real["launches"],
-                 "ptex_fourier": pf["launches"]},
+                 "ptex_fourier": pf["launches"],
+                 "subsurface": ss["launches"]},
+             subsurface_any_hit_launches=ss["any_hit_launches"],
+             subsurface_hop_share=ss["hop_share"],
+             subsurface_probe_overflow=ss["overflow"],
+             multidevice=multi,
              realistic_any_hit_launches=real["any_hit_launches"],
              ptex_fourier_any_hit_launches=pf["any_hit_launches"],
              realistic_lens_build_s=real["lens_build_s"],

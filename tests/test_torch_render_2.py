@@ -28,8 +28,6 @@ def test_supported_base_scene_renders_on_cpu():
 @pytest.mark.parametrize("key,value,feature", [
     ("sampler", "adaptive", 'Sampler "adaptive"'),
     ("material", "fourier", 'Material "fourier"'),
-    ("material", "subsurface", 'Material "subsurface"'),
-    ("material", "kdsubsurface", 'Material "kdsubsurface"'),
     ("filter", "catmullrom", 'PixelFilter "catmullrom"'),
     ("camera", "realistic", 'Camera "realistic"'),
     ("kd", '"texture Kd" "checks"', 'Texture "ptex"'),
@@ -76,6 +74,7 @@ def test_outside_the_slice_raises(key, value, feature):
                'MediumInterface "" "fog"'),
     ("integrator", "bdpt"), ("integrator", "mlt"), ("integrator", "sppm"),
     ("accel", 'Accelerator "kdtree"'),
+    ("material", "subsurface"), ("material", "kdsubsurface"),
 ])
 def test_what_earlier_slices_refused_now_renders(key, value, monkeypatch):
     """Each feature this slice added, one at a time in the base scene.

@@ -4,13 +4,15 @@ The JAX package ``tpurt`` is the reference; this package renders the same
 ``.pbrt`` scenes with the same integrators (path, volpath,
 directlighting, whitted, ao, rpf, bdpt, mlt and sppm), samplers,
 filters, cameras (the realistic camera's lens system included),
-materials (fourier's tabulated BSDFs included), textures (Ptex
-included), shapes, lights and media, in RGB or sampled spectra, under
-the wide BVH or the kd-tree, through the same command line
-(``python -m tpurt_torch.cli``).  What is not ported (the subsurface and
-kdsubsurface materials, several devices) raises ``NotImplementedError``
-naming the feature; a lens, .ptx or .bsdf file that is missing or
-unreadable raises ``ValueError`` naming the feature and the file.
+materials (fourier's tabulated BSDFs and the subsurface materials'
+tabulated BSSRDF included), textures (Ptex included), shapes, lights and
+media, in RGB or sampled spectra, under the wide BVH or the kd-tree,
+through the same command line (``python -m tpurt_torch.cli``), on one
+device or sharded over several (``tpurt_torch.parallel.mesh`` over
+``torch.distributed``).  A feature tpurt does not have raises
+``NotImplementedError`` naming it; a lens, .ptx or .bsdf file that is
+missing or unreadable raises ``ValueError`` naming the feature and the
+file.
 
 It imports torch and never jax, and nothing of tpurt: the host modules it
 shares with tpurt are its own copies under the same names

@@ -3,7 +3,8 @@
 ``scene_from_tpurt(job)`` reads every table of a tpurt ``RenderJob``
 (geometry with its motion deltas, animated quadrics, tangents, curve
 tree and kd-tree; lights; the media; materials with their texture records, hair
-columns, fourier tables and ``Material "none"`` rows; the camera,
+columns, fourier tables, ``Material "none"`` rows and the subsurface
+materials' BSSRDF columns and diffusion tables; the camera,
 animated or not, and the realistic camera's lens tables;
 sampler, film, integrator config, volpath's and ao's included, and the
 sampled-spectrum flag) with
@@ -196,6 +197,12 @@ def scene_from_tpurt(job) -> dict:
         fourier=dict(tables=tuple({k: a(getattr(t, k)) for k in t._fields}
                                   for t in sc.fr_tables),
                      etas=tuple(float(e) for e in sc.fr_etas)),
+        # tpurt keeps the shared rho and radius nodes once a table
+        bss=(dict(mt_bss=a(sc.mt_bss), mt_bss_tix=a(sc.mt_bss_tix),
+                  bss_rho=a(sc.bss_rho)[0], bss_radius=a(sc.bss_radius)[0],
+                  **{k: a(getattr(sc, k)) for k in (
+                      "bss_profile", "bss_rhoeff", "bss_cdf")})
+             if sc.has_bssrdf else None),
         camera=dict(kind=cam.kind, camera_to_world=a(cam.camera_to_world),
                     raster_to_camera=a(cam.raster_to_camera),
                     lens_radius=cam.lens_radius,

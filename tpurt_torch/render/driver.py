@@ -1,7 +1,9 @@
 """Render driver: SceneDescription -> device tables -> bounce-compacted
 wavefront render (port of tpurt/render/driver.py: build_job for the path,
 volpath, rpf, directlighting, whitted, ao, bdpt, mlt and sppm integrators
-with the media tables, and the loop of _render_compact; the RPF passes
+with the media and BSSRDF tables, and the loop of _render_compact,
+trace_lanes / trace_chunk, which the sharded render of parallel/mesh.py
+also runs a shard at a time; the RPF passes
 live in tpurt_torch.rpf, MLT's chains in render/mlt.py, SPPM's iterations
 in render/sppm.py).  Scene build and render record tpurt's counters
 (``Scene/*``, ``Memory/*``, ``Integrator/Camera rays traced``) in
@@ -43,7 +45,7 @@ from tpurt_torch.render.geometry_build import flatten_geometry
 from tpurt_torch.render.integrator import (IntegratorConfig, SceneData,
                                            ao_radiance, path_bounce_init,
                                            path_bounce_step, to_rgb_maybe)
-from tpurt_torch.render.volpath import (TRACK_STATS, volpath_bounce_init,
+from tpurt_torch.render.volpath import (volpath_bounce_init,
                                         volpath_bounce_step)
 from tpurt_torch.render.intersect import DeviceGeometry
 from tpurt_torch.render.lights import light_table_from_tables, light_tables
@@ -51,13 +53,14 @@ from tpurt_torch.render.materials_build import (MAT_NONE,
                                                 build_material_table,
                                                 fuse_material_rows,
                                                 lobe_slots)
+from tpurt_torch.render.bssrdf import stack_tables, tables_to_device
 from tpurt_torch.render.fourier import table_to_device
 from tpurt_torch.render.texeval import TexEval, make_texture_eval
 from tpurt_torch.sampling.samplers import sampler_from_tables, sampler_tables
 from tpurt_torch.scene.records import TextureRecord
 from tpurt_torch.scene import load_scene  # noqa: F401  (re-exported)
 from tpurt_torch.scene.records import MaterialRecord, SceneDescription
-from tpurt_torch.utils.stats import STATS
+from tpurt_torch.utils.stats import BSS_OVERFLOW, STATS, TRACK_STATS
 
 log = logging.getLogger("tpurt_torch.render")
 
@@ -312,11 +315,19 @@ def host_tables(sd: SceneDescription, quick: bool = False,
     filt = make_filter(sd.filter_name, sd.filter_params)
     film = make_film(sd.film_params, filt, quick=quick,
                      crop_override=crop_override)
+    cfg = make_integrator_config(sd, spectrum)
+    if cfg.spectral and mt.has_bssrdf:
+        # tpurt's driver.py:305-310: its BSSRDF is 3-channel
+        log.warning('spectrum_mode "sampled": scene uses BSSRDF '
+                    "materials; rendering in RGB mode")
+        cfg = dataclasses.replace(cfg, spectral=False)
     return dict(
         geo=geo, lights=lights,
         media=media_tables(sd, geo_h, mt.kinds),
         mt_table=fuse_material_rows(mt),
         fourier=dict(tables=mt.fourier_tables, etas=mt.fourier_etas),
+        bss=(dict(mt_bss=mt.bss, mt_bss_tix=mt.bss_tix,
+                  **stack_tables(mt.bss_tables)) if mt.has_bssrdf else None),
         materials=dict(records=records, textured=mt.textured,
                        has_bump=has_bump(records),
                        has_texfilter=any_imagemap(records)),
@@ -330,7 +341,7 @@ def host_tables(sd: SceneDescription, quick: bool = False,
         sampler=sampler_tables(sd.sampler_name, sd.sampler_params,
                                film.full_x, film.full_y, quick=quick,
                                sample_bounds=film.sample_bounds()),
-        film=film, cfg=make_integrator_config(sd, spectrum))
+        film=film, cfg=cfg)
 
 
 def job_from_tables(tab: dict, device) -> RenderJob:
@@ -346,6 +357,12 @@ def job_from_tables(tab: dict, device) -> RenderJob:
             "camera_medium", "has_media", "has_grid_media",
             "has_null_boundaries")})
     fr = tab["fourier"]
+    bss = {}
+    if tab["bss"] is not None:
+        bss = dict(mt_bss=torch.tensor(tab["bss"]["mt_bss"], device=device),
+                   mt_bss_tix=torch.tensor(tab["bss"]["mt_bss_tix"],
+                                           device=device),
+                   bss=tables_to_device(tab["bss"], device))
     scene = SceneData(
         geo=DeviceGeometry.from_tables(tab["geo"], device),
         lights=light_table_from_tables(tab["lights"], device),
@@ -353,7 +370,7 @@ def job_from_tables(tab: dict, device) -> RenderJob:
         has_bump=mats["has_bump"], has_texfilter=mats["has_texfilter"],
         lobe_slots=lobe_slots(tab["mt_table"]),
         fr_tables=tuple(table_to_device(t, device) for t in fr["tables"]),
-        fr_etas=tuple(fr["etas"]), **media)
+        fr_etas=tuple(fr["etas"]), **media, **bss)
     texture_eval = make_texture_eval(mats["records"], mats["textured"],
                                      scene.mt_table)
     scene.has_ptex = texture_eval is not None and texture_eval.has_ptex
@@ -376,63 +393,89 @@ def trace_lanes(job: RenderJob, cfg: IntegratorConfig, traverse, bank
     """Run every (pixel, sample) lane of the film through the bounce loop.
 
     Lanes are numbered in pixel-major order (lane = pixel * spp + sample,
-    pixels row-major over the crop) and run in chunks of WAVEFRONT_SIZE.
-    Between bounces the alive lanes are kept with a boolean index; the
-    state carries each lane's number as ``st["lane"]``, so finished lanes
-    can be put back in order.  ``bank(st, sel)`` receives each batch of
-    finished lanes: the lanes of ``st`` where the boolean mask ``sel`` is
-    set, or all of them when ``sel`` is None; bdpt's batches also carry
-    their splats (``splat_p``, ``splat_L``)."""
+    pixels row-major over the crop) and run in chunks of WAVEFRONT_SIZE
+    (trace_chunk).  ``bank(st, sel)`` receives each batch of finished
+    lanes: the lanes of ``st`` where the boolean mask ``sel`` is set, or
+    all of them when ``sel`` is None; bdpt's batches also carry their
+    splats (``splat_p``, ``splat_L``)."""
     film = job.film
     dev = job.scene.geo.device
+    total = film.width * film.height * job.sampler.spp
+    chunk = min(total, WAVEFRONT_SIZE)
+    for start in range(0, total, chunk):
+        ids = torch.arange(start, min(start + chunk, total), device=dev)
+        # the media hash reads each lane's place in tpurt's chunk
+        trace_chunk(job, cfg, traverse, bank, ids,
+                    track_lane=ids % tpurt_chunk(total),
+                    track_chunk=tpurt_chunk(total),
+                    texture_eval=job.texture_eval)
+
+
+def trace_chunk(job: RenderJob, cfg: IntegratorConfig, traverse, bank,
+                ids, track_lane, track_chunk: int, texture_eval) -> None:
+    """Run the lanes numbered ``ids`` (trace_lanes' numbering) through the
+    bounce loop.  Between bounces the alive lanes are kept with a boolean
+    index; the state carries each lane's number as ``st["lane"]``, so
+    finished lanes can be put back in order.  ``track_lane`` (and bdpt's
+    ``track_chunk``): each lane's number in the media's tracking hash;
+    ``texture_eval``: the textures' evaluator, or None to shade the
+    material table's constants."""
+    film = job.film
     spp = job.sampler.spp
     x0, _, y0, _ = film.crop
-    w = film.width
-    total = film.width * film.height * spp
-    chunk = min(total, WAVEFRONT_SIZE)
+    pid = ids // spp
+    sidx = ids % spp
+    px = x0 + pid % film.width
+    py = y0 + pid // film.width
+    if cfg.name == "ao":
+        bank(ao_radiance(job.scene, job.sampler, job.camera, px, py, sidx,
+                         cfg, traverse, crop_xy=(x0, y0)), None)
+        return
+    if cfg.name == "bdpt":
+        bank(bdpt_radiance(job.scene, job.sampler, job.camera, px, py, sidx,
+                           cfg, traverse, crop_xy=(x0, y0),
+                           texture_eval=texture_eval, track_lane=track_lane,
+                           track_chunk=track_chunk), None)
+        return
     # volpath runs its own step on a scene with media; without media it
     # is the path integrator, as in tpurt (integrator.py:1495-1497)
     volumetric = cfg.name == "volpath" and job.scene.has_media
     init, step = ((volpath_bounce_init, volpath_bounce_step) if volumetric
                   else (path_bounce_init, path_bounce_step))
-    for start in range(0, total, chunk):
-        ids = torch.arange(start, min(start + chunk, total), device=dev)
-        pid = ids // spp
-        sidx = ids % spp
-        px = x0 + pid % w
-        py = y0 + pid // w
-        if cfg.name == "ao":
-            bank(ao_radiance(job.scene, job.sampler, job.camera, px, py,
-                             sidx, cfg, traverse, crop_xy=(x0, y0)), None)
-            continue
-        if cfg.name == "bdpt":
-            # the media hash reads each lane's place in tpurt's chunk
-            c = tpurt_chunk(total)
-            bank(bdpt_radiance(job.scene, job.sampler, job.camera, px, py,
-                               sidx, cfg, traverse, crop_xy=(x0, y0),
-                               texture_eval=job.texture_eval,
-                               track_lane=ids % c, track_chunk=c), None)
-            continue
-        # the tracking hash reads each lane's place in tpurt's chunk
-        extra = (dict(track_lane=ids % tpurt_chunk(total)) if volumetric
-                 else {})
-        st = init(job.scene, job.sampler, job.camera, px, py, sidx, cfg,
-                  traverse, crop_xy=(x0, y0), **extra)
-        st["lane"] = ids
-        for bounce in range(cfg.max_depth + 1):
-            alive = st["alive"]
-            n_alive = int(alive.sum())
-            if n_alive == 0:
-                break
-            if n_alive < alive.shape[0]:
-                # bank the terminated lanes, keep the alive ones
-                bank(st, ~alive)
-                # (a sampler without a lane context carries None)
-                st = {k: None if v is None else v[alive]
-                      for k, v in st.items()}
-            st = step(job.scene, job.sampler, cfg, st, bounce, traverse,
-                      camera=job.camera, texture_eval=job.texture_eval)
-        bank(st, None)
+    extra = dict(track_lane=track_lane) if volumetric else {}
+    st = init(job.scene, job.sampler, job.camera, px, py, sidx, cfg,
+              traverse, crop_xy=(x0, y0), **extra)
+    st["lane"] = ids
+    for bounce in range(cfg.max_depth + 1):
+        alive = st["alive"]
+        n_alive = int(alive.sum())
+        if n_alive == 0:
+            break
+        if n_alive < alive.shape[0]:
+            # bank the terminated lanes, keep the alive ones
+            bank(st, ~alive)
+            # (a sampler without a lane context carries None)
+            st = {k: None if v is None else v[alive] for k, v in st.items()}
+        st = step(job.scene, job.sampler, cfg, st, bounce, traverse,
+                  camera=job.camera, texture_eval=texture_eval)
+    bank(st, None)
+
+
+def report_loop_counters(scene: SceneData) -> None:
+    """Read the bounded loops' counters of a frame (utils/stats.py's
+    TRACK_STATS: the media loops', the subsurface probe chain's) once,
+    and log them; the probe chain's overflow count goes into STATS under
+    tpurt's name, as tpurt's _report_budget_overflow puts it
+    (integrator.py:1279-1297)."""
+    if not (scene.has_media or scene.has_bssrdf):
+        return
+    for name, count in TRACK_STATS.read().items():
+        if count and "exhausted" in name:
+            log.warning("%s: %d lanes", name, count)
+        else:
+            log.info("%s: %d", name, count)
+        if name == BSS_OVERFLOW and count:
+            STATS.counter(name, count)
 
 
 def render_job(job: RenderJob, traverse=None) -> np.ndarray:
@@ -461,13 +504,7 @@ def render_job(job: RenderJob, traverse=None) -> np.ndarray:
     STATS.counter("Integrator/Camera rays traced",
                   film.width * film.height * job.sampler.spp)
     STATS.phase_times["Render (trace + film)"] += time.time() - t0
-    if job.scene.has_media:
-        # the media loops' counters, read once a frame (tpurt's STATS)
-        for name, count in TRACK_STATS.read().items():
-            if count and "exhausted" in name:
-                log.warning("%s: %d lanes", name, count)
-            else:
-                log.info("%s: %d", name, count)
+    report_loop_counters(job.scene)
     # bdpt's splats are averaged over the samples at resolve time
     # (bdpt.cpp Render: WriteImage(1 / samplesPerPixel))
     return film.to_image(state, splat_scale=(

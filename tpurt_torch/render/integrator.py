@@ -22,11 +22,22 @@ file); meshes with ``"vector S"`` and curves align the BSDF frame to
 their tangent.
 
 Per bounce: shade the hit carried from the previous bounce (emitted light
-with the folded MIS weight, next-event estimation, BSDF sampling, Russian
-roulette), then trace this bounce's shadow ray (any-hit) and the next
-bounce's closest ray.  The dimension schedule is tpurt's: camera dims 0-4,
-then 7 dims per bounce (light choice, uLight.xy, lobe choice, uBSDF.xy,
-RR), each a Python int.
+with the folded MIS weight, next-event estimation, BSDF sampling, the
+subsurface hop, Russian roulette), then trace this bounce's shadow ray
+(any-hit) and the next bounce's closest ray.  The dimension schedule is
+tpurt's: camera dims 0-4, then 7 dims per bounce (light choice,
+uLight.xy, lobe choice, uBSDF.xy, RR), each a Python int; a scene with a
+BSSRDF strides BSS_DIMS more a bounce (the hop's 8), under every
+integrator of this step, directlighting and whitted included, which
+never take the hop (tpurt's integrator.py:986-987, :1053).
+
+The subsurface hop (tpurt's _bssrdf_hop, path.cpp:153-174): after a
+sample of a subsurface material's transmitting lobe, an exit point is
+sampled by Sample_Sp's probe scheme, each probe chain a run of
+_BSS_PROBE_K bounded closest-hit calls through the step's traversal,
+then one light sample at the exit point (an any-hit call) and a
+cosine-sampled continuation.  It runs on the gated lanes only, taken
+out by index and put back.
 
 Scenes with image-map textures carry the camera rays offset one pixel in
 x and in y through the lane state (and so through the render loop's
@@ -45,6 +56,8 @@ import torch
 from tpurt_torch.render.bsdf import (ALL_SLOTS, SLOT_FS, SLOT_MIRROR,
                                      LobeParams, LobeSet, bsdf_f, bsdf_pdf,
                                      bsdf_sample)
+from tpurt_torch.render.bssrdf import (BSSTables, bss_pdf_sr,
+                                       bss_sample_sr, bss_sr, bss_sw)
 from tpurt_torch.render.fourier import (fourier_f, fourier_pdf,
                                         fourier_sample)
 from tpurt_torch.render.hair import HairParams, hair_f, hair_pdf, hair_sample
@@ -65,11 +78,17 @@ from tpurt_torch.render.sampling_warps import (build_onb,
                                                to_world)
 from tpurt_torch.spectrum_sampled import (N_BINS, lift_illum, lift_refl,
                                           lift_refl_raw, to_rgb)
+from tpurt_torch.utils.stats import BSS_OVERFLOW, TRACK_STATS
 
 INF = float("inf")
 SHADOW_EPS = 1e-4  # pbrt ShadowEpsilon (pbrt.h:195)
 DIMS_PER_BOUNCE = 7
 CAMERA_DIMS = 5
+BSS_DIMS = 8  # extra sampler dims a bounce when the scene has a BSSRDF
+# closest-hit steps of a probe chain (tpurt's _BSS_PROBE_K,
+# integrator.py:560-568; bssrdf.cpp:294-325 marches unboundedly): lanes
+# with chord left after the last one are counted under BSS_OVERFLOW
+_BSS_PROBE_K = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,12 +155,33 @@ class SceneData:
     fr_etas: tuple = ()
     # a ptex texture: the interactions carry the triangle face index
     has_ptex: bool = False
+    # the tabulated BSSRDF (tpurt's SceneData :103-117): each material
+    # row's [sigma_t rgb, rho rgb, eta] (M, 7) and diffusion-table index
+    # (M,) (-1: none), and the tables of the scene's distinct (g, eta)
+    mt_bss: torch.Tensor = None
+    mt_bss_tix: torch.Tensor = None
+    bss: BSSTables = None
 
     @property
     def has_tangents(self) -> bool:
         """A mesh carries shading tangents or the scene holds curves: the
         BSDF frame aligns to the tangent (tpurt's has_tangents)."""
         return self.geo.has_tangents
+
+    @property
+    def has_bssrdf(self) -> bool:
+        """A subsurface or kdsubsurface material: the path step takes the
+        hop and strides BSS_DIMS more a bounce."""
+        return self.bss is not None
+
+    @property
+    def n_bss_tables(self) -> int:
+        return 0 if self.bss is None else self.bss.profile.shape[0]
+
+    @property
+    def dims_per_bounce(self) -> int:
+        """The path step's sampler dims a bounce (integrator.py:986-987)."""
+        return DIMS_PER_BOUNCE + (BSS_DIMS if self.has_bssrdf else 0)
 
     @property
     def has_motion(self) -> bool:
@@ -636,7 +676,7 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
     alive = alive & any_lobe
 
     # ---- NEE ----
-    d0 = CAMERA_DIMS + bounce * DIMS_PER_BOUNCE
+    d0 = CAMERA_DIMS + bounce * scene.dims_per_bounce
     u_choice = sampler.dim(px, py, sidx, d0, sctx)
     u_light = torch.stack([sampler.dim(px, py, sidx, d0 + 1, sctx),
                            sampler.dim(px, py, sidx, d0 + 2, sctx)], dim=-1)
@@ -668,10 +708,18 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
         eta_scale = torch.where(ok & is_spec & is_trans, eta_scale * eta2,
                                 eta_scale)
     alive = ok
+    specular = is_spec
     prev_pdf = torch.clamp(pdf, min=1e-20)
     prev_p = si.p
     o = offset_ray_origin(si.p, si.ng, wi, si.p_eps)
     d = wi
+
+    # ---- subsurface hop (path.cpp:153-174; integrator.py:1052-1058) ----
+    if scene.has_bssrdf and not cfg.specular_only:
+        o, d, beta, L, alive, specular, prev_pdf, prev_p = _bssrdf_hop(
+            scene, si, ctx, o, d, beta, L, alive, specular, prev_pdf,
+            prev_p, is_spec, is_trans, sampler, (px, py, sidx, sctx), d0,
+            cfg, traverse, time)
 
     # ---- Russian roulette (path.cpp: bounces > 3) ----
     if bounce > 3:
@@ -694,8 +742,199 @@ def path_bounce_step(scene: SceneData, sampler, cfg: IntegratorConfig,
     out.update(o=o, d=d, hit_t=hit_next.t, hit_prim=hit_next.prim,
                hit_b0=hit_next.b0, hit_b1=hit_next.b1, beta=beta, L=L,
                alive=alive, prev_pdf=prev_pdf, prev_p=prev_p,
-               specular=is_spec, eta_scale=eta_scale)
+               specular=specular, eta_scale=eta_scale)
     return out
+
+
+def _prim_material(geo: DeviceGeometry, prim):
+    """The material id of each lane's prim (shade-row slot 2's int32
+    bits; tpurt's geo.material_id[prim]), for prim >= 0."""
+    rows = geo.shade_rows[prim.clamp(min=0).long(), 2]
+    return rows.contiguous().view(torch.int32)
+
+
+def _bssrdf_hop(scene: SceneData, si: SurfaceInteraction, ctx: ShadeCtx,
+                o, d, beta, L, alive, specular, prev_pdf, prev_p, is_spec,
+                is_trans, sampler, lanes, d0: int, cfg: IntegratorConfig,
+                traverse, time):
+    """The path integrator's subsurface hop (tpurt's _bssrdf_hop,
+    integrator.py:571-749; path.cpp:153-174).  A lane is gated when its
+    BSDF sample carried transmission on a BSSRDF material (for smooth
+    subsurface the FresnelSpecular lobe carries it on both branches).  On
+    the gated lanes, taken out by index: Sample_Sp picks a probe axis (1/2
+    the normal, 1/4 each tangent; dim d0+7) and a channel, samples a
+    radius r and r_max = Sample_Sr(0.999) (d0+8) and an angle (d0+9), and
+    marches the probe chord through _BSS_PROBE_K bounded closest-hit calls
+    (IntersectionChain, bssrdf.cpp:294-325: every hit stepped past by a
+    magnitude-relative epsilon, the same-material crossings collected);
+    one crossing is chosen uniformly, the pdf divided by their number.
+    The throughput takes Sp / Pdf_Sp (all three axes and channels,
+    bssrdf.cpp:327-348); the exit point adds one light sample through the
+    Sw lobe (d0+10..12) behind an any-hit call, and the path continues in
+    a cosine-sampled direction (d0+13, 14).  Lanes still holding chord
+    after the last step count under BSS_OVERFLOW (only the last step's,
+    as tpurt counts).  ``lanes``: (px, py, sidx, sctx) of the step.
+    Returns (o, d, beta, L, alive, specular, prev_pdf, prev_p), the gated
+    lanes' specular flag cleared."""
+    idx = si.material_id.clamp(min=0).long()
+    tix_all = torch.where(si.material_id >= 0, scene.mt_bss_tix[idx], -1)
+    gate = alive & (tix_all >= 0) & (
+        is_trans | (is_spec & ctx.lobes.active[:, SLOT_FS]))
+    sel = torch.nonzero(gate).squeeze(1)
+    if sel.numel() == 0:
+        return o, d, beta, L, alive, specular, prev_pdf, prev_p
+    px, py, sidx, sctx = lanes
+    sctx = None if sctx is None else sctx[sel]
+    lane = (px[sel], py[sel], sidx[sel])
+    time_g = None if time is None else time[sel]
+
+    def dim(k):
+        return sampler.dim(*lane, d0 + k, sctx)
+
+    n = sel.shape[0]
+    dev = beta.device
+    tbl = scene.bss
+    tix = tix_all[sel].long()
+    mat = si.material_id[sel]
+    p, ns, t, b = si.p[sel], si.ns[sel], ctx.t[sel], ctx.b[sel]
+    row = scene.mt_bss[idx[sel]]
+    sigma_t, rho3, eta = row[:, 0:3], row[:, 3:6], row[:, 6]
+    u1, u2a, u2b = dim(7), dim(8), dim(9)
+
+    # the probe axis (Sample_Sp: 1/2 ns, 1/4 ss, 1/4 ts) and the channel
+    c1 = (u1 < 0.5)[:, None]
+    c2 = ((u1 >= 0.5) & (u1 < 0.75))[:, None]
+    vx = torch.where(c1, t, torch.where(c2, b, ns))
+    vy = torch.where(c1, b, torch.where(c2, ns, t))
+    vz = torch.where(c1, ns, torch.where(c2, t, b))
+    u1r = torch.where(u1 < 0.5, u1 * 2,
+                      torch.where(u1 < 0.75, (u1 - 0.5) * 4,
+                                  (u1 - 0.75) * 4))
+    ch = torch.clamp((u1r * 3).to(torch.int32), 0, 2).long()
+    sig_ch = torch.gather(sigma_t, 1, ch[:, None])[:, 0]
+    rho_ch = torch.gather(rho3, 1, ch[:, None])[:, 0]
+    # r and r_max in one call over 2n lanes
+    rr = bss_sample_sr(tbl, tix.repeat(2), sig_ch.repeat(2),
+                       rho_ch.repeat(2),
+                       torch.cat([u2a, torch.full_like(u2a, 0.999)]))
+    r, r_max = rr[:n], rr[n:]
+    ok = (r >= 0) & (r < r_max) & (sig_ch > 0)
+    ell = 2.0 * torch.sqrt(torch.clamp(r_max * r_max - r * r, min=0.0))
+    phi = 2.0 * np.pi * u2b
+    base = (p + r[:, None] * (vx * torch.cos(phi)[:, None]
+                              + vy * torch.sin(phi)[:, None])
+            - 0.5 * ell[:, None] * vz)
+
+    # IntersectionChain: march the whole chord, collecting every
+    # same-material crossing (other hits are stepped through)
+    u_sel = u1r * 3.0 - ch.to(torch.float32)  # pbrt's thrice-remapped u1
+    o_cur = base
+    rem = torch.where(ok, ell, 0.0)
+    t_off = torch.zeros(n, dtype=torch.float32, device=dev)
+    cand_t, cand_prim, cand_b0, cand_b1, cand_ok = [], [], [], [], []
+    for _k in range(_BSS_PROBE_K):
+        h = intersect_closest(scene.geo, o_cur, vz, rem, traverse, time_g)
+        valid = h.prim >= 0
+        cand_t.append(torch.where(valid, t_off + h.t, INF))
+        cand_prim.append(torch.where(valid, h.prim, -1))
+        cand_b0.append(h.b0)
+        cand_b1.append(h.b1)
+        cand_ok.append(valid & (_prim_material(scene.geo, h.prim) == mat))
+        # step past the hit (SpawnRayTo; a magnitude-relative epsilon
+        # along the probe direction)
+        p_k = o_cur + h.t[:, None] * vz
+        eps = 1e-4 * torch.clamp(p_k.abs().amax(dim=-1), min=1.0)
+        adv = torch.where(valid, h.t + eps, rem)
+        rem = torch.clamp(rem - adv, min=0.0)
+        t_off = t_off + torch.where(valid, adv, 0.0)
+        o_cur = torch.where(valid[:, None], p_k + eps[:, None] * vz, o_cur)
+        exhausted = valid & (rem > 0)
+    TRACK_STATS.add(BSS_OVERFLOW, exhausted.sum())
+    match = torch.stack(cand_ok)  # (K, n)
+    n_found = match.sum(dim=0).to(torch.int32)
+    ok = ok & (n_found > 0)
+    pick_i = torch.minimum(
+        torch.clamp((u_sel * n_found.to(torch.float32)).to(torch.int32),
+                    min=0), torch.clamp(n_found - 1, min=0))
+    rank = torch.cumsum(match.to(torch.int32), dim=0) - 1
+    pick = match & (rank == pick_i[None])  # (K, n) one-hot
+    picked = pick.any(dim=0)
+
+    def choose(stk, fill):
+        v = torch.where(pick, torch.stack(stk), 0).sum(dim=0)
+        return (v + torch.where(picked, 0, fill)).to(stk[0].dtype)
+
+    hit = Hit(t=choose(cand_t, INF), prim=choose(cand_prim, -1),
+              b0=choose(cand_b0, 0.0), b1=choose(cand_b1, 0.0))
+    pi_si = compute_interaction(scene.geo, hit, base, vz,
+                                tangents=scene.has_tangents, time=time_g)
+    ok = ok & pi_si.valid & (pi_si.material_id == mat)
+
+    # Pdf_Sp: three axes x three channels, in one call over 9n lanes,
+    # summed in tpurt's order
+    dvec = p - pi_si.p
+    dl = to_local(t, b, ns, dvec)
+    nl = to_local(t, b, ns, pi_si.ng)
+    rproj = (torch.sqrt(dl[:, 1] ** 2 + dl[:, 2] ** 2),
+             torch.sqrt(dl[:, 2] ** 2 + dl[:, 0] ** 2),
+             torch.sqrt(dl[:, 0] ** 2 + dl[:, 1] ** 2))
+    terms = [(ax, axp, c) for ax, axp in ((0, 0.25), (1, 0.25), (2, 0.5))
+             for c in range(3)]
+    pdfs = bss_pdf_sr(tbl, tix.repeat(len(terms)),
+                      torch.cat([sigma_t[:, c] for _a, _p, c in terms]),
+                      torch.cat([rho3[:, c] for _a, _p, c in terms]),
+                      torch.cat([rproj[a] for a, _p, _c in terms])
+                      ).reshape(len(terms), n)
+    pdf_sp = torch.zeros(n, dtype=torch.float32, device=dev)
+    for k, (ax, axp, _c) in enumerate(terms):
+        pdf_sp = pdf_sp + pdfs[k] * nl[:, ax].abs() * (axp / 3.0)
+    pdf_sp = pdf_sp / torch.clamp(n_found, min=1).to(torch.float32)
+    sp = bss_sr(tbl, tix, sigma_t, rho3, norm(dvec))
+    ok = ok & (pdf_sp > 0) & (sp > 0).any(dim=-1)
+    beta_g = beta[sel]
+    beta_b = beta_g * sp / torch.clamp(pdf_sp, min=1e-20)[:, None]
+
+    # one light sample at the exit point through the Sw lobe (path.cpp:163)
+    lt = scene.lights
+    lidx, pmf = choose_light(lt, dim(10), cfg.light_strategy, p=pi_si.p)
+    ls = sample_li(lt, lidx, pi_si.p, torch.stack([dim(11), dim(12)], -1))
+    cos_wi = dot(ls.wi, pi_si.ns)
+    f_sw = bss_sw(eta, cos_wi) * eta * eta * cos_wi.abs()
+    refl_ok = dot(ls.wi, pi_si.ng) * dot(pi_si.ns, pi_si.ng) > 0
+    usable = (ok & refl_ok & (ls.pdf > 0) & (f_sw > 0)
+              & (ls.li > 0).any(dim=-1))
+    o_sh = offset_ray_origin(pi_si.p, pi_si.ng, ls.wi)
+    occ = intersect_any(scene.geo, o_sh, ls.wi,
+                        shadow_t_max(ls, norm(ls.p_light - o_sh), usable),
+                        traverse, time_g)
+    sc_pdf = torch.clamp(cos_wi, min=0.0) / np.pi
+    w_mis = torch.where(ls.is_delta, 1.0,
+                        power_heuristic(1.0, ls.pdf, 1.0, sc_pdf))
+    ld = ((f_sw * w_mis / torch.clamp(ls.pdf * pmf, min=1e-20))[:, None]
+          * ls.li)
+    L = L.index_put((sel,), L[sel] + torch.where(
+        (usable & ~occ)[:, None], beta_b * ld, 0.0))
+
+    # the continuation: cosine-sample the Sw lobe (path.cpp:167)
+    wi_l = cosine_sample_hemisphere(dim(13), dim(14))
+    tp, bp = _shading_frame(pi_si)
+    wi_w = to_world(tp, bp, pi_si.ns, wi_l)
+    cos_c = torch.clamp(wi_l[:, 2], min=0.0)
+    ok = ok & (cos_c > 1e-7)
+    # f |cos| / pdf with pdf = cos / pi: Sw eta^2 pi
+    beta_b = beta_b * (bss_sw(eta, cos_c) * eta * eta * np.pi)[:, None]
+
+    okc = ok[:, None]
+    beta = beta.index_put((sel,), torch.where(okc, beta_b, beta_g))
+    o = o.index_put((sel,), torch.where(
+        okc, offset_ray_origin(pi_si.p, pi_si.ng, wi_w), o[sel]))
+    d = d.index_put((sel,), torch.where(okc, wi_w, d[sel]))
+    prev_pdf = prev_pdf.index_put((sel,), torch.where(
+        ok, torch.clamp(cos_c / np.pi, min=1e-20), prev_pdf[sel]))
+    prev_p = prev_p.index_put((sel,), torch.where(okc, pi_si.p, prev_p[sel]))
+    alive = alive.index_put((sel,), ok)
+    specular = specular & ~gate
+    return o, d, beta, L, alive, specular, prev_pdf, prev_p
 
 
 def ao_radiance(scene: SceneData, sampler, camera, px, py, sidx,

@@ -187,9 +187,36 @@ def _disney(tp: TextureParams) -> MaterialRecord:
 
 def _subsurface(tp: TextureParams) -> MaterialRecord:
     """Subsurface material (materials/subsurface.cpp
-    CreateSubsurfaceMaterial).  Not ported: its measured presets and
-    BSSRDF tables live in tpurt's JAX module ``render/bssrdf.py``."""
-    raise NotImplementedError('Material "subsurface"')
+    CreateSubsurfaceMaterial; tpurt's materials.py:188-220): glass-like
+    surface BSDF + a tabulated BSSRDF from (sigma_a, sigma_s) or a named
+    measured preset, whose reduced sigma_s sets g to 0."""
+    from tpurt_torch.render.bssrdf import get_medium_scattering_properties
+
+    sig_a_d = np.array([0.0011, 0.0024, 0.014])
+    sig_s_d = np.array([2.55, 3.21, 3.77])
+    g = tp.find_float("g", 0.0)
+    preset = tp.find_string("name", "")
+    props = get_medium_scattering_properties(preset) if preset else None
+    if preset and props is None:
+        log.warning('named scattering preset "%s" not found, using defaults',
+                    preset)
+    if props is not None:
+        sig_a_d, sig_s_d = props
+        g = 0.0  # preset sigma_s values are already reduced (subsurface.cpp)
+    slots = {
+        "sigma_a": tp.get_spectrum_texture("sigma_a", sig_a_d),
+        "sigma_s": tp.get_spectrum_texture("sigma_s", sig_s_d),
+        "scale": ("constant", tp.find_float("scale", 1.0)),
+        "g": ("constant", g),
+        "eta": tp.get_float_texture("eta", 1.33),
+        "Kr": tp.get_spectrum_texture("Kr", 1.0),
+        "Kt": tp.get_spectrum_texture("Kt", 1.0),
+        "uroughness": tp.get_float_texture("uroughness", 0.0),
+        "vroughness": tp.get_float_texture("vroughness", 0.0),
+        "remaproughness": ("constant", tp.find_bool("remaproughness", True)),
+    }
+    _common_bump(tp, slots)
+    return MaterialRecord("subsurface", slots)
 
 
 def _kdsubsurface(tp: TextureParams) -> MaterialRecord:

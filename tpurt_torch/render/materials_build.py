@@ -16,8 +16,12 @@ integrators read in its place; a missing or unreadable file raises
 ValueError naming the material and the file, where tpurt logs and
 renders the material black.  ``Material "none"`` (a medium boundary) is
 a row of zeros of kind ``MAT_NONE``, which activates no lobe.
-Subsurface and kdsubsurface, and any material name tpurt does not know,
-raise NotImplementedError (tpurt maps the last to matte with a warning).
+Subsurface and kdsubsurface rows are glass (their surface lobes) and
+carry the tabulated BSSRDF in ``bss`` [sigma_t rgb, rho rgb, eta] and
+``bss_tix``, the index of their diffusion table (render/bssrdf.py; one
+table per distinct (g, eta)), which the path integrator's subsurface hop
+reads.  A material name tpurt does not know raises NotImplementedError
+(tpurt maps it to matte with a warning).
 """
 
 from __future__ import annotations
@@ -80,6 +84,10 @@ _KIND_CODES = {"matte": MAT_MATTE, "plastic": MAT_PLASTIC,
                "uber": MAT_UBER, "substrate": MAT_SUBSTRATE,
                "translucent": MAT_TRANSLUCENT, "disney": MAT_DISNEY,
                "mix": MAT_MIX, "hair": MAT_HAIR, "fourier": MAT_FOURIER,
+               # subsurface materials: glass-like surface lobes
+               # (subsurface.cpp ComputeScatteringFunctions) + the
+               # tabulated BSSRDF hop
+               "subsurface": MAT_GLASS, "kdsubsurface": MAT_GLASS,
                "metal_": MAT_METAL}
 
 
@@ -100,6 +108,16 @@ class MaterialTable(NamedTuple):
     fourier_tix: np.ndarray = None  # (M,) i32
     fourier_tables: tuple = ()
     fourier_etas: tuple = ()
+    # tabulated-BSSRDF columns [sigma_t rgb, rho rgb, eta] and each row's
+    # diffusion-table index (-1 = no BSSRDF); the tables
+    # (bssrdf.BSSRDFTableHost) of the distinct (g, eta) pairs
+    bss: np.ndarray = None  # (M, 7) f32
+    bss_tix: np.ndarray = None  # (M,) i32
+    bss_tables: tuple = ()
+
+    @property
+    def has_bssrdf(self) -> bool:
+        return bool(self.bss_tables)
 
 
 def _const(slot):
@@ -151,6 +169,9 @@ def build_material_table(materials: List[Optional[MaterialRecord]]
     hair = np.zeros((max(m, 1), 7), np.float32)
     fourier_tix = np.full(max(m, 1), -1, np.int32)
     fourier_tables, fourier_etas, fourier_keys = [], [], {}
+    bss = np.zeros((max(m, 1), 7), np.float32)
+    bss_tix = np.full(max(m, 1), -1, np.int32)
+    bss_tables, bss_keys = [], {}
     for i, pair in mix_pairs.items():
         mix[i] = pair
     textured: List[Tuple[int, str]] = []
@@ -236,11 +257,57 @@ def build_material_table(materials: List[Optional[MaterialRecord]]
                 fourier_tables.append(bake_fourier_table(host))
                 fourier_etas.append(host.eta)
             fourier_tix[i] = fourier_keys[fname]
+        if rec.name in ("subsurface", "kdsubsurface"):
+            bss[i], bss_tix[i] = _bss_columns(rec, bss_tables, bss_keys)
     return MaterialTable(table=table, kinds=kinds, textured=textured, k3=k3,
                          mix=mix, records=materials, hair=hair,
                          fourier_tix=fourier_tix,
                          fourier_tables=tuple(fourier_tables),
-                         fourier_etas=tuple(fourier_etas))
+                         fourier_etas=tuple(fourier_etas), bss=bss,
+                         bss_tix=bss_tix, bss_tables=tuple(bss_tables))
+
+
+def _bss_columns(rec: MaterialRecord, tables: list, keys: dict):
+    """([sigma_t rgb, rho rgb, eta], table index) of a subsurface or
+    kdsubsurface record (subsurface.cpp:55-58, kdsubsurface.cpp
+    ComputeScatteringFunctions; tpurt's materials_build.py:334-376).  A
+    (g, eta) pair not in ``keys`` appends its diffusion table to
+    ``tables``.  subsurface scales sigma_a and sigma_s by "scale";
+    kdsubsurface inverts Kd through the table (subsurface_from_diffuse)
+    at its mean free path.  A textured slot warns and takes its default,
+    as in tpurt."""
+    from tpurt_torch.render.bssrdf import (compute_beam_diffusion_table,
+                                           subsurface_from_diffuse)
+
+    s = rec.slots
+
+    def bconst(key, default):
+        v = _const(s.get(key))
+        if v is None and key in s:
+            log.warning('%s: textured "%s" not supported; using default',
+                        rec.name, key)
+        return np.asarray(default if v is None else v, np.float64)
+
+    g_b = float(bconst("g", 0.0).reshape(-1)[0])
+    eta_b = float(bconst("eta", 1.33).reshape(-1)[0])
+    key = (round(g_b, 6), round(eta_b, 6))
+    if key not in keys:
+        keys[key] = len(tables)
+        tables.append(compute_beam_diffusion_table(g_b, eta_b))
+    tix = keys[key]
+    if rec.name == "subsurface":
+        scale_b = float(bconst("scale", 1.0).reshape(-1)[0])
+        sig_a_b = np.clip(bconst("sigma_a", [0.0011, 0.0024, 0.014])
+                          * np.ones(3), 0, None) * scale_b
+        sig_s_b = np.clip(bconst("sigma_s", [2.55, 3.21, 3.77])
+                          * np.ones(3), 0, None) * scale_b
+    else:
+        kd_b = np.clip(bconst("Kd", 0.5) * np.ones(3), 0.0, 1.0)
+        mfp_b = bconst("mfp", 1.0) * np.ones(3)
+        sig_a_b, sig_s_b = subsurface_from_diffuse(tables[tix], kd_b, mfp_b)
+    sig_t_b = sig_a_b + sig_s_b
+    rho_b = np.where(sig_t_b > 0, sig_s_b / np.maximum(sig_t_b, 1e-20), 0.0)
+    return np.concatenate([sig_t_b, rho_b, [eta_b]]).astype(np.float32), tix
 
 
 def _read_fourier(fname: str):

@@ -55,6 +55,7 @@ from tpurt_torch.render.materials_build import C_KIND, MAT_NONE
 from tpurt_torch.render.sampling_warps import (build_onb, dot, matvec_lanes,
                                                norm, power_heuristic,
                                                to_world)
+from tpurt_torch.utils.stats import TRACK_STATS
 
 DIMS_PER_BOUNCE_VOL = 9  # + the medium channel and distance dims
 # tracking steps between the checks that drop the lanes done
@@ -68,33 +69,6 @@ TRACKING_RANGE = "tpurt_torch.grid_tracking"
 WALK_RANGE = "tpurt_torch.shadow_walk"
 
 
-class TrackStats:
-    """Counters of the media loops, kept on the device and read once a
-    frame: the two overflow counts under tpurt's names
-    (``_report_budget_overflow``, integrator.py:1279-1297), and the
-    grid-tracking steps taken (their sum, the lanes tracked, the most one
-    lane took)."""
-
-    def __init__(self):
-        self._acc: Dict[str, Any] = {}
-
-    def reset(self) -> None:
-        self._acc = {}
-
-    def add(self, name: str, value, op: str = "sum") -> None:
-        if name not in self._acc:
-            self._acc[name] = value
-        elif op == "max":
-            self._acc[name] = torch.maximum(torch.as_tensor(
-                self._acc[name]), torch.as_tensor(value))
-        else:
-            self._acc[name] = self._acc[name] + value
-
-    def read(self) -> Dict[str, int]:
-        return {k: int(v) for k, v in self._acc.items()}
-
-
-TRACK_STATS = TrackStats()
 
 
 # ---------------------------------------------------------------------------

@@ -19,9 +19,12 @@ import torch
 
 from tpurt_torch.config import resolve_device
 from tpurt_torch.kernels.traverse import traverse_wide
-from tpurt_torch.render.driver import RenderJob, build_job, trace_lanes
+from tpurt_torch.render.driver import (RenderJob, build_job,
+                                       report_loop_counters, trace_lanes)
 from tpurt_torch.render.film import FilmState
-from tpurt_torch.rpf.filter import COL, SD_LEN, apply_rpf_filter
+from tpurt_torch.rpf.filter import (COL, SD_LEN, SIGMA_FC_SEED,
+                                    apply_rpf_filter)
+from tpurt_torch.utils.stats import TRACK_STATS
 
 log = logging.getLogger("tpurt_torch.rpf")
 
@@ -60,7 +63,9 @@ def fill_sample_buffer(job: RenderJob):
             rows, lanes = rows[sel], lanes[sel]
         buf[lanes] = rows
 
+    TRACK_STATS.reset()
     trace_lanes(job, cfg, traverse_wide, bank)
+    report_loop_counters(job.scene)
     return buf.reshape(h, w, spp, SD_LEN)
 
 
@@ -155,11 +160,15 @@ def _sync(dev) -> None:
 def render_rpf_job(job: RenderJob,
                    box_sizes: Sequence[int] = DEFAULT_BOX_SIZES,
                    write_feature_exrs: bool = True,
-                   return_buffers: bool = False):
+                   return_buffers: bool = False,
+                   sigma_seed: float = SIGMA_FC_SEED):
     """The RPF pipeline on a built job: sampling pass, the filter at each
-    box size, splat.  Returns (image, extras): the stage times in seconds
-    ("sampling_time", "filter_time", "splat_time"), and with
-    return_buffers the raw and filtered sample buffers (host numpy)."""
+    box size, splat.  ``sigma_seed`` is the filter's bilateral sigma seed
+    (tpurt's config rpf_sigma_seed, config.py:119, read at
+    rpf/filter.py:379-380; rpf.cpp:533's 0.002 by default).  Returns
+    (image, extras): the stage times in seconds ("sampling_time",
+    "filter_time", "splat_time"), and with return_buffers the raw and
+    filtered sample buffers (host numpy)."""
     dev = job.scene.geo.device
     _sync(dev)
     t0 = time.time()
@@ -177,7 +186,7 @@ def render_rpf_job(job: RenderJob,
     t0 = time.time()
     buf = buffer
     for box in box_sizes:
-        buf = apply_rpf_filter(buf, box)
+        buf = apply_rpf_filter(buf, box, sigma_seed)
         log.info("RPF filter pass (box %d) done", box)
     _sync(dev)
     filter_time = time.time() - t0
@@ -197,10 +206,12 @@ def render_rpf_job(job: RenderJob,
 def render_rpf(sd, device="cuda", quick: bool = False, crop_override=None,
                box_sizes: Sequence[int] = DEFAULT_BOX_SIZES,
                write_feature_exrs: bool = True,
-               return_buffers: bool = False):
-    """The full RPF pipeline on ``device``; returns (image, job, extras)."""
+               return_buffers: bool = False,
+               sigma_seed: float = SIGMA_FC_SEED):
+    """The full RPF pipeline on ``device``; returns (image, job, extras).
+    ``sigma_seed``: render_rpf_job's."""
     job = build_job(sd, resolve_device(device), quick=quick,
                     crop_override=crop_override)
     img, extras = render_rpf_job(job, box_sizes, write_feature_exrs,
-                                 return_buffers)
+                                 return_buffers, sigma_seed)
     return img, job, extras

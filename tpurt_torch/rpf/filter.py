@@ -298,19 +298,35 @@ def apply_rpf_filter(buffer, box_size: int,
     """One ApplyRPFFilter pass over the full sample buffer.
 
     buffer: (H, W, S, 19) float32 tensor.  Returns a new buffer with the
-    filtered colors.  Pixels run in batches of as many as CHUNK_BYTES
-    holds by ``filter_plan``'s estimate."""
-    h, w, s, _ = buffer.shape
-    dev = buffer.device
+    filtered colors."""
+    h, w, _, _ = buffer.shape
     bd = (box_size - 1) // 2
+    padded = torch.nn.functional.pad(buffer, (0, 0, 0, 0, bd, bd, bd, bd))
+    valid = torch.nn.functional.pad(
+        torch.ones((h, w), dtype=torch.bool, device=buffer.device),
+        (bd, bd, bd, bd))
+    res = buffer.clone()
+    res[..., COL] = filter_rows(padded, valid, box_size, sigma_seed)
+    return res
+
+
+def filter_rows(padded, valid, box_size: int,
+                sigma_seed: float = SIGMA_FC_SEED):
+    """The filtered colors (h, w, S, 3) of the pixels whose boxes lie in
+    ``padded`` (h + 2 bd, w + 2 bd, S, 19), bd = box // 2, with
+    ``valid`` (h + 2 bd, w + 2 bd) the rows and columns that hold image
+    pixels (tpurt's per-pixel vmap over the padded buffer; the sharded
+    filter passes a row block with its halos, parallel/mesh.py).  Pixels
+    run in batches of as many as CHUNK_BYTES holds by ``filter_plan``'s
+    estimate."""
+    bd = (box_size - 1) // 2
+    h, w = padded.shape[0] - 2 * bd, padded.shape[1] - 2 * bd
+    s = padded.shape[2]
+    dev = padded.device
     mi_idx, b_max, per_pixel = filter_plan(box_size, s)
     if mi_idx is not None:
         mi_idx = torch.as_tensor(mi_idx, device=dev)
     pixel_chunk = max(1, CHUNK_BYTES // per_pixel)
-
-    padded = torch.nn.functional.pad(buffer, (0, 0, 0, 0, bd, bd, bd, bd))
-    valid = torch.nn.functional.pad(
-        torch.ones((h, w), dtype=torch.bool, device=dev), (bd, bd, bd, bd))
     # window offsets in (dy, dx) row-major order, then S samples each
     off = torch.arange(box_size, device=dev)
     dy = off.repeat_interleave(box_size)
@@ -331,6 +347,4 @@ def apply_rpf_filter(buffer, box_size: int,
         out[start:start + pid.shape[0]] = _filter_pixels(
             own, win, val, center, box_size, b_max, mi_idx=mi_idx,
             sigma_seed=sigma_seed)
-    res = buffer.clone()
-    res[..., COL] = out.reshape(h, w, s, 3)
-    return res
+    return out.reshape(h, w, s, 3)

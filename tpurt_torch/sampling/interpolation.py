@@ -5,7 +5,7 @@ _segment_derivs, _invert_segment_integral, sample_catmull_rom_2d,
 catmull_rom_eval, invert_catmull_rom; core/interpolation.cpp
 CatmullRom :39, CatmullRomWeights :61, SampleCatmullRom2D :172,
 IntegrateCatmullRom :260, InvertCatmullRom :288).  The Fourier BSDF
-(render/fourier.py) reads it, the tabulated BSSRDF will.
+(render/fourier.py) and the tabulated BSSRDF (render/bssrdf.py) read it.
 
 The host versions are numpy (table precompute at scene build).  The
 device versions are torch over (N,) lanes: the interval search is
@@ -178,11 +178,13 @@ def _invert_segment_integral(u, f0, f1, d0, d1):
     return t, f_hat(t)
 
 
-def sample_catmull_rom_2d(nodes1, nodes2, values, cdf, alpha, u):
+def sample_catmull_rom_2d(nodes1, nodes2, values, cdf, alpha, u, tix=None):
     """SampleCatmullRom2D (interpolation.cpp:172) over lanes.  nodes1
     (S1,), nodes2 (S2,), values and cdf (S1, S2); alpha (N,) the
-    first-axis coordinate, u (N,) uniforms.  Returns (x, f(x), pdf), each
-    (N,)."""
+    first-axis coordinate, u (N,) uniforms.  With ``tix`` (N,) int, values
+    and cdf are a stack (T, S1, S2) of tables on the same nodes and each
+    lane reads its own, tix[lane] (one gather; the tabulated BSSRDF's
+    tables of each (g, eta)).  Returns (x, f(x), pdf), each (N,)."""
     s2 = nodes2.shape[0]
     ok, off1, w1 = catmull_rom_weights(nodes1, alpha)
     rows = torch.clamp(off1[:, None] + torch.arange(4, device=alpha.device),
@@ -190,8 +192,9 @@ def sample_catmull_rom_2d(nodes1, nodes2, values, cdf, alpha, u):
 
     def interp(tbl, idx):
         # sum_i w1[i] * tbl[rows[i], idx]; idx (N,) int
-        g = tbl[rows, torch.clamp(idx, 0, s2 - 1)[:, None]]  # (N, 4)
-        return (g * w1).sum(dim=-1)
+        col = torch.clamp(idx, 0, s2 - 1)[:, None]
+        g = tbl[rows, col] if tix is None else tbl[tix[:, None], rows, col]
+        return (g * w1).sum(dim=-1)  # g (N, 4)
 
     maximum = interp(cdf, torch.full_like(off1, s2 - 1))
     us = u * maximum

@@ -1182,3 +1182,45 @@ def write_ptex_fourier(path: str, size: str = "full", **kw) -> str:
         f.write(ptex_fourier_scene(size, base + ".ptx", base + ".bsdf",
                                    kw.pop("filename", base + ".exr"), **kw))
     return path
+
+
+# frame N's two subsurface materials: Skin1's measured coefficients (mm^-1)
+# at "scale" 10, a mean free path 1 / sigma_t of 0.13 (red) to 0.067
+# (blue) scene units, 2-4% of a blob's ~3.2-unit width; and a coloured
+# kdsubsurface of mean free path 0.1 at eta 1.5, the second diffusion
+# table (tpurt keys one by (g, eta))
+SUBSURFACE_SKIN = 'Material "subsurface" "string name" "Skin1" "float scale" [10]'
+SUBSURFACE_KD = ('Material "kdsubsurface" "color Kd" [0.8 0.5 0.3]'
+                 ' "float mfp" [0.1] "float eta" [1.5]')
+
+
+def subsurface_scene(size: str = "full", filename: str = "subsurface.exr",
+                     integrator: str = "path", **kw) -> str:
+    """Frame N: the stand-in (standin_scene at ``size``; kw its ``res``,
+    ``spp``, ``maxdepth``, ``sampler``) with its first blob under
+    SUBSURFACE_SKIN and its second under SUBSURFACE_KD; the ground, the
+    wall and the sphere light as in frame A.  ``integrator``: one of
+    standin_scene's, or "directlighting" or "whitted"."""
+    direct = integrator in ("directlighting", "whitted")
+    text = standin_scene(size, filename,
+                         integrator="path" if direct else integrator, **kw)
+    if direct:
+        text = text.replace('Integrator "path"', f'Integrator "{integrator}"')
+    plastic = ('  Material "plastic" "color Kd" [0.4 0.2 0.2] "color Ks" '
+               '[0.5 0.5 0.5]\n    "float roughness" [0.025]\n')
+    first = '  AttributeBegin\n    Translate -2.2 0 0\n'
+    second = '  AttributeBegin\n    Translate 2.4 0 2\n'
+    assert plastic in text and first in text and second in text
+    text = text.replace(plastic, "")
+    text = text.replace(first, f"  {SUBSURFACE_SKIN}\n{first}")
+    return text.replace(second, f"  {SUBSURFACE_KD}\n{second}")
+
+
+def write_subsurface(path: str, size: str = "full", **kw) -> str:
+    """Write frame N to ``path``; returns ``path``.  kw:
+    subsurface_scene's."""
+    with open(path, "w") as f:
+        f.write(subsurface_scene(size, kw.pop("filename",
+                                              path.rsplit(".", 1)[0]
+                                              + ".exr"), **kw))
+    return path

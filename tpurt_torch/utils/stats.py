@@ -19,7 +19,9 @@ from __future__ import annotations
 import sys
 import time
 from collections import defaultdict
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
+
+import torch
 
 
 class _Distribution:
@@ -121,6 +123,41 @@ class StatsRegistry:
 
 
 STATS = StatsRegistry()
+
+# lanes whose subsurface probe chain still had chord left after its last
+# step (tpurt's integrator.py:659-661)
+BSS_OVERFLOW = "Subsurface/Probe chain budget exhausted"
+
+
+class TrackStats:
+    """Counters of the bounded loops, kept on the device and read once a
+    frame (render/driver.py:report_loop_counters): the overflow counts of
+    the media loops (render/volpath.py) and of the subsurface probe chain
+    (render/integrator.py) under tpurt's names
+    (``_report_budget_overflow``, integrator.py:1279-1297), and the
+    grid-tracking steps taken (their sum, the lanes tracked, the most one
+    lane took)."""
+
+    def __init__(self):
+        self._acc: Dict[str, Any] = {}
+
+    def reset(self) -> None:
+        self._acc = {}
+
+    def add(self, name: str, value, op: str = "sum") -> None:
+        if name not in self._acc:
+            self._acc[name] = value
+        elif op == "max":
+            self._acc[name] = torch.maximum(torch.as_tensor(
+                self._acc[name]), torch.as_tensor(value))
+        else:
+            self._acc[name] = self._acc[name] + value
+
+    def read(self) -> Dict[str, int]:
+        return {k: int(v) for k, v in self._acc.items()}
+
+
+TRACK_STATS = TrackStats()
 
 
 def print_stats(file=None) -> str:
